@@ -7,33 +7,62 @@
 Phases, each of which fails the run when it fails:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build the port's kernel (mlease_tpu_torch/csrc/segment_sum.cu) with
-     nvcc from the sources in this checkout;
-  3. kernel phase: `segment_sum_sorted` against its plain version on the
+  2. build the port's kernels (mlease_tpu_torch/csrc/segment_sum.cu and
+     gram.cu) with nvcc from the sources in this checkout, one nvcc process
+     per source, started together;
+  3. kernel phase K1: `segment_sum_sorted` against its plain version on the
      card, at the main path's tail streams (the bench-default shape and the
-     full-width shape of phase 5), float32 with L=3 and L=6 lanes and
+     full-width shape of phase 6), float32 with L=3 and L=6 lanes and
      float64, plus empty segments and one giant segment; per segment
      |kernel - ref64| <= 1e-5 * sum|contrib| (float32), 1e-12 (float64);
      times from CUDA events over >= 20 repeats;
-  4. CLI phase: `python -m mlease_tpu_torch train` on a copy of
+  4. kernel phase K2: `gram_batched` against a float64 reference at the
+     per-item bucket shapes (B = 20,000; R 64, F 16 in float32 and float64;
+     R 256, F 64), the head-block shape (3 lanes sharing X (1,562,500,
+     128)), the TPU kernel's documented shape (R = 131,072, F = 512 in
+     float32 and bf16-in; F = 256) and edge shapes (ragged R, R = 1, F = 8,
+     rows with d = 0); per entry |G - G64| <= 1e-5 * sum_r|d x_i x_j|
+     (float32 and bf16-in, the reference taken from the rounded inputs),
+     1e-12 (float64), and G == G' exactly; times as for K1, the library
+     call being `torch.bmm` of the scaled transpose with TF32 off;
+  5. CLI phase: `python -m mlease_tpu_torch train` on a copy of
      examples/data/breast-cancer.job (float64, head.size=16), output in a
      temporary directory; checks the output layout, finite logliks and
      that the kernel was launched;
-  5. full-width phase (the main path): AdmmTrainer at the widths of
+  6. full-width phase (the ADMM main path): AdmmTrainer at the widths of
      examples/data/ctr-12m.job (1,000,001 columns, 12 nnz/row on zipf 1.3,
      head.size=128, 8 blocks, lambda 1/10/100, float32, Jacobi PCG, flat
      blocks) on synthetic data made from --seed, 8 x --rows-per-block rows
-     (by default ctr-12m.job's 12.5M, uncut); the kernel's launch count is read from exactly
-     this run; then the first iteration again with the plain reduce,
+     (by default ctr-12m.job's 12.5M, uncut; --rows-per-block 250000 for
+     a quicker run); K1's launch count is read from exactly this run; then the
+     first iteration again with the plain reduce,
      max|z_kernel - z_plain| <= 1e-4 * max|z|;
-  6. speed phase: ADMM iterations/s at bench.py's default shape (4 x 16,384
+  7. speed phase: ADMM iterations/s at bench.py's default shape (4 x 16,384
      rows, 50K features, 15 nnz, head 512) and at the full width, and one
      ADMM step of each under torch.profiler (device busy share, time by
-     kernel).
+     kernel);
+  8. item phase (the per-item main path, at its full size): 10,000 items x
+     48 rows x 12 features (the generator of bench.py's item mode, from
+     --seed), 1 x 2 grid, full posterior covariance, Cholesky route,
+     float32, through `train_item_models_columnar`; K2's launch count is
+     read from exactly this run and must equal the Newton trips plus one
+     covariance pass per bucket; then the same run with K2 patched to its
+     plain version (coefficients to 1e-4 * max|w|, variances to 1e-3
+     relative), the TRON route on 1,000 items against the Cholesky route
+     (5e-3 * max|w|: float32 bounds both routes at about 1e-3),
+     cold and steady models/s and one run under torch.profiler;
+  9. item CLI phase: 200 items written as Avro, then `python -m
+     mlease_tpu_torch item` and `itemtest` on the card; checks the outputs,
+     finite testLoglik and both kernels' launch counts;
+ 10. head-block phase: `tron_multi(precondition="head_block")` on one block
+     of the bench shape (16,384 rows, head 512) against
+     precondition="jacobi": the same W to 1e-3 * max|W|, no more CG trips,
+     K2 launched once per Newton trip plus one.
 
-The line before the last is the card's name and power limit; the last line
-is {"ok": true, "device": {...}}. Without a CUDA device, or outside a
-checkout of the repository, it exits non-zero and prints no result.
+The line before the last is the card's name and power limit, the one before
+it the `kernels` line; the last line is {"ok": true, "device": {...}}.
+Without a CUDA device, or outside a checkout of the repository, it exits
+non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -51,8 +80,9 @@ from unittest import mock
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-# peak rates outside the tensor cores (H100 SXM data sheet), FLOP/s
-PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+# peak rates (H100 SXM data sheet), FLOP/s: float32 and float64 outside the
+# tensor cores, bfloat16 dense on them
+PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 CLI_TIMEOUT_S = 300
 
 
@@ -159,7 +189,9 @@ def check_and_time(name, seg, S, L, dtype, gen, results):
         "kernel_ms": cuda_ms(lambda: segment_sum_sorted(contrib, seg, S)),
         "plain_ms": cuda_ms(
             lambda: segment_sum_sorted_reference(contrib, seg, S)),
-        "library_ms": cuda_ms(lambda: lib_out.index_add_(1, seg, contrib)),
+        # the same work as the kernel's call: zero fill, then one index_add_
+        "library_ms": cuda_ms(
+            lambda: lib_out.zero_().index_add_(1, seg, contrib)),
         "bound_ms": max(bytes_ms, ops_ms) * 1e3,
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
     }
@@ -202,6 +234,369 @@ def kernel_phase(trainers, args):
     if bool((out[:, empty] != 0).any()):
         raise AssertionError("empty segments are not exactly 0")
     return results
+
+
+# K2 shapes: (name, B, R, F, dtype name, shared X)
+GRAM_SHAPES = [
+    ("item/R64_F16", 20_000, 64, 16, "float32", False),
+    ("item/R64_F16", 20_000, 64, 16, "float64", False),
+    ("item/R256_F64", 20_000, 256, 64, "float32", False),
+    ("head_block/ctr-12m", 3, 1_562_500, 128, "float32", True),
+    ("tpu_doc/F512", 1, 131_072, 512, "float32", False),
+    ("tpu_doc/F512", 1, 131_072, 512, "bfloat16", False),
+    ("tpu_doc/F256", 1, 131_072, 256, "float32", False),
+    ("edge/ragged_R", 2, 4_099, 200, "float32", False),
+    ("edge/ragged_R", 2, 4_099, 200, "float64", True),
+    ("edge/R1_F8", 7, 1, 8, "float32", False),
+    ("edge/F8", 1_000, 37, 8, "bfloat16", False),
+]
+ITEM_K2_ROW = ("item/R64_F16", "float32")   # the item phase's one bucket
+
+
+def gram_check_and_time(name, B, R, F, dname, shared, gen, results):
+    """K2 against a float64 reference at one shape; appends a result row."""
+    import torch
+    from mlease_tpu_torch.ops import gram
+
+    dtype = getattr(torch, dname)
+    acc = gram.accumulate_dtype(dtype)
+    x = torch.randn((R, F) if shared else (B, R, F), generator=gen,
+                    device="cuda").to(dtype)
+    d = torch.rand((B, R), generator=gen, device="cuda").to(dtype)
+    d[:, ::5] = 0                                   # rows with d = 0
+    pvi = torch.rand((B, F), generator=gen, device="cuda").to(acc) + 0.5
+    got = gram.gram_batched(x, d, pvi)
+    # float64 reference from the (rounded) inputs; entry by entry for the
+    # few long problems, whose batched float64 einsum would not fit
+    def weighted_gram(xs, ds):
+        if B > 4:
+            return gram.gram_batched_reference(xs, ds)
+        return torch.stack([((xs if shared else xs[b]).T * ds[b])
+                            @ (xs if shared else xs[b]) for b in range(B)])
+
+    x64, d64 = x.double(), d.double()
+    ref64 = weighted_gram(x64, d64) + torch.diag_embed(pvi.double())
+    scale = weighted_gram(x64.abs_(), d64)          # d >= 0
+    del x64, d64
+    torch.cuda.synchronize()
+    err = (got.double() - ref64).abs()
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    symmetric = bool((got == got.transpose(1, 2)).all())
+    ok = bool((err <= tol * scale + 1e-300).all()) and symmetric
+    bytes_ms = gram.min_bytes(B, R, F, x.element_size(), got.element_size(),
+                              shared) / HBM_BYTES_PER_S
+    ops_ms = gram.min_flops(B, R, F) / PEAK_OPS[dname]
+    tile, nsplit = gram.launch_config(B, R, F, dtype)
+    row = {"shape": name, "B": B, "R": R, "F": F, "dtype": dname,
+           "shared_x": shared, "tile": tile, "row_splits": nsplit,
+           "max_abs_err": float(err.max()),
+           "max_rel_err": float((err / scale.clamp_min(1e-300)).max()),
+           "symmetric": symmetric, "ok": ok,
+           "bound_ms": max(bytes_ms, ops_ms) * 1e3,
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    del ref64, scale, err
+    if ok:
+        xl = x.expand(B, R, F) if shared else x
+        row["kernel_ms"] = cuda_ms(lambda: gram.gram_batched(x, d, pvi))
+        row["plain_ms"] = cuda_ms(
+            lambda: gram.gram_batched_reference(x, d, pvi))
+        # one PyTorch call for the same product (no diagonal), TF32 off
+        row["library_ms"] = cuda_ms(
+            lambda: torch.bmm(xl.transpose(1, 2) * d[:, None, :], xl))
+    print("kernel-check K2 " + json.dumps(row), flush=True)
+    results.append(row)
+    if not ok:
+        raise AssertionError(f"gram_batched disagrees at {name} {dname}: "
+                             f"max err {row['max_abs_err']}, symmetric "
+                             f"{symmetric}")
+    return row
+
+
+def gram_phase(args):
+    import torch
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must be off for the library yardstick")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    results = []
+    for shape in GRAM_SHAPES:
+        gram_check_and_time(*shape, gen, results)
+        torch.cuda.empty_cache()
+    return results
+
+
+def synth_item_decoded(n_items, rows_per_item, n_feat, seed):
+    """Columnar per-item rows, the generator of the JAX package's bench.py
+    item mode: 2-6 features a row drawn without replacement, a logistic
+    response from per-item true coefficients."""
+    import numpy as np
+    from mlease_tpu_torch.train.item import DecodedRows
+
+    rng = np.random.default_rng(seed)
+    N = n_items * rows_per_item
+    item_of_row = np.repeat(np.arange(n_items), rows_per_item)
+    nnz = rng.integers(2, 7, size=N)
+    order = np.argsort(rng.random((N, n_feat)), axis=1)
+    lane = np.arange(n_feat)[None, :] < nnz[:, None]
+    feat_id = order[lane].astype(np.int32)
+    vals = rng.normal(size=len(feat_id)).astype(np.float32)
+    row_start = np.zeros(N + 1, np.int64)
+    np.cumsum(nnz, out=row_start[1:])
+    w_true = (rng.normal(size=(n_items, n_feat)) * 0.5).astype(np.float32)
+    score = np.zeros(N, np.float64)
+    np.add.at(score, np.repeat(np.arange(N), nnz),
+              w_true[np.repeat(item_of_row, nnz), feat_id] * vals)
+    p = 1.0 / (1.0 + np.exp(-(score - 0.4)))
+    response = (rng.random(N) < p).astype(np.int32)
+    return DecodedRows(
+        response=response, weight=np.ones(N, np.float32),
+        offset=np.zeros(N, np.float32), row_start=row_start,
+        feat_id=feat_id, feat_val=vals,
+        vocab_names=[f"f{j}" for j in range(n_feat)],
+        keys=[f"item{i}" for i in item_of_row])
+
+
+def max_model_diff(a, b):
+    """(max |coefficient difference|, max |coefficient|) over two model
+    dictionaries with equal keys."""
+    diff = scale = 0.0
+    for key, m in a.items():
+        o = b[key]
+        diff = max(diff, abs(m.intercept - o.intercept))
+        scale = max(scale, abs(m.intercept))
+        for name, v in m.coefficients.items():
+            diff = max(diff, abs(v - o.coefficients[name]))
+            scale = max(scale, abs(v))
+    return diff, scale
+
+
+def item_phase(args):
+    import math
+    import torch
+    import mlease_tpu_torch.ops.newton as newton_mod
+    import mlease_tpu_torch.ops.objective as objective_mod
+    from mlease_tpu_torch.ops.gram import gram_batched, gram_batched_reference
+    from mlease_tpu_torch.train import item
+
+    n_items, rows_per_item, n_feat = 10_000, 48, 12
+    t0 = time.monotonic()
+    decoded = synth_item_decoded(n_items, rows_per_item, n_feat, args.seed)
+    datagen_s = time.monotonic() - t0
+    cfg = item.ItemConfig(intercept_lambdas=[1.0], default_lambdas=[1.0, 10.0],
+                          compute_var=True, full_cov=True, solver="cholesky",
+                          dtype=torch.float32)
+
+    def run():
+        t0 = time.monotonic()
+        res = item.train_item_models_columnar(decoded, cfg, device="cuda")
+        torch.cuda.synchronize()
+        return res, time.monotonic() - t0
+
+    gram_batched.launches = 0                # main path: count from here
+    res, cold_s = run()
+    launches = gram_batched.launches         # ... to here
+    expected = sum(s["newton_trips"] + 1 for s in res.solver_stats)
+    n_models = len(res.models)
+    finite = all(
+        math.isfinite(m.intercept)
+        and all(math.isfinite(v) for v in m.coefficients.values())
+        for m in res.models.values())
+    var_pos = all(
+        v.intercept > 0 and all(math.isfinite(x) and x > 0
+                                for x in v.coefficients.values())
+        for v in res.posterior_var.values())
+    row = {"items": n_items, "rows_per_item": rows_per_item,
+           "features": n_feat, "models": n_models, "datagen_s": datagen_s,
+           "buckets": res.solver_stats, "kernel_launches": launches,
+           "expected_launches": expected, "finite": finite,
+           "variances_positive": var_pos, "cold_s": cold_s,
+           "cold_models_per_s": n_models / cold_s}
+    if (n_models != 2 * n_items or not finite or not var_pos or launches == 0
+            or launches != expected
+            or len(res.covariances) != n_models):
+        raise AssertionError(f"item run: {row}")
+
+    _res2, steady_s = run()
+    row["steady_s"] = steady_s
+    row["steady_models_per_s"] = n_models / steady_s
+    t0 = time.monotonic()
+    packed = item.pack_buckets_columnar(decoded, cfg)
+    row["pack_s"] = time.monotonic() - t0
+    del packed
+    prof = device_time(lambda: item.train_item_models_columnar(
+        decoded, cfg, device="cuda"))
+    row["profiled_run"] = prof
+
+    # the same run with K2 on its plain version
+    with mock.patch.object(newton_mod, "gram_batched",
+                           gram_batched_reference), \
+            mock.patch.object(objective_mod, "gram_batched",
+                              gram_batched_reference):
+        before = gram_batched.launches
+        plain, plain_s = run()
+        if gram_batched.launches != before:
+            raise AssertionError("the plain run launched the kernel")
+    row["plain_s"] = plain_s
+    diff, scale = max_model_diff(res.models, plain.models)
+    row["w_kernel_vs_plain_max_abs"], row["w_max_abs"] = diff, scale
+    var_rel = 0.0
+    for key, v in res.posterior_var.items():
+        o = plain.posterior_var[key]
+        var_rel = max(var_rel, abs(v.intercept - o.intercept) / o.intercept,
+                      *(abs(x - o.coefficients[n]) / o.coefficients[n]
+                        for n, x in v.coefficients.items()))
+    row["var_kernel_vs_plain_max_rel"] = var_rel
+    if not diff <= 1e-4 * scale or not var_rel <= 1e-3:
+        raise AssertionError(f"kernel and plain item runs differ: {row}")
+
+    # the TRON route on 1,000 items against the Cholesky route, both solved
+    # to a tight tolerance. In float32 either route stops once a step no
+    # longer lowers f by more than float32 resolves (~1e-7 * f), which
+    # leaves each ~1e-3 from the float64 solution: hence 5e-3 * max|w|
+    small = synth_item_decoded(1_000, rows_per_item, n_feat, args.seed + 1)
+    tight = dataclasses.replace(cfg, full_cov=False, liblinear_epsilon=1e-6)
+    chol = item.train_item_models_columnar(small, tight, device="cuda")
+    tron = item.train_item_models_columnar(
+        small, dataclasses.replace(tight, solver="tron"), device="cuda")
+    diff, scale = max_model_diff(chol.models, tron.models)
+    row["tron_vs_cholesky_max_abs"], row["tron_w_max_abs"] = diff, scale
+    row["tron_buckets"] = tron.solver_stats
+    print("item " + json.dumps(row), flush=True)
+    if not diff <= 5e-3 * scale:
+        raise AssertionError(f"TRON and Cholesky routes differ: {diff} vs "
+                             f"max|w| {scale}")
+    return row
+
+
+def item_cli_phase(args):
+    import numpy as np
+    from mlease_tpu_torch.io import avro
+
+    decoded = synth_item_decoded(200, 48, 12, args.seed + 2)
+    feature = {"type": "record", "name": "feature", "fields": [
+        {"name": "name", "type": "string"}, {"name": "term", "type": "string"},
+        {"name": "value", "type": "float"}]}
+    schema = {"type": "record", "name": "ItemRow", "fields": [
+        {"name": "item", "type": "string"}, {"name": "response", "type": "int"},
+        {"name": "features", "type": {"type": "array", "items": feature}},
+        {"name": "weight", "type": "float"},
+        {"name": "offset", "type": "float"}]}
+    rs = decoded.row_start
+    records = [{
+        "item": decoded.keys[i], "response": int(decoded.response[i]),
+        "features": [{"name": decoded.vocab_names[f], "term": "",
+                      "value": float(v)}
+                     for f, v in zip(decoded.feat_id[rs[i]:rs[i + 1]],
+                                     decoded.feat_val[rs[i]:rs[i + 1]])],
+        "weight": 1.0, "offset": 0.0} for i in range(len(decoded.response))]
+    env = dict(os.environ, PYTHONPATH=REPO, MLEASE_LOG="WARNING")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-item-") as tmp:
+        data = os.path.join(tmp, "items.avro")
+        avro.write_records(data, schema, records)
+        models = os.path.join(tmp, "models")
+        out = os.path.join(tmp, "itest")
+        jobs = {
+            "item": {"input.paths": data, "item.key": "item",
+                     "intercept.lambdas": "1", "default.lambdas": "1,10",
+                     "compute.var": "true", "output.model.path": models},
+            "itemtest": {"input.paths": data, "item.key": "item",
+                         "model.path": os.path.join(models,
+                                                    "part-r-00000.avro"),
+                         "output.base.path": out}}
+        summaries, walls = {}, {}
+        for cmd, props in jobs.items():
+            job = os.path.join(tmp, cmd + ".job")
+            with open(job, "w") as f:
+                f.writelines(f"{k}={v}\n" for k, v in props.items())
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [sys.executable, "-m", "mlease_tpu_torch", cmd, job],
+                capture_output=True, text=True, env=env, cwd=REPO,
+                timeout=CLI_TIMEOUT_S)
+            walls[cmd] = time.monotonic() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"CLI {cmd} failed ({proc.returncode}):"
+                                     f"\n{proc.stderr[-3000:]}")
+            summaries[cmd] = json.loads(proc.stdout.strip().splitlines()[-1])
+        for path in (os.path.join(models, "part-r-00000.avro"),
+                     os.path.join(out, "pred", "part-r-00000.avro"),
+                     os.path.join(out, "_loglik", "part-r-00000.avro")):
+            if not os.path.exists(path):
+                raise AssertionError(f"item CLI output lacks {path}")
+        logliks = [r["testLoglik"] for r in avro.read_records(
+            os.path.join(out, "_loglik"))]
+        n_pred = len(avro.read_records(os.path.join(out, "pred")))
+    row = {"models": summaries["item"]["models"], "scored": n_pred,
+           "test_logliks": logliks, "wall_s": walls,
+           "item_kernel_launches": summaries["item"]["kernel_launches"],
+           "itemtest_kernel_launches":
+               summaries["itemtest"]["kernel_launches"]}
+    print("item-cli " + json.dumps(row), flush=True)
+    if (row["models"] != 400 or n_pred != len(records) or len(logliks) != 2
+            or not np.all(np.isfinite(logliks))
+            or row["item_kernel_launches"]["gram_batched"] <= 0
+            or row["itemtest_kernel_launches"]["segment_sum_sorted"] <= 0):
+        raise AssertionError(f"item CLI run: {row}")
+    return row
+
+
+def head_block_phase(args):
+    """tron_multi with the head-block preconditioner against Jacobi, on one
+    block of bench.py's default shape."""
+    import torch
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.core.dataset import to_hybrid
+    from mlease_tpu_torch.ops.gram import gram_batched
+
+    R, nf, nnz, H = 16_384, 50_000, 15, 512
+    data = to_hybrid(synth_blocked_data(nf, 1, R, nnz, args.seed + 3), H)
+    n, lams = data.dim, [1.0, 10.0, 100.0]
+
+    def t(a, dtype=None):
+        return torch.as_tensor(a, device="cuda", dtype=dtype)
+
+    f32 = torch.float32
+    head = (t(data.head, f32), t(data.head_ids), t(data.tail_rows),
+            t(data.tail_cols), t(data.tail_vals, f32), t(data.tail_c_rows),
+            t(data.tail_c_cols), t(data.tail_c_vals, f32))
+    prob = tm.stack_blocks(
+        t(data.indices), t(data.values, f32), t(data.y, f32),
+        t(data.weight, f32), t(data.offset, f32), head,
+        torch.zeros((len(lams), 1, n), dtype=f32, device="cuda"),
+        t(lams, f32))
+    prob = prob._replace(head_x=prob.head_x[0])      # one block, non-flat
+    W0 = torch.zeros((n, len(lams)), dtype=f32, device="cuda")
+    eps = 1e-4
+    out = {}
+    for kind in ("jacobi", "head_block"):
+        tm.tron_multi(prob, W0, eps, precondition=kind)          # warm
+        torch.cuda.synchronize()
+        gram_batched.launches = 0
+        t0 = time.monotonic()
+        res = tm.tron_multi(prob, W0, eps, precondition=kind)
+        torch.cuda.synchronize()
+        out[kind] = (res, time.monotonic() - t0, gram_batched.launches)
+    jac, blk = out["jacobi"][0], out["head_block"][0]
+    diff = float((blk.w - jac.w).abs().max())
+    scale = float(jac.w.abs().max())
+    row = {"rows": R, "dim": n, "head": H, "lambdas": lams, "eps": eps,
+           "w_max_abs_diff": diff, "w_max_abs": scale,
+           "converged": [bool(jac.converged.all()),
+                         bool(blk.converged.all())],
+           "jacobi": {"newton_trips": jac.newton_trips,
+                      "cg_trips": jac.cg_trips, "s": out["jacobi"][1],
+                      "gram_launches": out["jacobi"][2]},
+           "head_block": {"newton_trips": blk.newton_trips,
+                          "cg_trips": blk.cg_trips, "s": out["head_block"][1],
+                          "gram_launches": out["head_block"][2]}}
+    print("head-block " + json.dumps(row), flush=True)
+    if (not bool(torch.isfinite(blk.w).all()) or not diff <= 1e-3 * scale
+            or blk.cg_trips > jac.cg_trips
+            or out["head_block"][2] != blk.newton_trips + 1
+            or out["jacobi"][2] != 0):
+        raise AssertionError(f"head-block solve: {row}")
+    return row
 
 
 def cli_phase():
@@ -336,10 +731,14 @@ def device_time(fn):
     by_kernel.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in by_kernel)
     seg = [r for r in by_kernel if "segment_sum_sorted_kernel" in r[0]]
+    gram = [r for r in by_kernel if "gram_tile_kernel" in r[0]
+            or "gram_reduce_kernel" in r[0]]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "segment_sum_kernel_ms": sum(r[1] for r in seg),
             "segment_sum_kernel_count": sum(r[2] for r in seg),
+            "gram_kernel_ms": sum(r[1] for r in gram),
+            "gram_kernel_count": sum(r[2] for r in gram),
             "top": [{"name": k[:100], "ms": ms, "count": c}
                     for k, ms, c in by_kernel[:15]]}
 
@@ -403,7 +802,7 @@ def main(argv=None) -> int:
                     "needs a CUDA device")
     sys.path.insert(0, REPO)
     from mlease_tpu_torch.device import resolve_device
-    from mlease_tpu_torch.ops import segment_sum
+    from mlease_tpu_torch.ops import _build, gram, segment_sum
     from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
 
     report = {"phases": {}, "failed": []}
@@ -430,8 +829,9 @@ def main(argv=None) -> int:
 
     def build():
         t0 = time.monotonic()
-        path = segment_sum.build(verbose=True)
-        row = {"library": os.path.relpath(path, REPO),
+        paths = _build.build_many([segment_sum.SOURCE, gram.SOURCE],
+                                  verbose=True)
+        row = {"libraries": [os.path.relpath(p, REPO) for p in paths],
                "build_s": time.monotonic() - t0}
         print("build " + json.dumps(row), flush=True)
         return row
@@ -465,9 +865,15 @@ def main(argv=None) -> int:
         trainers = phase("setup", setup)
     if trainers is not None:
         kernels = phase("kernel", kernel_phase, trainers, args)
+        grams = phase("kernel_gram", gram_phase, args)
         phase("cli", cli_phase)
         full = phase("full_width", full_width_phase, trainers["full"], args)
         phase("speed", speed_phase, trainers, args)
+        del trainers
+        torch.cuda.empty_cache()
+        items = phase("item", item_phase, args)
+        phase("item_cli", item_cli_phase, args)
+        phase("head_block", head_block_phase, args)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
@@ -478,15 +884,25 @@ def main(argv=None) -> int:
     main_row = next(r for r in kernels
                     if r["shape"] == "full/xtv_cols" and r["L"] == 3
                     and r["dtype"] == "float32")
+    gram_row = next(r for r in grams
+                    if (r["shape"], r["dtype"]) == ITEM_K2_ROW)
     print(json.dumps({"kernels": [{
         "name": "segment_sum_sorted", "route": "cuda",
         "source": "mlease_tpu_torch/csrc/segment_sum.cu",
-        "replaces": "mlease_tpu/ops/pallas/tile_sum.py:72",
+        "replaces": "mlease_tpu/ops/pallas/tile_sum.py:79",
         "launches": full["kernel_launches"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"]}]}), flush=True)
+        "library_ms": main_row["library_ms"]}, {
+        "name": "gram_batched", "route": "cuda",
+        "source": "mlease_tpu_torch/csrc/gram.cu",
+        "replaces": "mlease_tpu/ops/pallas/gram.py:77",
+        "launches": items["kernel_launches"],
+        "max_abs_err": gram_row["max_abs_err"],
+        "ms": gram_row["kernel_ms"], "plain_ms": gram_row["plain_ms"],
+        "bound_ms": gram_row["bound_ms"], "bound_by": gram_row["bound_by"],
+        "library_ms": gram_row["library_ms"]}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

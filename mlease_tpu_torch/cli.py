@@ -8,9 +8,13 @@ reads the same properties-file job keys as `python -m mlease_tpu`
   test     RegressionTest: score with an existing final-model/best-model
            ("predict" is an alias)
   loglik   RegressionTestLoglik: aggregate scored outputs
+  item     ItemModelTrain: per-item models (+ posterior variance)
+  itemtest ItemModelTest + ItemModelTestLoglik: score with per-item models
 
-The JAX package's naive, item, itemtest and fit subcommands are not ported
-yet (ROADMAP.md). --device defaults to cuda and fails without a CUDA device.
+The JAX package's naive and fit subcommands are not ported yet (ROADMAP.md).
+--device defaults to cuda and fails without a CUDA device. The JSON summary
+line of train, item and itemtest carries `kernel_launches`, the count of
+launches of each hand-written kernel in the run (0 on the CPU).
 """
 
 from __future__ import annotations
@@ -33,8 +37,15 @@ def _load_config(path: str):
     return config
 
 
-def cmd_train(args):
+def _kernel_launches() -> dict:
+    from mlease_tpu_torch.ops.gram import gram_batched
     from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+
+    return {"segment_sum_sorted": segment_sum_sorted.launches,
+            "gram_batched": gram_batched.launches}
+
+
+def cmd_train(args):
     from mlease_tpu_torch.train.pipeline import run_regression_pipeline
 
     config = _load_config(args.config)
@@ -47,8 +58,7 @@ def cmd_train(args):
         "wall_time_s": round(result.wall_time, 2),
         "models": sorted(result.models),
         "device": args.device,
-        "kernel_launches": {
-            "segment_sum_sorted": segment_sum_sorted.launches},
+        "kernel_launches": _kernel_launches(),
     }))
     return 0
 
@@ -96,6 +106,92 @@ def cmd_loglik(args):
     return 0
 
 
+def cmd_item(args):
+    from mlease_tpu_torch.core.prepare import prepare_to_keyed
+    from mlease_tpu_torch.io import avro
+    from mlease_tpu_torch.train.item import (ItemConfig, train_item_models,
+                                             write_item_models)
+    from mlease_tpu_torch.train.pipeline import DTYPES, read_lambda_map
+
+    config = _load_config(args.config)
+    # the native columnar decoder is not ported (native.ingest is ignored):
+    # records are read and keyed one at a time, as the JAX CLI does when its
+    # native library is absent
+    records = avro.read_records(config.get_string("input.paths"))
+    keyed = prepare_to_keyed(
+        records, map_key=config.get_string("item.key"),
+        ignore_value=config.get_boolean("binary.feature", False))
+    pm_map = None
+    if config.get_string("intercept.prior.mean.map", ""):
+        pm_map = {str(rec["key"]): float(rec["value"])
+                  for rec in avro.read_records(
+                      config.get_string("intercept.prior.mean.map"))}
+    lambda_map = None
+    if config.get_string("lambda.map", ""):
+        lambda_map = read_lambda_map(config.get_string("lambda.map"))
+
+    cfg = ItemConfig(
+        intercept_lambdas=config.get_float_list("intercept.lambdas"),
+        default_lambdas=config.get_float_list("default.lambdas"),
+        intercept_default_prior_mean=config.get_float(
+            "intercept.default.prior.mean", 0.0),
+        intercept_prior_mean_map=pm_map,
+        lambda_map=lambda_map,
+        compute_var=config.get_boolean("compute.var", False),
+        liblinear_epsilon=config.get_float("liblinear.epsilon", 0.01),
+        dtype=DTYPES[config.get_string("dtype", "float32")])
+    result = train_item_models(keyed, cfg, device=args.device)
+    out = os.path.join(config.get_string("output.model.path"),
+                       "part-r-00000.avro")
+    write_item_models(out, result)
+    print(json.dumps({"models": len(result.models), "output": out,
+                      "device": args.device,
+                      "kernel_launches": _kernel_launches()}))
+    return 0
+
+
+def cmd_itemtest(args):
+    from mlease_tpu_torch.core.linear_model import LinearModel
+    from mlease_tpu_torch.eval.item_score import (
+        run_item_model_test, run_item_model_test_loglik,
+        run_item_model_test_sharded)
+    from mlease_tpu_torch.io import avro
+
+    config = _load_config(args.config)
+    records = avro.read_records(config.get_string("input.paths"))
+    with avro.AvroFileReader(avro.enumerate_avro_files(
+            config.get_string("input.paths"))[0]) as r:
+        input_schema = r.schema
+    out_base = config.get_string("output.base.path")
+    model_path = config.get_string("model.path")
+    pred_path = os.path.join(out_base, "pred", "part-r-00000.avro")
+    common = dict(item_key=config.get_string("item.key"),
+                  ignore_value=config.get_boolean("binary.feature", False),
+                  device=args.device)
+    # num.model.shards > 1: memory-bounded shard-by-shard model loading,
+    # the analogue of the reference's per-reducer hash shard
+    # (ItemModelTest.java:157-171); the default loads everything at once.
+    nshards = config.get_int("num.model.shards", 1)
+    if nshards > 1:
+        scored = run_item_model_test_sharded(
+            records, input_schema, model_path, pred_path,
+            model_prefixes=(config.get_string_list("model.prefixes", [])
+                            or None),
+            nshards=nshards, **common)
+    else:
+        models = {rec["key"]: LinearModel.from_avro(rec["model"])
+                  for rec in avro.read_records(model_path)}
+        prefixes = config.get_string_list(
+            "model.prefixes", sorted({k.split("#", 1)[0] for k in models}))
+        scored = run_item_model_test(records, input_schema, models, pred_path,
+                                     model_prefixes=prefixes, **common)
+    agg = run_item_model_test_loglik(
+        scored, os.path.join(out_base, "_loglik", "part-r-00000.avro"))
+    print(json.dumps({"loglik": agg, "device": args.device,
+                      "kernel_launches": _kernel_launches()}))
+    return 0
+
+
 def main(argv=None):
     logging.basicConfig(
         level=os.environ.get("MLEASE_LOG", "INFO"),
@@ -104,7 +200,8 @@ def main(argv=None):
                                 formatter_class=argparse.RawTextHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
     for name, fn in [("train", cmd_train), ("test", cmd_test),
-                     ("predict", cmd_test), ("loglik", cmd_loglik)]:
+                     ("predict", cmd_test), ("loglik", cmd_loglik),
+                     ("item", cmd_item), ("itemtest", cmd_itemtest)]:
         sp = sub.add_parser(name)
         sp.add_argument("config", help="properties-format job config file")
         sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",

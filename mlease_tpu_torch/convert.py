@@ -1,4 +1,4 @@
-"""Carry ADMM state from a mlease_tpu (JAX) run into the port.
+"""Carry state and results of a mlease_tpu (JAX) run into the port.
 
 Both trainers keep the same state: consensus z (L, n), duals u (L, B, n),
 the iteration reached, the inner tolerance, the last min |dz| and the best
@@ -12,6 +12,11 @@ JAX AdmmResult's z/u, or a checkpoint), into keyword arguments of the port's
 
 `state_from_checkpoint` does the same for a checkpoint directory written by
 either package's utils/checkpoint (iter-NNNNN.npz + .json manifests).
+
+`item_models_from_jax` turns the JAX per-item trainer's ItemResult into the
+port's, so that JAX-trained item models can be scored or written by the
+port (model files written by either package's `write_item_models` read
+back in the other as they are).
 """
 
 from __future__ import annotations
@@ -51,3 +56,25 @@ def state_from_checkpoint(ckpt_dir: str) -> dict[str, Any] | None:
                             inner_eps=state["inner_eps"],
                             mindiff=state["mindiff"],
                             best_loglik=state["best_loglik"])
+
+
+def item_models_from_jax(result):
+    """A mlease_tpu.train.item.ItemResult (duck-typed: `models` and
+    `posterior_var` map keys to objects with `coefficients` and `intercept`,
+    `covariances` maps keys to {(f1, f2): v} or is None) -> the port's
+    ItemResult, with plain Python floats."""
+    from mlease_tpu_torch.core.linear_model import LinearModel
+    from mlease_tpu_torch.train.item import ItemResult
+
+    def model(m):
+        return LinearModel({k: float(v) for k, v in m.coefficients.items()},
+                           intercept=float(m.intercept))
+
+    covs = None
+    if result.covariances is not None:
+        covs = {key: {pair: float(v) for pair, v in cov.items()}
+                for key, cov in result.covariances.items()}
+    return ItemResult(
+        models={k: model(m) for k, m in result.models.items()},
+        posterior_var={k: model(m) for k, m in result.posterior_var.items()},
+        covariances=covs)

@@ -19,71 +19,36 @@ rate (3.35 TB/s on an H100 SXM); see `min_bytes`.
 
 The kernel is built at first use with nvcc (sm_90a, plain C interface) into
 `mlease_tpu_torch/_build/`, keyed by a hash of the source, and loaded with
-ctypes. Nothing is built or imported when this module is imported.
+ctypes (ops/_build.py). Nothing is built or imported when this module is
+imported.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "segment_sum.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+from mlease_tpu_torch.ops import _build
+
+SOURCE = _build.CSRC / "segment_sum.cu"
 
 _FN_NAMES = {torch.float32: "segment_sum_sorted_f32",
              torch.float64: "segment_sum_sorted_f64"}
 _fns: dict = {}
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the segment-sum kernel is built with "
-                       "the CUDA toolkit's nvcc")
-
-
-def library_path() -> Path:
-    digest = hashlib.sha1(SOURCE.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"libsegment_sum-{digest}.so"
-
-
 def build(verbose: bool = False) -> Path:
-    """Compile the kernel if its hashed library is missing; return its path.
-    verbose=True adds -Xptxas -v (registers, shared memory, spills) and
-    prints the compiler's output."""
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
-    return out
+    """Compile the kernel if its hashed library is missing; return its path
+    (see ops/_build.py)."""
+    return _build.build(SOURCE, verbose)
 
 
 def _load() -> dict:
     """{dtype: C entry point}, building and loading the library once."""
     if not _fns:
-        lib = ctypes.CDLL(str(build()))
+        lib = _build.load(SOURCE)
         for dtype, name in _FN_NAMES.items():
             fn = getattr(lib, name)
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -127,7 +92,7 @@ def segment_sum_sorted(contrib: torch.Tensor, seg: torch.Tensor,
         raise TypeError(f"the kernel takes float32 or float64; got "
                         f"{contrib.dtype}")
     dev = contrib.device
-    if dev.index is not None and dev.index != torch.cuda.current_device():
+    if not _build.check_current_device(contrib):
         with torch.cuda.device(dev):     # the launch goes to the current card
             return segment_sum_sorted(contrib, seg, num_segments)
     contrib = contrib.contiguous()

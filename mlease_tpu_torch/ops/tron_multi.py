@@ -13,8 +13,10 @@ through `ops.segment_sum.segment_sum_sorted`, the hand-written kernel on the
 card (no size gate: every sorted-tail reduce takes it); the ELL and unsorted
 tail scatters use `index_add_`, as XLA's scatter does.
 
-Not ported yet: the lanes-minor pass functions, `HeadBlockPrecond` and the
-"head_block" preconditioner (raises NotImplementedError).
+precondition="head_block" solves the dense-head curvature block exactly:
+its (L, H, H) build is the weighted-Gram kernel of ops/gram.py with one
+shared X and L weight vectors. Not ported yet: the lanes-minor pass
+functions.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from mlease_tpu_torch.ops.gram import gram_batched
 from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
 
 # Trust-region update constants (Tron.java:31-35), as in mlease_tpu/ops/tron.py
@@ -274,6 +277,65 @@ def _norm_lm(a):
     return torch.sqrt((a * a).sum(1))
 
 
+class HeadBlockPrecond(NamedTuple):
+    """M = (exact dense-head Hessian block) + (Jacobi diagonal on the tail).
+
+    On power-law data the head columns carry most of the curvature mass, so
+    preconditioning CG with the head block solved exactly (one (L, H, H)
+    Cholesky per Newton trip) plus the Jacobi diagonal elsewhere cuts CG
+    trips against the diagonal alone. Any SPD M preserves TRON's convergence
+    guarantees; the outer ||g|| stop rule is unchanged. Lanes-major, like
+    the rest of the solver's state (the JAX package keeps diag as (n, L))."""
+
+    chol: torch.Tensor       # (L, H, H) lower Cholesky factors per lane
+    diag: torch.Tensor       # (L, n) Jacobi diagonal; entries at head_ids
+                             # are set to 1 and overridden by the block solve
+    head_mask: torch.Tensor  # (1, n) 1.0 at head coordinates
+    head_ids: torch.Tensor   # (H,)
+
+
+def build_head_precond(prob: MultiProblem, Dm: torch.Tensor,
+                       Hdiag: torch.Tensor) -> HeadBlockPrecond:
+    """Head block A_l = head_x' diag(Dm_l) head_x + diag(pvi_head_l), with
+    prob's priors, Dm (L, R) and Hdiag (L, n) lanes-major.
+
+    The (L, H, H) build is the weighted-Gram kernel with head_x shared by
+    the L lanes, in the solve's own type (the JAX package builds it in the
+    TPU's default bf16 matmul precision, because it only shapes a
+    preconditioner); the Cholesky runs in float32. Hdiag is the full Jacobi
+    diagonal of the fused f/g/D + diag pass (its head entries are replaced,
+    not reused)."""
+    dtype = Hdiag.dtype
+    ids = prob.head_ids.long()
+    A = gram_batched(_head(prob, dtype), Dm, prob.prior_var_inv[:, ids])
+    chol = torch.linalg.cholesky_ex(A.to(torch.float32))[0].to(dtype)
+    head_mask = torch.zeros((1, Hdiag.shape[1]), dtype=dtype,
+                            device=Hdiag.device)
+    head_mask[0, ids] = 1.0
+    diag = torch.where(head_mask > 0, torch.ones_like(Hdiag),
+                       torch.clamp(Hdiag, min=1e-12))
+    return HeadBlockPrecond(chol=chol, diag=diag, head_mask=head_mask,
+                            head_ids=ids)
+
+
+def _head_solve(pc: HeadBlockPrecond, r: torch.Tensor) -> torch.Tensor:
+    """M^{-1} r, (L, n): cholesky_solve on the head coordinates, a divide
+    on the tail."""
+    sol = torch.cholesky_solve(r[:, pc.head_ids][:, :, None], pc.chol)
+    out = r / pc.diag
+    out[:, pc.head_ids] = sol[:, :, 0]
+    return out
+
+
+def _head_apply(pc: HeadBlockPrecond, v: torch.Tensor) -> torch.Tensor:
+    """M v, (L, n) (for the M-norm trust-region dots)."""
+    v_head = v[:, pc.head_ids][:, :, None]
+    Av = torch.bmm(pc.chol, torch.bmm(pc.chol.transpose(1, 2), v_head))
+    out = v * pc.diag * (1.0 - pc.head_mask)
+    out[:, pc.head_ids] = Av[:, :, 0]
+    return out
+
+
 class MultiTronResult(NamedTuple):
     w: torch.Tensor            # (n, L)
     f: torch.Tensor            # (L,)
@@ -293,17 +355,24 @@ def _safe_div(num, den, ok):
 
 
 def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
-          M: torch.Tensor | None = None):
+          M: torch.Tensor | HeadBlockPrecond | None = None):
     """Per-lane truncated CG with lock-step data passes (Tron.java:126-179).
 
-    M None reproduces the reference; an (L, n) Jacobi diagonal measures the
-    trust region in the M-norm and tests the residual in ||r||_{M^-1}."""
+    M None reproduces the reference; an (L, n) Jacobi diagonal or a
+    HeadBlockPrecond measures the trust region in the M-norm and tests the
+    residual in ||r||_{M^-1}."""
     if M is None:
         def precond(r):
             return r
 
         def mdot(a, b):
             return _dot_lm(a, b)
+    elif isinstance(M, HeadBlockPrecond):
+        def precond(r):
+            return _head_solve(M, r)
+
+        def mdot(a, b):
+            return (a * _head_apply(M, b)).sum(1)
     else:
         def precond(r):
             return r / M
@@ -366,20 +435,22 @@ def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
     per lane; stall thresholds as in mlease_tpu/ops/tron.py).
 
     precondition=True or "jacobi" runs the Jacobi-preconditioned CG with an
-    M-norm trust region; False or "none" the reference CG. The outer stop
-    rule (euclidean ||g|| <= eps*||g0||) is the same for both."""
+    M-norm trust region; "head_block" also solves the dense-head curvature
+    block exactly (HeadBlockPrecond; it needs the hybrid layout, one block);
+    False or "none" the reference CG. The outer stop rule (euclidean
+    ||g|| <= eps*||g0||) is the same for all."""
     dtype = W0.dtype
     L = W0.shape[1]
     eps = torch.as_tensor(eps, dtype=dtype, device=W0.device).expand(L)
     kind = {False: "none", True: "jacobi"}.get(precondition, precondition)
-    if kind == "head_block":
-        raise NotImplementedError(
-            "precondition='head_block' (HeadBlockPrecond) is not ported yet; "
-            "see ROADMAP.md")
-    if kind not in ("none", "jacobi"):
+    if kind not in ("none", "jacobi", "head_block"):
         raise ValueError(
             f"precondition must be False/True/'jacobi'/'head_block'; "
             f"got {precondition!r}")
+    if kind == "head_block" and (prob.head_x is None
+                                 or prob.head_x.dim() == 3):
+        raise ValueError("head_block preconditioning needs the hybrid "
+                         "dense-head layout (head_size > 0, non-flat)")
 
     # lanes-major inside: one transpose of the (n, L) inputs per solve
     prob = prob._replace(
@@ -389,7 +460,12 @@ def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
     W = W0.T.contiguous()
 
     gnorm1 = _grad_norm_at_zero_lm(prob, L)
-    if kind == "jacobi":
+    if kind == "head_block":
+        F, G, Dm, Hd0 = _fun_grad_curvature_lm(prob, W, with_diag=True)
+        M = build_head_precond(prob, Dm, Hd0)
+        gnorm = _norm_lm(G)
+        delta = torch.sqrt(_dot_lm(G, _head_solve(M, G)))
+    elif kind == "jacobi":
         F, G, Dm, Hd0 = _fun_grad_curvature_lm(prob, W, with_diag=True)
         M = torch.clamp(Hd0, min=1e-12)
         gnorm = _norm_lm(G)
@@ -411,7 +487,11 @@ def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
         prered = -0.5 * (gs - _dot_lm(S, Rres))
         # one fused data pass yields f/g/D (+ diag) at the trial point; the
         # accept select below discards them on rejection
-        if kind == "jacobi":
+        if kind == "head_block":
+            F_new, G_new, Dm_new, Hd_new = _fun_grad_curvature_lm(
+                prob, W_new, with_diag=True)
+            M_new = build_head_precond(prob, Dm_new, Hd_new)
+        elif kind == "jacobi":
             F_new, G_new, Dm_new, Hd_new = _fun_grad_curvature_lm(
                 prob, W_new, with_diag=True)
             M_new = torch.clamp(Hd_new, min=1e-12)
@@ -449,7 +529,11 @@ def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
         F = torch.where(accept, F_new, F)
         G = torch.where(acc2, G_new, G)
         Dm = torch.where(acc2, Dm_new, Dm)
-        if kind == "jacobi":
+        if kind == "head_block":
+            M = M._replace(
+                chol=torch.where(accept[:, None, None], M_new.chol, M.chol),
+                diag=torch.where(acc2, M_new.diag, M.diag))
+        elif kind == "jacobi":
             M = torch.where(acc2, M_new, M)
         gnorm = torch.where(accept, _norm_lm(G_new), gnorm)
         it = it + accept.to(torch.int32)

@@ -14,7 +14,8 @@ step restacks it inside its jitted program); each step only sets the prior.
 
 Not ported yet (NotImplementedError, see ROADMAP.md): `run_fused`, the
 device mesh, `dual_layout`, the vmapped per-lambda and per-block solvers
-(multi_rhs=False, flat_blocks=False) and pcg="head_block".
+(multi_rhs=False, flat_blocks=False) and pcg="head_block", which needs the
+per-block step (the solver's head-block preconditioner itself is ported).
 """
 
 from __future__ import annotations
@@ -220,8 +221,9 @@ class AdmmTrainer:
                 f"kernel run float32 or float64")
         if config.multi_rhs and config.pcg == "head_block":
             raise NotImplementedError(
-                "pcg='head_block' (HeadBlockPrecond) is not ported yet; see "
-                "ROADMAP.md")
+                "pcg='head_block' needs the per-block (non-flat) ADMM step, "
+                "which is not ported yet (ROADMAP.md item A1); "
+                "tron_multi(precondition='head_block') itself is")
 
         if config.head_size > 0 and data.head is None:
             data = to_hybrid(data, config.head_size)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernel on the card: `segment_sum_sorted` against its plain
-version, and the trainer on the card against the same trainer on the CPU.
+"""The port's CUDA kernels on the card: `segment_sum_sorted` and
+`gram_batched` against their plain versions, and the trainers on the card
+against the same trainers on the CPU.
 
 Every test here needs a CUDA device and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not installed:
@@ -9,13 +10,19 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed:
 Tolerances: per segment |kernel - ref64| <= 1e-5 * sum|contrib| in float32
 (a float32 sum of k terms in another order differs by a few k*eps relative
 to the sum of magnitudes) and 1e-12 in float64; the trainer's float64 z to
-1e-8, as the CPU port is held to the JAX trainer.
+1e-8, as the CPU port is held to the JAX trainer. The Gram kernel likewise:
+per entry |G - G64| <= 1e-5 * sum_r |d x_i x_j| for float32 and bfloat16
+inputs (the float64 reference is taken from the bf16-rounded inputs, so
+only the accumulation is judged), 1e-12 for float64, and G == G' exactly.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from mlease_tpu_torch.ops import _build
+from mlease_tpu_torch.ops import gram as gram_mod
+from mlease_tpu_torch.ops.gram import gram_batched, gram_batched_reference
 from mlease_tpu_torch.ops.segment_sum import (segment_sum_sorted,
                                               segment_sum_sorted_reference)
 
@@ -139,3 +146,185 @@ def test_trainer_on_card_matches_cpu(cuda):
     assert segment_sum_sorted.launches > before
     np.testing.assert_allclose(got.z, want.z, rtol=0, atol=1e-8)
     assert got.solver_stats == want.solver_stats
+
+
+# ---------------------------------------------------------------------------
+# K2: the weighted Gram kernel
+# ---------------------------------------------------------------------------
+
+def check_gram(x, d, pvi, tol):
+    got = gram_batched(x, d, pvi)
+    x64, d64 = x.double(), d.to(x.dtype).double()
+    ref = gram_batched_reference(x64, d64, None if pvi is None
+                                 else pvi.double())
+    scale = gram_batched_reference(x64.abs(), d64.abs())
+    torch.cuda.synchronize()
+    assert got.dtype == gram_mod.accumulate_dtype(x.dtype)
+    assert got.shape == ref.shape
+    err = (got.double() - ref).abs()
+    assert bool((err <= tol * scale + 1e-300).all()), float(err.max())
+    assert bool((got == got.transpose(1, 2)).all())      # exactly symmetric
+    return got
+
+
+def gram_inputs(cuda, seed, B, R, F, dtype, shared=False):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    shape = (R, F) if shared else (B, R, F)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    d = torch.rand((B, R), generator=gen, device=cuda).to(dtype)
+    pvi = torch.rand((B, F), generator=gen, device=cuda).to(
+        gram_mod.accumulate_dtype(dtype)) + 0.5
+    return x, d, pvi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,F,dtype,tol", [
+    (20_000, 64, 16, torch.float32, 1e-5),
+    (20_000, 64, 16, torch.float64, 1e-12),
+    (20_000, 256, 64, torch.float32, 1e-5)])
+def test_gram_item_bucket_shapes(cuda, B, R, F, dtype, tol):
+    x, d, pvi = gram_inputs(cuda, F, B, R, F, dtype)
+    before = gram_batched.launches
+    check_gram(x, d, pvi, tol)
+    assert gram_batched.launches == before + 1
+    assert gram_mod.launch_config(B, R, F, dtype)[1] == 1   # no row split
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,F,dtype,shared", [
+    (3, 1_562_500, 128, torch.float32, True),      # the head block
+    (1, 131_072, 512, torch.float32, False),       # the TPU docstring's shape
+    (1, 131_072, 512, torch.bfloat16, False),
+    (1, 131_072, 256, torch.float32, False),
+    (1, 131_072, 192, torch.float64, False)])
+def test_gram_long_problems_split_over_rows(cuda, B, R, F, dtype, shared):
+    x, d, pvi = gram_inputs(cuda, R % 97, B, R, F, dtype, shared)
+    assert gram_mod.launch_config(B, R, F, dtype)[1] > 1
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    got = check_gram(x, d, pvi, tol)
+    again = gram_batched(x, d, pvi)          # no atomics: the same bits
+    assert bool((got == again).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,F", [(7, 1, 8), (5, 37, 13), (3, 100, 24),
+                                   (2, 300, 70), (2, 4099, 200),
+                                   (1, 2049, 130), (300, 33, 16)])
+def test_gram_edge_shapes(cuda, B, R, F):
+    """R = 1, ragged last row chunks, F off the tile sizes, rows with
+    d = 0, no prior, and one shared X."""
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12),
+                       (torch.bfloat16, 1e-5)):
+        x, d, pvi = gram_inputs(cuda, B + R, B, R, F, dtype)
+        d[:, ::3] = 0
+        check_gram(x, d, pvi, tol)
+        check_gram(x[0], d, None, tol)
+
+
+@pytest.mark.cuda
+def test_gram_wrapper_raises_rather_than_falling_back(cuda, monkeypatch,
+                                                      tmp_path):
+    x, d, pvi = gram_inputs(cuda, 0, 4, 16, 8, torch.float32)
+    with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
+        gram_batched(x.half(), d.half(), pvi)
+    with pytest.raises(ValueError, match="one device"):
+        gram_batched(x, d.cpu(), pvi)
+    # no library and no compiler: the call raises, it does not take the
+    # plain version
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+    monkeypatch.setattr(gram_mod, "_fns", {})
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "nvcc", no_nvcc)
+    before = gram_batched.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        gram_batched(x, d, pvi)
+    assert gram_batched.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cholesky", "tron"])
+def test_item_trainer_on_card_matches_cpu(cuda, solver):
+    from mlease_tpu_torch.train.item import ItemConfig, train_item_models
+
+    rng = np.random.default_rng(5)
+    keyed = {}
+    for i in range(40):
+        n = int(rng.integers(20, 90))
+        keyed[f"it{i}"] = [{
+            "response": int(rng.integers(0, 2)), "weight": 1.0, "offset": 0.0,
+            "features": [(f"f{int(j)}", float(rng.normal()))
+                         for j in rng.choice(9, 3, replace=False)]}
+            for _ in range(n)]
+    cfg = ItemConfig(intercept_lambdas=[1.0], default_lambdas=[1.0, 10.0],
+                     compute_var=True, full_cov=True, solver=solver,
+                     liblinear_epsilon=1e-8, dtype=torch.float64)
+    want = train_item_models(keyed, cfg, device="cpu")
+    before = gram_batched.launches
+    got = train_item_models(keyed, cfg, device=cuda)
+    trips = sum(s["newton_trips"] for s in got.solver_stats)
+    expected = len(got.solver_stats) + (trips if solver == "cholesky" else 0)
+    assert gram_batched.launches - before == expected
+    assert set(got.models) == set(want.models)
+    for key, m in want.models.items():
+        assert got.models[key].intercept == pytest.approx(m.intercept,
+                                                          rel=1e-6, abs=1e-8)
+        for name, v in m.coefficients.items():
+            assert got.models[key].coefficients[name] == pytest.approx(
+                v, rel=1e-6, abs=1e-8)
+        pv, pw = got.posterior_var[key], want.posterior_var[key]
+        assert pv.intercept == pytest.approx(pw.intercept, rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_item_scoring_on_card_matches_cpu(cuda):
+    from mlease_tpu_torch.core.linear_model import LinearModel
+    from mlease_tpu_torch.eval.item_score import score_item_batch
+
+    rng = np.random.default_rng(6)
+    models = {f"{p}#it{i}": LinearModel(
+        {f"f{j}": float(rng.normal()) for j in range(6)},
+        intercept=float(rng.normal())) for i in range(50) for p in ("1", "2")}
+    rows = [{"offset": float(rng.normal()), "features": [
+        (f"f{int(j)}", float(rng.normal()))
+        for j in rng.choice(7, 3, replace=False)]} for _ in range(5000)]
+    items = [f"it{int(rng.integers(0, 60))}" for _ in rows]
+    want = score_item_batch(models, rows, items, ["1", "2"], device="cpu")
+    before = segment_sum_sorted.launches
+    got = score_item_batch(models, rows, items, ["1", "2"], device=cuda)
+    assert segment_sum_sorted.launches == before + 1
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_head_block_solve_on_card_matches_cpu(cuda):
+    import mlease_tpu_torch.ops.tron_multi as tm
+
+    rng = np.random.default_rng(9)
+    R, H, n, K = 3000, 16, 400, 4
+    head_x = rng.normal(size=(R, H)) * (rng.random((R, H)) < 0.4)
+    idx = rng.integers(H, n, size=(R, K)).astype(np.int64)
+    vals = rng.normal(size=(R, K))
+    w = rng.normal(size=n) * 0.3
+    score = head_x @ w[:H] + (vals * w[idx]).sum(1)
+    y = np.where(rng.random(R) < 1 / (1 + np.exp(-score)), 1.0, -1.0)
+
+    def problem(dev):
+        t = lambda a: torch.as_tensor(a, device=dev)    # noqa: E731
+        return tm.MultiProblem(
+            indices=t(idx), values=t(vals), y=t(y), weight=t(np.ones(R)),
+            offset=t(np.zeros(R)), prior_mean=t(np.zeros((n, 2))),
+            prior_var_inv=t(np.tile([1.0, 10.0], (n, 1))), head_x=t(head_x),
+            head_ids=t(np.arange(H)))
+
+    W0 = torch.zeros((n, 2), dtype=torch.float64)
+    want = tm.tron_multi(problem("cpu"), W0, 1e-6, precondition="head_block")
+    before = gram_batched.launches
+    got = tm.tron_multi(problem(cuda), W0.to(cuda), 1e-6,
+                        precondition="head_block")
+    assert gram_batched.launches - before == got.newton_trips + 1
+    np.testing.assert_allclose(got.w.cpu().numpy(), want.w.numpy(), rtol=0,
+                               atol=1e-7)
+    assert (got.newton_trips, got.cg_trips) == (want.newton_trips,
+                                                want.cg_trips)

@@ -1,5 +1,5 @@
-"""The port stands alone: no file of mlease_tpu_torch/, and not
-chip_smoke.py, imports JAX or the JAX package."""
+"""The port stands alone: no file of mlease_tpu_torch/, not chip_smoke.py
+and no tools/torch_*.py script imports JAX or the JAX package."""
 
 import os
 import re
@@ -12,6 +12,9 @@ FORBIDDEN = re.compile(
 
 def port_files():
     yield os.path.join(REPO, "chip_smoke.py")
+    for f in sorted(os.listdir(os.path.join(REPO, "tools"))):
+        if f.startswith("torch_") and f.endswith(".py"):
+            yield os.path.join(REPO, "tools", f)
     for dirpath, _dirs, files in os.walk(os.path.join(REPO,
                                                       "mlease_tpu_torch")):
         for f in files:
@@ -29,6 +32,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 offenders.append(f"{os.path.relpath(path, REPO)}: "
                                  f"{m.group(0).strip()}")
     assert not offenders, offenders
+
+
+def test_the_item_slice_modules_are_guarded():
+    """Every module of the per-item slice is among the files the guard
+    reads, and each imports cleanly on a host with no CUDA toolchain."""
+    import importlib
+
+    rel = {os.path.relpath(p, REPO) for p in port_files()}
+    for mod in ("ops/_build", "ops/gram", "ops/objective", "ops/tron",
+                "ops/newton", "ops/tron_multi", "train/item",
+                "eval/item_score", "convert", "cli"):
+        assert f"mlease_tpu_torch/{mod}.py" in rel, mod
+        importlib.import_module("mlease_tpu_torch." + mod.replace("/", "."))
+    assert "mlease_tpu_torch/csrc/gram.cu" in rel
+    assert "tools/torch_gram_probe.py" in rel
 
 
 def test_guard_pattern_catches_each_form():

@@ -114,7 +114,8 @@ def test_cli_device_cpu_smoke(tmp_path):
     assert summary["iterations"] == 2 and summary["device"] == "cpu"
     assert summary["models"] == ["0.1", "1.0", "10.0"]
     # the plain version runs on the CPU: the kernel is never launched
-    assert summary["kernel_launches"] == {"segment_sum_sorted": 0}
+    assert summary["kernel_launches"] == {"segment_sum_sorted": 0,
+                                          "gram_batched": 0}
     assert os.path.exists(tmp_path / "out" / "final-model" /
                           "part-r-00000.avro")
 

@@ -178,8 +178,90 @@ def test_stack_blocks_rejects_unsorted_tail():
 def test_unported_and_unknown_preconditioners_raise():
     _rng, _jp, tp, n = fixture("hybrid_col", seed=9, n_rows=40, L=1)
     W0 = torch.zeros((n, 1), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="head_block"):
-        ttm.tron_multi(tp, W0, 1e-6, precondition="head_block")
+    # head_block is ported: on the hybrid layout it solves (parity below);
+    # without a dense head, or on a flat-blocks head, it raises as in JAX
+    assert bool(ttm.tron_multi(tp, W0, 1e-6,
+                               precondition="head_block").converged.all())
+    _rng, _jp, ell, _n = fixture("ell", seed=9, n_rows=40, L=1)
+    with pytest.raises(ValueError, match="head_block"):
+        ttm.tron_multi(ell, W0, 1e-6, precondition="head_block")
+    flat = tp._replace(head_x=tp.head_x[None])
+    with pytest.raises(ValueError, match="head_block"):
+        ttm.tron_multi(flat, W0, 1e-6, precondition="head_block")
     for bad in ("1", "yes", "Jacobi ", "head-block"):
         with pytest.raises(ValueError, match="precondition"):
             ttm.tron_multi(tp, W0, 1e-6, precondition=bad)
+
+
+def _head_block_fixture():
+    """The problem of tests/test_tron_multi.py's head-block test."""
+    rng = np.random.default_rng(8)
+    rows = synth_rows(rng, 200)
+    vocab = build_vocab(rows)
+    n = vocab.size
+    pvis = np.stack([np.full(n, lam) for lam in (0.5, 4.0)])
+    _data, jp = make_multi(rows, vocab, pvis, np.zeros((2, n)), hybrid=True,
+                           col_tails=True)
+    return jp, to_torch(jp), n
+
+
+def test_head_block_precond_pieces_match_jax():
+    """build_head_precond / _head_solve / _head_apply against the JAX
+    functions (which are lanes-minor: transposed here). The JAX build runs
+    in float64 on the CPU, so the float32 Cholesky bounds the factors to
+    ~1e-6 and the products that use them likewise."""
+    jp, tp, n = _head_block_fixture()
+    rng = np.random.default_rng(1)
+    R = jp.y.shape[0]
+    Dm = rng.random(size=(2, R))
+    Hd = rng.uniform(0.5, 3.0, size=(2, n))
+    V = rng.normal(size=(2, n))
+    jpc = jtm.build_head_precond(jp, jnp.asarray(Dm.T), jnp.asarray(Hd.T))
+    tpc = ttm.build_head_precond(lanes_major(tp), torch.as_tensor(Dm),
+                                 torch.as_tensor(Hd))
+    close(tpc.chol, jpc.chol, rtol=1e-5, atol=1e-6)
+    close(tpc.diag, np.asarray(jpc.diag).T)
+    close(tpc.head_mask, np.asarray(jpc.head_mask).T)
+    close(ttm._head_solve(tpc, torch.as_tensor(V)),
+          np.asarray(jtm._head_solve(jpc, jnp.asarray(V.T))).T,
+          rtol=1e-5, atol=1e-6)
+    close(ttm._head_apply(tpc, torch.as_tensor(V)),
+          np.asarray(jtm._head_apply(jpc, jnp.asarray(V.T))).T,
+          rtol=1e-5, atol=1e-6)
+    # M^{-1} M v = v to the factorisation's float32 accuracy
+    back = ttm._head_solve(tpc, ttm._head_apply(tpc, torch.as_tensor(V)))
+    close(back, V, rtol=1e-5, atol=1e-6)
+
+
+def test_head_block_pcg_matches_jax_and_reaches_same_solution():
+    """Parity with tests/test_tron_multi.py::
+    test_head_block_pcg_reaches_same_solution: the same converged W as plain
+    CG (rtol 1e-5, atol 1e-6: the solver's tolerance), never more CG trips
+    than Jacobi, and W, trips and iterations equal to the JAX solver's (atol
+    1e-7: both factor the head block in float32, with libraries that round
+    differently)."""
+    jp, tp, n = _head_block_fixture()
+    W0 = torch.zeros((n, 2), dtype=torch.float64)
+    plain = ttm.tron_multi(tp, W0, 1e-6)
+    jac = ttm.tron_multi(tp, W0, 1e-6, precondition=True)
+    blk = ttm.tron_multi(tp, W0, 1e-6, precondition="head_block")
+    assert bool(blk.converged.all())
+    np.testing.assert_allclose(blk.w.numpy(), plain.w.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    assert blk.cg_trips <= jac.cg_trips
+    want = jtm.tron_multi(jp, jnp.zeros((n, 2), jnp.float64), 1e-6,
+                          precondition="head_block")
+    np.testing.assert_allclose(blk.w.numpy(), np.asarray(want.w), rtol=0,
+                               atol=1e-7)
+    assert (blk.newton_trips, blk.cg_trips) == (int(want.newton_trips),
+                                                int(want.cg_trips))
+    np.testing.assert_array_equal(blk.iterations.numpy(),
+                                  np.asarray(want.iterations))
+
+
+def test_head_block_requires_hybrid():
+    """Parity with tests/test_tron_multi.py::test_head_block_requires_hybrid."""
+    _rng, _jp, tp, n = fixture("ell", seed=9, n_rows=40, L=1)
+    with pytest.raises(ValueError, match="head_block"):
+        ttm.tron_multi(tp, torch.zeros((n, 1), dtype=torch.float64), 1e-6,
+                       precondition="head_block")
