@@ -13,18 +13,22 @@ Phases, each of which fails the run when it fails:
   3. kernel phase K1: `segment_sum_sorted` against its plain version on the
      card, at the main path's tail streams (the bench-default shape and the
      full-width shape of phase 6), float32 with L=3 and L=6 lanes and
-     float64, plus empty segments and one giant segment; per segment
+     float64, the item CLI phase's record stream (2 prefixes, float64, 9,600
+     records), plus empty segments and one giant segment; per segment
      |kernel - ref64| <= 1e-5 * sum|contrib| (float32), 1e-12 (float64);
      times from CUDA events over >= 20 repeats;
   4. kernel phase K2: `gram_batched` against a float64 reference at the
      per-item bucket shapes (B = 20,000; R 64, F 16 in float32 and float64;
-     R 256, F 64), the head-block shape (3 lanes sharing X (1,562,500,
-     128)), the TPU kernel's documented shape (R = 131,072, F = 512 in
+     R 256, F 64), the head-block shapes (3 lanes sharing X (1,562,500,
+     128), and phase 10's X (16,384, 512)), the TPU kernel's documented
+     shape (R = 131,072, F = 512 in
      float32 and bf16-in; F = 256) and edge shapes (ragged R, R = 1, F = 8,
      rows with d = 0); per entry |G - G64| <= 1e-5 * sum_r|d x_i x_j|
      (float32 and bf16-in, the reference taken from the rounded inputs),
      1e-12 (float64), and G == G' exactly; times as for K1, the library
-     call being `torch.bmm` of the scaled transpose with TF32 off;
+     call being `torch.bmm` of the scaled transpose with TF32 off (for a
+     shared X one `torch.matmul` that contracts the rows, or one product
+     per lane, whichever is faster: `library_call` names it);
   5. CLI phase: `python -m mlease_tpu_torch train` on a copy of
      examples/data/breast-cancer.job (float64, head.size=16), output in a
      temporary directory; checks the output layout, finite logliks and
@@ -57,7 +61,10 @@ Phases, each of which fails the run when it fails:
  10. head-block phase: `tron_multi(precondition="head_block")` on one block
      of the bench shape (16,384 rows, head 512) against
      precondition="jacobi": the same W to 1e-3 * max|W|, no more CG trips,
-     K2 launched once per Newton trip plus one.
+     K2 launched once per Newton trip plus one, and the head block that
+     `build_head_precond` factorises against K2's plain version on the
+     same weights (a preconditioner does not move the solution, so the
+     solve alone could not fail a wrong Gram).
 
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
@@ -216,6 +223,13 @@ def kernel_phase(trainers, args):
                              (3, torch.float64)):
                 check_and_time(f"{tag}/{stream}", seg, S, L, dtype, gen,
                                results)
+    # the record stream that the item CLI phase's `itemtest` reduces: one
+    # entry per nonzero of its 200 x 48 records, 2 model prefixes, float64
+    nnz = np.diff(item_cli_rows(args).row_start)
+    seg = torch.as_tensor(np.repeat(np.arange(len(nnz)), nnz)
+                          .astype(np.int32), device="cuda")
+    check_and_time("item_cli/records", seg, len(nnz), 2, torch.float64, gen,
+                   results)
     # edge streams: most segments empty; one segment holding everything
     rng = np.random.default_rng(args.seed)
     sparse = np.sort(rng.choice(np.arange(0, 1_000_000, 97), 300_000))
@@ -242,6 +256,7 @@ GRAM_SHAPES = [
     ("item/R64_F16", 20_000, 64, 16, "float64", False),
     ("item/R256_F64", 20_000, 256, 64, "float32", False),
     ("head_block/ctr-12m", 3, 1_562_500, 128, "float32", True),
+    ("head_block/bench", 3, 16_384, 512, "float32", True),   # phase 10's
     ("tpu_doc/F512", 1, 131_072, 512, "float32", False),
     ("tpu_doc/F512", 1, 131_072, 512, "bfloat16", False),
     ("tpu_doc/F256", 1, 131_072, 256, "float32", False),
@@ -296,13 +311,24 @@ def gram_check_and_time(name, B, R, F, dname, shared, gen, results):
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     del ref64, scale, err
     if ok:
-        xl = x.expand(B, R, F) if shared else x
         row["kernel_ms"] = cuda_ms(lambda: gram.gram_batched(x, d, pvi))
         row["plain_ms"] = cuda_ms(
             lambda: gram.gram_batched_reference(x, d, pvi))
-        # one PyTorch call for the same product (no diagonal), TF32 off
-        row["library_ms"] = cuda_ms(
-            lambda: torch.bmm(xl.transpose(1, 2) * d[:, None, :], xl))
+        # PyTorch's own product for the same function (no diagonal), TF32
+        # off. A shared X is not expanded into a batch (bmm's long-K path
+        # is slow there): one matmul that contracts the rows, or one
+        # product per lane; the faster of the two is the yardstick
+        if shared:
+            calls = {
+                "matmul": lambda: torch.matmul(x.T * d[:, None, :], x),
+                "mm per lane": lambda: [(x.T * d[b]) @ x for b in range(B)]}
+        else:
+            calls = {"bmm": lambda: torch.bmm(
+                x.transpose(1, 2) * d[:, None, :], x)}
+        timed = {k: cuda_ms(fn) for k, fn in calls.items()}
+        row["library_call"] = min(timed, key=timed.get)
+        row["library_ms"] = timed[row["library_call"]]
+        row["library_calls_ms"] = timed
     print("kernel-check K2 " + json.dumps(row), flush=True)
     results.append(row)
     if not ok:
@@ -469,11 +495,16 @@ def item_phase(args):
     return row
 
 
+def item_cli_rows(args):
+    """The item CLI phase's rows: 200 items x 48 rows x 12 features."""
+    return synth_item_decoded(200, 48, 12, args.seed + 2)
+
+
 def item_cli_phase(args):
     import numpy as np
     from mlease_tpu_torch.io import avro
 
-    decoded = synth_item_decoded(200, 48, 12, args.seed + 2)
+    decoded = item_cli_rows(args)
     feature = {"type": "record", "name": "feature", "fields": [
         {"name": "name", "type": "string"}, {"name": "term", "type": "string"},
         {"name": "value", "type": "float"}]}
@@ -547,7 +578,7 @@ def head_block_phase(args):
     import torch
     import mlease_tpu_torch.ops.tron_multi as tm
     from mlease_tpu_torch.core.dataset import to_hybrid
-    from mlease_tpu_torch.ops.gram import gram_batched
+    from mlease_tpu_torch.ops.gram import gram_batched, gram_batched_reference
 
     R, nf, nnz, H = 16_384, 50_000, 15, 512
     data = to_hybrid(synth_blocked_data(nf, 1, R, nnz, args.seed + 3), H)
@@ -568,6 +599,21 @@ def head_block_phase(args):
     prob = prob._replace(head_x=prob.head_x[0])      # one block, non-flat
     W0 = torch.zeros((n, len(lams)), dtype=f32, device="cuda")
     eps = 1e-4
+    # every head block that build_head_precond factorises during one solve,
+    # against K2's plain version on the same weights
+    diffs, scales, a_shapes = [], [], set()
+
+    def checked_gram(x, d, pvi=None):
+        got = gram_batched(x, d, pvi)
+        ref = gram_batched_reference(x, d, pvi)
+        diffs.append(float((got - ref).abs().max()))
+        scales.append(float(ref.abs().max()))
+        a_shapes.add((tuple(x.shape), tuple(got.shape)))
+        return got
+
+    with mock.patch.object(tm, "gram_batched", checked_gram):
+        tm.tron_multi(prob, W0, eps, precondition="head_block")
+    a_diff, a_scale = max(diffs), max(scales)
     out = {}
     for kind in ("jacobi", "head_block"):
         tm.tron_multi(prob, W0, eps, precondition=kind)          # warm
@@ -582,6 +628,8 @@ def head_block_phase(args):
     scale = float(jac.w.abs().max())
     row = {"rows": R, "dim": n, "head": H, "lambdas": lams, "eps": eps,
            "w_max_abs_diff": diff, "w_max_abs": scale,
+           "head_block_kernel_vs_plain_max_abs": a_diff,
+           "head_block_max_abs": a_scale,
            "converged": [bool(jac.converged.all()),
                          bool(blk.converged.all())],
            "jacobi": {"newton_trips": jac.newton_trips,
@@ -593,6 +641,8 @@ def head_block_phase(args):
     print("head-block " + json.dumps(row), flush=True)
     if (not bool(torch.isfinite(blk.w).all()) or not diff <= 1e-3 * scale
             or blk.cg_trips > jac.cg_trips
+            or a_shapes != {((R, H), (len(lams), H, H))}
+            or not a_diff <= 1e-5 * a_scale
             or out["head_block"][2] != blk.newton_trips + 1
             or out["jacobi"][2] != 0):
         raise AssertionError(f"head-block solve: {row}")

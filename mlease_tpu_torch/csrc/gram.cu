@@ -32,9 +32,10 @@
 // (B, nsplit, F, F) and gram_reduce_kernel adds the splits in a fixed
 // order. No float atomics anywhere: the result is the same in every run.
 //
-// Bound. Operations for the long problems in float32: 2*B*R*F^2 FLOP
-// against 67 TFLOP/s outside the tensor cores (about 1.03 ms at R = 131,072,
-// F = 512, against 0.08 ms of bytes). Bytes for the item shapes:
+// Bound. Operations for one long wide problem in float32: G is symmetric, so
+// the function needs B*R*F*(F+1) FLOP for its upper triangle plus B*R*F to
+// fold d in, against 67 TFLOP/s outside the tensor cores (about 0.51 ms at
+// R = 131,072, F = 512, against 0.08 ms of bytes). Bytes for the item shapes:
 // (B*R*F + B*R) * itemsize + B*F^2 * out_itemsize against 3.35 TB/s.
 //
 // Plain C interface, loaded with ctypes: pointers and the stream arrive as

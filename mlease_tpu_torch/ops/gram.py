@@ -26,11 +26,13 @@ without atomics, so the result is the same in every run and exactly
 symmetric.
 
 Bound: the larger of the bytes it must move, (B*R*F + B*R) * itemsize +
-B*F^2 * out_itemsize (`min_bytes`) over 3.35 TB/s, and 2*B*R*F^2 FLOP
-(`min_flops`) over the card's peak for the type (H100 SXM: float32 67
-TFLOP/s and float64 34 TFLOP/s outside the tensor cores, bf16 989 TFLOP/s
-dense tensor-core). The long float32 problems are bound by operations, the
-per-item shapes by bytes.
+B*F^2 * out_itemsize (`min_bytes`) over 3.35 TB/s, and B*R*F*(F+2) FLOP
+(`min_flops`: G is symmetric, so only its F*(F+1)/2 upper entries need
+their R multiply-adds, plus one multiply per entry of x to fold d in) over
+the card's peak for the type (H100 SXM: float32 67 TFLOP/s and float64 34
+TFLOP/s outside the tensor cores, bf16 989 TFLOP/s dense tensor-core). One
+long wide float32 problem is bound by operations, the per-item shapes by
+bytes.
 
 The kernel is built at first use with nvcc (ops/_build.py). Nothing is
 built or imported when this module is imported.
@@ -192,5 +194,7 @@ def min_bytes(B: int, R: int, F: int, itemsize: int, out_itemsize: int,
 
 
 def min_flops(B: int, R: int, F: int) -> int:
-    """Multiply-adds of the full product, counted as 2 operations each."""
-    return 2 * B * R * F * F
+    """Operations the function needs: G is symmetric, so R multiply-adds
+    (2 operations each) for each of its F*(F+1)/2 upper entries, plus one
+    multiply per entry of x to fold d in."""
+    return B * R * F * (F + 1) + B * R * F

@@ -30,6 +30,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops.gram import gram_batched
 
 
@@ -69,12 +70,16 @@ class LRProblem(NamedTuple):
 
 def make_problem(block, prior_mean, prior_var_inv, *,
                  positive_weight: float = 1.0, dtype=torch.float32,
-                 device="cpu") -> LRProblem:
+                 device="cuda") -> LRProblem:
     """Build an LRProblem from a packed Block (P = 1) or from arrays that
-    already carry the problem axis (BlockedData: P = B).
+    already carry the problem axis (BlockedData: P = B), on the card unless
+    the caller asks for device="cpu" (the solvers run where their problem
+    lies, so this decides whether they launch the kernels).
 
     positive_weight is the reference's Cp (LogisticRegressionL2.java:93-99);
     Cn = 1."""
+    device = resolve_device(device)
+
     def f(a):
         return torch.as_tensor(np.asarray(a), device=device).to(dtype)
 

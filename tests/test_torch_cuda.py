@@ -193,6 +193,7 @@ def test_gram_item_bucket_shapes(cuda, B, R, F, dtype, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,R,F,dtype,shared", [
     (3, 1_562_500, 128, torch.float32, True),      # the head block
+    (3, 16_384, 512, torch.float32, True),         # ... at the bench shape
     (1, 131_072, 512, torch.float32, False),       # the TPU docstring's shape
     (1, 131_072, 512, torch.bfloat16, False),
     (1, 131_072, 256, torch.float32, False),

@@ -105,7 +105,9 @@ def test_wrapper_checks_bounds_and_launch_policy():
         tgram.gram_batched(x, d, torch.ones((2, 4)))
     assert tgram.min_bytes(2, 5, 3, 4, 4) == (30 + 10) * 4 + 18 * 4
     assert tgram.min_bytes(2, 5, 3, 2, 4, shared_x=True) == 25 * 2 + 18 * 4
-    assert tgram.min_flops(2, 5, 3) == 2 * 2 * 5 * 9
+    # symmetric: the upper triangle's multiply-adds, plus folding d in
+    assert tgram.min_flops(2, 5, 3) == 2 * 5 * 3 * 4 + 2 * 5 * 3
+    assert tgram.min_flops(1, 131_072, 512) < 2 * 131_072 * 512 * 512 * 0.51
     # many tiny problems: no row split; one long problem: split over rows
     assert tgram.launch_config(20_000, 64, 16, torch.float32) == (16, 1)
     assert tgram.launch_config(20_000, 256, 64, torch.float32) == (64, 1)

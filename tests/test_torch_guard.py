@@ -46,7 +46,6 @@ def test_the_item_slice_modules_are_guarded():
         assert f"mlease_tpu_torch/{mod}.py" in rel, mod
         importlib.import_module("mlease_tpu_torch." + mod.replace("/", "."))
     assert "mlease_tpu_torch/csrc/gram.cu" in rel
-    assert "tools/torch_gram_probe.py" in rel
 
 
 def test_guard_pattern_catches_each_form():

@@ -112,7 +112,7 @@ def test_make_problem_from_a_block_and_from_blocked_data():
     n = data.dim
     pm, pvi = np.zeros((2, n)), np.ones((2, n))
     batched = tobj.make_problem(data, pm, pvi, positive_weight=2.0,
-                                dtype=torch.float64)
+                                dtype=torch.float64, device="cpu")
     from mlease_tpu.core.dataset import Block
     singles = []
     for b in range(2):
@@ -120,7 +120,7 @@ def test_make_problem_from_a_block_and_from_blocked_data():
                     data.weight[b], data.offset[b], int(data.nrows[b]))
         singles.append(tobj.make_problem(blk, pm[b], pvi[b],
                                          positive_weight=2.0,
-                                         dtype=torch.float64))
+                                         dtype=torch.float64, device="cpu"))
         want = jobj.make_problem(blk, pm[b], pvi[b], positive_weight=2.0,
                                  dtype=jnp.float64)
         np.testing.assert_array_equal(singles[-1].weight[0].numpy(),
@@ -130,6 +130,10 @@ def test_make_problem_from_a_block_and_from_blocked_data():
         torch.testing.assert_close(stacked, getattr(batched, k),
                                    rtol=0, atol=0)
     assert batched.dim == n and batched.csc_cols is None
+    # the constructor defaults to the card and does not give way to the CPU
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cuda'"):
+            tobj.make_problem(data, pm, pvi)
 
 
 def test_class_balance_eps_scale_matches_jax():
