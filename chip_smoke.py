@@ -2,14 +2,14 @@
 """On-card smoke run of the PyTorch port (mlease_tpu_torch) on one H100.
 
     python3 chip_smoke.py [--seed 0] [--rows-per-block 1562500] [--iters 3]
-                          [--out FILE.json]
+                          [--out FILE.json] [--gram-only]
 
 Phases, each of which fails the run when it fails:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
-  2. build the port's kernels (mlease_tpu_torch/csrc/segment_sum.cu and
-     gram.cu) with nvcc from the sources in this checkout, one nvcc process
-     per source, started together;
+  2. build the port's kernels (mlease_tpu_torch/csrc/segment_sum.cu, gram.cu
+     and gram_mma_{f32,bf16,f64}.cu) with nvcc from the sources in this
+     checkout, one nvcc process per source, started together;
   3. kernel phase K1: `segment_sum_sorted` against its plain version on the
      card, at the main path's tail streams (the bench-default shape and the
      full-width shape of phase 6), float32 with L=3 and L=6 lanes and
@@ -22,11 +22,13 @@ Phases, each of which fails the run when it fails:
      R 256, F 64), the head-block shapes (3 lanes sharing X (1,562,500,
      128), and phase 10's X (16,384, 512)), the TPU kernel's documented
      shape (R = 131,072, F = 512 in
-     float32 and bf16-in; F = 256) and edge shapes (ragged R, R = 1, F = 8,
-     rows with d = 0); per entry |G - G64| <= 1e-5 * sum_r|d x_i x_j|
-     (float32 and bf16-in, the reference taken from the rounded inputs),
-     1e-12 (float64), and G == G' exactly; times as for K1, the library
-     call being `torch.bmm` of the scaled transpose with TF32 off (for a
+     float32, bf16-in and float64; F = 256) and edge shapes (ragged R, rows
+     that are no 16-byte multiple, R = 1, F = 8, rows with d = 0); per entry
+     |G - G64| <= 1e-5 * sum_r|d x_i x_j| (float32 and bf16-in, the
+     reference taken from the rounded inputs), 1e-12 (float64), G == G'
+     exactly, and a second call that gives the same bits; every row names
+     the kernel variant and the arithmetic that ran (ops/gram.py::
+     launch_config); times as for K1, the library call being `torch.bmm` of the scaled transpose with TF32 off (for a
      shared X one `torch.matmul` that contracts the rows, or one product
      per lane, whichever is faster: `library_call` names it);
   5. CLI phase: `python -m mlease_tpu_torch train` on a copy of
@@ -69,7 +71,8 @@ Phases, each of which fails the run when it fails:
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
-non-zero and prints no result.
+non-zero and prints no result. --gram-only builds the kernels, runs phase 4
+alone and stops there, without the closing lines (for work on K2).
 """
 
 from __future__ import annotations
@@ -90,6 +93,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # peak rates (H100 SXM data sheet), FLOP/s: float32 and float64 outside the
 # tensor cores, bfloat16 dense on them
 PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
+# ... and for a matrix product of the type's accuracy, which may go through
+# the tensor cores: float32 as three TF32 products (495 / 3 = 165 TFLOP/s,
+# above the 67 outside them), float64 as DMMA (67), bfloat16 as above
+GRAM_PEAK_OPS = {"float32": 495e12 / 3, "float64": 67e12,
+                 "bfloat16": 989e12}
 CLI_TIMEOUT_S = 300
 
 
@@ -259,9 +267,12 @@ GRAM_SHAPES = [
     ("head_block/bench", 3, 16_384, 512, "float32", True),   # phase 10's
     ("tpu_doc/F512", 1, 131_072, 512, "float32", False),
     ("tpu_doc/F512", 1, 131_072, 512, "bfloat16", False),
+    ("tpu_doc/F512", 1, 131_072, 512, "float64", False),
     ("tpu_doc/F256", 1, 131_072, 256, "float32", False),
     ("edge/ragged_R", 2, 4_099, 200, "float32", False),
     ("edge/ragged_R", 2, 4_099, 200, "float64", True),
+    ("edge/ragged_F", 1, 50_001, 130, "float32", False),   # 520-byte rows
+    ("edge/ragged_F", 40, 300, 13, "bfloat16", False),      # the FMA kernel
     ("edge/R1_F8", 7, 1, 8, "float32", False),
     ("edge/F8", 1_000, 37, 8, "bfloat16", False),
 ]
@@ -289,7 +300,7 @@ def gram_check_and_time(name, B, R, F, dname, shared, gen, results):
         return torch.stack([((xs if shared else xs[b]).T * ds[b])
                             @ (xs if shared else xs[b]) for b in range(B)])
 
-    x64, d64 = x.double(), d.double()
+    x64, d64 = x.to(torch.float64, copy=True), d.double()   # abs_'d below
     ref64 = weighted_gram(x64, d64) + torch.diag_embed(pvi.double())
     scale = weighted_gram(x64.abs_(), d64)          # d >= 0
     del x64, d64
@@ -297,16 +308,21 @@ def gram_check_and_time(name, B, R, F, dname, shared, gen, results):
     err = (got.double() - ref64).abs()
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     symmetric = bool((got == got.transpose(1, 2)).all())
-    ok = bool((err <= tol * scale + 1e-300).all()) and symmetric
+    same_bits = bool((got == gram.gram_batched(x, d, pvi)).all())
+    ok = bool((err <= tol * scale + 1e-300).all()) and symmetric \
+        and same_bits
     bytes_ms = gram.min_bytes(B, R, F, x.element_size(), got.element_size(),
                               shared) / HBM_BYTES_PER_S
-    ops_ms = gram.min_flops(B, R, F) / PEAK_OPS[dname]
-    tile, nsplit = gram.launch_config(B, R, F, dtype)
+    ops_ms = gram.min_flops(B, R, F) / GRAM_PEAK_OPS[dname]
+    cfg = gram.launch_config(B, R, F, dtype, shared, x.data_ptr() % 16 == 0)
     row = {"shape": name, "B": B, "R": R, "F": F, "dtype": dname,
-           "shared_x": shared, "tile": tile, "row_splits": nsplit,
+           "shared_x": shared, "variant": cfg.variant,
+           "route": gram.route(cfg.variant, dtype), "tile": cfg.tile,
+           "row_splits": cfg.nsplit, "lanes": cfg.lanes,
+           "ops_rate_tflops": GRAM_PEAK_OPS[dname] / 1e12,
            "max_abs_err": float(err.max()),
            "max_rel_err": float((err / scale.clamp_min(1e-300)).max()),
-           "symmetric": symmetric, "ok": ok,
+           "symmetric": symmetric, "same_bits_again": same_bits, "ok": ok,
            "bound_ms": max(bytes_ms, ops_ms) * 1e3,
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
     del ref64, scale, err
@@ -334,7 +350,7 @@ def gram_check_and_time(name, B, R, F, dname, shared, gen, results):
     if not ok:
         raise AssertionError(f"gram_batched disagrees at {name} {dname}: "
                              f"max err {row['max_abs_err']}, symmetric "
-                             f"{symmetric}")
+                             f"{symmetric}, same bits again {same_bits}")
     return row
 
 
@@ -781,8 +797,9 @@ def device_time(fn):
     by_kernel.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in by_kernel)
     seg = [r for r in by_kernel if "segment_sum_sorted_kernel" in r[0]]
-    gram = [r for r in by_kernel if "gram_tile_kernel" in r[0]
-            or "gram_reduce_kernel" in r[0]]
+    gram = [r for r in by_kernel if any(
+        k in r[0] for k in ("gram_item_kernel", "gram_mma_kernel",
+                            "gram_tile_kernel", "gram_reduce_kernel"))]
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms,
             "segment_sum_kernel_ms": sum(r[1] for r in seg),
@@ -838,6 +855,8 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--out", default="",
                     help="also write every phase's numbers to this JSON file")
+    ap.add_argument("--gram-only", action="store_true",
+                    help="build, run the K2 kernel phase alone and stop")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(REPO, "mlease_tpu_torch", "csrc")):
@@ -879,7 +898,7 @@ def main(argv=None) -> int:
 
     def build():
         t0 = time.monotonic()
-        paths = _build.build_many([segment_sum.SOURCE, gram.SOURCE],
+        paths = _build.build_many([segment_sum.SOURCE, *gram.SOURCES],
                                   verbose=True)
         row = {"libraries": [os.path.relpath(p, REPO) for p in paths],
                "build_s": time.monotonic() - t0}
@@ -909,6 +928,13 @@ def main(argv=None) -> int:
         print(f"full-width rows: {8 * args.rows_per_block} (ctr-12m.job has "
               f"12.5M)", flush=True)
         return trainers
+
+    if args.gram_only:
+        if not report["failed"]:
+            phase("kernel_gram", gram_phase, args)
+        print(card_line(), flush=True)
+        return fail(f"failed phases: {report['failed']}") \
+            if report["failed"] else 0
 
     trainers = None
     if not report["failed"]:

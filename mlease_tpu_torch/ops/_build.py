@@ -4,8 +4,8 @@ Every kernel source under `mlease_tpu_torch/csrc/` has a plain C interface
 (pointers and the stream as void*, each entry returning cudaGetLastError()
 of its launch). `build_many` compiles sources for sm_90a into
 `mlease_tpu_torch/_build/`, one nvcc process per source, all started
-together; a library is keyed by a hash of its source, so an unchanged source
-is never rebuilt. `load` builds at first use and returns the ctypes library.
+together; a library is keyed by a hash of its source and of the headers
+(`csrc/*.cuh`) beside it, so an unchanged source is never rebuilt. `load` builds at first use and returns the ctypes library.
 Nothing is built or loaded when a module is imported.
 """
 
@@ -40,7 +40,10 @@ def nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha1(source.read_bytes()).hexdigest()[:12]
+    sha = hashlib.sha1(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        sha.update(header.read_bytes())
+    digest = sha.hexdigest()[:12]
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 

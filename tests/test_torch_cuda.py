@@ -187,7 +187,9 @@ def test_gram_item_bucket_shapes(cuda, B, R, F, dtype, tol):
     before = gram_batched.launches
     check_gram(x, d, pvi, tol)
     assert gram_batched.launches == before + 1
-    assert gram_mod.launch_config(B, R, F, dtype)[1] == 1   # no row split
+    cfg = gram_mod.launch_config(B, R, F, dtype)
+    assert cfg.nsplit == 1                                  # no row split
+    assert cfg.variant == ("item" if F <= 16 else "mma")
 
 
 @pytest.mark.cuda
@@ -200,7 +202,9 @@ def test_gram_item_bucket_shapes(cuda, B, R, F, dtype, tol):
     (1, 131_072, 192, torch.float64, False)])
 def test_gram_long_problems_split_over_rows(cuda, B, R, F, dtype, shared):
     x, d, pvi = gram_inputs(cuda, R % 97, B, R, F, dtype, shared)
-    assert gram_mod.launch_config(B, R, F, dtype)[1] > 1
+    cfg = gram_mod.launch_config(B, R, F, dtype, shared)
+    assert cfg.nsplit > 1 and cfg.variant == "mma"
+    assert cfg.lanes == (3 if shared else 1)
     tol = 1e-12 if dtype == torch.float64 else 1e-5
     got = check_gram(x, d, pvi, tol)
     again = gram_batched(x, d, pvi)          # no atomics: the same bits
@@ -220,6 +224,91 @@ def test_gram_edge_shapes(cuda, B, R, F):
         d[:, ::3] = 0
         check_gram(x, d, pvi, tol)
         check_gram(x[0], d, None, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,F,shared,variant", [
+    (500, 64, 16, False, "item"),       # a warp per entry
+    (500, 200, 8, False, "item"),       # ... over several row chunks
+    (200, 70, 12, True, "item"),        # ... all reading one X
+    (6, 9_000, 16, False, "fma"),       # few long entries with F <= 16
+    (200, 256, 64, False, "mma"),       # the mid buckets, no row split
+    (5, 3_000, 200, False, "mma"),      # F off the tile, rows split
+    (4, 3_000, 96, True, "mma"),        # lanes sharing X, 3 + 1
+    (2, 777, 24, True, "mma"),
+    (3, 2_049, 130, False, "mma"),      # rows of 520 bytes: element copies
+    (3, 2_049, 130, True, "mma"),
+    (2, 1_000, 203, False, "mma"),      # odd F: ragged in every type
+    (5, 37, 13, False, "fma")])
+def test_gram_variants(cuda, B, R, F, shared, variant):
+    """Every variant at aligned and ragged F, shared and batched X, each
+    type: tolerance, exact symmetry, the launch policy's choice, and a
+    second call that gives the same bits (no atomics anywhere)."""
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12),
+                       (torch.bfloat16, 1e-5)):
+        x, d, pvi = gram_inputs(cuda, B + R + F, B, R, F, dtype, shared)
+        d[:, ::4] = 0
+        cfg = gram_mod.launch_config(B, R, F, dtype, shared,
+                                     x.data_ptr() % 16 == 0)
+        # `variant` is float32's; rows of another type may be 16-byte
+        # multiples where float32's are not, and the other way round
+        rows16 = (F * x.element_size()) % 16 == 0
+        if F > 16:
+            want = "mma" if rows16 or x.element_size() >= 4 else "fma"
+        else:
+            want = variant if rows16 else "fma"
+        assert cfg.variant == want, (dtype, cfg)
+        before = gram_batched.launches
+        got = check_gram(x, d, pvi, tol)
+        assert gram_batched.launches == before + 1
+        assert bool((got == gram_batched(x, d, pvi)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F,variant", [(32, "mma"), (16, "fma")])
+def test_gram_unaligned_x(cuda, F, variant):
+    """A view whose first element is off a 16-byte boundary: no 16-byte
+    copies. Above the item width the tensor-core variant stages it element
+    by element and gives the same bits as for an aligned x; at the item
+    width the FMA kernel takes it, equal to the tolerance."""
+    x, d, pvi = gram_inputs(cuda, 3, 200, 60, F, torch.float32)
+    flat = torch.empty(x.numel() + 1, device=cuda)
+    off = flat[1:].view_as(x).copy_(x)
+    assert off.data_ptr() % 16 != 0 and off.is_contiguous()
+    assert gram_mod.launch_config(200, 60, F, torch.float32, False,
+                                  False).variant == variant
+    got = check_gram(off, d, pvi, 1e-5)
+    want = check_gram(x, d, pvi, 1e-5)
+    if variant == "mma":
+        assert bool((got == want).all())
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float64])
+def test_gram_lanes_sharing_x_equal_one_lane_at_a_time(cuda, dtype):
+    """Three lanes over one staged X against one call per lane. Where
+    neither call splits the rows (R below the smallest split) every entry
+    sums the same k-steps in the same order: bit for bit. Where the row
+    splits differ, to the tolerance."""
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    for R, F, exact in ((400, 64, True), (400, 160, True),
+                        (40_000, 160, False)):
+        x, d, pvi = gram_inputs(cuda, R, 3, R, F, dtype, shared=True)
+        together = check_gram(x, d, pvi, tol)
+        assert gram_mod.launch_config(3, R, F, dtype, True).lanes == 3
+        alone = torch.cat([gram_batched(x, d[b:b + 1], pvi[b:b + 1])
+                           for b in range(3)])
+        if exact:
+            assert gram_mod.launch_config(3, R, F, dtype, True).nsplit == 1
+            assert bool((together == alone).all())
+        else:
+            scale = gram_batched_reference(x.double().abs(),
+                                           d.double().abs())
+            assert bool(((together - alone).abs().double()
+                         <= 2 * tol * scale).all())
 
 
 @pytest.mark.cuda
