@@ -2,7 +2,7 @@
 """On-card smoke run of the PyTorch port (mlease_tpu_torch) on one H100.
 
     python3 chip_smoke.py [--seed 0] [--rows-per-block 1562500] [--iters 3]
-                          [--out FILE.json] [--gram-only]
+                          [--out FILE.json] [--gram-only | --segsum-only]
 
 Phases, each of which fails the run when it fails:
 
@@ -10,13 +10,19 @@ Phases, each of which fails the run when it fails:
   2. build the port's kernels (mlease_tpu_torch/csrc/segment_sum.cu, gram.cu
      and gram_mma_{f32,bf16,f64}.cu) with nvcc from the sources in this
      checkout, one nvcc process per source, started together;
-  3. kernel phase K1: `segment_sum_sorted` against its plain version on the
-     card, at the main path's tail streams (the bench-default shape and the
-     full-width shape of phase 6), float32 with L=3 and L=6 lanes and
-     float64, the item CLI phase's record stream (2 prefixes, float64, 9,600
-     records), plus empty segments and one giant segment; per segment
-     |kernel - ref64| <= 1e-5 * sum|contrib| (float32), 1e-12 (float64);
-     times from CUDA events over >= 20 repeats;
+  3. kernel phase K1: the contrib form `segment_sum_sorted` against its
+     plain version on the card, at the main path's tail streams (the
+     bench-default shape and the full-width shape of phase 6), float32 with
+     L=3 and L=6 lanes and float64, the item CLI phase's record stream (2
+     prefixes, float64, 9,600 records), plus empty segments and one giant
+     segment; then the fused `segment_sum_gather` at each of tron_multi's
+     three sites on the same trainers' real streams, random V and
+     accumulator (float32, L 3; 2L 6 with square_from 3; one float64 row),
+     beside the unfused path it replaced (torch gather, multiply, zero-filled
+     K1, `out + ...`) and the library's (gather, multiply, index_add_);
+     per segment |kernel - ref64| <= 1e-5 * (|out0| + sum|contrib|)
+     (float32), 1e-12 (float64), and a second call that gives the same bits,
+     at every row; times from CUDA events over >= 20 repeats;
   4. kernel phase K2: `gram_batched` against a float64 reference at the
      per-item bucket shapes (B = 20,000; R 64, F 16 in float32 and float64;
      R 256, F 64), the head-block shapes (3 lanes sharing X (1,562,500,
@@ -72,7 +78,9 @@ The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result. --gram-only builds the kernels, runs phase 4
-alone and stops there, without the closing lines (for work on K2).
+alone and stops there, without the closing lines (for work on K2);
+--segsum-only builds them, sets up the two trainers and runs phase 3 alone
+(for work on K1).
 """
 
 from __future__ import annotations
@@ -185,12 +193,13 @@ def check_and_time(name, seg, S, L, dtype, gen, results):
     T = seg.numel()
     contrib = torch.randn((L, T), generator=gen, device="cuda", dtype=dtype)
     got = segment_sum_sorted(contrib, seg, S)
+    same_bits = bool(torch.equal(got, segment_sum_sorted(contrib, seg, S)))
     ref64 = segment_sum_sorted_reference(contrib.double(), seg, S)
     scale = segment_sum_sorted_reference(contrib.double().abs(), seg, S)
     torch.cuda.synchronize()
     err = (got.double() - ref64).abs()
     tol = 1e-5 if dtype == torch.float32 else 1e-12
-    ok = bool((err <= tol * scale).all())
+    ok = bool((err <= tol * scale).all()) and same_bits
     lib_out = torch.zeros((L, S), dtype=dtype, device="cuda")
     dname = str(dtype).replace("torch.", "")
     # least time: the bytes it must move, or one add per entry and lane
@@ -200,7 +209,7 @@ def check_and_time(name, seg, S, L, dtype, gen, results):
         "shape": name, "L": L, "T": T, "S": S, "dtype": dname,
         "max_abs_err": float(err.max()),
         "max_rel_err": float((err / scale.clamp_min(1e-300)).max()),
-        "ok": ok,
+        "same_bits_again": same_bits, "ok": ok,
         "kernel_ms": cuda_ms(lambda: segment_sum_sorted(contrib, seg, S)),
         "plain_ms": cuda_ms(
             lambda: segment_sum_sorted_reference(contrib, seg, S)),
@@ -214,7 +223,108 @@ def check_and_time(name, seg, S, L, dtype, gen, results):
     results.append(row)
     if not ok:
         raise AssertionError(f"segment_sum_sorted disagrees at {name} "
-                             f"L={L} {dtype}: max err {row['max_abs_err']}")
+                             f"L={L} {dtype}: max err {row['max_abs_err']}, "
+                             f"same bits again {same_bits}")
+    return row
+
+
+def fused_sites(trainer):
+    """The three sorted tail reduces of a trainer's flat problem, as
+    tron_multi calls them: (vals, gather ids, segment ids, V's columns m,
+    segments S, lanes of V per lambda)."""
+    prob = trainer.prob
+    R, n = prob.y.shape[0], prob.prior_mean.shape[0]
+    c = (prob.tail_c_vals, prob.tail_c_rows, prob.tail_c_cols, R, n)
+    return {"xv": (prob.tail_vals, prob.tail_cols, prob.tail_rows, n, R, 1),
+            "xtv": (*c, 1), "xtv_sqdiag": (*c, 2)}
+
+
+def fused_check_and_time(name, site, L, dtype, gen, results):
+    """The fused gather + weight + reduce into an accumulator against its
+    plain version, the unfused path it replaced (torch gather, multiply,
+    cat, zero-filled K1, `out + ...`; PR 3's, with this PR's K1) and the
+    library's (gather, multiply, index_add_), at one site's real stream
+    with random V and accumulator; appends a result row."""
+    import torch
+    from mlease_tpu_torch.ops.segment_sum import (
+        min_bytes, segment_sum_gather, segment_sum_gather_reference,
+        segment_sum_sorted)
+    vals, idx, seg, m, S, lanes = site
+    vals = vals.to(dtype)
+    L2 = lanes * L
+    sf = L if lanes == 2 else None
+    V = torch.randn((L2, m), generator=gen, device="cuda", dtype=dtype)
+    out0 = torch.randn((L2, S), generator=gen, device="cuda", dtype=dtype)
+    T = seg.numel()
+    got = segment_sum_gather(vals, V, idx, seg, S, out=out0.clone(),
+                             square_from=sf)
+    again = segment_sum_gather(vals, V, idx, seg, S, out=out0.clone(),
+                               square_from=sf)
+    same_bits = bool(torch.equal(got, again))
+    del again
+    ref64 = segment_sum_gather_reference(
+        vals.double(), V.double(), idx, seg, S, out=out0.double(),
+        square_from=sf)
+    scale = segment_sum_gather_reference(
+        vals.double().abs(), V.double().abs(), idx, seg, S,
+        out=out0.double().abs(), square_from=sf)
+    torch.cuda.synchronize()
+    err = (got.double() - ref64).abs()
+    del ref64
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    ok = bool((err <= tol * scale).all()) and same_bits
+    dname = str(dtype).replace("torch.", "")
+    m_hit = int(torch.unique(idx).numel())
+    S_hit = int((seg[1:] != seg[:-1]).sum()) + 1 if T else 0
+    bytes_ms = min_bytes(L2, T, S, V.element_size(), m_hit=m_hit,
+                         S_hit=S_hit) / HBM_BYTES_PER_S
+    ops_ms = 2 * L2 * T / PEAK_OPS[dname]
+    acc = out0.clone()
+
+    def contrib():
+        tv = vals[None, :]
+        rows = V[:, idx]
+        if sf is None:
+            return tv * rows
+        return torch.cat([tv * rows[:sf], (tv * tv) * rows[sf:]])
+
+    def unfused():
+        return acc + segment_sum_sorted(contrib(), seg, S)
+
+    row = {
+        "shape": name, "L": L2, "square_from": sf, "T": T, "S": S, "m": m,
+        "m_hit": m_hit, "S_hit": S_hit, "dtype": dname,
+        "max_abs_err": float(err.max()),
+        "max_rel_err": float((err / scale.clamp_min(1e-300)).max()),
+        "same_bits_again": same_bits, "ok": ok,
+        "bound_ms": max(bytes_ms, ops_ms) * 1e3,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+    }
+    del err, scale
+    if ok:
+        def fused(Vx):
+            return lambda: segment_sum_gather(vals, Vx, idx, seg, S, out=acc,
+                                              square_from=sf)
+        # V lanes-major, as the sites pass it; then a lanes-minor view, and
+        # a lanes-minor copy of V made for the call (counted in it)
+        row["kernel_ms"] = cuda_ms(fused(V))
+        Vm = V.t().contiguous().t()
+        row["kernel_ms_lanes_minor_given"] = cuda_ms(fused(Vm))
+        del Vm
+        row["kernel_ms_lanes_minor_copy"] = cuda_ms(
+            lambda: fused(V.t().contiguous().t())())
+        row["plain_ms"] = cuda_ms(lambda: segment_sum_gather_reference(
+            vals, V, idx, seg, S, out=acc, square_from=sf))
+        row["unfused_ms"] = cuda_ms(unfused)
+        row["library_ms"] = cuda_ms(lambda: acc.index_add_(1, seg,
+                                                           contrib()))
+    del V, acc, out0
+    print("kernel-check fused " + json.dumps(row), flush=True)
+    results.append(row)
+    if not ok:
+        raise AssertionError(f"segment_sum_gather disagrees at {name} "
+                             f"L={L2} {dtype}: max err {row['max_abs_err']},"
+                             f" same bits again {same_bits}")
     return row
 
 
@@ -231,6 +341,14 @@ def kernel_phase(trainers, args):
                              (3, torch.float64)):
                 check_and_time(f"{tag}/{stream}", seg, S, L, dtype, gen,
                                results)
+        # the fused call at each of tron_multi's three sites (3 lambdas;
+        # the gradient + diagonal site over 6 lanes), and one float64 row
+        for site, streams in fused_sites(trainer).items():
+            for dtype in ((torch.float32, torch.float64) if site == "xtv"
+                          else (torch.float32,)):
+                fused_check_and_time(f"{tag}/{site}", streams, 3, dtype, gen,
+                                     results)
+                torch.cuda.empty_cache()
     # the record stream that the item CLI phase's `itemtest` reduces: one
     # entry per nonzero of its 200 x 48 records, 2 model prefixes, float64
     nnz = np.diff(item_cli_rows(args).row_start)
@@ -721,8 +839,8 @@ def full_width_phase(trainer, args):
     import numpy as np
     import torch
     import mlease_tpu_torch.ops.tron_multi as tm
-    from mlease_tpu_torch.ops.segment_sum import (segment_sum_sorted,
-                                                  segment_sum_sorted_reference)
+    from mlease_tpu_torch.ops.segment_sum import (segment_sum_gather_reference,
+                                                  segment_sum_sorted)
 
     z_first = {}
 
@@ -752,9 +870,12 @@ def full_width_phase(trainer, args):
 
     # the first iteration again, every sorted-tail reduce on the plain version
     trainer.config = dataclasses.replace(trainer.config, num_iters=1)
-    with mock.patch.object(tm, "segment_sum_sorted",
-                           segment_sum_sorted_reference):
+    before = segment_sum_sorted.launches
+    with mock.patch.object(tm, "segment_sum_gather",
+                           segment_sum_gather_reference):
         plain = trainer.run()
+    if segment_sum_sorted.launches != before:
+        raise AssertionError("the plain run launched the kernel")
     zk = z_first["z"].double().cpu().numpy()
     diff = float(np.abs(zk - plain.z).max())
     row["z_kernel_vs_plain_max_abs"] = diff
@@ -796,7 +917,7 @@ def device_time(fn):
         return None
     by_kernel.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in by_kernel)
-    seg = [r for r in by_kernel if "segment_sum_sorted_kernel" in r[0]]
+    seg = [r for r in by_kernel if "segment_sum_kernel" in r[0]]
     gram = [r for r in by_kernel if any(
         k in r[0] for k in ("gram_item_kernel", "gram_mma_kernel",
                             "gram_tile_kernel", "gram_reduce_kernel"))]
@@ -857,6 +978,9 @@ def main(argv=None) -> int:
                     help="also write every phase's numbers to this JSON file")
     ap.add_argument("--gram-only", action="store_true",
                     help="build, run the K2 kernel phase alone and stop")
+    ap.add_argument("--segsum-only", action="store_true",
+                    help="build, set up the trainers, run the K1 kernel "
+                         "phase alone and stop")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(REPO, "mlease_tpu_torch", "csrc")):
@@ -929,9 +1053,17 @@ def main(argv=None) -> int:
               f"12.5M)", flush=True)
         return trainers
 
+    def write_report():
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(dict(report, card=card), f, indent=1)
+
     if args.gram_only:
         if not report["failed"]:
             phase("kernel_gram", gram_phase, args)
+        write_report()
         print(card_line(), flush=True)
         return fail(f"failed phases: {report['failed']}") \
             if report["failed"] else 0
@@ -939,6 +1071,13 @@ def main(argv=None) -> int:
     trainers = None
     if not report["failed"]:
         trainers = phase("setup", setup)
+    if args.segsum_only:
+        if trainers is not None:
+            phase("kernel", kernel_phase, trainers, args)
+        write_report()
+        print(card_line(), flush=True)
+        return fail(f"failed phases: {report['failed']}") \
+            if report["failed"] else 0
     if trainers is not None:
         kernels = phase("kernel", kernel_phase, trainers, args)
         grams = phase("kernel_gram", gram_phase, args)
@@ -950,22 +1089,19 @@ def main(argv=None) -> int:
         items = phase("item", item_phase, args)
         phase("item_cli", item_cli_phase, args)
         phase("head_block", head_block_phase, args)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(dict(report, card=card), f, indent=1)
+    write_report()
     if report["failed"]:
         return fail(f"failed phases: {report['failed']}")
 
     main_row = next(r for r in kernels
-                    if r["shape"] == "full/xtv_cols" and r["L"] == 3
+                    if r["shape"] == "full/xtv" and r["L"] == 3
                     and r["dtype"] == "float32")
     gram_row = next(r for r in grams
                     if (r["shape"], r["dtype"]) == ITEM_K2_ROW)
     print(json.dumps({"kernels": [{
-        "name": "segment_sum_sorted", "route": "cuda",
+        "name": "segment_sum_gather", "route": "cuda",
         "source": "mlease_tpu_torch/csrc/segment_sum.cu",
-        "replaces": "mlease_tpu/ops/pallas/tile_sum.py:79",
+        "replaces": "mlease_tpu/ops/pallas/tile_sum.py:72",
         "launches": full["kernel_launches"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],

@@ -1,188 +1,646 @@
-// Sorted-stream segment sum for Hopper (sm_90a): out[l, seg[i]] += contrib[l, i].
+// Sorted-stream segment sum with its producer inside, for Hopper (sm_90a):
+//
+//   out[l, seg[i]] += w_l(vals[i]) * V[l, idx[i]]     (gather form)
+//   out[l, seg[i]] += w_l(contrib[l, i])              (contrib form)
+//
+// with w_l(v) = v for l < square_from and v * v from square_from on, seg
+// non-decreasing, out the caller's (L, S) accumulator updated in place.
 //
 // Replaces mlease_tpu/ops/pallas/tile_sum.py::tile_segment_sum, the TPU
 // kernel that sums a COO tail's contributions into 128-column tiles with a
 // (P, 128) one-hot contraction on the MXU. That kernel reads a slab in which
-// every tile is padded to the longest tile P. On the power-law (zipf 1.3)
-// tails this solver trains on, that slab holds ~22x the stream's entries at
+// every tile is padded to the longest tile P; on the power-law (zipf 1.3)
+// tails this solver trains on the slab holds ~22x the stream's entries at
 // the JAX bench's default shape and ~1,470x at ctr-12m widths with 1M rows
-// (3.5G slots for 2.4M entries; tools/torch_tail_slab_sizes.py), so the port
-// keeps the kernel's function and drops its layout: it reduces the ragged
-// sorted stream itself, unpadded.
+// (tools/torch_tail_slab_sizes.py). The port keeps the function and drops
+// the layout: it reduces the ragged sorted stream itself. The JAX code
+// writes each solver call site as one expression,
+// segment_sum(where(use_sq, tv*tv, tv) * d[rows], cols, sorted)
+// (mlease_tpu/ops/tron_multi.py), which XLA fuses; the gather form is that
+// expression, so the (L, T) contributions never reach device memory.
 //
-// Design. The stream is sorted by segment id (rows for Xv, columns for X'v),
-// so every segment is one contiguous run. Each block takes a fixed chunk of
-// kThreads * kItems entries, which balances work however skewed the
-// segments are: a hot column spreads over many blocks instead of serialising
-// onto one SM. A thread sums the runs inside its kItems entries serially; a
-// block-wide segmented scan (warp shuffles, then one value per warp in
-// shared memory) carries the run that crosses thread boundaries. A run that
-// lies wholly inside the chunk is stored once with a plain store; only the
-// chunk's first and last segments, which may continue in the neighbouring
-// chunks, are added with atomicAdd (native for float and double on sm_90).
-// The caller zero-fills the output, so empty segments stay exactly 0.
-// Lanes (the lambda path, L <= ~6) loop inside the block and share the
-// segment ids loaded once.
+// Bound. Memory: one call must read the stream (vals, idx, seg: T * (itemsize
+// + 8) bytes), the V entries it touches (L * min(T, m_hit) * itemsize), and
+// read and write the touched outputs (2 * L * S_hit * itemsize); the contrib
+// form reads (L * T) * itemsize + 4 * T and writes L * S * itemsize. Over
+// 3.35 TB/s (H100 SXM). It does two operations per entry and lane, far
+// below any compute peak. ops/segment_sum.py::min_bytes computes the bound.
 //
-// Bound. Memory-bound: it must read L*T values and T int32 ids and write
-// L*S values, (L*T + L*S) * sizeof(T) + 4*T bytes, against 3.35 TB/s on an
-// H100 SXM. It does one add per entry and lane, far below any compute peak.
+// Design, against what held the first version (PR 1) back
+// (tools/torch_segsum_probe.py times the switches named here):
+//  * Loads. The stream is cut into steps of 256 entries; lane k of a warp
+//    takes entries 8k..8k+7 of a step. A step's stream (seg; idx and vals,
+//    or each lane's contributions) reaches shared memory by 16-byte
+//    cp.async copies, neighbouring lanes on neighbouring 16-byte words (L1
+//    bypassed), through a ring of SEGSUM_DEPTH (2) steps private to the
+//    warp, so the next step is in flight while this one is scanned, with no
+//    register held per byte in flight; lanes read their entries back by
+//    16-byte loads. Scalar loads only at the stream's ragged end, or where
+//    a pointer is not 16-byte aligned.
+//  * Grid. Persistent: as many blocks as fit on the card at once (the
+//    occupancy query, cached), each warp taking every (warps)-th step, so
+//    that neighbouring warps read neighbouring memory at any time (one
+//    contiguous span per warp, or carries every 4 steps, measured slower on
+//    the column stream).
+//  * Gathers. All lanes' gathers of a step (up to four lanes a pass) are
+//    issued before its scan, so their latencies overlap. V may be
+//    lanes-major (L, m) or a lanes-minor (m, L) view, which puts an entry's
+//    lanes in one sector: the kernel takes V's two strides.
+//  * Scan. A step's segmented scan is shuffles only, its head flags taken
+//    once for all lanes (a ballot and five shift masks); each thread first
+//    sums the runs inside its 8 entries serially. No __syncthreads: warps
+//    share nothing.
+//  * Writes. A step's run ends are compacted in shared memory in stream
+//    order (one prefix sum for all lanes; one lane's sums at a time, which
+//    keeps a warp's shared memory small and the warps per SM many) and
+//    written by consecutive lanes:
+//    neighbouring segments give coalesced read-modify-writes of out (plain
+//    stores into the wrapper's zero-filled out), not one scattered 4-byte
+//    store per thread and entry.
+//  * No float atomics. Each segment has one owner. A run wholly inside a
+//    step is written as above. A step's first and last runs, which may
+//    continue in its neighbours, go to a carry stream: entries (first id,
+//    first-run sum) and (last id, last-run sum) per step, (L, 2 * steps).
+//    That stream is itself sorted, so the same kernel reduces it (contrib
+//    form, into out), level after level until one step is left: T = 29.7M
+//    entries take four launches (116K steps, then 907, then 8, then 1).
+//    The order of every sum is fixed by the shapes and the card, so the
+//    same inputs give the same bits in every run; a segment spanning every
+//    step is reduced by a tree of steps, never by one thread. Untouched
+//    segments keep their bits.
 //
 // Plain C interface, loaded with ctypes: pointers and the stream arrive as
-// void*, and each entry returns cudaGetLastError() of its launch.
+// void*, and the entry returns the first nonzero cudaGetLastError() of its
+// launches (cudaErrorInvalidValue when the workspace is too small).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kItems = 8;
-constexpr int kChunk = kThreads * kItems;
-constexpr int kWarps = kThreads / 32;
+#ifndef SEGSUM_DEPTH
+#define SEGSUM_DEPTH 2        // steps of a warp's stream in flight or ready
+#endif
+
+#ifndef SEGSUM_VEC
+#define SEGSUM_VEC 8          // entries a lane takes in a step
+#endif
+
+constexpr int kVec = SEGSUM_VEC;                // entries per lane and step
+constexpr int kStep = 32 * kVec;                // 256 entries
+constexpr int kMaxWarps = 8;                    // warps of a block, at most
+constexpr int kSmemBudget = 200 * 1024;         // a block's shared memory
+constexpr int kDepth = SEGSUM_DEPTH;
+constexpr int kEnds = kStep + 4;                // run ends a step can hold
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int64_t kCarryAlign = 4;              // carry lane stride, entries
 
 template <typename T>
-__device__ __forceinline__ void emit(T* out_l, int s, T v, int64_t S,
-                                     int first_seg, int last_seg) {
-  if (s < 0 || s >= S) return;  // ids are validated by the caller
-  if (s == first_seg || s == last_seg) {
-    atomicAdd(out_l + s, v);    // may continue in a neighbouring chunk
-  } else {
-    out_l[s] = v;               // wholly inside this chunk: one owner
+struct Params {
+  const T* vals;        // gather form (T,); contrib form (L, lane stride)
+  int64_t vals_lane;
+  const T* V;           // gather form: V[l * v_lane + idx * v_id]
+  int64_t v_lane, v_id;
+  const int* idx;
+  const int* seg;
+  T* out;               // (L, S) contiguous
+  int64_t S;
+  T* carry_val;         // (L, carry_lane): 2 entries per step; null on
+  int* carry_seg;       // the last level (one step)
+  int64_t carry_lane;
+  int64_t n;            // stream entries
+  int L, square_from, accumulate, vec;
+};
+
+// Bytes of one step of the stream in a warp's ring: seg, then idx and vals
+// (gather form) or the lanes' contributions (contrib form).
+template <typename T, int NL, bool kGather>
+__host__ __device__ constexpr int stage_bytes() {
+  return kStep * (4 + (kGather ? 4 + static_cast<int>(sizeof(T))
+                               : NL * static_cast<int>(sizeof(T))));
+}
+
+// Shared memory of one warp: its ring of kDepth steps, then the step's run
+// ends compacted (segment ids, then one lane's sums at a time).
+template <typename T, int NL, bool kGather>
+__host__ __device__ constexpr int warp_smem_bytes() {
+  return kDepth * stage_bytes<T, NL, kGather>() +
+         kEnds * (4 + static_cast<int>(sizeof(T)));
+}
+
+// Warps of a block: as many as the shared-memory budget holds, up to 8.
+template <typename T, int NL, bool kGather>
+__host__ __device__ constexpr int block_warps() {
+  return kSmemBudget / warp_smem_bytes<T, NL, kGather>() >= kMaxWarps
+             ? kMaxWarps
+             : (kSmemBudget / warp_smem_bytes<T, NL, kGather>() > 0
+                    ? kSmemBudget / warp_smem_bytes<T, NL, kGather>()
+                    : 1);
+}
+
+// kVec consecutive U of shared memory from a 16-byte boundary, by 16-byte
+// loads.
+template <typename U>
+__device__ __forceinline__ void lds_vec(const U* p, U (&d)[kVec]) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(U));
+  static_assert(kVec % kPer == 0, "a lane's entries fill 16-byte words");
+#pragma unroll
+  for (int w = 0; w < kVec / kPer; ++w) {
+    const int4 v = reinterpret_cast<const int4*>(p)[w];
+    const U* u = reinterpret_cast<const U*>(&v);
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) d[w * kPer + e] = u[e];
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-segment_sum_sorted_kernel(const T* __restrict__ contrib,
-                          const int* __restrict__ seg, T* __restrict__ out,
-                          int64_t L, int64_t n, int64_t S) {
-  __shared__ int s_first[kThreads];
-  __shared__ int s_last[kThreads];
-  __shared__ T s_scan[kThreads];
-  __shared__ T s_warp_val[kWarps];
-  __shared__ int s_warp_flag[kWarps];
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kChunk;
-  const int64_t end = (n - base < kChunk) ? n : base + kChunk;
-  const int first_seg = seg[base];
-  const int last_seg = seg[end - 1];
-  const int64_t t0 = base + static_cast<int64_t>(tid) * kItems;
-
-  // Entries past the end of the stream join the last segment with value 0.
-  int sg[kItems];
+// kStep * sizeof(U) bytes from global to a warp's stage: 16-byte copies,
+// neighbouring lanes on neighbouring words.
+template <typename U>
+__device__ __forceinline__ void copy_row(U* dst, const U* src, int lane) {
+  constexpr int kWords = kStep * static_cast<int>(sizeof(U)) / 16;
 #pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = t0 + k;
-    sg[k] = (i < end) ? seg[i] : last_seg;
+  for (int w = lane; w < kWords; w += 32)
+    cp_async16(reinterpret_cast<char*>(dst) + 16 * w,
+               reinterpret_cast<const char*>(src) + 16 * w);
+}
+
+// Stage one step (entries sbase .. sbase + kStep) of a warp's stream. Full
+// steps of aligned streams by cp.async; the stream's ragged end, or
+// unaligned pointers, by scalar loads, entries past the end joining its
+// last segment with value 0 (idx -1: no gather).
+template <typename T, int NL, bool kGather>
+__device__ __forceinline__ void stage_step(const Params<T>& p, char* stage,
+                                           int64_t sbase, int l0,
+                                           int seg_pad, int lane) {
+  int* sg = reinterpret_cast<int*>(stage);
+  int* id = sg + kStep;
+  T* tv = reinterpret_cast<T*>(sg + (kGather ? 2 : 1) * kStep);
+  if (sbase + kStep <= p.n && p.vec) {
+    copy_row(sg, p.seg + sbase, lane);
+    if constexpr (kGather) {
+      copy_row(id, p.idx + sbase, lane);
+      copy_row(tv, p.vals + sbase, lane);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NL; ++j)
+        if (l0 + j < p.L)
+          copy_row(tv + j * kStep, p.vals + (l0 + j) * p.vals_lane + sbase,
+                   lane);
+    }
+    return;
   }
-  s_first[tid] = sg[0];
-  s_last[tid] = sg[kItems - 1];
-  __syncthreads();
-
-  bool multi = false;
+  for (int k = lane; k < kStep; k += 32) {
+    const int64_t i = sbase + k;
+    const bool in = i < p.n;
+    sg[k] = in ? p.seg[i] : seg_pad;
+    if constexpr (kGather) {
+      id[k] = in ? p.idx[i] : -1;
+      tv[k] = in ? p.vals[i] : T(0);
+    } else {
 #pragma unroll
-  for (int k = 1; k < kItems; ++k) multi |= (sg[k] != sg[k - 1]);
-  // carries_in: this thread's first run started in an earlier thread.
-  const bool carries_in = tid > 0 && sg[0] == s_last[tid - 1];
-  // head: this thread's last run starts inside this thread.
-  const int head = (!carries_in || multi) ? 1 : 0;
-  // ends_here: this thread's last run does not continue into the next one.
-  const bool ends_here =
-      tid == kThreads - 1 || s_first[tid + 1] != sg[kItems - 1];
+      for (int j = 0; j < NL; ++j)
+        if (l0 + j < p.L)
+          tv[j * kStep + k] = in ? p.vals[(l0 + j) * p.vals_lane + i] : T(0);
+    }
+  }
+}
 
-  for (int64_t l = 0; l < L; ++l) {
-    const T* c = contrib + l * n;
-    T* o = out + l * S;
-    T v[kItems];
+// Shift masks of the segmented Hillis-Steele scan across the warp: bit k set
+// when this lane adds the partial of lane - 2^k, i.e. no run starts in
+// lanes (lane - 2^k, lane]. `heads` holds one bit per lane.
+__device__ __forceinline__ unsigned scan_takes(unsigned heads, int lane) {
+  unsigned takes = 0;
 #pragma unroll
-    for (int k = 0; k < kItems; ++k) {
-      const int64_t i = t0 + k;
-      v[k] = (i < end) ? c[i] : T(0);
+  for (int k = 0; k < 5; ++k) {
+    const int d = 1 << k;
+    if (lane >= d && ((heads >> (lane - d + 1)) & ((1u << d) - 1u)) == 0)
+      takes |= 1u << k;
+  }
+  return takes;
+}
+
+template <typename T>
+__device__ __forceinline__ T warp_scan(T v, unsigned takes) {
+#pragma unroll
+  for (int k = 0; k < 5; ++k) {
+    const T o = __shfl_up_sync(kFull, v, 1 << k);
+    if ((takes >> k) & 1u) v += o;
+  }
+  return v;
+}
+
+template <typename T, int NL, bool kGather>
+__global__ void __launch_bounds__(kMaxWarps * 32)
+segment_sum_kernel(const Params<T> p) {
+  constexpr int kWarps = block_warps<T, NL, kGather>();
+  extern __shared__ __align__(16) char smem[];
+  constexpr int kStage = stage_bytes<T, NL, kGather>();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  char* ring = smem + warp * warp_smem_bytes<T, NL, kGather>();
+  int* end_seg = reinterpret_cast<int*>(ring + kDepth * kStage);
+  T* end_val = reinterpret_cast<T*>(end_seg + kEnds);   // [kEnds]
+  // The warp takes steps first, first + stride, ...: neighbouring warps
+  // read neighbouring memory at any time.
+  const int64_t nsteps = (p.n + kStep - 1) / kStep;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
+  if (first >= nsteps) return;                   // the whole warp
+  const int seg_pad = __ldg(p.seg + p.n - 1);
+  const bool last_level = p.carry_val == nullptr;
+
+  for (int l0 = 0; l0 < p.L; l0 += NL) {
+#pragma unroll
+    for (int q = 0; q < kDepth - 1; ++q) {
+      if (first + q * stride < nsteps)
+        stage_step<T, NL, kGather>(p, ring + q * kStage,
+                                   (first + q * stride) * kStep, l0, seg_pad,
+                                   lane);
+      cp_async_commit();
     }
 
-    // Sum of this thread's last run, over this thread's entries only.
-    T run = v[0];
-#pragma unroll
-    for (int k = 1; k < kItems; ++k) run = (sg[k] != sg[k - 1]) ? v[k] : run + v[k];
-
-    // Block-wide inclusive segmented scan of (head, run): after it, sv is
-    // the sum of the run ending at this thread's last entry, from the
-    // run's start inside the chunk.
-    T sv = run;
-    int sf = head;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const T ov = __shfl_up_sync(0xffffffffu, sv, d);
-      const int of = __shfl_up_sync(0xffffffffu, sf, d);
-      if (lane >= d) {
-        if (!sf) sv += ov;
-        sf |= of;
+#pragma unroll 1
+    for (int64_t q = 0, step = first; step < nsteps; ++q, step += stride) {
+      __syncwarp();      // every lane is done with the slot refilled here
+      const int64_t ahead = step + (kDepth - 1) * stride;
+      if (ahead < nsteps)
+        stage_step<T, NL, kGather>(p, ring + ((q + kDepth - 1) % kDepth) *
+                                              kStage,
+                                   ahead * kStep, l0, seg_pad, lane);
+      cp_async_commit();
+      cp_async_wait<kDepth - 1>();   // this lane's copies of this step
+      __syncwarp();                  // ... and every lane's
+      const char* stage = ring + (q % kDepth) * kStage;
+      const int* ssg = reinterpret_cast<const int*>(stage);
+      const T* stv = reinterpret_cast<const T*>(
+          ssg + (kGather ? 2 : 1) * kStep);
+      int sg[kVec];
+      lds_vec(ssg + lane * kVec, sg);
+      if (!last_level && l0 == 0) {              // the step's end ids
+        if (lane == 0) p.carry_seg[2 * step] = sg[0];
+        if (lane == 31) p.carry_seg[2 * step + 1] = sg[kVec - 1];
       }
-    }
-    if (lane == 31) {
-      s_warp_val[warp] = sv;
-      s_warp_flag[warp] = sf;
-    }
-    __syncthreads();
-    if (!sf) {  // the run reaches back past this warp's first thread
-      T acc = T(0);
-      for (int w = warp - 1; w >= 0; --w) {
-        acc += s_warp_val[w];
-        if (s_warp_flag[w]) break;
-      }
-      sv += acc;
-    }
-    s_scan[tid] = sv;
-    __syncthreads();
 
-    // Emit every run that ends inside this thread's entries.
-    T acc = (carries_in ? s_scan[tid - 1] : T(0)) + v[0];
+      // contributions (every lane's gathers issued before the scan)
+      T c[NL][kVec];
+      if constexpr (kGather) {
+        int id[kVec];
+        lds_vec(ssg + kStep + lane * kVec, id);
+        T tv[kVec];
+        lds_vec(stv + lane * kVec, tv);
 #pragma unroll
-    for (int k = 1; k < kItems; ++k) {
-      if (sg[k] != sg[k - 1]) {
-        emit(o, sg[k - 1], acc, S, first_seg, last_seg);
-        acc = v[k];
+        for (int j = 0; j < NL; ++j) {
+          const int l = l0 + j;
+          const bool sq = l >= p.square_from;
+#pragma unroll
+          for (int k = 0; k < kVec; ++k) {
+            T v = T(0);
+            if (l < p.L && id[k] >= 0) {
+              const T w = sq ? tv[k] * tv[k] : tv[k];
+              v = w * __ldg(p.V + l * p.v_lane + id[k] * p.v_id);
+            }
+            c[j][k] = v;
+          }
+        }
       } else {
-        acc += v[k];
+#pragma unroll
+        for (int j = 0; j < NL; ++j) {
+          const bool sq = l0 + j >= p.square_from;
+          if (l0 + j < p.L) {
+            lds_vec(stv + j * kStep + lane * kVec, c[j]);
+          } else {
+#pragma unroll
+            for (int k = 0; k < kVec; ++k) c[j][k] = T(0);
+          }
+#pragma unroll
+          for (int k = 0; k < kVec; ++k)
+            if (sq) c[j][k] *= c[j][k];
+        }
+      }
+
+      // run structure, the same for every lane l (every shuffle runs on
+      // all 32 lanes): hb = a run starts at this entry, eb = a run ends at
+      // this entry, fr = the entry is in the step's first run
+      const int up = __shfl_up_sync(kFull, sg[kVec - 1], 1);
+      int prev = lane > 0 ? up : sg[0];
+      unsigned hb = 0;
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        if (sg[k] != prev) hb |= 1u << k;
+        prev = sg[k];
+      }
+      const unsigned down = __shfl_down_sync(kFull, hb & 1u, 1);
+      const unsigned eb = (hb >> 1) | ((lane < 31 ? down : 1u) << (kVec - 1));
+      const unsigned heads = __ballot_sync(kFull, hb != 0);
+      const unsigned takes = scan_takes(heads, lane);
+      unsigned fr = 0;
+      if ((heads & ((1u << lane) - 1u)) == 0)
+        fr = hb ? (1u << (__ffs(hb) - 1)) - 1u : (1u << kVec) - 1u;
+      // the step's last entry ends its last run
+      const unsigned last = lane == 31 ? 1u << (kVec - 1) : 0u;
+      // Run ends written to out: all of them on the last level (one step),
+      // else those of runs wholly inside the step. They are compacted in
+      // shared memory, in stream order, and written by consecutive lanes,
+      // so neighbouring segments give coalesced read-modify-writes. The
+      // step's first and last runs go to the carry stream instead.
+      const unsigned ib = last_level ? eb : eb & ~fr & ~last;
+      const int cnt = __popc(ib);
+      int incl_cnt = cnt;
+#pragma unroll
+      for (int k = 0; k < 5; ++k) {
+        const int o = __shfl_up_sync(kFull, incl_cnt, 1 << k);
+        if (lane >= (1 << k)) incl_cnt += o;
+      }
+      const int at = incl_cnt - cnt;            // this thread's first slot
+      const int total = __shfl_sync(kFull, incl_cnt, 31);
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        if ((ib >> k) & 1u)
+          end_seg[at + __popc(ib & ((1u << k) - 1u))] = sg[k];
+
+#pragma unroll
+      for (int j = 0; j < NL; ++j) {
+        const int l = l0 + j;
+        if (l >= p.L) break;
+        T tail = T(0);      // this thread's last run, its own entries only
+#pragma unroll
+        for (int k = 0; k < kVec; ++k)
+          tail = ((hb >> k) & 1u) ? c[j][k] : tail + c[j][k];
+        const T incl = warp_scan(tail, takes);
+        T acc = __shfl_up_sync(kFull, incl, 1);
+        if (lane == 0) acc = T(0);
+        if (j > 0) __syncwarp();   // the previous lane's sums are written
+#pragma unroll
+        for (int k = 0; k < kVec; ++k) {
+          acc = ((hb >> k) & 1u) ? c[j][k] : acc + c[j][k];
+          if ((ib >> k) & 1u) {
+            end_val[at + __popc(ib & ((1u << k) - 1u))] = acc;
+          } else if (!last_level && ((eb >> k) & 1u)) {
+            T* cv = p.carry_val + l * p.carry_lane + 2 * step;
+            if ((last >> k) & 1u) {
+              cv[1] = acc;                       // the step's last run
+              if (heads == 0) cv[0] = T(0);      // ... is also its first
+            } else {
+              cv[0] = acc;                       // the step's first run
+            }
+          }
+        }
+        __syncwarp();
+        for (int i = lane; i < total; i += 32) {
+          const int sid = end_seg[i];
+          if (sid < 0 || sid >= p.S) continue;   // ids are validated by the
+          T* o = p.out + l * p.S + sid;          // caller; others drop
+#ifdef SEGSUM_ABLATE_NO_STORE
+          if (end_val[i] == T(12345)) *o = T(0);   // probe only
+#else
+          *o = p.accumulate ? *o + end_val[i] : end_val[i];
+#endif
+        }
       }
     }
-    if (ends_here) emit(o, sg[kItems - 1], acc, S, first_seg, last_seg);
-    __syncthreads();  // shared scan buffers are reused by the next lane
+    cp_async_wait<0>();
+    __syncwarp();        // the ring is refilled by the next lane pass
   }
 }
 
+// Lanes a pass takes: L up to 4, else 3 or 4 (the 2L = 6 lanes of the
+// gradient + diagonal pass as two passes of 3: more warps per SM, whose
+// gathers in flight matter more than the re-read stream).
+int lanes_per_pass(int L) {
+  if (L <= 4) return L;
+  return L % 3 == 0 ? 3 : 4;
+}
+
+int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
+int64_t round_up(int64_t a, int64_t b) { return ceil_div(a, b) * b; }
+
+template <typename T, int NL, bool kGather>
+constexpr int smem_bytes() {
+  return block_warps<T, NL, kGather>() * warp_smem_bytes<T, NL, kGather>();
+}
+
+// Warps of kernel <T, NL, kGather> that fit on the card at once (blocks per
+// SM from the occupancy query, times the SMs); 0 when a query fails. Asked
+// once per build: a process drives one kind of card.
+template <typename T, int NL, bool kGather>
+int64_t warps_on_card() {
+  static int64_t warps = 0;
+  if (warps == 0) {
+    auto* kernel = segment_sum_kernel<T, NL, kGather>;
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_bytes<T, NL, kGather>()) != cudaSuccess ||
+        cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, kernel, 32 * block_warps<T, NL, kGather>(),
+            smem_bytes<T, NL, kGather>()) != cudaSuccess)
+      return 0;
+    warps = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1) *
+            block_warps<T, NL, kGather>();
+  }
+  return warps;
+}
+
+template <typename T, bool kGather>
+int64_t level_block_warps(int L) {
+  switch (lanes_per_pass(L)) {
+    case 1: return block_warps<T, 1, kGather>();
+    case 2: return block_warps<T, 2, kGather>();
+    case 3: return block_warps<T, 3, kGather>();
+    default: return block_warps<T, 4, kGather>();
+  }
+}
+
+template <typename T, bool kGather>
+int64_t level_warps(int L) {
+  switch (lanes_per_pass(L)) {
+    case 1: return warps_on_card<T, 1, kGather>();
+    case 2: return warps_on_card<T, 2, kGather>();
+    case 3: return warps_on_card<T, 3, kGather>();
+    default: return warps_on_card<T, 4, kGather>();
+  }
+}
+
+// One level's launch: its steps and the persistent grid's blocks (no more
+// warps than fit on the card at once, nor than steps); zero steps when the
+// occupancy query fails.
+struct Plan {
+  int64_t steps, blocks;
+};
+
 template <typename T>
-int launch(const void* contrib, const void* seg, void* out, long long L,
-           long long n, long long S, void* stream) {
-  if (L <= 0 || n <= 0) return 0;
-  const long long blocks = (n + kChunk - 1) / kChunk;
-  segment_sum_sorted_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(contrib), static_cast<const int*>(seg),
-      static_cast<T*>(out), L, n, S);
-  return static_cast<int>(cudaGetLastError());
+Plan level_plan(int64_t n, int L, bool gather) {
+  const int64_t warps = gather ? level_warps<T, true>(L)
+                               : level_warps<T, false>(L);
+  if (warps <= 0) return {0, 0};
+  const int64_t steps = ceil_div(n, kStep);
+  const int64_t per_block = gather ? level_block_warps<T, true>(L)
+                                   : level_block_warps<T, false>(L);
+  return {steps, ceil_div(steps < warps ? steps : warps, per_block)};
+}
+
+int64_t carry_lane(int64_t steps) { return round_up(2 * steps, kCarryAlign); }
+
+int64_t carry_bytes(int64_t steps, int64_t L, int64_t itemsize) {
+  return round_up(L * carry_lane(steps) * itemsize, 16) +
+         round_up(carry_lane(steps) * 4, 16);
+}
+
+// Bytes of carry stream all levels need; -1 on a failed query.
+template <typename T>
+int64_t workspace(int64_t n, int64_t L, bool gather) {
+  int64_t total = 0;
+  for (bool first = true;; first = false) {
+    const Plan plan = level_plan<T>(n, static_cast<int>(L), first && gather);
+    if (plan.steps == 0) return -1;
+    if (plan.steps == 1) return total;
+    total += carry_bytes(plan.steps, L, sizeof(T));
+    n = 2 * plan.steps;
+  }
+}
+
+template <typename T, int NL, bool kGather>
+void launch_kernel(const Params<T>& p, int64_t blocks, cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes<T, NL, kGather>();
+  const dim3 grid(static_cast<unsigned>(blocks));
+  constexpr int kThreads = 32 * block_warps<T, NL, kGather>();
+  segment_sum_kernel<T, NL, kGather><<<grid, kThreads, kSmem, stream>>>(p);
+}
+
+template <typename T, bool kGather>
+cudaError_t launch_level(const Params<T>& p, int64_t blocks,
+                         cudaStream_t stream) {
+  switch (lanes_per_pass(p.L)) {
+    case 1: launch_kernel<T, 1, kGather>(p, blocks, stream); break;
+    case 2: launch_kernel<T, 2, kGather>(p, blocks, stream); break;
+    case 3: launch_kernel<T, 3, kGather>(p, blocks, stream); break;
+    default: launch_kernel<T, 4, kGather>(p, blocks, stream); break;
+  }
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* ptr) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
+}
+
+template <typename T>
+int run(const void* vals, long long vals_lane, const void* V,
+        long long v_lane, long long v_id, const void* idx, const void* seg,
+        void* out, long long L, long long n, long long S,
+        long long square_from, int accumulate, void* workspace_ptr,
+        long long workspace_bytes, void* stream_ptr) {
+  if (L <= 0 || n <= 0 || S <= 0) return 0;
+  const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const bool gather = V != nullptr;
+  Params<T> p{};
+  p.vals = static_cast<const T*>(vals);
+  p.vals_lane = vals_lane;
+  p.V = static_cast<const T*>(V);
+  p.v_lane = v_lane;
+  p.v_id = v_id;
+  p.idx = static_cast<const int*>(idx);
+  p.seg = static_cast<const int*>(seg);
+  p.out = static_cast<T*>(out);
+  p.S = S;
+  p.n = n;
+  p.L = static_cast<int>(L);
+  p.square_from = static_cast<int>(square_from < L ? square_from : L);
+  p.accumulate = accumulate;
+  p.vec = aligned16(vals) && aligned16(seg) &&
+          (gather ? aligned16(idx)
+                  : (vals_lane * static_cast<long long>(sizeof(T))) % 16 == 0);
+  char* ws = static_cast<char*>(workspace_ptr);
+  int64_t used = 0;
+  for (bool first = true;; first = false) {
+    const Plan plan = level_plan<T>(p.n, p.L, first && gather);
+    if (plan.steps == 0) return static_cast<int>(cudaGetLastError());
+    const int64_t steps = plan.steps;
+    p.carry_val = nullptr;
+    p.carry_seg = nullptr;
+    p.carry_lane = 0;
+    if (steps > 1) {
+      p.carry_lane = carry_lane(steps);
+      const int64_t bytes = carry_bytes(steps, L, sizeof(T));
+      if (used + bytes > workspace_bytes) return cudaErrorInvalidValue;
+      p.carry_val = reinterpret_cast<T*>(ws + used);
+      p.carry_seg = reinterpret_cast<int*>(
+          ws + used + round_up(L * p.carry_lane * sizeof(T), 16));
+      used += bytes;
+    }
+    const cudaError_t err =
+        (first && gather) ? launch_level<T, true>(p, plan.blocks, stream)
+                          : launch_level<T, false>(p, plan.blocks, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (steps == 1) return 0;
+    // the carry stream: (L, 2 * steps) partial sums, added into out
+    p.vals = p.carry_val;
+    p.vals_lane = p.carry_lane;
+    p.V = nullptr;
+    p.idx = nullptr;
+    p.seg = p.carry_seg;
+    p.n = 2 * steps;
+    p.square_from = p.L;
+    p.accumulate = 1;
+    p.vec = 1;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// contrib (L, n) row-major, seg (n,) int32 non-decreasing, out (L, S)
-// zero-filled by the caller. Returns cudaGetLastError() after the launch.
-int segment_sum_sorted_f32(const void* contrib, const void* seg, void* out,
-                           long long L, long long n, long long S,
-                           void* stream) {
-  return launch<float>(contrib, seg, out, L, n, S, stream);
+// vals: the gather form's (n,) entry values, or the contrib form's (L, n)
+// contributions with lane stride vals_lane. V: null for the contrib form,
+// else read as V[l * v_lane + idx[i] * v_id]. seg (n,) int32 non-decreasing;
+// out (L, S) contiguous, added into when accumulate is nonzero, else
+// zero-filled by the caller. workspace: segment_sum_workspace_bytes(n, L,
+// itemsize) bytes. Returns 0 or the first CUDA error of the launches.
+int segment_sum_f32(const void* vals, long long vals_lane, const void* V,
+                    long long v_lane, long long v_id, const void* idx,
+                    const void* seg, void* out, long long L, long long n,
+                    long long S, long long square_from, int accumulate,
+                    void* workspace, long long workspace_bytes,
+                    void* stream) {
+  return run<float>(vals, vals_lane, V, v_lane, v_id, idx, seg, out, L, n,
+                    S, square_from, accumulate, workspace, workspace_bytes,
+                    stream);
 }
 
-int segment_sum_sorted_f64(const void* contrib, const void* seg, void* out,
-                           long long L, long long n, long long S,
-                           void* stream) {
-  return launch<double>(contrib, seg, out, L, n, S, stream);
+int segment_sum_f64(const void* vals, long long vals_lane, const void* V,
+                    long long v_lane, long long v_id, const void* idx,
+                    const void* seg, void* out, long long L, long long n,
+                    long long S, long long square_from, int accumulate,
+                    void* workspace, long long workspace_bytes,
+                    void* stream) {
+  return run<double>(vals, vals_lane, V, v_lane, v_id, idx, seg, out, L, n,
+                     S, square_from, accumulate, workspace, workspace_bytes,
+                     stream);
+}
+
+// Bytes of carry stream that segment_sum_f32/f64 need for n entries and L
+// lanes, gather form or not (the wrapper allocates them); -1 when the
+// occupancy query fails.
+long long segment_sum_workspace_bytes(long long n, long long L,
+                                      long long itemsize, int gather) {
+  if (n <= 0 || L <= 0) return 0;
+  return itemsize == 8 ? workspace<double>(n, L, gather != 0)
+                       : workspace<float>(n, L, gather != 0);
 }
 
 }  // extern "C"

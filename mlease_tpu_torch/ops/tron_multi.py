@@ -8,10 +8,11 @@ accept/reject) are (L,) tensors; the JAX package's `lax.while_loop`s become
 host loops whose condition (`any(active)`) is read back once per trip.
 
 Internally the state is lanes-major, (L, n) and (L, R); the public contract
-is the JAX one, (n, L) in and (n, L) out. The sorted sparse-tail reduces go
-through `ops.segment_sum.segment_sum_sorted`, the hand-written kernel on the
-card (no size gate: every sorted-tail reduce takes it); the ELL and unsorted
-tail scatters use `index_add_`, as XLA's scatter does.
+is the JAX one, (n, L) in and (n, L) out. Each sorted sparse-tail reduce is
+one call of `ops.segment_sum.segment_sum_gather`, the hand-written kernel on
+the card that gathers, weights and reduces the tail into the pass's output
+in place (no size gate: every sorted-tail reduce takes it); the ELL and
+unsorted tail scatters use `index_add_`, as XLA's scatter does.
 
 precondition="head_block" solves the dense-head curvature block exactly:
 its (L, H, H) build is the weighted-Gram kernel of ops/gram.py with one
@@ -26,7 +27,7 @@ from typing import NamedTuple
 import torch
 
 from mlease_tpu_torch.ops.gram import gram_batched
-from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+from mlease_tpu_torch.ops.segment_sum import segment_sum_gather
 
 # Trust-region update constants (Tron.java:31-35), as in mlease_tpu/ops/tron.py
 ETA0, ETA1, ETA2 = 1e-4, 0.25, 0.75
@@ -67,12 +68,14 @@ class MultiProblem(NamedTuple):
         return self.prior_mean.shape[1]
 
 
-def _check_sorted(ids: torch.Tensor, bound: int, name: str) -> None:
-    """The tail reduces need truly non-decreasing ids inside [0, bound)."""
+def _check_ids(ids: torch.Tensor, bound: int, name: str,
+               is_sorted: bool = False) -> None:
+    """The tail reduces need ids inside [0, bound) (the kernel gathers
+    without a bounds check), and segment ids truly non-decreasing."""
     if ids.numel() == 0:
         return
-    bad = torch.stack([(ids[1:] < ids[:-1]).any(), ids.min() < 0,
-                       ids.max() >= bound]).cpu()
+    bad = torch.stack([(ids[1:] < ids[:-1]).any() & is_sorted,
+                       ids.min() < 0, ids.max() >= bound]).cpu()
     if bool(bad[0]):
         raise ValueError(f"{name} must be non-decreasing (sorted tail)")
     if bool(bad[1]) or bool(bad[2]):
@@ -98,7 +101,7 @@ def stack_blocks(indices, values, y, weight, offset, head,
     of hybrid arrays (all (B, ...) or None); prior_mean (L, B, n); rho_eff
     (L,). Per-block sorted tails stay globally sorted because block-major
     offsets are monotone; this is checked here, once, together with the id
-    ranges, since the sorted-stream kernel relies on both."""
+    ranges of both streams, since the sorted-stream kernel relies on both."""
     (head_x, head_ids, t_rows, t_cols, t_vals,
      tc_rows, tc_cols, tc_vals) = head
     B, R, K = indices.shape
@@ -116,13 +119,16 @@ def stack_blocks(indices, values, y, weight, offset, head,
             tail_rows=(t_rows + boffs_r).reshape(-1),
             tail_cols=(t_cols + boffs_n).reshape(-1),
             tail_vals=t_vals.reshape(-1))
-        _check_sorted(kw["tail_rows"], B * R, "tail_rows")
+        _check_ids(kw["tail_rows"], B * R, "tail_rows", is_sorted=True)
+        _check_ids(kw["tail_cols"], B * n, "tail_cols")
         if tc_cols is not None:
             kw.update(
                 tail_c_rows=(tc_rows + boffs_r).reshape(-1),
                 tail_c_cols=(tc_cols + boffs_n).reshape(-1),
                 tail_c_vals=tc_vals.reshape(-1))
-            _check_sorted(kw["tail_c_cols"], B * n, "tail_c_cols")
+            _check_ids(kw["tail_c_cols"], B * n, "tail_c_cols",
+                       is_sorted=True)
+            _check_ids(kw["tail_c_rows"], B * R, "tail_c_rows")
     prob = MultiProblem(
         indices=(indices + boffs_n[..., None]).reshape(B * R, K),
         values=values.reshape(B * R, K),
@@ -174,8 +180,8 @@ def _xv_lm(prob: MultiProblem, V: torch.Tensor) -> torch.Tensor:
         else:
             out = out + hw @ hx.T
     if prob.tail_cols is not None:
-        out = out + segment_sum_sorted(
-            prob.tail_vals[None, :] * V[:, prob.tail_cols], prob.tail_rows, R)
+        segment_sum_gather(prob.tail_vals, V, prob.tail_cols, prob.tail_rows,
+                           R, out=out)
     return out
 
 
@@ -190,9 +196,8 @@ def _xtv_lm(prob: MultiProblem, D: torch.Tensor) -> torch.Tensor:
     if prob.head_x is not None:
         out.index_add_(1, prob.head_ids, _head_t(_head(prob, D.dtype), D))
     if prob.tail_c_cols is not None:
-        out = out + segment_sum_sorted(
-            prob.tail_c_vals[None, :] * D[:, prob.tail_c_rows],
-            prob.tail_c_cols, n)
+        segment_sum_gather(prob.tail_c_vals, D, prob.tail_c_rows,
+                           prob.tail_c_cols, n, out=out)
     elif prob.tail_cols is not None:
         out = out + torch.zeros_like(out).index_add_(
             1, prob.tail_cols, prob.tail_vals[None, :] * D[:, prob.tail_rows])
@@ -217,10 +222,8 @@ def _xtv_and_sqdiag_lm(prob: MultiProblem, C: torch.Tensor,
                        torch.cat([_head_t(hx, C), _head_t(hx * hx, Dm)]))
     CD = torch.cat([C, Dm])
     if prob.tail_c_cols is not None:
-        tv = prob.tail_c_vals[None, :]
-        rows = CD[:, prob.tail_c_rows]
-        contrib = torch.cat([tv * rows[:L], (tv * tv) * rows[L:]])
-        out = out + segment_sum_sorted(contrib, prob.tail_c_cols, n)
+        segment_sum_gather(prob.tail_c_vals, CD, prob.tail_c_rows,
+                           prob.tail_c_cols, n, out=out, square_from=L)
     elif prob.tail_cols is not None:
         tv = prob.tail_vals[None, :]
         rows = CD[:, prob.tail_rows]

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: `segment_sum_sorted` and
-`gram_batched` against their plain versions, and the trainers on the card
+"""The port's CUDA kernels on the card: `segment_sum_gather` (and its
+contrib form `segment_sum_sorted`) and `gram_batched` against their plain
+versions, and the trainers on the card
 against the same trainers on the CPU.
 
 Every test here needs a CUDA device and skips without one. The file imports
@@ -7,9 +8,11 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Tolerances: per segment |kernel - ref64| <= 1e-5 * sum|contrib| in float32
-(a float32 sum of k terms in another order differs by a few k*eps relative
-to the sum of magnitudes) and 1e-12 in float64; the trainer's float64 z to
+Tolerances: per segment |kernel - ref64| <= 1e-5 * (|out0| + sum|contrib|)
+in float32 (a float32 sum of k terms in another order differs by a few
+k*eps relative to the sum of magnitudes; out0 is the accumulator's value
+before the call) and 1e-12 in float64; segments the stream does not touch
+keep their bits; the trainer's float64 z to
 1e-8, as the CPU port is held to the JAX trainer. The Gram kernel likewise:
 per entry |G - G64| <= 1e-5 * sum_r |d x_i x_j| for float32 and bfloat16
 inputs (the float64 reference is taken from the bf16-rounded inputs, so
@@ -23,11 +26,10 @@ import torch
 from mlease_tpu_torch.ops import _build
 from mlease_tpu_torch.ops import gram as gram_mod
 from mlease_tpu_torch.ops.gram import gram_batched, gram_batched_reference
-from mlease_tpu_torch.ops.segment_sum import (segment_sum_sorted,
+from mlease_tpu_torch.ops.segment_sum import (CHUNK, segment_sum_gather,
+                                              segment_sum_gather_reference,
+                                              segment_sum_sorted,
                                               segment_sum_sorted_reference)
-
-# one kernel block's chunk of entries (kThreads * kItems in the source)
-CHUNK = 256 * 8
 
 
 @pytest.fixture
@@ -57,7 +59,7 @@ def zipf_stream(rng, T, S):
                                          (torch.float32, 3, 1e-5),
                                          (torch.float32, 6, 1e-5),
                                          (torch.float64, 6, 1e-12)])
-def test_zipf_stream(cuda, dtype, L, tol):
+def test_segment_sum_zipf_stream(cuda, dtype, L, tol):
     rng = np.random.default_rng(L)
     seg = torch.as_tensor(zipf_stream(rng, 200_000, 50_000), device=cuda)
     contrib = torch.as_tensor(rng.normal(size=(L, seg.numel())), dtype=dtype,
@@ -70,7 +72,7 @@ def test_zipf_stream(cuda, dtype, L, tol):
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1, 31, CHUNK - 1, CHUNK, CHUNK + 1,
                                3 * CHUNK + 7])
-def test_chunk_edges(cuda, T):
+def test_segment_sum_chunk_edges(cuda, T):
     """Streams ending inside, at and just past a block's chunk, with runs
     that cross thread, warp and chunk boundaries."""
     rng = np.random.default_rng(T)
@@ -100,13 +102,162 @@ def test_empty_segments_exact_zero_and_one_giant_segment(cuda):
 
 
 @pytest.mark.cuda
-def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+def test_segment_sum_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     seg = torch.zeros(8, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError, match="float32 or float64"):
         segment_sum_sorted(torch.ones((2, 8), dtype=torch.float16,
                                       device=cuda), seg, 4)
     with pytest.raises(ValueError, match="one device"):
         segment_sum_sorted(torch.ones((2, 8)), seg, 4)
+
+
+def check_gather(vals, V, idx, seg, S, tol, out0=None, square_from=None):
+    """The fused call against the float64 plain version, accumulator
+    included; returns the result."""
+    got = segment_sum_gather(
+        vals, V, idx, seg, S, square_from=square_from,
+        out=None if out0 is None else out0.clone())
+    f64 = (lambda t: None if t is None else t.double())       # noqa: E731
+    absf = (lambda t: None if t is None else t.double().abs())  # noqa: E731
+    ref = segment_sum_gather_reference(f64(vals), f64(V), idx, seg, S,
+                                       out=None if out0 is None
+                                       else f64(out0).clone(),
+                                       square_from=square_from)
+    scale = segment_sum_gather_reference(absf(vals), absf(V), idx, seg, S,
+                                         out=None if out0 is None
+                                         else absf(out0),
+                                         square_from=square_from)
+    torch.cuda.synchronize()
+    L = (V if V is not None else vals).shape[0]
+    assert got.dtype == vals.dtype and got.shape == (L, S)
+    err = (got.double() - ref).abs()
+    assert bool((err <= tol * scale).all()), float(err.max())
+    if out0 is not None:                  # untouched segments keep their bits
+        hit = torch.zeros(S, dtype=torch.bool, device=seg.device)
+        hit[seg.long()] = True
+        assert torch.equal(got[:, ~hit], out0[:, ~hit])
+    return got
+
+
+def gather_inputs(rng, T, S, m, L, dtype, cuda, zipf=True):
+    seg = (zipf_stream(rng, T, S) if zipf
+           else np.sort(rng.integers(0, S, T)).astype(np.int32))
+    t = lambda a, dt=dtype: torch.as_tensor(a, dtype=dt, device=cuda)  # noqa
+    return (t(rng.normal(size=T)), t(rng.normal(size=(L, m))),
+            t(rng.integers(0, m, T), torch.int32), t(seg, torch.int32),
+            t(rng.normal(size=(L, S))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,L,tol", [(torch.float32, 1, 1e-5),
+                                         (torch.float32, 3, 1e-5),
+                                         (torch.float32, 6, 1e-5),
+                                         (torch.float64, 3, 1e-12),
+                                         (torch.float64, 6, 1e-12)])
+@pytest.mark.parametrize("lanes_minor", [False, True])
+def test_segment_gather_zipf_stream_into_accumulator(cuda, dtype, L, tol,
+                                                     lanes_minor):
+    """The fused gather + weight + reduce into a non-zero accumulator, with
+    the last L // 2 lanes squared, as the gradient + diagonal pass calls it,
+    from V lanes-major or a lanes-minor view (the same bits); untouched
+    segments keep their bits."""
+    rng = np.random.default_rng(100 + L)
+    vals, V, idx, seg, out0 = gather_inputs(rng, 300_000, 60_000, 40_000, L,
+                                            dtype, cuda)
+    Vm = V.t().contiguous().t()
+    before = segment_sum_sorted.launches
+    got = check_gather(vals, Vm if lanes_minor else V, idx, seg, 60_000, tol,
+                       out0=out0, square_from=L - L // 2)
+    assert segment_sum_sorted.launches == before + 1
+    other = segment_sum_gather(vals, V if lanes_minor else Vm, idx, seg,
+                               60_000, out=out0.clone(),
+                               square_from=L - L // 2)
+    assert torch.equal(got, other)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 31, CHUNK - 1, CHUNK, CHUNK + 1,
+                               3 * CHUNK + 7, 1_000 * CHUNK + 1,
+                               16_000 * CHUNK + 5])
+def test_segment_gather_chunk_edges(cuda, T):
+    """Streams ending inside, at and just past a warp's step, and streams
+    long enough for several steps per warp and three carry levels; runs
+    cross lane, step and warp boundaries; one pointer not 16-byte
+    aligned."""
+    rng = np.random.default_rng(T)
+    S = max(T // 40, 1) + 5
+    for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+        vals, V, idx, seg, out0 = gather_inputs(rng, T, S, 500, 3, dtype,
+                                                cuda, zipf=False)
+        check_gather(vals, V, idx, seg, S, tol, out0=out0)
+        check_gather(vals, V, idx, seg, S, tol, square_from=1)
+        if T > 1:             # vals one entry in: scalar loads throughout
+            check_gather(vals[1:], V, idx[1:], seg[1:], S, tol, out0=out0)
+            contrib = torch.randn((3, T), dtype=dtype, device=cuda)
+            check(contrib[:, 1:], seg[1:], S, tol)
+
+
+@pytest.mark.cuda
+def test_segment_gather_one_giant_segment_and_empty_segments(cuda):
+    """One segment spanning every warp's span (reduced by a tree of
+    spans), and a stream that touches one segment in 97."""
+    rng = np.random.default_rng(17)
+    T = 4_000_000
+    seg = torch.full((T,), 9, dtype=torch.int32, device=cuda)
+    vals = torch.randn(T, device=cuda)
+    V = torch.randn((4, 1000), device=cuda)
+    idx = torch.randint(0, 1000, (T,), dtype=torch.int32, device=cuda)
+    out0 = torch.randn((4, 20), device=cuda)
+    check_gather(vals, V, idx, seg, 20, 1e-5, out0=out0, square_from=2)
+
+    ids = np.sort(rng.choice(np.arange(0, 200_000, 97), 100_000))
+    seg = torch.as_tensor(ids.astype(np.int32), device=cuda)
+    vals = torch.randn(seg.numel(), dtype=torch.float64, device=cuda)
+    idx = torch.randint(0, 1000, (seg.numel(),), dtype=torch.int32,
+                        device=cuda)
+    got = check_gather(vals, V.double(), idx, seg, 200_000, 1e-12)
+    empty = torch.ones(200_000, dtype=torch.bool, device=cuda)
+    empty[seg.long()] = False
+    assert bool((got[:, empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["gather", "contrib"])
+def test_segment_sum_two_calls_give_the_same_bits(cuda, form):
+    """No float atomics: float32 sums over a zipf stream with one hot
+    segment spanning many blocks come out bit for bit the same."""
+    rng = np.random.default_rng(23)
+    vals, V, idx, seg, out0 = gather_inputs(rng, 3_000_000, 100_000, 50_000,
+                                            3, torch.float32, cuda)
+    seg[100_000:2_000_000] = seg[100_000]        # one run over most spans
+    if form == "gather":
+        calls = [segment_sum_gather(vals, V, idx, seg, 100_000,
+                                    out=out0.clone()) for _ in range(2)]
+    else:
+        contrib = torch.randn((3, seg.numel()), device=cuda)
+        calls = [segment_sum_sorted(contrib, seg, 100_000)
+                 for _ in range(2)]
+    assert torch.equal(calls[0], calls[1])
+
+
+@pytest.mark.cuda
+def test_segment_gather_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    vals = torch.ones(8, device=cuda)
+    V = torch.ones((2, 5), device=cuda)
+    idx = torch.zeros(8, dtype=torch.int32, device=cuda)
+    seg = torch.zeros(8, dtype=torch.int32, device=cuda)
+    out = torch.zeros((4, 2), device=cuda).t()
+    with pytest.raises(ValueError, match="contiguous"):
+        segment_sum_gather(vals, V, idx, seg, 4, out=out)
+    with pytest.raises(ValueError, match="out must be"):
+        segment_sum_gather(vals, V, idx, seg, 3, out=torch.zeros(
+            (2, 4), device=cuda))
+    with pytest.raises(TypeError, match="int32"):
+        segment_sum_gather(vals, V, idx.long(), seg, 4)
+    with pytest.raises(TypeError, match="dtype"):
+        segment_sum_gather(vals.double(), V, idx, seg, 4)
+    with pytest.raises(ValueError, match="one device"):
+        segment_sum_gather(vals, V.cpu(), idx, seg, 4)
 
 
 def blocked_data(seed, B=4, R=2000, n_features=3000, nnz=8):
