@@ -2,7 +2,8 @@
 """On-card smoke run of the PyTorch port (mlease_tpu_torch) on one H100.
 
     python3 chip_smoke.py [--seed 0] [--rows-per-block 1562500] [--iters 3]
-                          [--out FILE.json] [--gram-only | --segsum-only]
+                          [--out FILE.json]
+                          [--gram-only | --segsum-only | --streaming-only]
 
 Phases, each of which fails the run when it fails:
 
@@ -74,13 +75,39 @@ Phases, each of which fails the run when it fails:
      same weights (a preconditioner does not move the solution, so the
      solve alone could not fail a wrong Gram).
 
+ 11. streaming phase (the scale path's trainer): StreamingAdmmTrainer at
+     ctr-12m.job's widths on the full phase's 12.5M-row data (same
+     generator, --seed), split as the job splits it (8 blocks in 4 groups),
+     head 128 stored as bfloat16, float32, lambda 1/10/100, Jacobi PCG,
+     --iters iterations, in three residency settings: (a) the job's 8 GB
+     budget (twice), (b) a budget that pins group 0's head and streams the
+     others, (c) resident_head=False with the compact wire, and (c) again
+     from pageable host memory. z and u of (b) and (c) must equal (a)'s bit
+     for bit (or, if two runs of (a) differ, within their difference), K1
+     must launch in every run (counts read around each), and (c)'s first
+     iteration with K1 patched to its plain version must be within
+     1e-4 * max|z|. Recorded: s/iteration, wire bytes per iteration, the
+     copies alone against a plain pinned copy of the same bytes, the share
+     of copy time hidden under the solves, peak device memory, and one
+     iteration of (a) and of (c) under torch.profiler;
+ 12. scale CLI phase: 1,000,000 training rows and 20,000 test rows at
+     ctr-12m widths written as Avro by the port's native encoder (the
+     generator of examples/make_scale_dataset.py; the row count cut from
+     12.5M to keep the run inside its time limit: phase 11 runs all 12.5M
+     rows), then `python -m mlease_tpu_torch train` twice on a copy of
+     examples/data/ctr-12m.job with its paths replaced and pack.cache.dir
+     set: the first log must show the native decoder and the cache write,
+     the second a cache hit, and both the same final models bit for bit;
+     the ingest phase breakdown and rows/s come from the first log.
+
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result. --gram-only builds the kernels, runs phase 4
 alone and stops there, without the closing lines (for work on K2);
 --segsum-only builds them, sets up the two trainers and runs phase 3 alone
-(for work on K1).
+(for work on K1); --streaming-only builds them and runs phases 11 and 12
+alone (for work on the scale path).
 """
 
 from __future__ import annotations
@@ -491,7 +518,7 @@ def synth_item_decoded(n_items, rows_per_item, n_feat, seed):
     item mode: 2-6 features a row drawn without replacement, a logistic
     response from per-item true coefficients."""
     import numpy as np
-    from mlease_tpu_torch.train.item import DecodedRows
+    from mlease_tpu_torch.io.fast_decode import DecodedRows
 
     rng = np.random.default_rng(seed)
     N = n_items * rows_per_item
@@ -967,6 +994,351 @@ def speed_phase(trainers, args):
     return rows
 
 
+STREAM_GROUPS = 4           # ctr-12m.job: num.blocks 8, streaming.groups 4
+SCALE_CLI_ROWS = 1_000_000  # phase 12's training rows (ctr-12m.job: 12.5M)
+SCALE_TEST_ROWS = 20_000
+
+
+def steady_s(iter_times):
+    steady = iter_times[1:] or iter_times
+    return sum(steady) / len(steady)
+
+
+def timed_puts(trainer):
+    """One iteration's host->device copies and compact-wire rebuilds of
+    every streamed group, alone (no solve), synchronised: seconds."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for gi in range(len(trainer.groups)):
+        trainer._put_group(gi)
+    torch.cuda.synchronize()
+    return time.monotonic() - t0
+
+
+def plain_pinned_copy_s(nbytes, reps=5):
+    """A plain copy of nbytes from page-locked host memory to the card."""
+    import torch
+    src = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    src.fill_(1)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(reps):
+        dst.copy_(src, non_blocking=True)
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) / reps
+
+
+def span_profile(fn, span):
+    """Run fn() under torch.profiler. For each host range named `span`
+    (a torch.profiler.record_function in the code), its wall time and the
+    time in it during which the device ran a kernel or a copy (device
+    intervals merged); the idle share over all spans but the first; and
+    the device time by kernel over the whole run. None when the profiler
+    records no device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.name == span and e.device_type == DeviceType.CPU)
+    busy = []
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if e.device_type != DeviceType.CUDA or e.name == span:
+            continue
+        lo, hi = e.time_range.start, e.time_range.end
+        if busy and lo <= busy[-1][1]:
+            busy[-1][1] = max(busy[-1][1], hi)
+        else:
+            busy.append([lo, hi])
+    if not busy or not spans:
+        return None
+    span_ms = [(hi - lo) / 1e3 for lo, hi in spans]
+    busy_ms = [sum(max(0, min(hi, b1) - max(lo, b0)) for b0, b1 in busy)
+               / 1e3 for lo, hi in spans]
+    steady = slice(1, None) if len(spans) > 1 else slice(None)
+    by_kernel = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.key != span:
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = ev.self_cuda_time_total
+            by_kernel[ev.key] = (dev_us / 1e3, ev.count)
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]
+    return {"span_ms": span_ms, "device_busy_ms": busy_ms,
+            "device_idle_share_steady": 1.0 - sum(busy_ms[steady])
+            / sum(span_ms[steady]),
+            "top": [{"name": k[:100], "ms": ms, "count": c}
+                    for k, (ms, c) in top]}
+
+
+def streaming_phase(args, in_memory_iter_s=None):
+    """Phase 11: StreamingAdmmTrainer at ctr-12m.job's widths (12.5M rows
+    in 8 blocks, 4 groups, head 128 stored as bfloat16), in three residency
+    settings that must give the same bits."""
+    import numpy as np
+    import torch
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.core.dataset import split_blocks, to_hybrid
+    from mlease_tpu_torch.ops.segment_sum import (segment_sum_gather_reference,
+                                                  segment_sum_sorted)
+    from mlease_tpu_torch.train.admm import AdmmConfig
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+
+    t0 = time.monotonic()
+    nf = 1_000_000
+    groups = split_blocks(synth_blocked_data(nf, 8, args.rows_per_block, 12,
+                                             args.seed), STREAM_GROUPS)
+    for i, g in enumerate(groups):
+        groups[i] = to_hybrid(g, 128, column_sorted=True,
+                              head_dtype=torch.bfloat16)
+    vocab = make_vocab(nf)
+    setup_s = time.monotonic() - t0
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=args.iters,
+                     head_size=128, head_dtype=torch.bfloat16, pcg=True,
+                     flat_blocks=True, dtype=torch.float32)
+    head0 = int(groups[0].head.nbytes + groups[0].head_ids.nbytes)
+    settings = {
+        "a_job_budget": dict(resident_head_budget_gb=8.0),
+        "a_again": dict(resident_head_budget_gb=8.0),
+        # pins group 0's head and streams the other groups' heads
+        "b_one_head": dict(resident_head_budget_gb=1.2 * head0 / 2**30),
+        "c_streamed_compact": dict(resident_head=False, compact_wire=True),
+        "c_pageable": dict(resident_head=False, compact_wire=True,
+                           pin_host=False),
+    }
+    rows, results = {}, {}
+    z_first = {}
+
+    def keep_first(iteration, z, **_kw):
+        if iteration == 1:
+            z_first["z"] = z.double().cpu().numpy()
+
+    for name, kw in settings.items():
+        t0 = time.monotonic()
+        tr = StreamingAdmmTrainer(groups, vocab, cfg, **kw)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        torch.cuda.reset_peak_memory_stats()
+        segment_sum_sorted.launches = 0          # this path: count from here
+        res = tr.run(callback=keep_first if name.startswith("c_s") else None)
+        torch.cuda.synchronize()
+        launches = segment_sum_sorted.launches   # ... to here
+        row = {"residency": tr.residency_report(), "build_s": build_s,
+               "wire_bytes_per_iter": tr.stream_wire_bytes(),
+               "dense_wire_bytes_per_iter": tr._dense_wire_bytes(),
+               "iter_s": res.iter_times, "steady_iter_s": steady_s(
+                   res.iter_times),
+               "solver_stats": res.solver_stats,
+               "kernel_launches": launches,
+               "max_memory_allocated_bytes":
+                   int(torch.cuda.max_memory_allocated()),
+               "z_finite": bool(np.isfinite(res.z).all())}
+        if name in ("a_job_budget", "c_streamed_compact"):
+            if row["wire_bytes_per_iter"]:
+                put_s = timed_puts(tr)
+                plain_s = plain_pinned_copy_s(row["wire_bytes_per_iter"])
+                row.update(
+                    puts_alone_s=put_s,
+                    puts_gb_per_s=row["wire_bytes_per_iter"] / put_s / 1e9,
+                    plain_pinned_copy_gb_per_s=(
+                        row["wire_bytes_per_iter"] / plain_s / 1e9))
+            tr.config = dataclasses.replace(cfg, num_iters=3)
+            row["profiled_iterations"] = span_profile(tr.run,
+                                                      "stream_iteration")
+        if name == "c_streamed_compact":
+            # the first iteration again, every sorted-tail reduce plain
+            tr.config = dataclasses.replace(cfg, num_iters=1)
+            before = segment_sum_sorted.launches
+            with mock.patch.object(tm, "segment_sum_gather",
+                                   segment_sum_gather_reference):
+                plain = tr.run()
+            if segment_sum_sorted.launches != before:
+                raise AssertionError("the plain run launched the kernel")
+            row["z_kernel_vs_plain_max_abs"] = float(
+                np.abs(z_first["z"] - plain.z).max())
+            row["z_max_abs"] = float(np.abs(z_first["z"]).max())
+        del tr
+        torch.cuda.empty_cache()
+        print(f"streaming {name} " + json.dumps(row), flush=True)
+        rows[name] = row
+        results[name] = res
+        if launches == 0 or not row["z_finite"]:
+            raise AssertionError(f"streaming {name}: {row}")
+
+    a, a2 = results["a_job_budget"], results["a_again"]
+    rerun = max(float(np.abs(a.z - a2.z).max()),
+                float(np.abs(a.u - a2.u).max()))
+    same = {}
+    for name in ("b_one_head", "c_streamed_compact", "c_pageable"):
+        r = results[name]
+        same[name] = {"z_equal": bool(np.array_equal(r.z, a.z)),
+                      "u_equal": bool(np.array_equal(r.u, a.u)),
+                      "max_abs_diff": max(float(np.abs(r.z - a.z).max()),
+                                          float(np.abs(r.u - a.u).max()))}
+    c = rows["c_streamed_compact"]
+    exposed = max(0.0, c["steady_iter_s"] - rows["a_job_budget"][
+        "steady_iter_s"])
+    summary = {
+        "setup_s": setup_s, "rows": 8 * args.rows_per_block,
+        "rerun_of_a_max_abs_diff": rerun, "vs_a": same,
+        "copy_hidden_share": (1.0 - min(1.0, exposed / c["puts_alone_s"])
+                              if c.get("puts_alone_s") else None),
+        # the larger of the in-memory iteration on the same data (the
+        # speed phase's, when it ran) and the wire over a plain copy
+        "in_memory_iter_s": in_memory_iter_s,
+        "wire_over_plain_copy_s": c["wire_bytes_per_iter"] / (
+            c["plain_pinned_copy_gb_per_s"] * 1e9),
+    }
+    print("streaming-summary " + json.dumps(summary), flush=True)
+    rows["summary"] = summary
+    for name, s in same.items():
+        if rerun == 0.0 and not (s["z_equal"] and s["u_equal"]):
+            raise AssertionError(f"{name} differs from the job budget's run "
+                                 f"by {s['max_abs_diff']}")
+        if s["max_abs_diff"] > rerun:
+            raise AssertionError(f"{name} differs from (a) by "
+                                 f"{s['max_abs_diff']}, more than two runs "
+                                 f"of (a) do ({rerun})")
+    if not c["z_kernel_vs_plain_max_abs"] <= 1e-4 * c["z_max_abs"]:
+        raise AssertionError(f"kernel and plain first iterations differ: "
+                             f"{c['z_kernel_vs_plain_max_abs']} vs max|z| "
+                             f"{c['z_max_abs']}")
+    return rows
+
+
+def write_scale_dataset(path, n_rows, seed):
+    """Avro rows at ctr-12m widths, the generator of
+    examples/make_scale_dataset.py (1,000,000 features, 12 nonzeros a row
+    on zipf 1.3, labels from a sparse ground truth), encoded by the port's
+    native encoder."""
+    import numpy as np
+    from mlease_tpu_torch.io import avro, fast_encode
+
+    n_features, nnz, chunk, block = 1_000_000, 12, 50_000, 4000
+    w = (np.random.default_rng(12345).normal(size=n_features) * 0.3).astype(
+        np.float32)
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with avro.AvroFileWriter(path, SCALE_SCHEMA, codec="null",
+                             block_records=block) as out:
+        done = 0
+        while done < n_rows:
+            m = min(chunk, n_rows - done)
+            cols = (rng.zipf(1.3, size=(m, nnz)) - 1) % n_features
+            vals = (rng.normal(size=(m, nnz)) * 0.5).astype(np.float32)
+            score = np.einsum("rk,rk->r", vals, w[cols]) - 1.5
+            y = (rng.random(m) < 1.0 / (1.0 + np.exp(-score))).astype(int)
+            for s in range(0, m, block):
+                e = min(s + block, m)
+                out.append_raw_block(fast_encode.encode_ctr_block(
+                    cols[s:e].astype(np.int32), vals[s:e],
+                    y[s:e].astype(np.int32)), e - s)
+            done += m
+
+
+SCALE_SCHEMA = {
+    "type": "record", "name": "CtrRow", "namespace": "mlease.examples",
+    "fields": [
+        {"name": "response", "type": "int"},
+        {"name": "features", "type": {"type": "array", "items": {
+            "type": "record", "name": "feature", "fields": [
+                {"name": "name", "type": "string"},
+                {"name": "term", "type": "string"},
+                {"name": "value", "type": "float"}]}}},
+        {"name": "weight", "type": "float"},
+        {"name": "offset", "type": "float"},
+    ]}
+
+
+def scale_cli_phase(args):
+    """Phase 12: `python -m mlease_tpu_torch train` twice on a copy of
+    ctr-12m.job (paths replaced, pack.cache.dir set) over 1M rows: the
+    native decoder must run and write the cache, the second run must hit
+    it and give the same models bit for bit."""
+    from mlease_tpu_torch.io import avro
+    from mlease_tpu_torch.utils.config import JobConfig
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-scale-") as tmp:
+        t0 = time.monotonic()
+        write_scale_dataset(os.path.join(tmp, "train", "part-00000.avro"),
+                            SCALE_CLI_ROWS, args.seed + 1000)
+        write_scale_dataset(os.path.join(tmp, "test", "part-00000.avro"),
+                            SCALE_TEST_ROWS, args.seed + 999)
+        gen_s = time.monotonic() - t0
+        props = dict(JobConfig.from_file(os.path.join(
+            REPO, "examples", "data", "ctr-12m.job")))
+        props.update({"input.paths": os.path.join(tmp, "train",
+                                                  "part-00000.avro"),
+                      "test.path": os.path.join(tmp, "test"),
+                      "pack.cache.dir": os.path.join(tmp, "cache")})
+        runs = []
+        for k in (1, 2):
+            props["output.base.path"] = os.path.join(tmp, f"out-{k}")
+            job = os.path.join(tmp, f"ctr-12m-{k}.job")
+            with open(job, "w") as f:
+                f.writelines(f"{key}={v}\n" for key, v in props.items())
+            env = dict(os.environ, PYTHONPATH=REPO, MLEASE_LOG="INFO")
+            t0 = time.monotonic()
+            proc = subprocess.run(
+                [sys.executable, "-m", "mlease_tpu_torch", "train", job],
+                capture_output=True, text=True, env=env, cwd=REPO,
+                timeout=CLI_TIMEOUT_S)
+            wall = time.monotonic() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"scale CLI run {k} failed "
+                                     f"({proc.returncode}):\n"
+                                     f"{proc.stderr[-4000:]}")
+            log = proc.stderr
+            if args.out:
+                with open(f"{args.out}.scale-cli-{k}.log", "w") as f:
+                    f.write(log)
+            summary = json.loads(proc.stdout.strip().splitlines()[-1])
+            row = {"wall_s": wall, "solver_wall_s": summary["wall_time_s"],
+                   "iterations": summary["iterations"],
+                   "kernel_launches": summary["kernel_launches"][
+                       "segment_sum_sorted"],
+                   "native_ingest": "native ingest:" in log,
+                   "python_fallback": "python path" in log,
+                   "cache_written": "pack cache written" in log,
+                   "cache_hit": "pack cache hit" in log}
+            for line in log.splitlines():
+                for key, tag in (("ingest", "ingest phase breakdown: "),
+                                 ("pack_phases", "streaming pack phases: "),
+                                 ("residency", "streaming residency: ")):
+                    if tag in line:
+                        row[key] = line.split(tag, 1)[1]
+            models = avro.read_records(os.path.join(
+                props["output.base.path"], "final-model"))
+            row["models"] = len(models)
+            runs.append((row, models))
+            print(f"scale-cli run {k} " + json.dumps(row), flush=True)
+        (r1, m1), (r2, m2) = runs
+        out = {"rows": SCALE_CLI_ROWS, "test_rows": SCALE_TEST_ROWS,
+               "dataset_s": gen_s, "first": r1, "second": r2,
+               "same_models": m1 == m2}
+        bad = [what for what, ok in (
+            ("native decoder ran in run 1", r1["native_ingest"]
+             and not r1["python_fallback"]),
+            ("cache written in run 1", r1["cache_written"]),
+            ("cache hit in run 2", r2["cache_hit"]
+             and not r2["native_ingest"]),
+            ("K1 launched", r1["kernel_launches"] > 0
+             and r2["kernel_launches"] > 0),
+            ("models bit for bit", m1 == m2 and len(m1) > 0)) if not ok]
+        if bad:
+            raise AssertionError(f"scale CLI: not {bad}: {out}")
+        return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -981,6 +1353,9 @@ def main(argv=None) -> int:
     ap.add_argument("--segsum-only", action="store_true",
                     help="build, set up the trainers, run the K1 kernel "
                          "phase alone and stop")
+    ap.add_argument("--streaming-only", action="store_true",
+                    help="build, run the streaming and scale CLI phases "
+                         "(11, 12) alone and stop")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(REPO, "mlease_tpu_torch", "csrc")):
@@ -1068,6 +1443,15 @@ def main(argv=None) -> int:
         return fail(f"failed phases: {report['failed']}") \
             if report["failed"] else 0
 
+    if args.streaming_only:
+        if not report["failed"]:
+            phase("streaming", streaming_phase, args)
+            phase("scale_cli", scale_cli_phase, args)
+        write_report()
+        print(card_line(), flush=True)
+        return fail(f"failed phases: {report['failed']}") \
+            if report["failed"] else 0
+
     trainers = None
     if not report["failed"]:
         trainers = phase("setup", setup)
@@ -1083,12 +1467,15 @@ def main(argv=None) -> int:
         grams = phase("kernel_gram", gram_phase, args)
         phase("cli", cli_phase)
         full = phase("full_width", full_width_phase, trainers["full"], args)
-        phase("speed", speed_phase, trainers, args)
+        speed = phase("speed", speed_phase, trainers, args)
         del trainers
         torch.cuda.empty_cache()
         items = phase("item", item_phase, args)
         phase("item_cli", item_cli_phase, args)
         phase("head_block", head_block_phase, args)
+        phase("streaming", streaming_phase, args,
+              speed["full"]["steady_iter_s"] if speed else None)
+        phase("scale_cli", scale_cli_phase, args)
     write_report()
     if report["failed"]:
         return fail(f"failed phases: {report['failed']}")

@@ -11,7 +11,10 @@ reads the same properties-file job keys as `python -m mlease_tpu`
   item     ItemModelTrain: per-item models (+ posterior variance)
   itemtest ItemModelTest + ItemModelTestLoglik: score with per-item models
 
-The JAX package's naive and fit subcommands are not ported yet (ROADMAP.md).
+train and item read their input through the native columnar decoder when
+`native.ingest` is on (the default), and record at a time otherwise or when
+the decoder is unavailable. The JAX package's naive and fit subcommands are
+not ported yet (ROADMAP.md).
 --device defaults to cuda and fails without a CUDA device. The JSON summary
 line of train, item and itemtest carries `kernel_launches`, the count of
 launches of each hand-written kernel in the run (0 on the CPU).
@@ -106,21 +109,51 @@ def cmd_loglik(args):
     return 0
 
 
+def _decode_item_columnar(config, item_key: str, ignore_value: bool):
+    """The item rows as one columnar decode keyed by the item column, or
+    None when the native decoder is absent or fails, or the key column is
+    not a string (the record-at-a-time path then runs)."""
+    from mlease_tpu_torch.core.ingest import (decode_files_parallel,
+                                              merge_decoded)
+    from mlease_tpu_torch.io import avro, fast_decode
+
+    if not fast_decode.is_available():
+        logging.getLogger(__name__).warning(
+            "native ingest: the decoder is unavailable; python path")
+        return None
+    try:
+        decoded = merge_decoded(decode_files_parallel(
+            avro.enumerate_avro_files(config.get_string("input.paths")),
+            ignore_value=ignore_value, map_key=item_key))
+    except (RuntimeError, ValueError, KeyError, OSError) as e:
+        logging.getLogger(__name__).warning(
+            "native ingest failed (%r); python path", e)
+        return None
+    if decoded.keys is None or set(decoded.keys) == {""}:
+        return None                    # non-string key column
+    return decoded
+
+
 def cmd_item(args):
     from mlease_tpu_torch.core.prepare import prepare_to_keyed
     from mlease_tpu_torch.io import avro
     from mlease_tpu_torch.train.item import (ItemConfig, train_item_models,
+                                             train_item_models_columnar,
                                              write_item_models)
     from mlease_tpu_torch.train.pipeline import DTYPES, read_lambda_map
 
     config = _load_config(args.config)
-    # the native columnar decoder is not ported (native.ingest is ignored):
-    # records are read and keyed one at a time, as the JAX CLI does when its
-    # native library is absent
-    records = avro.read_records(config.get_string("input.paths"))
-    keyed = prepare_to_keyed(
-        records, map_key=config.get_string("item.key"),
-        ignore_value=config.get_boolean("binary.feature", False))
+    item_key = config.get_string("item.key")
+    ignore_value = config.get_boolean("binary.feature", False)
+    # native.ingest (default on): the columnar route, straight from the
+    # C++ decode to the packed buckets (mlease_tpu/cli.py:135-150)
+    decoded = keyed = None
+    if config.get_boolean("native.ingest", True):
+        decoded = _decode_item_columnar(config, item_key, ignore_value)
+    if decoded is None:
+        records = avro.read_records(config.get_string("input.paths"))
+        keyed = prepare_to_keyed(records, map_key=item_key,
+                                 ignore_value=ignore_value)
     pm_map = None
     if config.get_string("intercept.prior.mean.map", ""):
         pm_map = {str(rec["key"]): float(rec["value"])
@@ -140,7 +173,10 @@ def cmd_item(args):
         compute_var=config.get_boolean("compute.var", False),
         liblinear_epsilon=config.get_float("liblinear.epsilon", 0.01),
         dtype=DTYPES[config.get_string("dtype", "float32")])
-    result = train_item_models(keyed, cfg, device=args.device)
+    if decoded is not None:
+        result = train_item_models_columnar(decoded, cfg, device=args.device)
+    else:
+        result = train_item_models(keyed, cfg, device=args.device)
     out = os.path.join(config.get_string("output.model.path"),
                        "part-r-00000.avro")
     write_item_models(out, result)

@@ -11,7 +11,10 @@ JAX AdmmResult's z/u, or a checkpoint), into keyword arguments of the port's
                                          mindiff=mindiff_k))
 
 `state_from_checkpoint` does the same for a checkpoint directory written by
-either package's utils/checkpoint (iter-NNNNN.npz + .json manifests).
+either package's utils/checkpoint (iter-NNNNN.npz + .json manifests). The
+streaming trainers of both packages keep the same state in the same files,
+so the same kwargs resume `StreamingAdmmTrainer.run` from a JAX streaming
+run's checkpoint.
 
 `item_models_from_jax` turns the JAX per-item trainer's ItemResult into the
 port's, so that JAX-trained item models can be scored or written by the

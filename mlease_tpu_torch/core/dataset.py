@@ -2,7 +2,9 @@
 
 Copied from mlease_tpu/core/dataset.py (logic unchanged); the layout notes
 below explain why the JAX package chose it for the TPU, and the port keeps
-the same host arrays so both packages train on identical inputs.
+the same host arrays so both packages train on identical inputs. One
+addition: `to_hybrid(head_dtype=torch.bfloat16)` returns the dense head as
+a host `torch.bfloat16` tensor, numpy having no bfloat16 type of its own.
 
 The reference materializes per-reducer CSR-ish `FeatureNode[][]` rows
 (reference: LibLinearDataset.java:586-658). TPUs need static shapes, so each
@@ -34,6 +36,7 @@ from __future__ import annotations
 from typing import Iterable, Mapping, NamedTuple, Sequence
 
 import numpy as np
+import torch
 
 
 def _round_up(x: int, m: int) -> int:
@@ -199,6 +202,16 @@ def pack_blocks(block_rows: Sequence[Sequence[Mapping]], vocab, *,
     )
 
 
+def _numpy_dtype(dtype):
+    """numpy dtype of a numpy or torch dtype; None for a torch dtype numpy
+    cannot hold (bfloat16)."""
+    if isinstance(dtype, torch.dtype):
+        return {torch.float32: np.dtype(np.float32),
+                torch.float64: np.dtype(np.float64),
+                torch.float16: np.dtype(np.float16)}.get(dtype)
+    return np.dtype(dtype)
+
+
 def to_hybrid(data: BlockedData, head_size: int, *,
               nnz_multiple: int = 8,
               column_sorted: bool = True,
@@ -206,7 +219,9 @@ def to_hybrid(data: BlockedData, head_size: int, *,
     """Split a packed dataset into dense-head + sparse-tail hybrid layout.
 
     head_dtype: store the dense head in this dtype (e.g. bfloat16) instead
-    of the values dtype. At 100M-row scale the f32 head is the largest
+    of the values dtype; torch.bfloat16 gives a host torch.bfloat16 tensor
+    (rounded to nearest even from the values dtype, as a numpy bfloat16
+    cast does). At 100M-row scale the f32 head is the largest
     single host allocation (~51 GB); building-then-casting per call keeps
     the peak at one group's f32 head instead of all of them (the streaming
     trainer's later dtype normalization then no-ops on the head).
@@ -227,6 +242,8 @@ def to_hybrid(data: BlockedData, head_size: int, *,
     H = min(head_size, data.dim)
     if H <= 0:
         return data
+    torch_head = head_dtype
+    head_dtype = None if head_dtype is None else _numpy_dtype(head_dtype)
 
     flat_idx = data.indices.reshape(-1)
     flat_val = data.values.reshape(-1)
@@ -307,6 +324,8 @@ def to_hybrid(data: BlockedData, head_size: int, *,
 
     if head_dtype is not None and head.dtype != np.dtype(head_dtype):
         head = np.asarray(head, head_dtype)
+    elif head_dtype is None and torch_head is not None:
+        head = torch.from_numpy(head).to(torch_head)
     empty = np.zeros((B, R, 0))
     return data._replace(indices=empty.astype(np.int32),
                          values=empty.astype(data.values.dtype),

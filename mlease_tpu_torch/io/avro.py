@@ -14,8 +14,10 @@ Avro 1.x binary encoding and the object container file format from scratch:
     avro.codec), 16-byte sync marker, blocked records with per-block count +
     byte size (null and deflate codecs)
 
-The JAX package's C++ bulk decoder (native/) is not part of this package
-yet; this pure-Python module is the only reader and writer here.
+A C++ fast path for bulk-decoding training rows lives in
+mlease_tpu_torch/native/ (see mlease_tpu_torch.io.fast_decode); this
+pure-Python module is the always-available reference implementation and
+the only writer.
 
 Copied from mlease_tpu/io/avro.py with its imports renamed; logic unchanged.
 """

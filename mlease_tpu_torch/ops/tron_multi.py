@@ -142,24 +142,31 @@ def stack_blocks(indices, values, y, weight, offset, head,
 # Lanes-major passes: V / W / D are (L, ·), prob priors are (L, n)
 # ---------------------------------------------------------------------------
 
-def _head(prob: MultiProblem, dtype) -> torch.Tensor:
-    """The dense head in the compute dtype (head.dtype=bfloat16 stores it at
-    half width and widens it per pass)."""
-    hx = prob.head_x
-    return hx if hx.dtype == dtype else hx.to(dtype)
+def _widen(hb: torch.Tensor, dtype, square: bool = False) -> torch.Tensor:
+    """One block's head in the compute dtype (head.dtype=bfloat16 stores it
+    at half width), squared elementwise when asked, in the storage dtype as
+    the JAX package squares it (the square only feeds the Jacobi
+    diagonal). The flat-blocks passes call this one block at a time, so a
+    narrow head is never widened whole: the transient is one block's
+    (Rb, H) in the compute dtype, not the (B, Rb, H) head."""
+    if square:
+        hb = hb * hb
+    return hb if hb.dtype == dtype else hb.to(dtype)
 
 
-def _head_t(hx: torch.Tensor, D: torch.Tensor) -> torch.Tensor:
+def _head_t(hx: torch.Tensor, D: torch.Tensor,
+            square: bool = False) -> torch.Tensor:
     """Transposed head product: (L, R) -> (L, H) or, flat-blocks,
-    (L, B*Rb) -> (L, B*H) (einsum "brh,lbr->lbh"). Flat-blocks takes one
-    (L, Rb) @ (Rb, H) product per block: as one batched bmm this long-K,
-    tiny-output product ran ~15x slower on an H100
-    (tools/torch_head_product_probe.py)."""
+    (L, B*Rb) -> (L, B*H) (einsum "brh,lbr->lbh"), with the head squared
+    elementwise when `square`. Flat-blocks takes one (L, Rb) @ (Rb, H)
+    product per block: as one batched bmm this long-K, tiny-output product
+    ran ~15x slower on an H100 (tools/torch_head_product_probe.py)."""
     if hx.dim() == 3:
         B, Rb, H = hx.shape
         Db = D.reshape(D.shape[0], B, Rb)
-        return torch.cat([Db[:, b] @ hx[b] for b in range(B)], dim=1)
-    return D @ hx
+        return torch.cat([Db[:, b] @ _widen(hx[b], D.dtype, square)
+                          for b in range(B)], dim=1)
+    return D @ _widen(hx, D.dtype, square)
 
 
 def _xv_lm(prob: MultiProblem, V: torch.Tensor) -> torch.Tensor:
@@ -171,14 +178,20 @@ def _xv_lm(prob: MultiProblem, V: torch.Tensor) -> torch.Tensor:
     else:
         out = torch.zeros((L, R), dtype=V.dtype, device=V.device)
     if prob.head_x is not None:
-        hx = _head(prob, V.dtype)
+        hx = prob.head_x
         hw = V[:, prob.head_ids]                    # (L, H) | (L, B*H)
-        if hx.dim() == 3:                           # flat-blocks head
+        if hx.dim() == 3 and hx.dtype == V.dtype:   # flat-blocks head
             B, Rb, H = hx.shape
             prod = torch.bmm(hx, hw.reshape(L, B, H).permute(1, 2, 0))
             out = out + prod.permute(2, 0, 1).reshape(L, R)  # (B, Rb, L)
+        elif hx.dim() == 3:                         # narrow head: by block
+            B, Rb, H = hx.shape
+            hwb = hw.reshape(L, B, H)
+            outb = out.view(L, B, Rb)           # out is this pass's own
+            for b in range(B):
+                outb[:, b] += hwb[:, b] @ _widen(hx[b], V.dtype).T
         else:
-            out = out + hw @ hx.T
+            out = out + hw @ _widen(hx, V.dtype).T
     if prob.tail_cols is not None:
         segment_sum_gather(prob.tail_vals, V, prob.tail_cols, prob.tail_rows,
                            R, out=out)
@@ -194,7 +207,7 @@ def _xtv_lm(prob: MultiProblem, D: torch.Tensor) -> torch.Tensor:
         out.index_add_(1, prob.indices.reshape(-1),
                        (prob.values[None] * D[:, :, None]).reshape(L, -1))
     if prob.head_x is not None:
-        out.index_add_(1, prob.head_ids, _head_t(_head(prob, D.dtype), D))
+        out.index_add_(1, prob.head_ids, _head_t(prob.head_x, D))
     if prob.tail_c_cols is not None:
         segment_sum_gather(prob.tail_c_vals, D, prob.tail_c_rows,
                            prob.tail_c_cols, n, out=out)
@@ -217,9 +230,10 @@ def _xtv_and_sqdiag_lm(prob: MultiProblem, C: torch.Tensor,
         out.index_add_(1, prob.indices.reshape(-1),
                        contrib.reshape(2 * L, -1))
     if prob.head_x is not None:
-        hx = _head(prob, C.dtype)
+        hx = prob.head_x
         out.index_add_(1, prob.head_ids,
-                       torch.cat([_head_t(hx, C), _head_t(hx * hx, Dm)]))
+                       torch.cat([_head_t(hx, C),
+                                  _head_t(hx, Dm, square=True)]))
     CD = torch.cat([C, Dm])
     if prob.tail_c_cols is not None:
         segment_sum_gather(prob.tail_c_vals, CD, prob.tail_c_rows,
@@ -310,7 +324,8 @@ def build_head_precond(prob: MultiProblem, Dm: torch.Tensor,
     not reused)."""
     dtype = Hdiag.dtype
     ids = prob.head_ids.long()
-    A = gram_batched(_head(prob, dtype), Dm, prob.prior_var_inv[:, ids])
+    A = gram_batched(_widen(prob.head_x, dtype), Dm,
+                     prob.prior_var_inv[:, ids])
     chol = torch.linalg.cholesky_ex(A.to(torch.float32))[0].to(dtype)
     head_mask = torch.zeros((1, Hdiag.shape[1]), dtype=dtype,
                             device=Hdiag.device)

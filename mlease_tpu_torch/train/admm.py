@@ -151,11 +151,11 @@ def build_admm_step(nblocks: int, regularizer: int, intercept_index: int | None,
     "newton_trips"/"cg_trips" counts of the solve."""
     if dual_layout:
         raise NotImplementedError(
-            "dual_layout is not ported (ROADMAP.md, ADMM paths still to port)")
+            "dual_layout is not ported (ROADMAP.md item A1)")
     if not (multi_rhs and flat_blocks):
         raise NotImplementedError(
             "only the flat-blocks multi-RHS step is ported (multi_rhs=True, "
-            "flat_blocks=True); the vmapped solvers are in ROADMAP.md")
+            "flat_blocks=True); the vmapped solvers are ROADMAP.md item A1")
     if regularizer not in (1, 2):
         raise ValueError("Only L1 and L2 regularization supported!")
 

@@ -34,13 +34,14 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Mapping, NamedTuple, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from mlease_tpu_torch.core.linear_model import LinearModel
 from mlease_tpu_torch.device import resolve_device
+from mlease_tpu_torch.io.fast_decode import DecodedRows  # noqa: F401 (re-export)
 from mlease_tpu_torch.io.records import INTERCEPT_NAME
 from mlease_tpu_torch.ops import objective as obj
 from mlease_tpu_torch.ops.newton import newton_cholesky
@@ -76,21 +77,6 @@ class ItemResult:
     # host's wall seconds for the solve (copies to and from the device
     # included) and for assembling the result dictionaries
     solver_stats: list[dict] | None = None
-
-
-class DecodedRows(NamedTuple):
-    """Columnar decode of Avro rows, the eight fields `pack_buckets_columnar`
-    reads (the holder of the native decoder's output, kept here until that
-    decoder is ported)."""
-
-    response: np.ndarray     # (N,) int32
-    weight: np.ndarray       # (N,) float32
-    offset: np.ndarray       # (N,) float32
-    row_start: np.ndarray    # (N+1,) int64 CSR offsets into feat_*
-    feat_id: np.ndarray      # (nnz,) int32 ids into vocab_names
-    feat_val: np.ndarray     # (nnz,) float32
-    vocab_names: list        # feature keys, by id
-    keys: list | None = None  # (N,) item key per row
 
 
 def _bucket_dim(x: int, floor: int = 8) -> int:

@@ -1,6 +1,6 @@
 """End-to-end pipeline: Prepare -> AdmmTrain -> Test -> TestLoglik.
 
-Port of mlease_tpu/train/pipeline.py on its in-memory path (reference:
+Port of mlease_tpu/train/pipeline.py (reference:
 src/main/java/com/linkedin/mlease/regression/jobs/Regression.java:37-98),
 keeping the reference's on-disk layout:
 
@@ -12,37 +12,49 @@ keeping the reference's on-disk layout:
   <out>/checkpoint/                    per-iteration (z,u,...) resume state
   <out>/test/lambda-<l>/part-r-00000.avro (+ /_loglik/), /test/best-model/...
 
-Prepare runs record at a time (the native C++ ingest is not ported). Job
-keys of paths not ported yet raise NotImplementedError instead of running
-something else: streaming.groups > 1, mesh.feature.shards > 1, use.mesh,
-initialize.boost.rate > 0 (naive warm start), pack.cache.dir, fused.loop
-and profile.dir.
+Prepare takes the native columnar ingest (io/fast_decode.py +
+core/ingest.py) when `native.ingest` is on (the default) and no map.key is
+set, and falls back to the record-at-a-time path with a warning when the
+decoder is absent or fails. `streaming.groups > 1` trains with the
+streaming trainer (train/streaming.py), with the post-hybrid groups kept in
+`pack.cache.dir` when it is set; `profile.dir` writes a torch.profiler
+trace of the training loop. Job keys of paths not ported yet raise
+NotImplementedError instead of running something else: mesh.feature.shards
+> 1, use.mesh, initialize.boost.rate > 0 (naive warm start) and fused.loop.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import shutil
+import time
 from typing import Any, Mapping
 
 import numpy as np
 import torch
 
-from mlease_tpu_torch.core.dataset import pack_blocks
+from mlease_tpu_torch.core.dataset import pack_blocks, split_blocks, to_hybrid
+from mlease_tpu_torch.core.ingest import (decode_files_parallel, merge_decoded,
+                                          pack_blocks_columnar,
+                                          prepare_columnar, vocab_from_names)
 from mlease_tpu_torch.core.linear_model import (LinearModel, read_model_file,
                                                 write_model_file)
 from mlease_tpu_torch.core.prepare import prepare_rows
 from mlease_tpu_torch.core.vocab import build_vocab
 from mlease_tpu_torch.eval.loglik import run_test_loglik
 from mlease_tpu_torch.eval.score import run_regression_test
-from mlease_tpu_torch.io import avro, schemas
+from mlease_tpu_torch.io import avro, fast_decode, pack_cache, schemas
 from mlease_tpu_torch.io.records import (feature_key, normalize_row,
-                                         row_to_prepare_record)
+                                         row_to_prepare_record,
+                                         split_feature_key)
 from mlease_tpu_torch.train.admm import (AdmmConfig, AdmmResult, AdmmTrainer,
                                          _lambda_key)
+from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
 from mlease_tpu_torch.utils import checkpoint as ckpt
 from mlease_tpu_torch.utils.config import JobConfig
+from mlease_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger(__name__)
 
@@ -103,26 +115,20 @@ def admm_config_from_job(config: JobConfig, dtype=None) -> AdmmConfig:
 def _reject_unported(config: JobConfig, cfg: AdmmConfig) -> None:
     """Job keys whose paths are not ported raise here, before any work."""
     unported = [
-        ("streaming.groups", config.get_int("streaming.groups", 0) > 1,
-         "streaming training (train/streaming.py)"),
         ("mesh.feature.shards", config.get_int("mesh.feature.shards", 0) > 1,
-         "feature-sharded training"),
+         "feature-sharded training", "A8"),
         ("use.mesh", config.get_boolean("use.mesh", False),
-         "the device mesh"),
+         "the device mesh", "A8"),
         ("initialize.boost.rate", cfg.initialize_boost_rate > 0,
-         "the naive warm start (train/naive.py)"),
-        ("pack.cache.dir", bool(config.get_string("pack.cache.dir", "")),
-         "the pack cache (io/pack_cache.py)"),
+         "the naive warm start (train/naive.py)", "A4"),
         ("fused.loop", config.get_boolean("fused.loop", False),
-         "AdmmTrainer.run_fused"),
-        ("profile.dir", bool(config.get_string("profile.dir", "")),
-         "utils/profiling.py"),
+         "AdmmTrainer.run_fused", "A1"),
     ]
-    for key, hit, what in unported:
+    for key, hit, what, item in unported:
         if hit:
             raise NotImplementedError(
                 f"job key {key!r} needs {what}, which is not ported to "
-                f"mlease_tpu_torch yet (ROADMAP.md)")
+                f"mlease_tpu_torch yet (ROADMAP.md item {item})")
 
 
 def run_regression_pipeline(config: JobConfig, dtype=None,
@@ -141,27 +147,62 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
     input_paths = config.get_string("input.paths")
     seed = config.get_int("prepare.seed", 0)
 
-    # ---- Prepare (RegressionPrepare), record at a time -----------------
-    records = avro.read_records(input_paths)
-    logger.info("prepare: %d input records", len(records))
-    prepared = list(prepare_rows(
-        records, nblocks, map_key=map_key,
-        num_click_replicates=cfg.num_click_replicates,
-        ignore_value=ignore_value, seed=seed))
-    if config.get_boolean("write.tmp.data", True):
-        avro.write_records(
-            os.path.join(out_base, "tmp-data", "part-m-00000.avro"),
-            schemas.REGRESSION_PREPARE_OUTPUT,
-            (row_to_prepare_record(k, r) for k, r in prepared))
-    blocks: list[list[dict]] = [[] for _ in range(nblocks)]
-    for key, row in prepared:
-        blocks[int(key)].append(row)
-    vocab = build_vocab((r for _k, r in prepared), has_intercept=True)
-    data = pack_blocks(blocks, vocab)
+    input_files = avro.enumerate_avro_files(input_paths)
+    streaming_groups = config.get_int("streaming.groups", 0)
+
+    # ---- pack cache (pack.cache.dir, streaming jobs only) ------------
+    # With pack.cache.dir set, the post-hybrid groups persist once and a
+    # rerun (or a resume) reloads them instead of decoding and packing
+    # again (io/pack_cache.py; keyed by the inputs and the layout knobs).
+    pack_cache_dir = config.get_string("pack.cache.dir", "")
+    cached_groups = None
+    pc_manifest = None
+    if pack_cache_dir and streaming_groups > 1:
+        pc_manifest = pack_cache.build_manifest(
+            input_files, nblocks=nblocks, n_groups=streaming_groups,
+            head_size=cfg.head_size,
+            head_dtype=pack_cache.dtype_name(cfg.head_dtype or cfg.dtype),
+            num_click_replicates=cfg.num_click_replicates, seed=seed,
+            binary_feature=ignore_value, map_key=map_key)
+        hit = pack_cache.load_groups(pack_cache_dir, pc_manifest)
+        if hit is not None:
+            cached_groups, vocab = hit
+
+    # ---- Prepare (RegressionPrepare) --------------------------------
+    # Native C++ columnar ingest when possible; the same semantics as the
+    # record-at-a-time path (tests/test_torch_ingest.py). Falls back to
+    # pure Python, with a warning, when the decoder is absent or fails.
+    data = None
+    if (config.get_boolean("native.ingest", True) and not map_key
+            and input_files and cached_groups is None):
+        data, vocab = _native_prepare(config, cfg, input_files, nblocks,
+                                      ignore_value, seed, out_base)
+    if data is None and cached_groups is not None:
+        logger.info("pack cache hit: ingest/pack skipped (%d groups, %d "
+                    "features)", len(cached_groups), cached_groups[0].dim)
+    elif data is None:
+        records = avro.read_records(input_paths)
+        logger.info("prepare: %d input records", len(records))
+        prepared = list(prepare_rows(
+            records, nblocks, map_key=map_key,
+            num_click_replicates=cfg.num_click_replicates,
+            ignore_value=ignore_value, seed=seed))
+        if config.get_boolean("write.tmp.data", True):
+            avro.write_records(
+                os.path.join(out_base, "tmp-data", "part-m-00000.avro"),
+                schemas.REGRESSION_PREPARE_OUTPUT,
+                (row_to_prepare_record(k, r) for k, r in prepared))
+        blocks: list[list[dict]] = [[] for _ in range(nblocks)]
+        for key, row in prepared:
+            blocks[int(key)].append(row)
+        vocab = build_vocab((r for _k, r in prepared), has_intercept=True)
+        data = pack_blocks(blocks, vocab)
+        del records, prepared, blocks
     vocab.save(os.path.join(out_base, "model-vocab.json"))
-    logger.info("packed %d blocks, %d rows padded to (%d, %d), %d features",
-                data.nblocks, int(data.nrows.sum()), data.padded_rows,
-                data.max_nnz, data.dim)
+    if data is not None:
+        logger.info("packed %d blocks, %d rows padded to (%d, %d), "
+                    "%d features", data.nblocks, int(data.nrows.sum()),
+                    data.padded_rows, data.max_nnz, data.dim)
 
     # lambda -> rho map file (RegressionAdmmTrain.java:200-201)
     avro.write_records(
@@ -201,6 +242,8 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
     keep_n = config.get_int("checkpoint.keep", 2)
     write_train_output = config.get_boolean("write.train.output", False)
     prev_u = {"u": None}
+    nblocks_total = (data.nblocks if data is not None
+                     else sum(g.nblocks for g in cached_groups))
 
     def _dump_train_output(iteration, z_np, u_np):
         # RegressionTrainOutput{key="lambda#part", model=x_b, uplusx=u_b+x_b}
@@ -210,7 +253,7 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
         records_out = []
         for li in range(u_np.shape[0]):
             lam_key = _lambda_key(cfg.lambdas[li])
-            for b in range(data.nblocks):
+            for b in range(nblocks_total):
                 # u_new = u_old + x - z  =>  x = u_new - u_old + z
                 x_b = u_np[li, b] - u_old[li, b] + z_np[li]
                 uplusx = u_np[li, b] + z_np[li]
@@ -245,8 +288,6 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
                 schemas.SAMPLE_TEST_LOGLIK, logliks)
 
     # ---- ADMM train ---------------------------------------------------
-    trainer = AdmmTrainer(data, vocab, cfg, test_rows=test_rows,
-                          device=device)
     run_kwargs: dict[str, Any] = {"z0": z0}
     if config.get_boolean("resume", False):
         state = ckpt.load_latest(ckpt_dir)
@@ -257,9 +298,131 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
                 start_iteration=state["iteration"] + 1,
                 inner_eps0=state["inner_eps"], mindiff0=state["mindiff"],
                 best_loglik0=state["best_loglik"])
-    result = trainer.run(callback=on_iteration, **run_kwargs)
+    if streaming_groups > 1:
+        # the >HBM mode: blocks stay host-resident in N groups, copied per
+        # iteration under the previous group's solve (train/streaming.py);
+        # checkpoint / resume / write.train.output work as in the
+        # in-memory trainer (same callback contract)
+        if cached_groups is not None:
+            groups = cached_groups
+            del cached_groups
+        else:
+            groups = split_blocks(data, streaming_groups)
+            del data
+            if pack_cache_dir and pc_manifest is not None:
+                # convert to hybrid HERE (the trainer then skips groups
+                # that already carry a head) so the cache stores the final
+                # packed layout; in place, group by group, for peak RSS
+                t0 = time.monotonic()
+                if cfg.head_size > 0:
+                    for i, g in enumerate(groups):
+                        if g.head is None:
+                            groups[i] = to_hybrid(
+                                g, cfg.head_size, column_sorted=True,
+                                head_dtype=cfg.head_dtype or cfg.dtype)
+                hybrid_s = time.monotonic() - t0
+                t0 = time.monotonic()
+                pack_cache.save_groups(pack_cache_dir, pc_manifest,
+                                       groups, vocab)
+                logger.info(
+                    "streaming pack phases: hybrid=%.1fs cache_write=%.1fs",
+                    hybrid_s, time.monotonic() - t0)
+        choice = {"auto": "auto", "true": True, "false": False}
+        trainer = StreamingAdmmTrainer(
+            groups, vocab, cfg, test_rows=test_rows, device=device,
+            resident_head=choice[config.get_string(
+                "streaming.resident.head", "auto")],
+            resident_head_budget_gb=config.get_float(
+                "streaming.resident.head.gb", 8.0),
+            consensus_device=choice[config.get_string(
+                "streaming.consensus.device", "auto")],
+            # compact|dense|auto: COO-head + permutation-derived tail wire
+            compact_wire={"auto": "auto", "compact": True, "dense": False}[
+                config.get_string("streaming.wire", "auto")],
+            pad_tails=choice[config.get_string("streaming.pad.tails",
+                                               "auto")])
+        del groups
+        logger.info("streaming residency: %s; %.3f GB on the wire per "
+                    "iteration", json.dumps(trainer.residency_report()),
+                    trainer.stream_wire_bytes() / 1e9)
+    else:
+        trainer = AdmmTrainer(data, vocab, cfg, test_rows=test_rows,
+                              device=device)
+    with trace(config.get_string("profile.dir", "")):
+        result = trainer.run(callback=on_iteration, **run_kwargs)
     return _write_pipeline_outputs(config, result, out_base, test_path,
                                    test_records, ignore_value, device)
+
+
+def _native_prepare(config, cfg, input_files, nblocks, ignore_value, seed,
+                    out_base):
+    """Native columnar ingest: decode, merge, vocabulary, prepare and pack,
+    with each phase's wall seconds logged (the scale jobs' cold start is
+    ingest-dominated, so every run records where the minutes went).
+    Returns (data, vocab), or (None, None) when the decoder is absent or
+    fails, after a warning: the caller then takes the Python path."""
+    if not fast_decode.is_available():
+        logger.warning("native ingest: the decoder is unavailable; "
+                       "python path")
+        return None, None
+    try:
+        ph: dict[str, float] = {}
+        t0 = time.monotonic()
+        parts = decode_files_parallel(input_files, ignore_value=ignore_value)
+        ph["decode_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        decoded = merge_decoded(parts)
+        del parts
+        ph["merge_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        vocab = vocab_from_names(decoded.vocab_names)
+        ph["vocab_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        row_ids, partitions, weights = prepare_columnar(
+            decoded, nblocks, num_click_replicates=cfg.num_click_replicates,
+            seed=seed)
+        ph["prepare_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        data = pack_blocks_columnar(decoded, row_ids, partitions, weights,
+                                    vocab, nblocks=nblocks)
+        ph["pack_s"] = time.monotonic() - t0
+        rows = decoded.num_rows
+        logger.info("ingest phase breakdown: %s; %.0f rows/s",
+                    json.dumps({k: round(v, 3) for k, v in ph.items()}),
+                    rows / max(sum(ph.values()), 1e-9))
+        if config.get_boolean("write.tmp.data", True):
+            _write_tmp_from_columnar(
+                os.path.join(out_base, "tmp-data", "part-m-00000.avro"),
+                decoded, row_ids, partitions, weights, vocab)
+        logger.info("native ingest: %d rows, %d features",
+                    int(data.nrows.sum()), data.dim)
+        return data, vocab
+    except Exception as e:  # noqa: BLE001 - fall back to the Python path
+        logger.warning("native ingest failed (%r); python path", e,
+                       exc_info=True)
+        return None, None
+
+
+def _write_tmp_from_columnar(path, decoded, row_ids, partitions, weights,
+                             vocab):
+    """RegressionPrepareOutput records from the native columnar decode."""
+    def gen():
+        for i in range(len(row_ids)):
+            src = int(row_ids[i])
+            s, e = decoded.row_start[src], decoded.row_start[src + 1]
+            feats = []
+            for j in range(s, e):
+                name, term = split_feature_key(
+                    vocab.name(int(decoded.feat_id[j])))
+                feats.append({"name": name, "term": term,
+                              "value": float(decoded.feat_val[j])})
+            yield {"key": str(int(partitions[i])),
+                   "response": int(decoded.response[src]),
+                   "features": feats,
+                   "weight": float(weights[i]),
+                   "offset": float(decoded.offset[src])}
+
+    avro.write_records(path, schemas.REGRESSION_PREPARE_OUTPUT, gen())
 
 
 def _write_pipeline_outputs(config, result, out_base, test_path,

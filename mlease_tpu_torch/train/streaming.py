@@ -1,0 +1,933 @@
+"""Streaming ADMM for datasets larger than device memory, ported to PyTorch.
+
+Port of mlease_tpu/train/streaming.py (StreamingAdmmTrainer,
+build_group_solver) on its default solver: each group's x-update is the
+flat multi-RHS TRON solve of ops/tron_multi.py (the group's blocks folded
+into one stacked problem, every λ lane at once, Jacobi PCG), so K1's three
+fused tail reduces run inside every group solve. Blocks live in host RAM as
+packed groups, and each ADMM iteration runs
+
+  phase 1: for each group g: the next group's host->device copies are
+           issued on a copy stream, then g is solved on the compute stream
+           and its partial consensus sums taken;
+  phase 2: z-update from the accumulated xbar/ubar;
+  phase 3: u_g += x_g - z per group.
+
+**Overlap.** The port's `tron_multi` is a host loop that reads back once
+per Newton/CG trip, so a copy issued after the solve call (the JAX order)
+would start only once the solve had ended. Group g+1's copies are therefore
+issued on a dedicated copy stream *before* group g is solved, and the
+compute stream waits on an event before it uses them. Buffers for a
+streamed group are allocated on the copy stream and `record_stream`ed onto
+the compute stream, so the caching allocator never hands them out again
+while a solve still reads them. The compact-wire rebuilds (COO scatter of
+the head, inverse-permutation gather of the row-sorted tail) run on the
+copy stream too, after their copies.
+
+**Host arrays.** Each group's arrays are converted once, group by group, to
+the compute dtype (the dense head to head_dtype: a bfloat16 head is a host
+`torch.bfloat16` tensor), stacked (block offsets added to every id, so a
+shipped group is already the flat problem `stack_blocks` would build, and
+its id ranges and sortedness are checked here once, on the host) and copied
+into page-locked memory (`pin_host`; a copy from pageable memory is staged
+and does not overlap).
+
+**Consensus.** Device-resident (z, every u_g and the iteration's x_g on the
+card; one small readback of diffs and logliks per iteration) or
+host-resident (u_g on the host, shipped with its group; x_g fetched back).
+Both take the partial sums and the z-update on the device and the u-update
+as `u + x - z` elementwise, so both placements give the same bits.
+
+**Residency** under `resident_head_budget_gb`: (tier 1) dense heads per
+group while they fit, (tier 2) whole groups, (tier 3) the remaining groups'
+column-sorted tails; on the card the budget is capped by what the device
+can hold beside the streamed working set (see `_cap_budget`).
+
+**Compact wire**: a streamed head ships as its COO triplet and is
+scattered into the dense form on the card; a streamed row-sorted tail is
+gathered from the column-sorted copy by the inverse permutation.
+
+Not ported (NotImplementedError naming ROADMAP.md): the vmapped solvers
+(multi_rhs=False, flat_blocks=False) and pcg="head_block" (A1), and the
+device mesh (A8). dual_layout raises, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import time
+from typing import Callable, Sequence
+
+import numpy as np
+import torch
+
+from mlease_tpu_torch.core.dataset import (BlockedData, _numpy_dtype,
+                                           pack_rows, to_hybrid)
+from mlease_tpu_torch.core.linear_model import LinearModel
+from mlease_tpu_torch.device import resolve_device
+from mlease_tpu_torch.ops import admm_math
+from mlease_tpu_torch.ops.objective import class_balance_eps_scale
+from mlease_tpu_torch.ops.tron_multi import (MultiProblem, tron_multi,
+                                             with_prior)
+from mlease_tpu_torch.train.admm import (MAX_NTEST_EVENTS, AdmmConfig,
+                                         AdmmResult, _lambda_key,
+                                         sample_loglik_lanes)
+
+logger = logging.getLogger(__name__)
+
+_STREAM_FIELDS = ("indices", "values", "y", "weight", "offset", "present",
+                  "tail_rows", "tail_cols", "tail_vals",
+                  "tail_c_rows", "tail_c_cols", "tail_c_vals")
+_CTAIL = ("tail_c_rows", "tail_c_cols", "tail_c_vals")
+
+
+def _nbytes(a) -> int:
+    return 0 if a is None else int(a.nbytes)
+
+
+def _group_stream_bytes(g) -> int:
+    """Device bytes a fully-resident group pins: every per-iteration data
+    transfer (both tail layouts included), the head excluded."""
+    return sum(_nbytes(getattr(g, f, None)) for f in _STREAM_FIELDS)
+
+
+def _ctail_bytes(g) -> int:
+    return sum(_nbytes(getattr(g, f, None)) for f in _CTAIL)
+
+
+def _head_coo(head: torch.Tensor) -> tuple:
+    """Host-side COO of the dense (B, R, H) head (once at construction):
+    int32 flat row b*R + r, uint8 head column (int32 above 256 columns),
+    the value in the head's dtype."""
+    B, R, H = head.shape
+    b, r, h = (head != 0).nonzero(as_tuple=True)
+    rows = (b * R + r).to(torch.int32)
+    cols = h.to(torch.uint8 if H <= 256 else torch.int32)
+    return rows, cols, head[b, r, h]
+
+
+def _pad_group_tails(g: BlockedData, T_max: int) -> BlockedData:
+    """Pad one group's tail layouts from T to T_max columns, bit-exactly.
+
+    BOTH triplets APPEND (row R-1, col n-1, val 0.0) entries, the padding
+    convention of core/dataset.to_hybrid: row R-1 / col n-1 keep the
+    appended padding sorted in each stream, and appending means real
+    entries keep their positions. Each added entry contributes +0.0 to the
+    last row/column slot: a float-exact no-op."""
+    B, T = g.tail_rows.shape
+    P = T_max - T
+    if P <= 0:
+        return g
+
+    def app(a, fill=0):
+        return (None if a is None
+                else np.concatenate(
+                    [a, np.full((B, P), fill, a.dtype)], axis=1))
+
+    return g._replace(tail_rows=app(g.tail_rows, g.padded_rows - 1),
+                      tail_cols=app(g.tail_cols, g.dim - 1),
+                      tail_vals=app(g.tail_vals),
+                      tail_c_rows=app(g.tail_c_rows, g.padded_rows - 1),
+                      tail_c_cols=app(g.tail_c_cols, g.dim - 1),
+                      tail_c_vals=app(g.tail_c_vals))
+
+
+def _tail_inv_perm(tail_cols: np.ndarray) -> np.ndarray:
+    """Per-block inverse of the stable column sort: row-sorted tail =
+    column-sorted tail indexed by this permutation (exactly: the same
+    argsort core/dataset.to_hybrid builds the tail_c_* copy with). Returned
+    flat, with block b's positions offset by b*T, for the stacked arrays."""
+    B, T = tail_cols.shape
+    inv = np.empty((B, T), np.int32)
+    ar = np.arange(T, dtype=np.int32)
+    for b in range(B):
+        ordc = np.argsort(tail_cols[b], kind="stable")
+        inv[b, ordc] = ar + b * T
+    return inv
+
+
+def _pad_head_coo_shared(wire: dict) -> None:
+    """Pad every compact head-COO triplet to one shared length with
+    (0, 0, 0.0) entries, exact no-ops under the additive scatter. The JAX
+    package does it to compile one scatter program per run; here it makes
+    every streamed group's COO buffers one size, which the caching
+    allocator then reuses from group to group."""
+    lens = [w["head_coo"][0].shape[0] for w in wire.values()
+            if "head_coo" in w]
+    if len(lens) <= 1 or max(lens) == min(lens):
+        return
+    target = max(lens)
+    for w in wire.values():
+        coo = w.get("head_coo")
+        if coo is None or coo[0].shape[0] == target:
+            continue
+        pad = target - coo[0].shape[0]
+        w["head_coo"] = tuple(
+            torch.cat([a, torch.zeros(pad, dtype=a.dtype)]) for a in coo)
+
+
+def _gather_row_sorted(tc_rows, tc_cols, tc_vals, inv):
+    """Row-sorted tail from the column-sorted one (flat, stacked)."""
+    return tc_rows[inv], tc_cols[inv], tc_vals[inv]
+
+
+def _scatter_head_dense(hrows, hcols, hvals, shape):
+    """The dense (B, R, H) head from its COO triplet. index_add_, not an
+    assignment: the shared-length padding adds (0, 0, 0.0) entries, which
+    add nothing into slot (0, 0), while the real entries are unique
+    nonzeros of a zero base, so add equals set bit for bit."""
+    B, R, H = shape
+    flat = torch.zeros(B * R * H, dtype=hvals.dtype, device=hvals.device)
+    lin = hrows.to(torch.int64) * H + hcols.to(torch.int64)
+    flat.index_add_(0, lin, hvals)
+    return flat.view(B, R, H)
+
+
+def _device_hbm_bytes(dev: torch.device) -> int:
+    """The card's memory (bytes); MLEASE_HBM_GB overrides it."""
+    env = os.environ.get("MLEASE_HBM_GB")
+    if env:
+        return int(float(env) * (1 << 30))
+    return int(torch.cuda.get_device_properties(dev).total_memory)
+
+
+def _check_sorted_ids(a: np.ndarray, bound: int, name: str,
+                      is_sorted: bool) -> None:
+    """The flat problem's id streams: inside [0, bound), and segment ids
+    non-decreasing (the kernel relies on both); checked once, on the
+    host."""
+    if a.size == 0:
+        return
+    if is_sorted and bool(np.any(a[1:] < a[:-1])):
+        raise ValueError(f"{name} must be non-decreasing (sorted tail)")
+    if int(a.min()) < 0 or int(a.max()) >= bound:
+        raise ValueError(f"{name} holds ids outside [0, {bound})")
+
+
+def build_group_solver(max_newton_iter: int, max_cg_iter: int,
+                       multi_rhs: bool = True,
+                       pcg=True, flat_blocks: bool = True,
+                       relaxation: float = 1.0) -> Callable:
+    """The (lambda x block) x-update of one group (no consensus): the flat
+    multi-RHS solve, the group's B blocks folded into one stacked problem
+    with a joint per-λ trust region and the strictest per-block tolerance
+    (the JAX package's solve_flat).
+
+    solver(prob, present, z, u, rho_eff, eps) takes the group's stacked
+    MultiProblem without its prior (ids offset into the group's (B*R rows,
+    B*n columns) space, every array but the head flat), present (B, n)
+    bool, z (L, n), the group's u (L, B, n), rho_eff (L,) and eps (a
+    float); it returns (x (L, B, n), newton_trips, cg_trips)."""
+    if not (multi_rhs and flat_blocks) or pcg == "head_block":
+        raise NotImplementedError(
+            "streaming runs only the flat multi-RHS group solve (multi_rhs="
+            "True, flat_blocks=True, pcg jacobi or none); the vmapped "
+            "solvers and pcg='head_block' are ROADMAP.md item A1")
+
+    def solve(prob: MultiProblem, present, z, u, rho_eff, eps):
+        L, n = z.shape
+        B = u.shape[1]
+        prior_mean = z[:, None, :] - u                        # (L, B, n)
+        r = tron_multi(with_prior(prob, prior_mean, rho_eff),
+                       z.T.repeat(B, 1), eps, max_iter=max_newton_iter,
+                       max_cg_iter=max_cg_iter, precondition=pcg)
+        x = r.w.reshape(B, n, L).permute(2, 0, 1)             # (L, B, n)
+        x = torch.where(present[None, :, :], x, prior_mean)
+        if relaxation != 1.0:
+            # over-relaxation x_hat = alpha*x + (1-alpha)*z, post-masking,
+            # as the in-memory trainer applies it
+            x = relaxation * x + (1.0 - relaxation) * z[:, None, :]
+        return x, r.newton_trips, r.cg_trips
+
+    return solve
+
+
+class StreamingAdmmTrainer:
+    """ADMM over a list of host-resident block groups.
+
+    groups: list of BlockedData whose block counts sum to the logical
+    num.blocks. Groups may have different padded shapes.
+
+    consensus_device: "auto" (default) keeps z / u / x in device memory
+    whenever 2*L*nblocks*n*itemsize fits resident_head_budget_gb (checked
+    against the full budget: consensus state is solver state, not data);
+    True forces it; False keeps u on the host.
+
+    device: where the solves run ("cuda" by default; "cpu" only when asked,
+    as the tests do). pin_host: page-lock the host arrays on the card's
+    machine (False keeps them pageable, for measuring what pinning buys).
+    """
+
+    def __init__(self, groups: Sequence[BlockedData], vocab,
+                 config: AdmmConfig, test_rows=None, mesh=None,
+                 resident_head: str | bool = "auto",
+                 resident_head_budget_gb: float = 8.0,
+                 consensus_device: str | bool = "auto",
+                 compact_wire: str | bool = "auto",
+                 pad_tails: str | bool = "auto",
+                 device: str | torch.device = "cuda",
+                 pin_host: bool = True):
+        if config.dual_layout:
+            raise NotImplementedError(
+                "dual layout in streaming mode: the CSC arrays double the "
+                "per-iteration PCIe transfer; use the HBM-resident trainer")
+        if mesh is not None:
+            raise NotImplementedError(
+                "streaming over a device mesh is not ported yet: the mesh "
+                "is ROADMAP.md item A8")
+        self.solver = build_group_solver(
+            config.max_newton_iter, config.max_cg_iter,
+            multi_rhs=config.multi_rhs,
+            pcg=config.pcg, flat_blocks=config.flat_blocks,
+            relaxation=config.relaxation)
+        if config.dtype not in (torch.float32, torch.float64):
+            raise NotImplementedError(
+                f"compute dtype {config.dtype} is not ported; the solver "
+                f"and its kernel run float32 or float64")
+        self.device = dev = resolve_device(device)
+        on_card = dev.type == "cuda"
+        dt = _numpy_dtype(config.dtype)
+        hdt = config.head_dtype or config.dtype
+
+        # ---- one-time host normalization, group by group, in place -----
+        groups = list(groups)
+        for i, g in enumerate(groups):
+            if config.head_size > 0 and g.head is None:
+                g = to_hybrid(g, config.head_size, column_sorted=True,
+                              head_dtype=hdt)
+            conv = {f: np.asarray(getattr(g, f), dt)
+                    for f in ("values", "y", "weight", "offset",
+                              "tail_vals", "tail_c_vals")
+                    if getattr(g, f) is not None
+                    and getattr(g, f).dtype != dt}
+            if g.head is not None:
+                conv["head"] = _to_head_dtype(g.head, hdt)
+            g = g._replace(**conv)
+            # hand-constructed hybrid groups without a host-sorted tail
+            # copy: sort once here (the permutation to_hybrid builds)
+            if g.tail_cols is not None and g.tail_c_cols is None:
+                ords = [np.argsort(c, kind="stable") for c in g.tail_cols]
+                g = g._replace(**{
+                    f"tail_c_{k}": np.stack([a[o] for a, o in zip(
+                        getattr(g, f"tail_{k}"), ords)])
+                    for k in ("rows", "cols", "vals")})
+            groups[i] = g
+            del g
+
+        # ---- shared tail shapes ----------------------------------------
+        # Padding every group's tails to the run-wide max T makes every
+        # group's arrays one size (the caching allocator reuses them from
+        # group to group); "auto" pads unless that adds more than 25% of
+        # the tail bytes. Bit-exact (see _pad_group_tails).
+        self._tail_orig_T: dict[int, int] = {}
+        tails_ok = all(g.tail_rows is not None for g in groups)
+        if pad_tails in ("auto", True) and tails_ok and len(groups) > 1:
+            widths = [g.tail_rows.shape[1] for g in groups]
+            T_max = max(widths)
+            orig = sum(w * g.nblocks for w, g in zip(widths, groups))
+            padded = sum(T_max * g.nblocks for g in groups)
+            if T_max > min(widths) and (
+                    pad_tails is True or padded <= 1.25 * orig):
+                for i, g in enumerate(groups):
+                    if g.tail_rows.shape[1] < T_max:
+                        self._tail_orig_T[i] = g.tail_rows.shape[1]
+                        groups[i] = _pad_group_tails(g, T_max)
+                logger.info(
+                    "tail shapes harmonized to T=%d across %d groups "
+                    "(%d padded; +%.1f%% tail bytes)", T_max, len(groups),
+                    len(self._tail_orig_T),
+                    100.0 * (padded - orig) / max(orig, 1))
+
+        self.nblocks = sum(g.nblocks for g in groups)
+        self.real_nblocks = [g.nblocks for g in groups]
+        self.vocab = vocab
+        self.config = config
+        self.dim = groups[0].dim
+        self.lambdas = [float(l) for l in config.lambdas]
+        self.rhos = config.resolved_rhos()
+        self.use_head = groups[0].head is not None
+        self.eps_scales = [class_balance_eps_scale(g.y, g.nrows)
+                           for g in groups]
+        self._compute_np_dtype = dt
+
+        # ---- compact-wire host encodings need the unstacked tails -------
+        want_compact = (self.use_head
+                        and (compact_wire is True or compact_wire == "auto"))
+        inv_perms = ([_tail_inv_perm(g.tail_cols) for g in groups]
+                     if want_compact and tails_ok else None)
+
+        # ---- stack once on the host, check once, pin ------------------
+        self._pinned = on_card and pin_host
+        self.groups = []
+        for i in range(len(groups)):
+            self.groups.append(self._host_group(groups[i]))
+            groups[i] = None                   # let the originals go
+        del groups
+
+        # ---- consensus placement --------------------------------------
+        budget_gb = (float("inf") if resident_head is True
+                     else float(resident_head_budget_gb))
+        L = len(self.lambdas)
+        itemsize = torch.empty((), dtype=config.dtype).element_size()
+        consensus_bytes = 2 * L * self.nblocks * self.dim * itemsize
+        if consensus_device == "auto":
+            self._consensus_device = (consensus_bytes
+                                      <= budget_gb * (1 << 30))
+        else:
+            self._consensus_device = bool(consensus_device)
+
+        if (self.use_head and resident_head in ("auto", True) and on_card):
+            budget_gb = self._cap_budget(budget_gb, consensus_bytes)
+
+        # ---- streams ---------------------------------------------------
+        self._copy_stream = torch.cuda.Stream(dev) if on_card else None
+
+        # ---- tiered data residency (resident_head_budget_gb) ----------
+        #   tier 1 — every group's dense head (the dominant transfer);
+        #   tier 2 — whole groups, in order, while they fit;
+        #   tier 3 — remaining groups' column-sorted tail triplets.
+        self._resident_heads: dict[int, tuple] = {}
+        self._resident_groups: dict[int, tuple] = {}
+        self._resident_ctails: dict[int, tuple] = {}
+        self._wire: dict[int, dict] = {}
+        if self.use_head and resident_head in ("auto", True):
+            budget = budget_gb * (1 << 30)
+            pinned = 0
+            for gi, g in enumerate(self.groups):
+                hb = _nbytes(g.head) + _nbytes(g.head_ids)
+                if hb <= budget:
+                    self._resident_heads[gi] = (self._to_dev(g.head),
+                                                self._to_dev(g.head_ids))
+                    budget -= hb
+                    pinned += hb
+            for gi, g in enumerate(self.groups):
+                if gi not in self._resident_heads:
+                    continue
+                gb = _group_stream_bytes(g)
+                if gb > budget:
+                    break
+                self._resident_groups[gi] = self._put_group(gi)[:2]
+                budget -= gb
+                pinned += gb
+            for gi, g in enumerate(self.groups):
+                if gi in self._resident_groups:
+                    continue
+                cb = _ctail_bytes(g)
+                if 0 < cb <= budget:
+                    self._resident_ctails[gi] = tuple(
+                        self._to_dev(getattr(g, f).view(-1)) for f in _CTAIL)
+                    budget -= cb
+                    pinned += cb
+            if on_card:
+                torch.cuda.synchronize(dev)
+            logger.info(
+                "resident mode: %.2f GB pinned in device memory "
+                "(%d/%d heads + %d/%d full groups + %d sorted tails); "
+                "consensus state (%.2f GB) %s",
+                pinned / (1 << 30), len(self._resident_heads),
+                len(self.groups), len(self._resident_groups),
+                len(self.groups), len(self._resident_ctails),
+                consensus_bytes / (1 << 30),
+                "device-resident" if self._consensus_device
+                else "host-resident")
+
+        # ---- compact wire (after the ladder: pinned tiers never ship) ---
+        if want_compact:
+            for gi, g in enumerate(self.groups):
+                if gi in self._resident_groups:
+                    continue
+                w: dict = {}
+                if gi not in self._resident_heads:
+                    coo = _head_coo(g.head)
+                    # only a win while the head is actually sparse
+                    if sum(_nbytes(a) for a in coo) < _nbytes(g.head) // 2:
+                        w["head_coo"] = coo
+                if inv_perms is not None:
+                    w["tail_inv"] = torch.from_numpy(inv_perms[gi])
+                if w:
+                    self._wire[gi] = w
+            _pad_head_coo_shared(self._wire)
+            for w in self._wire.values():
+                for k in w:
+                    w[k] = (tuple(self._pin(a) for a in w[k])
+                            if isinstance(w[k], tuple) else self._pin(w[k]))
+            if self._wire:
+                logger.info(
+                    "compact wire: %d/%d streamed groups re-encoded "
+                    "(%.2f GB -> %.2f GB per iteration)",
+                    len(self._wire), len(self.groups),
+                    self._dense_wire_bytes() / (1 << 30),
+                    self.stream_wire_bytes() / (1 << 30))
+        del inv_perms
+
+        self.lam_vec = torch.as_tensor(np.stack([
+            admm_math.per_feature_lambda(l, self.dim, config.lambda_map,
+                                         vocab) for l in self.lambdas]),
+            dtype=config.dtype, device=dev)
+
+        # sample-test loglik arrays (first MAX_NTEST_EVENTS rows)
+        self.test_arrays = None
+        if test_rows:
+            blk = pack_rows(list(test_rows)[:MAX_NTEST_EVENTS], vocab)
+            self.test_arrays = tuple(
+                torch.as_tensor(np.asarray(a), dtype=t, device=dev)
+                for a, t in ((blk.indices, None), (blk.values, config.dtype),
+                             (blk.y, config.dtype),
+                             (blk.weight, config.dtype),
+                             (blk.offset, config.dtype)))
+
+    # ------------------------------------------------------------------
+    def _pin(self, t: torch.Tensor) -> torch.Tensor:
+        """A host tensor in page-locked memory (when pinning), else t."""
+        if not self._pinned:
+            return t
+        p = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        p.copy_(t)
+        return p
+
+    def _host_group(self, g: BlockedData) -> BlockedData:
+        """g with every array a host tensor, pinned on the card's machine,
+        ids offset into the group's stacked space, and the stacked id
+        streams checked once."""
+        B, R, n = g.nblocks, g.padded_rows, g.dim
+        if B * n >= 2**31 or B * R >= 2**31:
+            raise ValueError("stacked row and column ids must fit int32")
+        offs = {"rows": np.arange(B, dtype=np.int64)[:, None] * R,
+                "cols": np.arange(B, dtype=np.int64)[:, None] * n}
+
+        def stacked(a, off):
+            return None if a is None else (a + off).astype(np.int32)
+
+        ids = {"indices": stacked(g.indices, offs["cols"][..., None]),
+               "tail_rows": stacked(g.tail_rows, offs["rows"]),
+               "tail_cols": stacked(g.tail_cols, offs["cols"]),
+               "tail_c_rows": stacked(g.tail_c_rows, offs["rows"]),
+               "tail_c_cols": stacked(g.tail_c_cols, offs["cols"])}
+        if g.head_ids is not None:
+            ids["head_ids"] = stacked(np.broadcast_to(g.head_ids, (B, len(
+                g.head_ids))), offs["cols"]).reshape(-1)
+        if g.tail_rows is not None:
+            _check_sorted_ids(ids["tail_rows"].reshape(-1), B * R,
+                              "tail_rows", True)
+            _check_sorted_ids(ids["tail_cols"].reshape(-1), B * n,
+                              "tail_cols", False)
+        if g.tail_c_cols is not None:
+            _check_sorted_ids(ids["tail_c_cols"].reshape(-1), B * n,
+                              "tail_c_cols", True)
+            _check_sorted_ids(ids["tail_c_rows"].reshape(-1), B * R,
+                              "tail_c_rows", False)
+        out = {}
+        for f in ("indices", "values", "y", "weight", "offset", "present",
+                  "head", "head_ids", *("tail_" + k for k in (
+                      "rows", "cols", "vals", "c_rows", "c_cols",
+                      "c_vals"))):
+            a = ids[f] if f in ids else getattr(g, f)
+            if a is None:
+                out[f] = None
+                continue
+            t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(a))
+            out[f] = self._pin(t.contiguous())
+        return g._replace(**out)
+
+    def _to_dev(self, t: torch.Tensor | None) -> torch.Tensor | None:
+        """A resident array: copied once, on the compute stream."""
+        return None if t is None else t.to(self.device, non_blocking=True)
+
+    def _cap_budget(self, budget_gb: float, consensus_bytes: int) -> float:
+        """Cap the pin budget by what the card can hold beside the rest.
+
+        The pinned tiers share device memory with the double-buffered
+        streamed working set (2 groups in flight), the consensus state and
+        the iteration's x slab, and transients. The port reserves, beside
+        those: one dense head at its stored width (a compact head's scatter
+        output while the previous group's head is still alive); two blocks
+        of the head at the compute width (the block widened and squared by
+        ops/tron_multi._widen: a narrow head is never widened whole); the
+        solver's workspace, about 32 vectors of the largest group's rows
+        and columns per lane (measured peaks are in PERF.md); and 5% of the
+        card for the caching allocator (it rounds blocks up and keeps each
+        stream's freed blocks cached). A budget above what is left degrades
+        to less pinning instead of an out-of-memory error."""
+        cfg = self.config
+        L = len(self.lambdas)
+        item = torch.empty((), dtype=cfg.dtype).element_size()
+        group_dev = max(_group_stream_bytes(g) + _nbytes(g.head)
+                        + _nbytes(g.head_ids) for g in self.groups)
+        x_bytes = L * self.nblocks * self.dim * item
+        hbm = _device_hbm_bytes(self.device)
+        head_block = max(g.padded_rows * g.head.shape[2] for g in self.groups)
+        work = max(32 * L * g.nblocks * (g.padded_rows + g.dim) * item
+                   for g in self.groups)
+        slack = int(max(_nbytes(g.head) for g in self.groups)
+                    + 2 * head_block * item + work + 0.05 * hbm)
+        avail = (hbm - slack - 2 * group_dev - x_bytes
+                 - (consensus_bytes if self._consensus_device else 0))
+        if budget_gb * (1 << 30) > max(avail, 0):
+            logger.warning(
+                "resident budget %.1f GB exceeds safe device headroom "
+                "%.1f GB (%.1f GB - 2x%.2f GB streamed buffers - %.2f GB "
+                "consensus+x - %.2f GB reserved); capping", budget_gb,
+                max(avail, 0) / (1 << 30), hbm / (1 << 30),
+                group_dev / (1 << 30), (consensus_bytes + x_bytes)
+                / (1 << 30), slack / (1 << 30))
+            budget_gb = max(avail, 0) / (1 << 30)
+        return budget_gb
+
+    # ------------------------------------------------------------------
+    def residency_report(self) -> dict:
+        """The actual pinned state (the ladder may skip tiers that did not
+        fit)."""
+        return {
+            "consensus_device": bool(self._consensus_device),
+            "heads_pinned": len(self._resident_heads),
+            "full_groups_pinned": len(self._resident_groups),
+            "sorted_tails_pinned": len(self._resident_ctails),
+            "compact_wire_groups": len(self._wire),
+            "n_groups": len(self.groups),
+        }
+
+    def _dense_wire_bytes(self) -> int:
+        """Per-iteration host->device bytes without compact re-encoding
+        (pinned tiers still excluded)."""
+        total = 0
+        for gi, g in enumerate(self.groups):
+            if gi in self._resident_groups:
+                continue
+            total += sum(_nbytes(getattr(g, f)) for f in (
+                "indices", "values", "y", "weight", "offset", "present",
+                "tail_rows", "tail_cols", "tail_vals"))
+            if gi not in self._resident_ctails:
+                total += _ctail_bytes(g)
+            if self.use_head and gi not in self._resident_heads:
+                total += _nbytes(g.head) + _nbytes(g.head_ids)
+        return total
+
+    def stream_wire_bytes(self) -> int:
+        """Actual per-iteration host->device data bytes: pinned tiers never
+        re-ship; compact-wire groups ship COO heads and one tail layout
+        plus the permutation instead of two layouts. (Host-resident
+        consensus also ships each group's u and fetches its x.) The JAX
+        package's count, but for head_ids, which ship stacked: B*H ids
+        per group instead of H."""
+        total = 0
+        for gi, g in enumerate(self.groups):
+            if gi in self._resident_groups:
+                continue
+            w = self._wire.get(gi, {})
+            total += sum(_nbytes(getattr(g, f)) for f in (
+                "indices", "values", "y", "weight", "offset", "present"))
+            if "tail_inv" in w:
+                total += _nbytes(w["tail_inv"])
+            else:
+                total += sum(_nbytes(getattr(g, f)) for f in (
+                    "tail_rows", "tail_cols", "tail_vals"))
+            if gi not in self._resident_ctails:
+                total += _ctail_bytes(g)
+            if not self.use_head or gi in self._resident_heads:
+                continue
+            if "head_coo" in w:
+                total += sum(_nbytes(a) for a in w["head_coo"])
+            else:
+                total += _nbytes(g.head)
+            total += _nbytes(g.head_ids)
+        return total
+
+    def sample_loglik(self, z: torch.Tensor) -> np.ndarray:
+        return sample_loglik_lanes(*self.test_arrays, z).cpu().numpy()
+
+    # ------------------------------------------------------------------
+    def _put_group(self, gi: int, u_host: torch.Tensor | None = None):
+        """Issue group gi's host->device copies (and its compact-wire
+        rebuilds) on the copy stream; return (the group's MultiProblem
+        without its prior, present, u on the device or None, the event the
+        compute stream waits on before using them, or None when nothing was
+        copied). Pinned tiers hand back their device arrays as they are."""
+        if gi in self._resident_groups and u_host is None:
+            return (*self._resident_groups[gi], None, None)
+        cs = self._copy_stream
+        compute = torch.cuda.current_stream(self.device) if cs else None
+        made: list[torch.Tensor] = []
+
+        def put(t):
+            if t is None:
+                return None
+            d = t.to(self.device, non_blocking=True)
+            made.append(d)
+            return d
+
+        ctx = torch.cuda.stream(cs) if cs is not None else \
+            contextlib.nullcontext()
+        with ctx:
+            u_dev = put(u_host)
+            if gi in self._resident_groups:
+                prob, present = self._resident_groups[gi]
+            else:
+                g = self.groups[gi]
+                w = self._wire.get(gi, {})
+                head = {}
+                if self.use_head:
+                    if gi in self._resident_ctails:
+                        tc = self._resident_ctails[gi]
+                    else:
+                        tc = tuple(put(getattr(g, f).view(-1))
+                                   for f in _CTAIL)
+                    if "tail_inv" in w:
+                        t = _gather_row_sorted(*tc, put(w["tail_inv"]
+                                                        .view(-1)))
+                        made.extend(t)
+                    else:
+                        t = tuple(put(getattr(g, f).view(-1)) for f in (
+                            "tail_rows", "tail_cols", "tail_vals"))
+                    if gi in self._resident_heads:
+                        head_x, head_ids = self._resident_heads[gi]
+                    elif "head_coo" in w:
+                        head_x = _scatter_head_dense(
+                            *(put(a) for a in w["head_coo"]), g.head.shape)
+                        made.append(head_x)
+                        head_ids = put(g.head_ids)
+                    else:
+                        head_x, head_ids = put(g.head), put(g.head_ids)
+                    head = dict(head_x=head_x, head_ids=head_ids,
+                                tail_rows=t[0], tail_cols=t[1],
+                                tail_vals=t[2], tail_c_rows=tc[0],
+                                tail_c_cols=tc[1], tail_c_vals=tc[2])
+                B, R = g.nblocks, g.padded_rows
+                prob = MultiProblem(
+                    indices=put(g.indices.view(B * R, -1)),
+                    values=put(g.values.view(B * R, -1)),
+                    y=put(g.y.view(-1)), weight=put(g.weight.view(-1)),
+                    offset=put(g.offset.view(-1)), prior_mean=None,
+                    prior_var_inv=None, **head)
+                present = put(g.present)
+        if cs is None:
+            return prob, present, u_dev, None
+        for d in made:
+            d.record_stream(compute)
+        ev = torch.cuda.Event()
+        ev.record(cs)
+        return prob, present, u_dev, ev
+
+    def _iterate(self, z, u_groups, rho_eff, rho_base, inner_eps: float,
+                 track_ll: bool):
+        """Phases 1-3 of one iteration: every group's solve (the next
+        group's copies issued first), the z-update from the partial sums,
+        u_g += x_g - z in place. Returns (z_new, diffs, sample logliks or
+        None, the (G, 2) newton/cg trips); the one readback of diffs (and
+        logliks) is its only host sync besides the solves' own."""
+        cfg = self.config
+        dtype, dev = cfg.dtype, self.device
+        L, N, G = len(self.lambdas), self.nblocks, len(self.groups)
+        dev_consensus = self._consensus_device
+        xsum = usum = None
+        trip_mat = np.zeros((G, 2), np.int64)
+        x_keep: list[torch.Tensor] = []
+        # host-resident consensus ships each group's u with its data
+        ship_u = [None] * G if dev_consensus else u_groups
+        pending = self._put_group(0, ship_u[0])
+        for gi, scale in enumerate(self.eps_scales):
+            prob, present, u_dev, ready = pending
+            # the next group's copies go out BEFORE this group's solve: the
+            # solve is a host loop that syncs once per trip, so a copy
+            # issued after it would start only when it had ended
+            if gi + 1 < G:
+                pending = self._put_group(gi + 1, ship_u[gi + 1])
+            if ready is not None:
+                torch.cuda.current_stream(dev).wait_event(ready)
+            u_g = u_groups[gi] if dev_consensus else u_dev
+            eps = float(np.asarray(inner_eps * scale,
+                                   self._compute_np_dtype).min())
+            x, nt, cg = self.solver(prob, present, z, u_g, rho_eff, eps)
+            trip_mat[gi] = (nt, cg)
+            xs, us = x.sum(1), u_g.sum(1)
+            xsum = xs if xsum is None else xsum + xs
+            usum = us if usum is None else usum + us
+            if dev_consensus:
+                x_keep.append(x)
+            else:
+                xh = self._pin(torch.empty(x.shape, dtype=dtype))
+                x_keep.append(xh.copy_(x, non_blocking=True))
+            del prob, present, u_dev, x, u_g
+        # consensus shrinkage uses the BASE rho; adaptation only shapes the
+        # x-subproblem (RegressionAdmmTrain.java:368-380 vs :648-658)
+        v = (xsum + usum) / N
+        rho = rho_base[:, None]
+        if cfg.regularizer == 2:
+            z_new = admm_math.z_update_l2(
+                v, self.lam_vec, rho, N, self.vocab.intercept_index,
+                cfg.penalize_intercept)
+        else:
+            z_new = admm_math.z_update_l1(
+                v, self.lam_vec, rho, N, self.vocab.intercept_index,
+                cfg.penalize_intercept,
+                reference_compat=cfg.reference_l1_compat)
+        diffs_dev = admm_math.max_abs_diff(z_new, z, axis=-1)
+        if track_ll:
+            ll_dev = sample_loglik_lanes(*self.test_arrays, z_new)
+            out = torch.cat([diffs_dev, ll_dev]).to(torch.float64).cpu()
+            diffs, lls = out[:L].numpy(), out[L:].numpy()
+        else:
+            diffs, lls = diffs_dev.to(torch.float64).cpu().numpy(), None
+        # the readback above synced the compute stream, so the host copies
+        # of x (host consensus) have landed. Phase 3, u += x - z
+        # (admm_math.u_update in place, so a host-resident u stays in its
+        # page-locked buffer): the same elementwise (u + x) - z on either
+        # side gives the same bits
+        z_ref = z_new if dev_consensus else z_new.cpu()
+        for gi in range(G):
+            u_groups[gi].add_(x_keep[gi]).sub_(z_ref[:, None, :])
+        return z_new, diffs, lls, trip_mat
+
+    # ------------------------------------------------------------------
+    def run(self, z0: np.ndarray | None = None, *,
+            u0: np.ndarray | None = None, start_iteration: int = 1,
+            inner_eps0: float | None = None, mindiff0: float = 99999999.0,
+            best_loglik0: float = -9999999.0,
+            callback: Callable | None = None) -> AdmmResult:
+        """Run the streaming ADMM loop.
+
+        z0/u0/start_iteration/inner_eps0/mindiff0/best_loglik0 resume from a
+        checkpoint (utils/checkpoint, or a JAX run's state through
+        mlease_tpu_torch.convert), as AdmmTrainer.run. `callback(iteration=,
+        z=, u=, diffs=, inner_eps=, logliks=)` fires per iteration with z
+        (L, n) and u (L, nblocks, n) as tensors (on the device for device
+        consensus, on the host otherwise)."""
+        cfg = self.config
+        dtype, dev = cfg.dtype, self.device
+        L, n, G = len(self.lambdas), self.dim, len(self.groups)
+        if cfg.regularizer not in (1, 2):
+            raise ValueError("Only L1 and L2 regularization supported!")
+
+        z_np = (np.zeros((L, n)) if z0 is None
+                else np.broadcast_to(np.asarray(z0, np.float64),
+                                     (L, n)).copy())
+        u_np = [np.zeros((L, g.nblocks, n)) for g in self.groups]
+        if u0 is not None:
+            u0 = np.asarray(u0, np.float64)
+            off = 0
+            for gi, real in enumerate(self.real_nblocks):
+                u_np[gi][:, :real] = u0[:, off:off + real]
+                off += real
+        z = torch.as_tensor(z_np, dtype=dtype, device=dev)
+        if self._consensus_device:
+            u_groups = [torch.as_tensor(u, dtype=dtype, device=dev)
+                        for u in u_np]
+        else:
+            u_groups = [self._pin(torch.as_tensor(u, dtype=dtype))
+                        for u in u_np]
+        del u_np
+
+        inner_eps = (cfg.liblinear_epsilon if inner_eps0 is None
+                     else float(inner_eps0))
+        mindiff = mindiff0
+        best_loglik = best_loglik0
+        best_model: LinearModel | None = None
+        best_lambda: str | None = None
+        loglik_history: list[dict] = []
+        diff_history: list[dict] = []
+        iter_times: list[float] = []
+        solver_stats: list[dict] = []
+        # per-iteration (G, 2) newton/cg counters per group
+        self.trip_log: list[np.ndarray] = []
+        converged = False
+        t_start = time.monotonic()
+        iteration = start_iteration - 1
+        track_ll = self.test_arrays is not None and cfg.test_loglik_per_iter
+
+        # iteration-0 loglik when warm-started (RegressionAdmmTrain.java:277-280)
+        if z0 is not None and track_ll and start_iteration == 1:
+            for lam, ll in zip(self.lambdas, self.sample_loglik(z)):
+                loglik_history.append({"lambda": _lambda_key(lam), "iter": 0,
+                                       "testLoglik": float(ll)})
+
+        rho_base = torch.as_tensor(self.rhos, dtype=dtype, device=dev)
+        for iteration in range(start_iteration, cfg.num_iters + 1):
+            t_iter = time.monotonic()
+            inner_eps = admm_math.inner_eps_schedule(
+                inner_eps, iteration, mindiff,
+                aggressive=cfg.aggressive_liblinear_epsilon_decay)
+            rho_eff = torch.as_tensor([
+                admm_math.rho_effective(
+                    r, iteration,
+                    initialize_boost_rate=(cfg.initialize_boost_rate
+                                           if z0 is not None else 0.0),
+                    rho_adapt_coefficient=cfg.rho_adapt_coefficient)
+                for r in self.rhos], dtype=dtype, device=dev)
+
+            # the span the device idle share of an iteration is read over
+            # (chip_smoke.py phase 11); nearly free when no profiler runs
+            with torch.profiler.record_function("stream_iteration"):
+                z, diffs, lls, trip_mat = self._iterate(
+                    z, u_groups, rho_eff, rho_base, inner_eps, track_ll)
+
+            self.trip_log.append(trip_mat)
+            trips = trip_mat.sum(axis=0)
+            solver_stats.append({"newton_trips": int(trips[0]),
+                                 "cg_trips": int(trips[1])})
+            mindiff = float(diffs.min())
+            maxdiff = float(diffs.max())
+            diff_history.append({_lambda_key(l): float(d)
+                                 for l, d in zip(self.lambdas, diffs)})
+            iter_times.append(time.monotonic() - t_iter)
+            logger.info(
+                "stream iter %d: maxdiff=%g (%.2fs, %d newton / %d cg "
+                "trips over %d groups)", iteration, maxdiff, iter_times[-1],
+                int(trips[0]), int(trips[1]), G)
+
+            # per-iteration sample loglik + best-model tracking
+            # (RegressionAdmmTrain.java:766-845)
+            iter_lls = None
+            if track_ll:
+                iter_lls = []
+                for li, (lam, ll) in enumerate(zip(self.lambdas, lls)):
+                    ll = float(ll)
+                    entry = {"lambda": _lambda_key(lam), "iter": iteration,
+                             "testLoglik": ll}
+                    loglik_history.append(entry)
+                    iter_lls.append(entry)
+                    if ll > best_loglik:
+                        best_loglik = ll
+                        best_lambda = _lambda_key(lam)
+                        best_model = LinearModel.from_dense(
+                            z[li].to(torch.float64).cpu().numpy(),
+                            self.vocab)
+
+            if callback is not None:
+                callback(iteration=iteration, z=z,
+                         u=torch.cat([u[:, :real] for u, real in zip(
+                             u_groups, self.real_nblocks)], dim=1),
+                         diffs=diffs, inner_eps=inner_eps, logliks=iter_lls)
+
+            if admm_math.should_stop(maxdiff, inner_eps, cfg.epsilon,
+                                     cfg.inner_eps_floor):
+                converged = True
+                break
+
+        z_out = z.to(torch.float64).cpu().numpy()
+        u_full = torch.cat([u[:, :real] for u, real in zip(
+            u_groups, self.real_nblocks)], dim=1).to(torch.float64).cpu()
+        models = {_lambda_key(l): LinearModel.from_dense(z_out[i], self.vocab)
+                  for i, l in enumerate(self.lambdas)}
+        return AdmmResult(models=models, best_model=best_model,
+                          best_lambda=best_lambda, best_loglik=best_loglik,
+                          iterations=iteration,
+                          sample_loglik_history=loglik_history,
+                          diff_history=diff_history, z=z_out,
+                          u=u_full.numpy(), converged=converged,
+                          iter_times=iter_times, solver_stats=solver_stats,
+                          wall_time=time.monotonic() - t_start)
+
+
+def _to_head_dtype(head, hdt):
+    """The dense head in its storage dtype: a numpy array where numpy has
+    the type, a host torch.bfloat16 tensor otherwise."""
+    np_hdt = _numpy_dtype(hdt)
+    if isinstance(head, torch.Tensor):
+        if np_hdt is not None:
+            return head.to(hdt).numpy()
+        return head if head.dtype == hdt else head.to(hdt)
+    if np_hdt is not None:
+        return head if head.dtype == np_hdt else np.asarray(head, np_hdt)
+    return torch.from_numpy(np.ascontiguousarray(head)).to(hdt)

@@ -1,5 +1,6 @@
 """The port stands alone: no file of mlease_tpu_torch/, not chip_smoke.py
-and no tools/torch_*.py script imports JAX or the JAX package."""
+and no tools/torch_*.py script imports JAX or the JAX package, and the
+port's native codec is its own library, built under mlease_tpu_torch/."""
 
 import os
 import re
@@ -18,7 +19,7 @@ def port_files():
     for dirpath, _dirs, files in os.walk(os.path.join(REPO,
                                                       "mlease_tpu_torch")):
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".cpp")):
                 yield os.path.join(dirpath, f)
 
 
@@ -56,3 +57,27 @@ def test_guard_pattern_catches_each_form():
     for line in ("import mlease_tpu_torch", "from mlease_tpu_torch.ops import x",
                  "import jaxtyping"):
         assert not FORBIDDEN.search(line), line
+
+
+def test_the_scale_slice_modules_are_guarded():
+    """The native ingest, pack cache, streaming and profiling modules are
+    read by the guard and import cleanly; the codec's C++ sources are the
+    port's own, and its library lies under mlease_tpu_torch/, never the JAX
+    package's native/libmlease_native.so."""
+    import importlib
+
+    from mlease_tpu_torch.io import _native_build
+
+    rel = {os.path.relpath(p, REPO) for p in port_files()}
+    for mod in ("io/_native_build", "io/fast_decode", "io/fast_encode",
+                "io/pack_cache", "core/ingest", "train/streaming",
+                "utils/profiling", "train/pipeline"):
+        assert f"mlease_tpu_torch/{mod}.py" in rel, mod
+        importlib.import_module("mlease_tpu_torch." + mod.replace("/", "."))
+    for src in _native_build.SOURCES:
+        assert os.path.relpath(src, REPO) in rel
+    lib = os.path.realpath(_native_build.library_path())
+    assert lib.startswith(os.path.join(REPO, "mlease_tpu_torch") + os.sep)
+    for path in port_files():
+        with open(path) as f:
+            assert "libmlease_native.so" not in f.read(), path

@@ -121,11 +121,86 @@ def test_cli_device_cpu_smoke(tmp_path):
 
 
 def test_unported_job_keys_raise(tmp_path):
-    for key, value in (("streaming.groups", "2"), ("use.mesh", "true"),
-                       ("mesh.feature.shards", "2"),
-                       ("initialize.boost.rate", "2.0"),
-                       ("pack.cache.dir", str(tmp_path / "cache")),
-                       ("fused.loop", "true"), ("pcg", "head_block")):
-        props = job(str(tmp_path / "out"), **{key: value})
-        with pytest.raises(NotImplementedError):
+    """Paths not ported raise, naming their ROADMAP.md item; streaming
+    jobs too for the solver modes the streaming trainer does not run."""
+    for extra, item in (
+            ({"use.mesh": "true"}, "A8"), ({"mesh.feature.shards": "2"}, "A8"),
+            ({"initialize.boost.rate": "2.0"}, "A4"),
+            ({"fused.loop": "true"}, "A1"), ({"pcg": "head_block"}, "A1"),
+            ({"streaming.groups": "2", "pcg": "head_block"}, "A1"),
+            ({"streaming.groups": "2", "flat.blocks": "false"}, "A1"),
+            ({"streaming.groups": "2", "multi.rhs": "false"}, "A1")):
+        props = job(str(tmp_path / "out"), **extra)
+        with pytest.raises(NotImplementedError, match=item):
             torch_pipeline(JobConfig(props), device="cpu")
+
+
+STREAM_KEYS = {"streaming.groups": "2", "head.dtype": "bfloat16",
+               "num.iters": "8"}
+
+
+@pytest.fixture(scope="module")
+def stream_runs(tmp_path_factory):
+    """The breast-cancer job streamed in 2 groups with a bfloat16 head and
+    a pack cache: once in the JAX pipeline, twice in the port's (the second
+    a cache hit, with profile.dir set)."""
+    base = tmp_path_factory.mktemp("stream")
+    runs = {}
+    for tag, fn, kw in (("jax", jax_pipeline, {}),
+                        ("torch", torch_pipeline, {"device": "cpu"}),
+                        ("torch-hit", torch_pipeline, {"device": "cpu"})):
+        out = str(base / f"{tag}-out")
+        extra = dict(STREAM_KEYS, **{
+            "pack.cache.dir": str(base / ("jax-cache" if tag == "jax"
+                                          else "torch-cache"))})
+        if tag == "torch-hit":
+            extra["profile.dir"] = str(base / "trace")
+        runs[tag] = (out, fn(JobConfig(job(out, **extra)), **kw))
+    return base, runs
+
+
+def test_streaming_job_with_pack_cache_matches_jax(stream_runs):
+    _base, runs = stream_runs
+    (out_j, res_j), (out_t, res_t) = runs["jax"], runs["torch"]
+    assert res_t.iterations == res_j.iterations == 8
+    assert tree(out_t) == tree(out_j)
+    ll_dir = "sample-test-loglik"
+    for name in sorted(os.listdir(os.path.join(out_j, ll_dir))):
+        want = avro.read_records(os.path.join(out_j, ll_dir, name))
+        got = avro.read_records(os.path.join(out_t, ll_dir, name))
+        np.testing.assert_allclose([r["testLoglik"] for r in got],
+                                   [r["testLoglik"] for r in want],
+                                   rtol=0, atol=1e-8)
+    for sub in ("final-model", "best-model"):
+        mj = read_model_file(os.path.join(out_j, sub))
+        mt = read_model_file(os.path.join(out_t, sub))
+        assert sorted(mj) == sorted(mt)
+        for key in mj:
+            cj, ct = mj[key].coefficients, mt[key].coefficients
+            assert sorted(cj) == sorted(ct)
+            np.testing.assert_allclose([ct[f] for f in sorted(cj)],
+                                       [cj[f] for f in sorted(cj)],
+                                       rtol=0, atol=1e-7)
+    np.testing.assert_allclose(res_t.z, res_j.z, rtol=0, atol=1e-7)
+
+
+def test_streaming_cache_hit_gives_the_same_bits_and_a_trace(stream_runs):
+    base, runs = stream_runs
+    (out_t, res_t), (out_h, res_h) = runs["torch"], runs["torch-hit"]
+    np.testing.assert_array_equal(res_h.z, res_t.z)
+    np.testing.assert_array_equal(res_h.u, res_t.u)
+    # the hit skipped prepare: no prepared rows were written
+    assert os.path.isdir(os.path.join(out_t, "tmp-data"))
+    assert not os.path.exists(os.path.join(out_h, "tmp-data"))
+    for name in ("manifest.json", "vocab.json", "group-0.npz",
+                 "group-1.npz"):
+        assert os.path.exists(base / "torch-cache" / name), name
+    # the JAX package's cache of the same job holds the same manifest
+    with open(base / "torch-cache" / "manifest.json") as f:
+        mt = json.load(f)
+    with open(base / "jax-cache" / "manifest.json") as f:
+        assert json.load(f) == mt
+    traces = os.listdir(base / "trace")
+    assert len(traces) == 1 and traces[0].endswith(".json")
+    with open(base / "trace" / traces[0]) as f:
+        assert json.load(f)["traceEvents"]
