@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--seed 0] [--rows-per-block 1562500] [--iters 3]
                           [--out FILE.json]
-                          [--gram-only | --segsum-only | --streaming-only]
+                          [--gram-only | --segsum-only | --streaming-only
+                           | --modes-only]
 
 Phases, each of which fails the run when it fails:
 
@@ -99,6 +100,45 @@ Phases, each of which fails the run when it fails:
      set: the first log must show the native decoder and the cache write,
      the second a cache hit, and both the same final models bit for bit;
      the ingest phase breakdown and rows/s come from the first log.
+ 13. naive phase: 125,000 rows at ctr-12m widths written as Avro by the
+     same generator (cut from 12.5M: the naive and boosted jobs read their
+     rows record by record, as the JAX package's do, and three CLI runs
+     read them); three CLI runs on a copy of ctr-12m.job, started
+     together: `naive` with compute.model.mean=true, `train` with
+     initialize.boost.rate=2 (initialModel/ must hold the 24 naive models,
+     equal to the naive run's to 1e-4 * max|w|, z0 logged, an iteration-0
+     sample loglik written, records read, K1 launched by the ADMM that
+     follows) and the same with regularizer=1 (no warm start); then
+     train_naive in this process on the same rows (float32, lambda
+     1/10/100, the job's liblinear.epsilon), timed for models/s (whole
+     call and solve alone) and once under torch.profiler, with both
+     kernels' launch counts read around it: the naive problem is the ELL
+     layout of the JAX package's naive trainer (no dense head, no sorted
+     tail), so neither kernel is on this path and both counts must be 0;
+     its models must equal the CLI's to 1e-4 * max|w|; and two blocks in
+     float64 at liblinear.epsilon 1e-6 on the card must equal the same
+     solve on the CPU to 1e-6 * max|w|;
+ 14. solver-modes phase (run right after phase 7, on the full trainer's
+     data: ctr-12m widths, head 128 float32, 8 blocks, --rows-per-block):
+     AdmmTrainer with flat_blocks=False (Jacobi) and with pcg="head_block",
+     --iters iterations each, K1 counted in both and K2 in the head-block
+     run (one call per block per head-block build: 8 x (Newton trips + 1)
+     an iteration); the head-block run's first iteration again with K2
+     patched to its plain version (z within 1e-4 * max|z|); head-block CG
+     trips no more than Jacobi's; one profiled head-block step; then one
+     iteration of each again at liblinear.epsilon 1e-6, whose z must agree
+     within 1e-3 * max|z| (at the job's 0.01 two solvers' z differ by that
+     tolerance). Then StreamingAdmmTrainer with pcg="head_block" on the same
+     data in 4 groups, head stored as bfloat16 (K2's bf16-in route), 2
+     iterations, the job's 8 GB budget; and, at bench.py's shape without a
+     head, the lanes solves multi_rhs=False and dual_layout beside flat
+     Jacobi, --iters iterations, and one iteration of each at
+     liblinear.epsilon 1e-6, within 1e-3 * max|z| of flat Jacobi's;
+ 15. fit phase: a libsvm file of 100,000 rows x 512 features, 32 nonzeros
+     a row, from --seed; `fit --posterior-var --posterior-cov --f64`
+     through the CLI's main in this process: K2 builds the (513, 513)
+     dense Hessian once; the same fit with K2 patched to its plain version
+     must give the same .cov within 1e-9 * max|cov|.
 
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
@@ -107,12 +147,14 @@ non-zero and prints no result. --gram-only builds the kernels, runs phase 4
 alone and stops there, without the closing lines (for work on K2);
 --segsum-only builds them, sets up the two trainers and runs phase 3 alone
 (for work on K1); --streaming-only builds them and runs phases 11 and 12
-alone (for work on the scale path).
+alone (for work on the scale path); --modes-only builds them, sets up the
+two trainers and runs phases 14, 13 and 15 alone.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -409,6 +451,9 @@ GRAM_SHAPES = [
     ("item/R64_F16", 20_000, 64, 16, "float64", False),
     ("item/R256_F64", 20_000, 256, 64, "float32", False),
     ("head_block/ctr-12m", 3, 1_562_500, 128, "float32", True),
+    # the streamed head-block build: one block's bfloat16 head, 3 lanes
+    ("head_block/ctr-12m", 3, 1_562_500, 128, "bfloat16", True),
+    ("fit/F513", 1, 100_000, 513, "float64", False),       # phase 15's
     ("head_block/bench", 3, 16_384, 512, "float32", True),   # phase 10's
     ("tpu_doc/F512", 1, 131_072, 512, "float32", False),
     ("tpu_doc/F512", 1, 131_072, 512, "bfloat16", False),
@@ -1339,6 +1384,421 @@ def scale_cli_phase(args):
         return out
 
 
+NAIVE_ROWS = 125_000         # phase 13's rows (ctr-12m.job: 12.5M)
+NAIVE_LAMBDAS = [1.0, 10.0, 100.0]
+FIT_ROWS, FIT_FEATURES, FIT_NNZ = 100_000, 512, 32
+
+
+def naive_phase(args):
+    """Phase 13: the naive trainer and the boosted warm start at ctr-12m
+    widths. Three CLI runs on one Avro file, started together: `naive`
+    (compute.model.mean), `train` with initialize.boost.rate (L2: the naive
+    warm start) and the same with regularizer=1 (no warm start); then
+    train_naive in this process on the same rows, with the kernels' launch
+    counts read around it, against the naive run's mean models and, on two
+    of the blocks in float64, against the same solve on the CPU."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.core.linear_model import read_model_file
+    from mlease_tpu_torch.core.prepare import prepare_to_blocks
+    from mlease_tpu_torch.core.vocab import build_vocab
+    from mlease_tpu_torch.io import avro
+    from mlease_tpu_torch.ops.gram import gram_batched
+    from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+    from mlease_tpu_torch.train.naive import NaiveConfig, train_naive
+    from mlease_tpu_torch.utils.config import JobConfig
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-naive-") as tmp:
+        t0 = time.monotonic()
+        train = os.path.join(tmp, "train", "part-00000.avro")
+        write_scale_dataset(train, NAIVE_ROWS, args.seed + 1000)
+        write_scale_dataset(os.path.join(tmp, "test", "part-00000.avro"),
+                            SCALE_TEST_ROWS, args.seed + 999)
+        gen_s = time.monotonic() - t0
+        base = dict(JobConfig.from_file(os.path.join(
+            REPO, "examples", "data", "ctr-12m.job")))
+        base.update({"input.paths": train,
+                     "test.path": os.path.join(tmp, "test")})
+        runs = {"naive": ("naive", {"compute.model.mean": "true"}),
+                "boost_l2": ("train", {"initialize.boost.rate": "2.0"}),
+                "boost_l1": ("train", {"initialize.boost.rate": "2.0",
+                                       "regularizer": "1"})}
+        procs = {}
+        env = dict(os.environ, PYTHONPATH=REPO, MLEASE_LOG="INFO")
+        for name, (cmd, extra) in runs.items():
+            props = dict(base, **extra,
+                         **{"output.base.path": os.path.join(tmp, name)})
+            job = os.path.join(tmp, f"{name}.job")
+            with open(job, "w") as f:
+                f.writelines(f"{k}={v}\n" for k, v in props.items())
+            log = open(os.path.join(tmp, f"{name}.log"), "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, "-m", "mlease_tpu_torch", cmd, job],
+                stdout=subprocess.PIPE, stderr=log, text=True, env=env,
+                cwd=REPO), log, time.monotonic())
+        # the same rows in this process, read while the three runs go
+        t0 = time.monotonic()
+        blocks = prepare_to_blocks(avro.read_records(train), 8, seed=0)
+        keyed = {str(i): b for i, b in enumerate(blocks)}
+        vocab = build_vocab(r for b in blocks for r in b)
+        del blocks
+        read_s = time.monotonic() - t0
+        rows = {}
+        for name, (proc, log, t_start) in procs.items():
+            try:
+                out, _ = proc.communicate(timeout=CLI_TIMEOUT_S)
+            finally:
+                proc.kill()
+                log.close()
+            text = open(log.name).read()
+            if args.out:
+                with open(f"{args.out}.naive-{name}.log", "w") as f:
+                    f.write(text)
+            if proc.returncode != 0:
+                raise AssertionError(f"{name} CLI run failed "
+                                     f"({proc.returncode}):\n{text[-4000:]}")
+            summary = json.loads(out.strip().splitlines()[-1])
+            rows[name] = {"wall_s": time.monotonic() - t_start,
+                          "summary": summary,
+                          "warm_start_logged": "warm start: z0 from" in text,
+                          "native_ingest": "native ingest:" in text}
+            for line in text.splitlines():
+                if "warm start: z0 from" in line:
+                    rows[name]["z0_line"] = line.split("warm start: ", 1)[1]
+        out_dir = {k: os.path.join(tmp, k) for k in runs}
+        naive_cli = read_model_file(os.path.join(out_dir["naive"], "models"))
+        means_cli = read_model_file(os.path.join(out_dir["naive"],
+                                                 "final-model"))
+        init_dir = os.path.join(out_dir["boost_l2"], "initialModel")
+        init = (read_model_file(init_dir) if os.path.isdir(init_dir)
+                else {})
+        rows["boost_l2"]["initial_models"] = len(init)
+        rows["boost_l1"]["initial_model_dir"] = os.path.isdir(os.path.join(
+            out_dir["boost_l1"], "initialModel"))
+        rows["boost_l2"]["iteration_0_loglik"] = os.path.exists(os.path.join(
+            out_dir["boost_l2"], "sample-test-loglik", "iteration-0.avro"))
+
+        # in process: the naive run's config, timed, kernels counted
+        cfg = NaiveConfig(lambdas=NAIVE_LAMBDAS, liblinear_epsilon=float(
+            base["liblinear.epsilon"]), compute_model_mean=True,
+            dtype=torch.float32)
+        segment_sum_sorted.launches = gram_batched.launches = 0
+        t0 = time.monotonic()
+        res = train_naive(keyed, cfg, vocab=vocab)              # the path
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+        launches = {"segment_sum_sorted": segment_sum_sorted.launches,
+                    "gram_batched": gram_batched.launches}
+        profiled = device_time(lambda: train_naive(keyed, cfg, vocab=vocab))
+
+        def diff(a, b):
+            """max |coefficient difference| over two model dictionaries,
+            infinite when their keys or features differ."""
+            if sorted(a) != sorted(b) or any(
+                    sorted(a[k].coefficients) != sorted(b[k].coefficients)
+                    for k in a):
+                return float("inf")
+            return max_model_diff(a, b)[0]
+
+        # float64 on two blocks, card against CPU, at a tight tolerance
+        sub = {k: keyed[k] for k in ("0", "1")}
+        cfg64 = dataclasses.replace(cfg, dtype=torch.float64,
+                                    liblinear_epsilon=1e-6)
+        t0 = time.monotonic()
+        card64 = train_naive(sub, cfg64, vocab=vocab)
+        cpu64 = train_naive(sub, cfg64, vocab=vocab, device="cpu")
+        ref_s = time.monotonic() - t0
+        row = {"rows": NAIVE_ROWS, "features": vocab.size, "blocks": 8,
+               "lambdas": NAIVE_LAMBDAS, "dataset_s": gen_s,
+               "read_prepare_s": read_s, "runs": rows,
+               "models": len(res.models), "wall_s": wall_s,
+               "solver_stats": res.solver_stats,
+               "models_per_s": len(res.models) / wall_s,
+               "models_per_s_solve": (len(res.models)
+                                      / res.solver_stats["solve_s"]),
+               "profiled_run": profiled,
+               "kernel_launches": launches,
+               "mean_vs_cli_max_abs": diff(res.mean_models, means_cli),
+               "models_vs_cli_max_abs": diff(res.models, naive_cli),
+               "initial_vs_naive_cli_max_abs": diff(init, naive_cli),
+               "w_max_abs": max_model_diff(res.models, res.models)[1],
+               "card_vs_cpu_f64_max_abs": diff(card64.models, cpu64.models),
+               "f64_w_max_abs": max_model_diff(cpu64.models,
+                                               cpu64.models)[1],
+               "cpu_ref_s": ref_s}
+        print("naive " + json.dumps(row), flush=True)
+        bad = [what for what, ok in (
+            ("models written", rows["naive"]["summary"]["models"] == 24
+             and sorted(means_cli) == ["1.0", "10.0", "100.0"]),
+            ("the in-process run equals the CLI's",
+             row["mean_vs_cli_max_abs"] <= 1e-4 * row["w_max_abs"]
+             and row["models_vs_cli_max_abs"] <= 1e-4 * row["w_max_abs"]),
+            ("card equals CPU in float64",
+             row["card_vs_cpu_f64_max_abs"] <= 1e-6 * row["f64_w_max_abs"]),
+            ("L2 boost wrote initialModel/ and logged z0",
+             len(init) == 24 and rows["boost_l2"]["warm_start_logged"]
+             and rows["boost_l2"]["iteration_0_loglik"]
+             and row["initial_vs_naive_cli_max_abs"]
+             <= 1e-4 * row["w_max_abs"]),
+            ("L1 boost did not warm-start",
+             not rows["boost_l1"]["warm_start_logged"]
+             and not rows["boost_l1"]["initial_model_dir"]),
+            ("boosted runs read records",
+             not rows["boost_l2"]["native_ingest"]
+             and not rows["boost_l1"]["native_ingest"]),
+            ("K1 ran in the boosted ADMM runs",
+             rows["boost_l2"]["summary"]["kernel_launches"][
+                 "segment_sum_sorted"] > 0),
+            ("no kernel on the naive path (ELL problem: no sorted tail, "
+             "no head)", launches == {"segment_sum_sorted": 0,
+                                     "gram_batched": 0})) if not ok]
+        if bad:
+            raise AssertionError(f"naive phase: not {bad}: {row}")
+        return row
+
+
+def solver_modes_phase(trainers, args, flat_iter_s=None):
+    """Phase 14: the per-block and head-block ADMM solves at full width on
+    the full trainer's data, the streamed head-block solve (bfloat16 head,
+    K2's bf16-in route) and, at bench.py's shape, the lanes solves
+    (multi_rhs=False, dual_layout) against flat Jacobi."""
+    import numpy as np
+    import torch
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.core.dataset import split_blocks
+    from mlease_tpu_torch.ops import gram
+    from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+
+    full = trainers["full"]
+    data, vocab = full.data, full.vocab
+    base = dataclasses.replace(full.config, num_iters=args.iters)
+    out = {}
+    z_first = {}
+
+    def run(name, cfg, build=AdmmTrainer, src=data, voc=vocab, **kw):
+        t0 = time.monotonic()
+        tr = build(src, voc, cfg, **kw)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        segment_sum_sorted.launches = gram.gram_batched.launches = 0
+
+        def keep(iteration, z, **_kw):
+            z_first.setdefault(name, {})[iteration] = \
+                z.double().cpu().numpy()
+        res = tr.run(callback=keep)
+        torch.cuda.synchronize()
+        row = {"mode": tr.mode, "build_s": build_s, "iter_s": res.iter_times,
+               "steady_iter_s": steady_s(res.iter_times),
+               "solver_stats": res.solver_stats,
+               "k1_launches": segment_sum_sorted.launches,
+               "k2_launches": gram.gram_batched.launches,
+               "z_finite": bool(np.isfinite(res.z).all()),
+               "z_max_abs": float(np.abs(res.z).max())}
+        out[name] = row
+        print(f"solver-modes {name} " + json.dumps(row), flush=True)
+        return tr, res
+
+    def tight(name, tr):
+        """One iteration again at liblinear.epsilon 1e-6: solves that stop
+        far inside the job's tolerance, so that two solvers' z may be held
+        to each other (at the job's 0.01 they differ by that tolerance)."""
+        tr.config = dataclasses.replace(tr.config, num_iters=1,
+                                        liblinear_epsilon=1e-6)
+        res = tr.run()
+        out[name] = {"solver_stats": res.solver_stats,
+                     "iter_s": res.iter_times,
+                     "z_finite": bool(np.isfinite(res.z).all()),
+                     "z_max_abs": float(np.abs(res.z).max())}
+        return res.z
+
+    B = data.nblocks
+    jac, res_jac = run("per_block_jacobi",
+                       dataclasses.replace(base, flat_blocks=False))
+    z_jac = tight("tight_per_block_jacobi", jac)
+    del jac
+    hb, res_hb = run("head_block", dataclasses.replace(base,
+                                                       pcg="head_block"))
+    builds = sum(s["newton_trips"] + 1 for s in res_hb.solver_stats)
+    row = out["head_block"]
+    row["expected_k2_launches"] = B * builds
+    # the first iteration again, every head Gram on K2's plain version
+    hb.config = dataclasses.replace(base, pcg="head_block", num_iters=1)
+    before = gram.gram_batched.launches
+    with mock.patch.object(tm, "gram_batched", gram.gram_batched_reference):
+        plain = hb.run()
+    plain_launched = gram.gram_batched.launches != before
+    zk = z_first["head_block"][1]
+    row["z_kernel_vs_plain_max_abs"] = float(np.abs(zk - plain.z).max())
+    row["z_first_max_abs"] = float(np.abs(zk).max())
+    # one profiled step of head_block from z = u = 0
+    L, n = len(hb.lambdas), hb.dim
+    cfg, dev = hb.config, hb.device
+    z = torch.zeros((L, n), dtype=cfg.dtype, device=dev)
+    u = torch.zeros((L, B, n), dtype=cfg.dtype, device=dev)
+    rho = torch.as_tensor(hb.rhos, dtype=cfg.dtype, device=dev)
+    eps = cfg.liblinear_epsilon * hb.eps_scale
+    stats = {}
+
+    def one_step():
+        stats.update(hb.step(hb.prob, hb.present, z, u, hb.lam_vec, rho,
+                             rho, eps)[3])
+    one_step()
+    row["profiled_step"] = device_time(one_step)
+    row["profiled_step_stats"] = stats
+    z_hb = tight("tight_head_block", hb)
+    out["tight_head_block_vs_per_block_jacobi_max_abs"] = float(np.abs(
+        z_hb - z_jac).max())
+    del hb
+    torch.cuda.empty_cache()
+    out["flat_jacobi_steady_iter_s"] = flat_iter_s
+
+    # streamed, the job's 8 GB budget, head stored as bfloat16: head_block
+    groups = split_blocks(data, STREAM_GROUPS)
+    scfg = dataclasses.replace(base, num_iters=2, pcg="head_block",
+                               head_dtype=torch.bfloat16)
+    _st, res_st = run("stream_head_block", scfg, StreamingAdmmTrainer,
+                      groups, resident_head_budget_gb=8.0)
+    del _st, groups
+    torch.cuda.empty_cache()
+    srow = out["stream_head_block"]
+    srow["k2_variant"] = gram.launch_config(
+        3, data.padded_rows, data.head.shape[2], torch.bfloat16,
+        True).variant
+    # the in-memory head-block run after as many iterations, float32 head
+    srow["vs_in_memory_f32_head_max_abs"] = float(np.abs(
+        res_st.z - z_first["head_block"][2]).max()) \
+        if 2 in z_first["head_block"] else None
+
+    # the lanes solves at bench.py's shape, without a head (dual_layout
+    # reads the column-sorted copy of the ELL nonzeros)
+    bench = synth_blocked_data(50_000, 4, 16_384, 15, args.seed)
+    bvocab = make_vocab(50_000)
+    bcfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=args.iters,
+                      pcg=True, flat_blocks=True, dtype=torch.float32)
+    zt = {}
+    for name, kw in (("bench_flat_jacobi", {}),
+                     ("bench_lanes", dict(multi_rhs=False)),
+                     ("bench_dual_layout", dict(dual_layout=True))):
+        tr, _res = run(name, dataclasses.replace(bcfg, **kw), src=bench,
+                       voc=bvocab)
+        zt[name] = tight("tight_" + name, tr)
+        del tr
+    for name in ("bench_lanes", "bench_dual_layout"):
+        out[f"tight_{name}_vs_flat_jacobi_max_abs"] = float(np.abs(
+            zt[name] - zt["bench_flat_jacobi"]).max())
+
+    cg = {k: sum(s["cg_trips"] for s in out[k]["solver_stats"])
+          for k in ("per_block_jacobi", "head_block")}
+    out["cg_trips_total"] = cg
+    zmax = out["tight_per_block_jacobi"]["z_max_abs"]
+    bzmax = out["tight_bench_flat_jacobi"]["z_max_abs"]
+    bad = [what for what, ok in (
+        ("finite z", all(r["z_finite"] for r in out.values()
+                         if isinstance(r, dict) and "z_finite" in r)),
+        ("K1 in the per-block solves", out["per_block_jacobi"]["k1_launches"]
+         > 0 and row["k1_launches"] > 0 and srow["k1_launches"] > 0),
+        ("K2 once per block per head-block build",
+         row["k2_launches"] == B * builds
+         and out["per_block_jacobi"]["k2_launches"] == 0),
+        ("K2 in the streamed head-block solve, bf16-in",
+         srow["k2_launches"] > 0 and srow["k2_variant"] == "mma"),
+        ("the plain run launched no K2", not plain_launched),
+        ("kernel vs plain first iteration",
+         row["z_kernel_vs_plain_max_abs"] <= 1e-4 * row["z_first_max_abs"]),
+        ("head-block z vs per-block Jacobi z",
+         out["tight_head_block_vs_per_block_jacobi_max_abs"]
+         <= 1e-3 * zmax),
+        ("head-block CG trips <= Jacobi's",
+         cg["head_block"] <= cg["per_block_jacobi"]),
+        ("lanes and dual layout vs flat Jacobi at bench shape", all(
+            out[f"tight_{k}_vs_flat_jacobi_max_abs"] <= 1e-3 * bzmax
+            for k in ("bench_lanes", "bench_dual_layout")))) if not ok]
+    print("solver-modes-summary " + json.dumps(
+        {k: v for k, v in out.items() if not isinstance(v, dict)}),
+        flush=True)
+    if bad:
+        raise AssertionError(f"solver modes: not {bad}")
+    return out
+
+
+def write_fit_libsvm(path, seed):
+    """FIT_ROWS rows of FIT_NNZ distinct features out of FIT_FEATURES, a
+    logistic response from a sparse ground truth, as libsvm lines."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=FIT_FEATURES) * 0.2
+    cols = np.argsort(rng.random((FIT_ROWS, FIT_FEATURES)), axis=1)[
+        :, :FIT_NNZ]
+    vals = rng.normal(size=(FIT_ROWS, FIT_NNZ)).round(4)
+    p = 1 / (1 + np.exp(-((vals * w[cols]).sum(1) - 0.5)))
+    y = (rng.random(FIT_ROWS) < p).astype(int)
+    with open(path, "w") as f:
+        for i in range(FIT_ROWS):
+            f.write(f"{y[i]} " + " ".join(
+                f"f{c}:{v:g}" for c, v in zip(cols[i], vals[i])) + "\n")
+
+
+def fit_phase(args):
+    """Phase 15: `fit --posterior-var --posterior-cov --f64` on a synthetic
+    libsvm file (100,000 rows x 512 features, 32 nonzeros a row, from
+    --seed), in this process through the CLI's main: K2 builds the dense
+    Hessian; the same fit with K2 patched to its plain version must give
+    the same .cov within 1e-9 relative."""
+    import numpy as np
+    import mlease_tpu_torch.ops.objective as objective_mod
+    from mlease_tpu_torch import cli
+    from mlease_tpu_torch.ops.gram import gram_batched, gram_batched_reference
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-fit-") as tmp:
+        data = os.path.join(tmp, "train.libsvm")
+        t0 = time.monotonic()
+        write_fit_libsvm(data, args.seed + 15)
+        gen_s = time.monotonic() - t0
+        runs = {}
+        for name in ("kernel", "plain"):
+            out = os.path.join(tmp, f"{name}.txt")
+            ctx = (mock.patch.object(objective_mod, "gram_batched",
+                                     gram_batched_reference)
+                   if name == "plain" else contextlib.nullcontext())
+            gram_batched.launches = 0
+            t0 = time.monotonic()
+            with ctx:
+                rc = cli.main(["fit", data, "--out", out, "--posterior-var",
+                               "--posterior-cov", "--f64"])
+            runs[name] = {"rc": rc, "wall_s": time.monotonic() - t0,
+                          "k2_launches": gram_batched.launches}
+
+            def values(path):
+                return np.array([float(line.rpartition(" = ")[2])
+                                 for line in open(path)])
+            runs[name]["cov"] = values(out + ".cov")
+            runs[name]["w"] = values(out)
+            runs[name]["cov_lines"] = sum(1 for _ in open(out + ".cov"))
+        k, p = runs["kernel"], runs["plain"]
+        scale = float(np.abs(p["cov"]).max())
+        row = {"rows": FIT_ROWS, "features": FIT_FEATURES, "nnz": FIT_NNZ,
+               "dataset_s": gen_s, "wall_s": k["wall_s"],
+               "plain_wall_s": p["wall_s"], "k2_launches": k["k2_launches"],
+               "plain_k2_launches": p["k2_launches"],
+               "cov_lines": k["cov_lines"],
+               "cov_kernel_vs_plain_max_abs": float(np.abs(
+                   k["cov"] - p["cov"]).max()),
+               "cov_max_abs": scale,
+               "w_kernel_vs_plain_max_abs": float(np.abs(k["w"]
+                                                         - p["w"]).max())}
+        print("fit " + json.dumps(row), flush=True)
+        if (k["rc"] != 0 or p["rc"] != 0 or k["k2_launches"] != 1
+                or p["k2_launches"] != 0
+                or k["cov_lines"] != (FIT_FEATURES + 1) ** 2
+                or not np.isfinite(k["cov"]).all()
+                or not row["cov_kernel_vs_plain_max_abs"] <= 1e-9 * scale):
+            raise AssertionError(f"fit phase: {row}")
+        return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1356,6 +1816,9 @@ def main(argv=None) -> int:
     ap.add_argument("--streaming-only", action="store_true",
                     help="build, run the streaming and scale CLI phases "
                          "(11, 12) alone and stop")
+    ap.add_argument("--modes-only", action="store_true",
+                    help="build, set up the trainers, run the naive, "
+                         "solver-mode and fit phases (13-15) alone and stop")
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(REPO, "mlease_tpu_torch", "csrc")):
@@ -1455,9 +1918,15 @@ def main(argv=None) -> int:
     trainers = None
     if not report["failed"]:
         trainers = phase("setup", setup)
-    if args.segsum_only:
-        if trainers is not None:
+    if args.segsum_only or args.modes_only:
+        if trainers is not None and args.segsum_only:
             phase("kernel", kernel_phase, trainers, args)
+        elif trainers is not None:
+            phase("solver_modes", solver_modes_phase, trainers, args)
+            del trainers
+            torch.cuda.empty_cache()
+            phase("naive", naive_phase, args)
+            phase("fit", fit_phase, args)
         write_report()
         print(card_line(), flush=True)
         return fail(f"failed phases: {report['failed']}") \
@@ -1468,6 +1937,8 @@ def main(argv=None) -> int:
         phase("cli", cli_phase)
         full = phase("full_width", full_width_phase, trainers["full"], args)
         speed = phase("speed", speed_phase, trainers, args)
+        phase("solver_modes", solver_modes_phase, trainers, args,
+              speed["full"]["steady_iter_s"] if speed else None)
         del trainers
         torch.cuda.empty_cache()
         items = phase("item", item_phase, args)
@@ -1476,6 +1947,8 @@ def main(argv=None) -> int:
         phase("streaming", streaming_phase, args,
               speed["full"]["steady_iter_s"] if speed else None)
         phase("scale_cli", scale_cli_phase, args)
+        phase("naive", naive_phase, args)
+        phase("fit", fit_phase, args)
     write_report()
     if report["failed"]:
         return fail(f"failed phases: {report['failed']}")

@@ -5,19 +5,21 @@ reads the same properties-file job keys as `python -m mlease_tpu`
 (reference: README.md:50, Regression.java:88-98). Subcommands:
 
   train    full pipeline Prepare -> AdmmTrain -> Test -> TestLoglik
+  naive    RegressionNaiveTrain: independent per-(lambda,key) fits
   test     RegressionTest: score with an existing final-model/best-model
            ("predict" is an alias)
   loglik   RegressionTestLoglik: aggregate scored outputs
   item     ItemModelTrain: per-item models (+ posterior variance)
   itemtest ItemModelTest + ItemModelTestLoglik: score with per-item models
+  fit      local single-problem fit on a libsvm file (LibLinear.main,
+           LibLinear.java:519-724)
 
 train and item read their input through the native columnar decoder when
 `native.ingest` is on (the default), and record at a time otherwise or when
-the decoder is unavailable. The JAX package's naive and fit subcommands are
-not ported yet (ROADMAP.md).
---device defaults to cuda and fails without a CUDA device. The JSON summary
-line of train, item and itemtest carries `kernel_launches`, the count of
-launches of each hand-written kernel in the run (0 on the CPU).
+the decoder is unavailable. --device defaults to cuda and fails without a
+CUDA device. The JSON summary line of train, naive, item and itemtest
+carries `kernel_launches`, the count of launches of each hand-written
+kernel in the run (0 on the CPU).
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import json
 import logging
 import os
 import sys
+
+import numpy as np
 
 
 def _load_config(path: str):
@@ -63,6 +67,62 @@ def cmd_train(args):
         "device": args.device,
         "kernel_launches": _kernel_launches(),
     }))
+    return 0
+
+
+def cmd_naive(args):
+    from mlease_tpu_torch.core.linear_model import write_model_file
+    from mlease_tpu_torch.core.prepare import (prepare_to_blocks,
+                                               prepare_to_keyed)
+    from mlease_tpu_torch.io import avro
+    from mlease_tpu_torch.train.naive import NaiveConfig, train_naive
+    from mlease_tpu_torch.train.pipeline import DTYPES, read_lambda_map
+
+    config = _load_config(args.config)
+    records = avro.read_records(config.get_string("input.paths"))
+    ignore_value = config.get_boolean("binary.feature", False)
+    map_key = config.get_string("map.key", "")
+    if map_key:
+        keyed = prepare_to_keyed(records, map_key=map_key,
+                                 ignore_value=ignore_value)
+    else:
+        nblocks = config.get_int("num.blocks")
+        blocks = prepare_to_blocks(records, nblocks, ignore_value=ignore_value,
+                                   seed=config.get_int("prepare.seed", 0))
+        keyed = {str(i): b for i, b in enumerate(blocks)}
+    del records
+
+    lambda_map = None
+    if config.get_string("lambda.map", ""):
+        lambda_map = read_lambda_map(config.get_string("lambda.map"))
+    cfg = NaiveConfig(
+        lambdas=config.get_float_list("lambda"),
+        # 0.001 default (RegressionNaiveTrain.java:149); the ADMM warm-start
+        # init path uses 0.01 (train/pipeline.py)
+        liblinear_epsilon=config.get_float("liblinear.epsilon", 0.001),
+        has_intercept=config.get_boolean("has.intercept", True),
+        intercept_key=config.get_string("intercept.key", "") or None,
+        penalize_intercept=config.get_boolean("penalize.intercept", False),
+        prior_mean=config.get_float("prior.mean", 0.0),
+        lambda_map=lambda_map,
+        data_size_threshold=config.get_int("data.size.threshold", 0),
+        compute_model_mean=config.get_boolean("compute.model.mean", False),
+        dtype=DTYPES[config.get_string("dtype", "float32")])
+    result = train_naive(keyed, cfg, device=args.device)
+
+    out_base = config.get_string("output.base.path")
+    write_model_file(os.path.join(out_base, "models", "part-r-00000.avro"),
+                     result.models)
+    if result.mean_models is not None:
+        write_model_file(os.path.join(out_base, "final-model",
+                                      "part-r-00000.avro"),
+                         result.mean_models)
+    print(json.dumps({"models": len(result.models),
+                      "skipped": result.skipped_keys,
+                      "mean_models": (sorted(result.mean_models)
+                                      if result.mean_models else None),
+                      "device": args.device,
+                      "kernel_launches": _kernel_launches()}))
     return 0
 
 
@@ -228,6 +288,171 @@ def cmd_itemtest(args):
     return 0
 
 
+# ---------------------------------------------------------------------------
+def read_libsvm(path: str):
+    """libsvm-ish lines: `label name:value name:value ...` (string feature
+    names allowed, as in LibLinearDataset.readFromLibSVM,
+    LibLinearDataset.java:216-310)."""
+    rows = []
+    with open(path) as f:
+        for lineno, line in enumerate(f, 1):
+            toks = line.split()
+            if not toks:
+                continue
+            try:
+                label = int(float(toks[0]))
+            except ValueError as e:
+                raise ValueError(f"{path}:{lineno}: bad label") from e
+            feats = []
+            for tok in toks[1:]:
+                name, _, val = tok.rpartition(":")
+                if not name:
+                    raise ValueError(f"{path}:{lineno}: bad feature {tok!r}")
+                feats.append((name, float(val)))
+            rows.append({"response": label, "features": feats,
+                         "weight": 1.0, "offset": 0.0})
+    return rows
+
+
+def _parse_fit_option(option: str):
+    """The reference's `option:` string: comma-separated key=value with keys
+    epsilon, type, max_iter, verbose, positive_weight
+    (LibLinear.parseOption, LibLinear.java:113-157); unknown keys raise."""
+    out = {}
+    if not option:
+        return out
+    for tok in option.split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        key, sep, val = tok.partition("=")
+        key, val = key.strip(), val.strip()
+        if not sep or not val:
+            raise ValueError(f"Unknown option specification: '{tok}' "
+                             f"in '{option}'")
+        if key == "epsilon":
+            out["epsilon"] = float(val)
+        elif key == "max_iter":
+            out["max_iter"] = int(val)
+        elif key == "positive_weight":
+            out["positive_weight"] = float(val)
+        elif key == "type":
+            out["type"] = val
+        elif key == "verbose":
+            out["verbose"] = int(val)
+        else:
+            raise ValueError(f"Invalid option specification: '{tok}' "
+                             f"in '{option}'")
+    return out
+
+
+def _read_text_model(path: str, vocab, default: float = 0.0) -> np.ndarray:
+    """'name = value' text map -> dense vector over the vocab
+    (Util.readStringDoubleMap, the reference's init:/param: files)."""
+    v = np.full(vocab.size, default)
+    with open(path) as f:
+        for line in f:
+            name, _, value = line.partition("=")
+            name = name.strip()
+            idx = vocab.get(name)
+            if idx is not None and value.strip():
+                v[idx] = float(value)
+    return v
+
+
+def cmd_fit(args):
+    """Local single-problem fit (LibLinear.main, LibLinear.java:519-724):
+    one TRON solve, the text model, and with --posterior-var the diagonal
+    Laplace variance, with --posterior-cov the full covariance (the dense
+    Hessian through the weighted-Gram kernel on the card, inverted on the
+    host in float64)."""
+    import torch
+
+    from mlease_tpu_torch.core import build_vocab, pack_rows
+    from mlease_tpu_torch.ops import objective as obj
+    from mlease_tpu_torch.ops.tron import tron
+
+    opts = _parse_fit_option(args.option)
+    if opts.get("type", "logistic_regression").startswith("0"):
+        raise ValueError(f"unknown model type {opts['type']!r}")
+    epsilon = opts.get("epsilon", args.epsilon)
+    max_iter = opts.get("max_iter", args.max_iter)
+    positive_weight = opts.get("positive_weight", args.positive_weight)
+    if args.posterior_cov and not args.posterior_var:
+        raise SystemExit(
+            "Cannot compute posterior covariances with posteriorVar:0")
+
+    if args.ftype == "json":
+        from mlease_tpu_torch.io.records import read_json_rows
+
+        rows = read_json_rows(args.data)
+    elif args.ftype == "avro":
+        from mlease_tpu_torch.io import avro
+        from mlease_tpu_torch.io.records import normalize_row
+
+        rows = [normalize_row(r) for r in avro.read_records(args.data)]
+    else:
+        rows = read_libsvm(args.data)
+    if args.binary_feature:
+        # LibLinearBinaryDataset semantics: all feature values treated as 1
+        for row in rows:
+            row["features"] = [(k, 1.0) for k, _v in row["features"]]
+    vocab = build_vocab(rows, has_intercept=args.bias > 0)
+    blk = pack_rows(rows, vocab, bias=args.bias if args.bias > 0 else 1.0)
+    if positive_weight != 1.0:
+        blk = blk._replace(weight=np.where(blk.y == 1,
+                                           positive_weight * blk.weight,
+                                           blk.weight))
+    n = vocab.size
+    pvi = np.full(n, 1.0 / args.prior_var)
+    # per-feature prior mean file (param:) else the scalar --prior-mean
+    pm = (_read_text_model(args.param, vocab, default=args.prior_mean)
+          if args.param else np.full(n, args.prior_mean))
+    dtype = torch.float64 if args.f64 else torch.float32
+    prob = obj.make_problem(blk, pm, pvi, dtype=dtype, device=args.device)
+    w0 = np.zeros(n)
+    if args.init:
+        # warm start from a previously written "name = value" text model
+        # (LibLinear.main's init: option, LibLinear.java:557-563)
+        w0 = _read_text_model(args.init, vocab)
+    scale = float(obj.class_balance_eps_scale(
+        blk.y[None], np.array([blk.nrows]))[0])
+    res = tron(prob, torch.as_tensor(w0[None], dtype=dtype,
+                                     device=prob.values.device),
+               eps=epsilon * scale, max_iter=max_iter)
+    w = res.w[0].to(torch.float64).cpu().numpy()
+
+    text = "".join(f"{vocab.name(i)} = {w[i]:.17g}\n" for i in range(n))
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+        if args.posterior_var:
+            hd = obj.hessian_diagonal(prob, res.w)[0].to(
+                torch.float64).cpu().numpy()
+            with open(args.out + ".var", "w") as f:
+                for i in range(n):
+                    f.write(f"{vocab.name(i)} = {1.0 / hd[i]:.17g}\n")
+            if args.posterior_cov:
+                # full Laplace covariance = H^-1; text lines
+                # "[name1, name2] = value" (Util.printStringListDoubleMap,
+                # LibLinear.java:708-712)
+                H = obj.dense_hessian(prob, res.w)[0].to(
+                    torch.float64).cpu().numpy()
+                cov = np.linalg.inv(H)
+                names = [vocab.name(i) for i in range(n)]
+                with open(args.out + ".cov", "w") as f:
+                    for i in range(n):
+                        f.write("".join(
+                            f"[{names[i]}, {names[j]}] = {cov[i, j]:.17g}\n"
+                            for j in range(n)))
+    else:
+        sys.stdout.write(text)
+    print(f"# iterations={int(res.iterations[0])} "
+          f"cg={int(res.cg_iterations[0])} f={float(res.f[0]):.8g} "
+          f"converged={bool(res.converged[0])}", file=sys.stderr)
+    return 0
+
+
 def main(argv=None):
     logging.basicConfig(
         level=os.environ.get("MLEASE_LOG", "INFO"),
@@ -235,15 +460,45 @@ def main(argv=None):
     p = argparse.ArgumentParser(prog="mlease_tpu_torch", description=__doc__,
                                 formatter_class=argparse.RawTextHelpFormatter)
     sub = p.add_subparsers(dest="cmd", required=True)
-    for name, fn in [("train", cmd_train), ("test", cmd_test),
-                     ("predict", cmd_test), ("loglik", cmd_loglik),
-                     ("item", cmd_item), ("itemtest", cmd_itemtest)]:
+    device_help = ("where the solver and scoring run (default cuda; fails "
+                   "when no CUDA device is present)")
+    for name, fn in [("train", cmd_train), ("naive", cmd_naive),
+                     ("test", cmd_test), ("predict", cmd_test),
+                     ("loglik", cmd_loglik), ("item", cmd_item),
+                     ("itemtest", cmd_itemtest)]:
         sp = sub.add_parser(name)
         sp.add_argument("config", help="properties-format job config file")
         sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                        help="where the solver and scoring run (default "
-                             "cuda; fails when no CUDA device is present)")
+                        help=device_help)
         sp.set_defaults(fn=fn)
+    fit = sub.add_parser("fit")
+    fit.add_argument("data", help="input file (libsvm/json/avro)")
+    fit.add_argument("--ftype", choices=["libsvm", "json", "avro"],
+                     default="libsvm")
+    fit.add_argument("--out", default="")
+    fit.add_argument("--bias", type=float, default=1.0)
+    fit.add_argument("--prior-var", type=float, default=1.0)
+    fit.add_argument("--prior-mean", type=float, default=0.0)
+    fit.add_argument("--init", default="",
+                     help="warm start from a text model written by --out")
+    fit.add_argument("--param", default="",
+                     help="per-feature prior-mean text file (param:)")
+    fit.add_argument("--epsilon", type=float, default=0.01)
+    fit.add_argument("--max-iter", type=int, default=1000)
+    fit.add_argument("--positive-weight", type=float, default=1.0)
+    fit.add_argument("--option", default="",
+                     help="reference option string, e.g. "
+                          "'max_iter=5,epsilon=0.01,positive_weight=2'")
+    fit.add_argument("--binary-feature", action="store_true",
+                     help="treat all feature values as 1 "
+                          "(LibLinearBinaryDataset)")
+    fit.add_argument("--posterior-var", action="store_true")
+    fit.add_argument("--posterior-cov", action="store_true",
+                     help="write the full Laplace covariance to <out>.cov")
+    fit.add_argument("--f64", action="store_true")
+    fit.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                     help=device_help)
+    fit.set_defaults(fn=cmd_fit)
     args = p.parse_args(argv)
     return args.fn(args)
 

@@ -17,8 +17,11 @@ Where the JAX package vmaps these functions over a (lambda x block) or
 (grid x item) axis, the port batches them explicitly: every array of an
 `LRProblem` and every vector argument carries a leading problem axis P
 (`torch.func.vmap` cannot carry the data-dependent solver loops that sit
-above these functions). Index arrays are int64, as torch's gather and
-scatter want them. The ELL scatter-add becomes one batched `scatter_add_`;
+above these functions). The data may also be shared by several lanes:
+with data blocks (B, ...) and lane vectors (P, n), P = L*B, lane l*B + b
+solves on block b, and the ids are stride-0 views, never L copies (the
+JAX package's vmap over lambdas with the data's in_axes None). Index
+arrays are int64, as torch's gather and scatter want them. The ELL scatter-add becomes one batched `scatter_add_`;
 the dense Hessian of `dense_hessian` is the hand-written kernel of
 ops/gram.py on the card.
 """
@@ -35,8 +38,10 @@ from mlease_tpu_torch.ops.gram import gram_batched
 
 
 class LRProblem(NamedTuple):
-    """P x-update problems over P padded data blocks; every array carries
-    the leading problem axis.
+    """P x-update problems over B padded data blocks: every data array
+    carries the leading block axis B, and prior_mean / prior_var_inv (and
+    every vector the functions take) the problem axis P, a multiple of B
+    (P = B: each problem its own block; P = L*B: L lanes per block).
 
     The optional csc_* arrays are the column-sorted dual layout of the same
     nonzeros; head_x/head_ids the dense hot columns of the hybrid layout;
@@ -44,24 +49,24 @@ class LRProblem(NamedTuple):
     column (mlease_tpu/ops/objective.py describes why the JAX package keeps
     them)."""
 
-    indices: torch.Tensor        # (P, R, K) int64 vocab columns
-    values: torch.Tensor         # (P, R, K), 0.0 on padding
-    y: torch.Tensor              # (P, R), +1/-1 (+1 on padding rows)
-    weight: torch.Tensor         # (P, R), Cp/Cn-folded, 0 on padding rows
-    offset: torch.Tensor         # (P, R)
+    indices: torch.Tensor        # (B, R, K) int64 vocab columns
+    values: torch.Tensor         # (B, R, K), 0.0 on padding
+    y: torch.Tensor              # (B, R), +1/-1 (+1 on padding rows)
+    weight: torch.Tensor         # (B, R), Cp/Cn-folded, 0 on padding rows
+    offset: torch.Tensor         # (B, R)
     prior_mean: torch.Tensor     # (P, n)
     prior_var_inv: torch.Tensor  # (P, n)
-    csc_cols: torch.Tensor | None = None   # (P, R*K) int64 sorted ascending
-    csc_rows: torch.Tensor | None = None   # (P, R*K) int64
-    csc_vals: torch.Tensor | None = None   # (P, R*K)
-    head_x: torch.Tensor | None = None     # (P, R, H) dense hot columns
-    head_ids: torch.Tensor | None = None   # (P, H) int64 vocab ids
-    tail_rows: torch.Tensor | None = None  # (P, T) int64 sorted ascending
-    tail_cols: torch.Tensor | None = None  # (P, T) int64
-    tail_vals: torch.Tensor | None = None  # (P, T)
-    tail_c_rows: torch.Tensor | None = None  # (P, T) int64
-    tail_c_cols: torch.Tensor | None = None  # (P, T) int64 sorted ascending
-    tail_c_vals: torch.Tensor | None = None  # (P, T)
+    csc_cols: torch.Tensor | None = None   # (B, R*K) int64 sorted ascending
+    csc_rows: torch.Tensor | None = None   # (B, R*K) int64
+    csc_vals: torch.Tensor | None = None   # (B, R*K)
+    head_x: torch.Tensor | None = None     # (B, R, H) dense hot columns
+    head_ids: torch.Tensor | None = None   # (B, H) int64 vocab ids
+    tail_rows: torch.Tensor | None = None  # (B, T) int64 sorted ascending
+    tail_cols: torch.Tensor | None = None  # (B, T) int64
+    tail_vals: torch.Tensor | None = None  # (B, T)
+    tail_c_rows: torch.Tensor | None = None  # (B, T) int64
+    tail_c_cols: torch.Tensor | None = None  # (B, T) int64 sorted ascending
+    tail_c_vals: torch.Tensor | None = None  # (B, T)
 
     @property
     def dim(self) -> int:
@@ -96,8 +101,21 @@ def make_problem(block, prior_mean, prior_var_inv, *,
         prior_mean=lift(f(prior_mean)), prior_var_inv=lift(f(prior_var_inv)))
 
 
-def _zeros(prob: LRProblem, width: int) -> torch.Tensor:
-    return torch.zeros((prob.y.shape[0], width), dtype=prob.values.dtype,
+def _lanes(prob: LRProblem, v: torch.Tensor) -> torch.Tensor:
+    """A (P, m) lane vector as (L, B, m), B the data's problem axis: lane
+    l*B + b solves on data block b (P = L*B; L = 1 when every problem has
+    its own data)."""
+    return v.view(-1, prob.y.shape[0], v.shape[-1])
+
+
+def _ids(ids: torch.Tensor, L: int) -> torch.Tensor:
+    """A (B, m) id array as a stride-0 (L, B, m) view: the data is shared
+    by the L lanes, never copied."""
+    return ids.reshape(ids.shape[0], -1)[None].expand(L, -1, -1)
+
+
+def _zeros3(prob: LRProblem, L: int, width: int) -> torch.Tensor:
+    return torch.zeros((L, prob.y.shape[0], width), dtype=prob.values.dtype,
                        device=prob.values.device)
 
 
@@ -105,51 +123,64 @@ def _zeros(prob: LRProblem, width: int) -> torch.Tensor:
 # Sparse matvecs (reference Xv/XTv, LogisticRegressionL2.java:115-150)
 # ---------------------------------------------------------------------------
 
+def _xv3(prob: LRProblem, v3: torch.Tensor) -> torch.Tensor:
+    """X @ v on (L, B, n) lanes -> (L, B, R)."""
+    L = v3.shape[0]
+    B, R = prob.y.shape
+    K = prob.indices.shape[-1]
+    if K > 0:
+        gathered = v3.gather(2, _ids(prob.indices, L))
+        out = (prob.values * gathered.view(L, B, R, K)).sum(-1)
+    else:
+        out = _zeros3(prob, L, R)
+    if prob.head_x is not None:
+        hv_ = v3.gather(2, _ids(prob.head_ids, L))             # (L, B, H)
+        out = out + torch.bmm(prob.head_x,
+                              hv_.permute(1, 2, 0)).permute(2, 0, 1)
+    if prob.tail_cols is not None:
+        contrib = prob.tail_vals * v3.gather(2, _ids(prob.tail_cols, L))
+        out = out + _zeros3(prob, L, R).scatter_add_(
+            2, _ids(prob.tail_rows, L), contrib)
+    return out
+
+
 def xv(prob: LRProblem, v: torch.Tensor) -> torch.Tensor:
     """X @ v: (P, n) -> (P, R) scores. ELL: gather + row reduction; hybrid:
     the dense head product plus a flat-COO pass over the tail."""
-    P, R = prob.y.shape
-    K = prob.indices.shape[-1]
-    if K > 0:
-        gathered = torch.gather(v, 1, prob.indices.reshape(P, R * K))
-        out = (prob.values * gathered.reshape(P, R, K)).sum(-1)
-    else:
-        out = _zeros(prob, R)
-    if prob.head_x is not None:
-        hv_ = torch.gather(v, 1, prob.head_ids)
-        out = out + torch.bmm(prob.head_x, hv_[:, :, None])[:, :, 0]
-    if prob.tail_cols is not None:
-        contrib = prob.tail_vals * torch.gather(v, 1, prob.tail_cols)
-        out = out + _zeros(prob, R).scatter_add_(1, prob.tail_rows, contrib)
-    return out
+    return _xv3(prob, _lanes(prob, v)).reshape(v.shape[0], -1)
 
 
 def xtv(prob: LRProblem, d: torch.Tensor) -> torch.Tensor:
     """X' @ d: (P, R) -> (P, n) accumulation (one batched scatter-add; with
     the CSC dual layout, the column-sorted copy of the same nonzeros)."""
-    P, R = prob.y.shape
+    d3 = _lanes(prob, d)
+    L = d3.shape[0]
     K = prob.indices.shape[-1]
-    out = _zeros(prob, prob.dim)
+    out = _zeros3(prob, L, prob.dim)
     if prob.csc_cols is not None:
-        out.scatter_add_(1, prob.csc_cols,
-                         prob.csc_vals * torch.gather(d, 1, prob.csc_rows))
+        out.scatter_add_(2, _ids(prob.csc_cols, L), prob.csc_vals
+                         * d3.gather(2, _ids(prob.csc_rows, L)))
     elif K > 0:
-        out.scatter_add_(1, prob.indices.reshape(P, R * K),
-                         (prob.values * d[:, :, None]).reshape(P, R * K))
+        out.scatter_add_(2, _ids(prob.indices, L),
+                         (prob.values * d3[..., None]).flatten(2))
     if prob.head_x is not None:
-        head = torch.bmm(prob.head_x.transpose(1, 2), d[:, :, None])[:, :, 0]
-        out.scatter_add_(1, prob.head_ids, head)
+        head = torch.bmm(prob.head_x.transpose(1, 2), d3.permute(1, 2, 0))
+        out.scatter_add_(2, _ids(prob.head_ids, L), head.permute(2, 0, 1))
     if prob.tail_c_cols is not None:
-        out.scatter_add_(1, prob.tail_c_cols, prob.tail_c_vals
-                         * torch.gather(d, 1, prob.tail_c_rows))
+        out.scatter_add_(2, _ids(prob.tail_c_cols, L), prob.tail_c_vals
+                         * d3.gather(2, _ids(prob.tail_c_rows, L)))
     elif prob.tail_cols is not None:
-        out.scatter_add_(1, prob.tail_cols,
-                         prob.tail_vals * torch.gather(d, 1, prob.tail_rows))
-    return out
+        out.scatter_add_(2, _ids(prob.tail_cols, L), prob.tail_vals
+                         * d3.gather(2, _ids(prob.tail_rows, L)))
+    return out.reshape(d.shape[0], -1)
+
+
+def _scores3(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
+    return _xv3(prob, _lanes(prob, w)) + prob.offset
 
 
 def scores(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
-    return xv(prob, w) + prob.offset
+    return _scores3(prob, w).reshape(w.shape[0], -1)
 
 
 # ---------------------------------------------------------------------------
@@ -158,26 +189,27 @@ def scores(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
 
 def _curvature(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
     """D_ii = weight_i * p_i * (1 - p_i) at w."""
-    p = torch.sigmoid(prob.y * scores(prob, w))
-    return prob.weight * p * (1.0 - p)
+    p = torch.sigmoid(prob.y * _scores3(prob, w))
+    return (prob.weight * p * (1.0 - p)).reshape(w.shape[0], -1)
 
 
 def fun(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
     """loss(w), (P,). log(1 + exp(-yz)) as logaddexp(0, -yz), the stable
     two-branch form of LogisticRegressionL2.java:170-177."""
-    yz = prob.y * scores(prob, w)
+    yz = prob.y * _scores3(prob, w)
     data_loss = (prob.weight * torch.logaddexp(yz.new_zeros(()), -yz)).sum(-1)
     dw = w - prob.prior_mean
-    return data_loss + 0.5 * (dw * dw * prob.prior_var_inv).sum(-1)
+    return (data_loss.reshape(-1)
+            + 0.5 * (dw * dw * prob.prior_var_inv).sum(-1))
 
 
 def grad_and_curvature(prob: LRProblem, w: torch.Tensor):
     """(gradient (P, n), D (P, R)); D is the IRLS curvature reused by
     Hessian-vector products (LogisticRegressionL2.java:199-225)."""
-    p = torch.sigmoid(prob.y * scores(prob, w))
-    coeff = prob.weight * (p - 1.0) * prob.y
+    p = torch.sigmoid(prob.y * _scores3(prob, w))
+    coeff = (prob.weight * (p - 1.0) * prob.y).reshape(w.shape[0], -1)
     g = xtv(prob, coeff) + (w - prob.prior_mean) * prob.prior_var_inv
-    return g, prob.weight * p * (1.0 - p)
+    return g, (prob.weight * p * (1.0 - p)).reshape(w.shape[0], -1)
 
 
 def grad(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
@@ -194,26 +226,27 @@ def hessian_diagonal(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
     """diag(H) = 1/priorVar + sum_i D_ii x_ik^2
     (LogisticRegressionL2.java:304-327); the Laplace diagonal posterior
     variance is 1/this (LibLinear.java:330-333)."""
-    P, R = prob.y.shape
+    q3 = _lanes(prob, _curvature(prob, w))
+    L = q3.shape[0]
     K = prob.indices.shape[-1]
-    q = _curvature(prob, w)
-    out = prob.prior_var_inv.clone()
+    out = _lanes(prob, prob.prior_var_inv.clone())
     if K > 0:
-        out.scatter_add_(1, prob.indices.reshape(P, R * K),
+        out.scatter_add_(2, _ids(prob.indices, L),
                          (prob.values * prob.values
-                          * q[:, :, None]).reshape(P, R * K))
+                          * q3[..., None]).flatten(2))
     if prob.head_x is not None:
         sq = prob.head_x * prob.head_x
-        out.scatter_add_(1, prob.head_ids, torch.bmm(
-            sq.transpose(1, 2), q[:, :, None])[:, :, 0])
+        head = torch.bmm(sq.transpose(1, 2), q3.permute(1, 2, 0))
+        out.scatter_add_(2, _ids(prob.head_ids, L), head.permute(2, 0, 1))
     if prob.tail_c_cols is not None:
-        out.scatter_add_(1, prob.tail_c_cols,
+        out.scatter_add_(2, _ids(prob.tail_c_cols, L),
                          prob.tail_c_vals * prob.tail_c_vals
-                         * torch.gather(q, 1, prob.tail_c_rows))
+                         * q3.gather(2, _ids(prob.tail_c_rows, L)))
     elif prob.tail_cols is not None:
-        out.scatter_add_(1, prob.tail_cols, prob.tail_vals * prob.tail_vals
-                         * torch.gather(q, 1, prob.tail_rows))
-    return out
+        out.scatter_add_(2, _ids(prob.tail_cols, L),
+                         prob.tail_vals * prob.tail_vals
+                         * q3.gather(2, _ids(prob.tail_rows, L)))
+    return out.reshape(w.shape[0], -1)
 
 
 def densify(prob: LRProblem) -> torch.Tensor:

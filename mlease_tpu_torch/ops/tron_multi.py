@@ -16,7 +16,19 @@ unsorted tail scatters use `index_add_`, as XLA's scatter does.
 
 precondition="head_block" solves the dense-head curvature block exactly:
 its (L, H, H) build is the weighted-Gram kernel of ops/gram.py with one
-shared X and L weight vectors. Not ported yet: the lanes-minor pass
+shared X and L weight vectors.
+
+`blocks=B` solves the B blocks of a stacked problem (`stack_blocks`) as B
+independent problems, the JAX package's `vmap(tron_multi)` over blocks:
+every (lambda, block) pair has its own trust region, CG state and stop
+rule, all run in lock-step over the same flat data (so K1's fused tail
+reduces are the same calls). The solver state is (L, B, ·): every dot and
+norm reduces over one block's segment of the coefficient axis, every row
+sum over one block's rows, and a block whose own loop has ended keeps its
+whole state, as a lane of `jax.vmap` over `lax.while_loop` does. B = 1 is
+the flat-blocks solve: one joint trust region per lambda. With a dense head
+and "head_block", each block's (L, H, H) head Gram is one K2 call on that
+block's head (B calls per build). Not ported: the lanes-minor pass
 functions.
 """
 
@@ -24,6 +36,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from mlease_tpu_torch.ops.gram import gram_batched
@@ -252,14 +265,25 @@ def _softplus_neg(yz: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(yz.new_zeros(()), -yz)
 
 
+def _seg(a: torch.Tensor, blocks: int) -> torch.Tensor:
+    """(L, B*m) -> (L, B, m): one block's segment per middle index."""
+    return a.view(a.shape[0], blocks, -1)
+
+
 def _fun_grad_curvature_lm(prob: MultiProblem, W: torch.Tensor,
-                           with_diag: bool = False):
+                           with_diag: bool = False,
+                           blocks: int | None = None):
     """Objective + gradient + curvature (+ Jacobi diagonal) sharing ONE
-    scores pass."""
+    scores pass. F is (L,), or (L, B) per block with `blocks=B` (the rows
+    and columns of a stacked problem in B equal segments)."""
     yz = prob.y[None, :] * (_xv_lm(prob, W) + prob.offset[None, :])
     dw = W - prob.prior_mean
-    F = ((prob.weight[None, :] * _softplus_neg(yz)).sum(1)
-         + 0.5 * (dw * dw * prob.prior_var_inv).sum(1))
+    loss = prob.weight[None, :] * _softplus_neg(yz)
+    quad = dw * dw * prob.prior_var_inv
+    if blocks is None:
+        F = loss.sum(1) + 0.5 * quad.sum(1)
+    else:
+        F = _seg(loss, blocks).sum(-1) + 0.5 * _seg(quad, blocks).sum(-1)
     p = torch.sigmoid(yz)
     coeff = prob.weight[None, :] * (p - 1.0) * prob.y[None, :]
     Dm = prob.weight[None, :] * p * (1.0 - p)
@@ -271,14 +295,18 @@ def _fun_grad_curvature_lm(prob: MultiProblem, W: torch.Tensor,
     return F, G, Dm
 
 
-def _grad_norm_at_zero_lm(prob: MultiProblem, n_rhs: int) -> torch.Tensor:
-    """||grad at W=0|| per lane in one X'v pass (Xv(0) == 0 exactly)."""
+def _grad_at_zero_lm(prob: MultiProblem, n_rhs: int) -> torch.Tensor:
+    """The gradient at W=0 per lane in one X'v pass (Xv(0) == 0 exactly)."""
     yz = prob.y[None, :] * prob.offset[None, :].expand(
         n_rhs, prob.y.shape[0]).to(prob.prior_mean.dtype)
     p = torch.sigmoid(yz)
     coeff = prob.weight[None, :] * (p - 1.0) * prob.y[None, :]
-    G0 = _xtv_lm(prob, coeff) - prob.prior_mean * prob.prior_var_inv
-    return _norm_lm(G0)
+    return _xtv_lm(prob, coeff) - prob.prior_mean * prob.prior_var_inv
+
+
+def _grad_norm_at_zero_lm(prob: MultiProblem, n_rhs: int) -> torch.Tensor:
+    """||grad at W=0|| per lane in one X'v pass (Xv(0) == 0 exactly)."""
+    return _norm_lm(_grad_at_zero_lm(prob, n_rhs))
 
 
 def _hv_lm(prob: MultiProblem, Dm: torch.Tensor,
@@ -287,11 +315,12 @@ def _hv_lm(prob: MultiProblem, Dm: torch.Tensor,
 
 
 def _dot_lm(a, b):
-    return (a * b).sum(1)                     # (L,)
+    """Per-lane dot over the last axis: (L, n) -> (L,), (L, B, n) -> (L, B)."""
+    return (a * b).sum(-1)
 
 
 def _norm_lm(a):
-    return torch.sqrt((a * a).sum(1))
+    return torch.sqrt(_dot_lm(a, a))
 
 
 class HeadBlockPrecond(NamedTuple):
@@ -299,33 +328,58 @@ class HeadBlockPrecond(NamedTuple):
 
     On power-law data the head columns carry most of the curvature mass, so
     preconditioning CG with the head block solved exactly (one (L, H, H)
-    Cholesky per Newton trip) plus the Jacobi diagonal elsewhere cuts CG
-    trips against the diagonal alone. Any SPD M preserves TRON's convergence
-    guarantees; the outer ||g|| stop rule is unchanged. Lanes-major, like
-    the rest of the solver's state (the JAX package keeps diag as (n, L))."""
+    Cholesky per lane and block per Newton trip) plus the Jacobi diagonal
+    elsewhere cuts CG trips against the diagonal alone. Any SPD M preserves
+    TRON's convergence guarantees; the outer ||g|| stop rule is unchanged.
+    Lanes-major, like the rest of the solver's state (the JAX package keeps
+    diag as (n, L))."""
 
-    chol: torch.Tensor       # (L, H, H) lower Cholesky factors per lane
+    chol: torch.Tensor       # (L, H, H) lower Cholesky factors per lane, or
+                             # (L, B, H, H) per lane and block (a per-block
+                             # head (B, Rb, H))
     diag: torch.Tensor       # (L, n) Jacobi diagonal; entries at head_ids
                              # are set to 1 and overridden by the block solve
     head_mask: torch.Tensor  # (1, n) 1.0 at head coordinates
-    head_ids: torch.Tensor   # (H,)
+    head_ids: torch.Tensor   # (H,) | (B*H,) stacked
+
+
+def _gram_head(hb: torch.Tensor, dtype) -> torch.Tensor:
+    """One block's head as K2 takes it: a bfloat16 head as stored when the
+    solve runs in float32 (K2's bf16-in route accumulates in float32, and
+    the head block only shapes a preconditioner: the JAX package builds it
+    in the TPU's bf16 matrix-unit precision); widened otherwise."""
+    if hb.dtype == torch.bfloat16 and dtype == torch.float32:
+        return hb
+    return _widen(hb, dtype)
 
 
 def build_head_precond(prob: MultiProblem, Dm: torch.Tensor,
                        Hdiag: torch.Tensor) -> HeadBlockPrecond:
     """Head block A_l = head_x' diag(Dm_l) head_x + diag(pvi_head_l), with
-    prob's priors, Dm (L, R) and Hdiag (L, n) lanes-major.
+    prob's priors, Dm (L, R) and Hdiag (L, n) lanes-major; for a per-block
+    head (B, Rb, H), one such block per lane and block, from that block's
+    rows of Dm and its head columns.
 
-    The (L, H, H) build is the weighted-Gram kernel with head_x shared by
-    the L lanes, in the solve's own type (the JAX package builds it in the
-    TPU's default bf16 matmul precision, because it only shapes a
-    preconditioner); the Cholesky runs in float32. Hdiag is the full Jacobi
-    diagonal of the fused f/g/D + diag pass (its head entries are replaced,
-    not reused)."""
+    The build is the weighted-Gram kernel with the head shared by the L
+    lanes, one call per block, in the solve's own type (a float32 solve
+    gives K2 a bfloat16 head as it is stored); the Cholesky runs in
+    float32. Hdiag is the full Jacobi diagonal of the fused f/g/D + diag
+    pass (its head entries are replaced, not reused). A grouped call (every
+    block's X in one launch) would save only launches: at the ctr-12m
+    shape one call is about 2 ms of work (PERF.md)."""
     dtype = Hdiag.dtype
+    L = Hdiag.shape[0]
     ids = prob.head_ids.long()
-    A = gram_batched(_widen(prob.head_x, dtype), Dm,
-                     prob.prior_var_inv[:, ids])
+    pvi_head = prob.prior_var_inv[:, ids]
+    hx = prob.head_x
+    if hx.dim() == 2:
+        A = gram_batched(_gram_head(hx, dtype), Dm, pvi_head)
+    else:
+        B, Rb, H = hx.shape
+        Dmb = Dm.view(L, B, Rb)
+        pvb = pvi_head.view(L, B, H)
+        A = torch.stack([gram_batched(_gram_head(hx[b], dtype), Dmb[:, b],
+                                      pvb[:, b]) for b in range(B)], dim=1)
     chol = torch.linalg.cholesky_ex(A.to(torch.float32))[0].to(dtype)
     head_mask = torch.zeros((1, Hdiag.shape[1]), dtype=dtype,
                             device=Hdiag.device)
@@ -339,31 +393,36 @@ def build_head_precond(prob: MultiProblem, Dm: torch.Tensor,
 def _head_solve(pc: HeadBlockPrecond, r: torch.Tensor) -> torch.Tensor:
     """M^{-1} r, (L, n): cholesky_solve on the head coordinates, a divide
     on the tail."""
-    sol = torch.cholesky_solve(r[:, pc.head_ids][:, :, None], pc.chol)
+    rh = r[:, pc.head_ids].view(*pc.chol.shape[:-1], 1)
+    sol = torch.cholesky_solve(rh, pc.chol)
     out = r / pc.diag
-    out[:, pc.head_ids] = sol[:, :, 0]
+    out[:, pc.head_ids] = sol.reshape(r.shape[0], -1)
     return out
 
 
 def _head_apply(pc: HeadBlockPrecond, v: torch.Tensor) -> torch.Tensor:
     """M v, (L, n) (for the M-norm trust-region dots)."""
-    v_head = v[:, pc.head_ids][:, :, None]
-    Av = torch.bmm(pc.chol, torch.bmm(pc.chol.transpose(1, 2), v_head))
+    vh = v[:, pc.head_ids].view(*pc.chol.shape[:-1], 1)
+    Av = pc.chol @ (pc.chol.transpose(-1, -2) @ vh)
     out = v * pc.diag * (1.0 - pc.head_mask)
-    out[:, pc.head_ids] = Av[:, :, 0]
+    out[:, pc.head_ids] = Av.reshape(v.shape[0], -1)
     return out
 
 
 class MultiTronResult(NamedTuple):
     w: torch.Tensor            # (n, L)
-    f: torch.Tensor            # (L,)
-    gnorm: torch.Tensor        # (L,)
-    iterations: torch.Tensor   # (L,) accepted Newton steps per lane
-    converged: torch.Tensor    # (L,)
+    f: torch.Tensor            # (L,), or (L, B) with blocks=B > 1
+    gnorm: torch.Tensor        # (L,) | (L, B)
+    iterations: torch.Tensor   # (L,) | (L, B) accepted Newton steps
+    converged: torch.Tensor    # (L,) | (L, B)
     # lock-step loop-trip counters: every trip is a full pass over the
-    # block's data serving all L lanes, however many lanes are still active
+    # data serving all lanes, however many lanes are still active
     newton_trips: int = 0
     cg_trips: int = 0
+    # (B, 2) per block: the Newton and CG trips of that block's own loops,
+    # the counters of the JAX package's vmap over blocks (equal to the two
+    # above when B = 1)
+    block_trips: np.ndarray | None = None
 
 
 def _safe_div(num, den, ok):
@@ -373,12 +432,17 @@ def _safe_div(num, den, ok):
 
 
 def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
-          M: torch.Tensor | HeadBlockPrecond | None = None):
+          M: torch.Tensor | HeadBlockPrecond | None = None, running=None):
     """Per-lane truncated CG with lock-step data passes (Tron.java:126-179).
 
-    M None reproduces the reference; an (L, n) Jacobi diagonal or a
-    HeadBlockPrecond measures the trust region in the M-norm and tests the
-    residual in ||r||_{M^-1}."""
+    The state is (L, B, n) (B = 1: one segment per lane), per-lane scalars
+    (L, B). M None reproduces the reference; an (L, B, n) Jacobi diagonal
+    or a HeadBlockPrecond measures the trust region in the M-norm and tests
+    the residual in ||r||_{M^-1}. `running` (1, B) marks the blocks whose
+    Newton loop is running: the others' lanes start done and hold nothing
+    open. Returns (s, r, snorm, global trips, trips per block (B,))."""
+    L, B, _n = G.shape
+    flat = (L, -1)
     if M is None:
         def precond(r):
             return r
@@ -387,30 +451,35 @@ def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
             return _dot_lm(a, b)
     elif isinstance(M, HeadBlockPrecond):
         def precond(r):
-            return _head_solve(M, r)
+            return _head_solve(M, r.view(flat)).view(L, B, -1)
 
         def mdot(a, b):
-            return (a * _head_apply(M, b)).sum(1)
+            return _dot_lm(a, _head_apply(M, b.view(flat)).view(L, B, -1))
     else:
         def precond(r):
             return r / M
 
         def mdot(a, b):
-            return (a * M * b).sum(1)
+            return _dot_lm(a * M, b)
+
+    def hv(d):
+        return _seg(_hv_lm(prob, Dm.view(flat), d.view(flat)), B)
 
     z = precond(-G)
     rz = _dot_lm(-G, z)
     cgtol = 0.1 * torch.sqrt(rz)
     s, r, d = torch.zeros_like(G), -G, z
-    done = torch.zeros(G.shape[0], dtype=torch.bool, device=G.device)
+    done = ~running.expand(L, B)
+    block_it = torch.zeros(B, dtype=torch.int64, device=G.device)
     it = 0
     while it < max_cg_iter and bool((~done).any()):
+        block_it += (~done).any(0)
         small = torch.sqrt(torch.clamp(_dot_lm(r, z), min=0.0)) <= cgtol
 
-        Hd = _hv_lm(prob, Dm, d)
+        Hd = hv(d)
         dHd = _dot_lm(d, Hd)
         alpha = _safe_div(rz, dHd, dHd > 0)
-        s_try = s + alpha[:, None] * d
+        s_try = s + alpha[..., None] * d
         boundary = torch.sqrt(mdot(s_try, s_try)) > delta
 
         std = mdot(s, d)
@@ -423,18 +492,18 @@ def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
                               _safe_div(dsq - sts, denom_pos, denom_pos != 0),
                               _safe_div(rad - std, dtd, dtd != 0))
 
-        s_bnd = s + alpha_b[:, None] * d
-        r_bnd = r - alpha_b[:, None] * Hd
-        r_int = r - alpha[:, None] * Hd
+        s_bnd = s + alpha_b[..., None] * d
+        r_bnd = r - alpha_b[..., None] * Hd
+        r_int = r - alpha[..., None] * Hd
         z_int = precond(r_int)
         rz_new = _dot_lm(r_int, z_int)
         beta = _safe_div(rz_new, rz, rz > 0)
-        d_int = z_int + beta[:, None] * d
+        d_int = z_int + beta[..., None] * d
 
         step = ~small & ~done
         take_bnd = step & boundary
         take_int = step & ~boundary
-        bnd2, int2 = take_bnd[:, None], take_int[:, None]
+        bnd2, int2 = take_bnd[..., None], take_int[..., None]
         s = torch.where(bnd2, s_bnd, torch.where(int2, s_try, s))
         r = torch.where(bnd2, r_bnd, torch.where(int2, r_int, r))
         z = torch.where(int2, z_int, z)
@@ -443,81 +512,106 @@ def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
         done = done | small | take_bnd
         it += 1
     snorm = torch.sqrt(torch.clamp(mdot(s, s), min=0.0))
-    return s, r, snorm, it
+    return s, r, snorm, it, block_it
 
 
 def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
                max_iter: int = 1000, max_cg_iter: int = 500,
-               precondition=False) -> MultiTronResult:
+               precondition=False, blocks: int = 1) -> MultiTronResult:
     """Warm-started TRON over L simultaneous lambda-problems (Tron.java:30-124
     per lane; stall thresholds as in mlease_tpu/ops/tron.py).
 
     precondition=True or "jacobi" runs the Jacobi-preconditioned CG with an
     M-norm trust region; "head_block" also solves the dense-head curvature
-    block exactly (HeadBlockPrecond; it needs the hybrid layout, one block);
-    False or "none" the reference CG. The outer stop rule (euclidean
-    ||g|| <= eps*||g0||) is the same for all."""
+    block exactly (HeadBlockPrecond; it needs the hybrid layout, one block
+    or a per-block head with blocks=B); False or "none" the reference CG.
+    The outer stop rule (euclidean ||g|| <= eps*||g0||) is the same for all.
+
+    blocks=B > 1 solves the stacked problem's B blocks (rows and columns in
+    B equal segments, as stack_blocks lays them out) as B independent
+    problems, each (lambda, block) lane with its own trust region, CG and
+    stop rule: the JAX package's vmap of tron_multi over blocks. eps is
+    then a scalar or (B,), one tolerance per block."""
     dtype = W0.dtype
-    L = W0.shape[1]
-    eps = torch.as_tensor(eps, dtype=dtype, device=W0.device).expand(L)
+    N, L = W0.shape
+    B = int(blocks)
+    dev = W0.device
+    eps = torch.as_tensor(eps, dtype=dtype, device=dev).expand(L, B)
     kind = {False: "none", True: "jacobi"}.get(precondition, precondition)
     if kind not in ("none", "jacobi", "head_block"):
         raise ValueError(
             f"precondition must be False/True/'jacobi'/'head_block'; "
             f"got {precondition!r}")
-    if kind == "head_block" and (prob.head_x is None
-                                 or prob.head_x.dim() == 3):
+    # a batched head needs one block per segment: the flat-blocks solve
+    # (B = 1 over a stacked head) has no per-block head Gram, as in JAX
+    if kind == "head_block" and (prob.head_x is None or (
+            prob.head_x.dim() == 3 and (B == 1
+                                        or prob.head_x.shape[0] != B))):
         raise ValueError("head_block preconditioning needs the hybrid "
                          "dense-head layout (head_size > 0, non-flat)")
+    if N % B or prob.y.shape[0] % B:
+        raise ValueError(f"blocks={B} does not divide the stacked problem's "
+                         f"{N} columns and {prob.y.shape[0]} rows")
 
-    # lanes-major inside: one transpose of the (n, L) inputs per solve
+    # lanes-major inside: one transpose of the (n, L) inputs per solve; the
+    # state is (L, B, n) views of (L, B*n) tensors
     prob = prob._replace(
         prior_mean=prob.prior_mean.T.contiguous(),
         prior_var_inv=torch.broadcast_to(
             prob.prior_var_inv, prob.prior_mean.shape).T.contiguous())
-    W = W0.T.contiguous()
+    flat = (L, -1)
 
-    gnorm1 = _grad_norm_at_zero_lm(prob, L)
-    if kind == "head_block":
-        F, G, Dm, Hd0 = _fun_grad_curvature_lm(prob, W, with_diag=True)
-        M = build_head_precond(prob, Dm, Hd0)
-        gnorm = _norm_lm(G)
-        delta = torch.sqrt(_dot_lm(G, _head_solve(M, G)))
-    elif kind == "jacobi":
-        F, G, Dm, Hd0 = _fun_grad_curvature_lm(prob, W, with_diag=True)
-        M = torch.clamp(Hd0, min=1e-12)
-        gnorm = _norm_lm(G)
-        delta = torch.sqrt(_dot_lm(G, G / M))
-    else:
-        F, G, Dm = _fun_grad_curvature_lm(prob, W)
+    def fgc(W, with_diag):
+        out = _fun_grad_curvature_lm(prob, W.view(flat), with_diag, B)
+        return (out[0],) + tuple(_seg(t, B) for t in out[1:])
+
+    def precond_of(Dm, Hd):
+        if kind == "head_block":
+            return build_head_precond(prob, Dm.view(flat), Hd.view(flat))
+        return torch.clamp(Hd, min=1e-12)
+
+    W = _seg(W0.T.contiguous(), B)
+    gnorm1 = _norm_lm(_seg(_grad_at_zero_lm(prob, L), B))
+    if kind == "none":
+        F, G, Dm = fgc(W, False)
         M = None
-        gnorm = _norm_lm(G)
-        delta = gnorm
+        delta = _norm_lm(G)
+    else:
+        F, G, Dm, Hd0 = fgc(W, True)
+        M = precond_of(Dm, Hd0)
+        Minv_G = (_seg(_head_solve(M, G.view(flat)), B)
+                  if kind == "head_block" else G / M)
+        delta = torch.sqrt(_dot_lm(G, Minv_G))
+    gnorm = _norm_lm(G)
     stall_rtol = 1e-12 if dtype == torch.float64 else 1e-5
 
-    it = torch.ones(L, dtype=torch.int32, device=W.device)
+    it = torch.ones((L, B), dtype=torch.int32, device=dev)
     active = gnorm > eps * gnorm1
+    block_nt = torch.zeros(B, dtype=torch.int64, device=dev)
+    block_cg = torch.zeros(B, dtype=torch.int64, device=dev)
     trips = cg_trips = 0
-    while bool((active & (it <= max_iter)).any()):
-        S, Rres, snorm, cg_it = _trcg(prob, Dm, G, delta, max_cg_iter, M)
+    while True:
+        # a block's loop runs while one of its lanes is active and under the
+        # cap; a block whose loop has ended keeps its whole state
+        running = (active & (it <= max_iter)).any(0, keepdim=True)  # (1, B)
+        if not bool(running.any()):
+            break
+        S, Rres, snorm, cg_it, cg_b = _trcg(prob, Dm, G, delta, max_cg_iter,
+                                            M, running)
         W_new = W + S
         gs = _dot_lm(G, S)
         prered = -0.5 * (gs - _dot_lm(S, Rres))
         # one fused data pass yields f/g/D (+ diag) at the trial point; the
         # accept select below discards them on rejection
-        if kind == "head_block":
-            F_new, G_new, Dm_new, Hd_new = _fun_grad_curvature_lm(
-                prob, W_new, with_diag=True)
-            M_new = build_head_precond(prob, Dm_new, Hd_new)
-        elif kind == "jacobi":
-            F_new, G_new, Dm_new, Hd_new = _fun_grad_curvature_lm(
-                prob, W_new, with_diag=True)
-            M_new = torch.clamp(Hd_new, min=1e-12)
+        if kind == "none":
+            F_new, G_new, Dm_new = fgc(W_new, False)
         else:
-            F_new, G_new, Dm_new = _fun_grad_curvature_lm(prob, W_new)
+            F_new, G_new, Dm_new, Hd_new = fgc(W_new, True)
+            M_new = precond_of(Dm_new, Hd_new)
         actred = F - F_new
 
-        delta = torch.where(it == 1, torch.minimum(delta, snorm), delta)
+        delta = torch.where(running & (it == 1),
+                            torch.minimum(delta, snorm), delta)
         denom = F_new - F - gs
         alpha = torch.where(
             denom <= 0, torch.full_like(denom, SIGMA3),
@@ -539,20 +633,23 @@ def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
                                   torch.minimum(asn, SIGMA3 * delta)),
                     torch.maximum(delta,
                                   torch.minimum(asn, SIGMA3 * delta)))))
-        delta = torch.where(active, delta_new, delta)
+        live = active & running
+        delta = torch.where(live, delta_new, delta)
 
-        accept = active & (actred > ETA0 * prered)
-        acc2 = accept[:, None]
-        W = torch.where(acc2, W_new, W)
+        accept = live & (actred > ETA0 * prered)
+        acc3 = accept[..., None]
+        W = torch.where(acc3, W_new, W)
         F = torch.where(accept, F_new, F)
-        G = torch.where(acc2, G_new, G)
-        Dm = torch.where(acc2, Dm_new, Dm)
+        G = torch.where(acc3, G_new, G)
+        Dm = torch.where(acc3, Dm_new, Dm)
         if kind == "head_block":
+            accc = accept.view(*M.chol.shape[:-2], 1, 1)
             M = M._replace(
-                chol=torch.where(accept[:, None, None], M_new.chol, M.chol),
-                diag=torch.where(acc2, M_new.diag, M.diag))
+                chol=torch.where(accc, M_new.chol, M.chol),
+                diag=torch.where(acc3, _seg(M_new.diag, B),
+                                 _seg(M.diag, B)).view(flat))
         elif kind == "jacobi":
-            M = torch.where(acc2, M_new, M)
+            M = torch.where(acc3, M_new, M)
         gnorm = torch.where(accept, _norm_lm(G_new), gnorm)
         it = it + accept.to(torch.int32)
 
@@ -561,9 +658,16 @@ def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
         done = done | ((torch.abs(actred) <= 0) & (prered <= 0))
         done = done | ((torch.abs(actred) <= stall_rtol * torch.abs(F))
                        & (torch.abs(prered) <= stall_rtol * torch.abs(F)))
-        active = active & ~(done & active)
+        active = active & ~(done & live)
+        block_nt += running[0]
+        block_cg += cg_b
         trips += 1
         cg_trips += cg_it
-    return MultiTronResult(w=W.T, f=F, gnorm=gnorm, iterations=it - 1,
-                           converged=gnorm <= eps * gnorm1,
-                           newton_trips=trips, cg_trips=cg_trips)
+
+    def out(t):
+        return t[:, 0] if B == 1 else t
+    return MultiTronResult(
+        w=W.reshape(flat).T, f=out(F), gnorm=out(gnorm),
+        iterations=out(it - 1), converged=out(gnorm <= eps * gnorm1),
+        newton_trips=trips, cg_trips=cg_trips,
+        block_trips=torch.stack([block_nt, block_cg], 1).cpu().numpy())

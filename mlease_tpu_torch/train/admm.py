@@ -1,21 +1,31 @@
 """Consensus-ADMM trainer, ported to PyTorch.
 
 Port of mlease_tpu/train/admm.py (reference:
-src/main/java/com/linkedin/mlease/regression/jobs/RegressionAdmmTrain.java:129-522)
-on its default path: the multi-RHS lambda path (ops/tron_multi.py) over the
-B blocks folded into one flat problem, Jacobi-preconditioned CG. One
-iteration is the same program as the JAX step: x-update (one TRON solve
-serving every lambda lane), presence mask, optional over-relaxation,
-consensus means, z-update and dual update; the host driver loop carries the
-scalar schedules, sample loglik, best-model tracking and the stop rule.
+src/main/java/com/linkedin/mlease/regression/jobs/RegressionAdmmTrain.java:129-522).
+One iteration is the same program as the JAX step: x-update, presence
+mask, optional over-relaxation, consensus means, z-update and dual update;
+the host driver loop carries the scalar schedules, sample loglik,
+best-model tracking and the stop rule.
 
-The flat data problem is stacked once when the trainer is built (the JAX
-step restacks it inside its jitted program); each step only sets the prior.
+The x-update takes one of the JAX package's three solves (`solver_mode`):
 
-Not ported yet (NotImplementedError, see ROADMAP.md): `run_fused`, the
-device mesh, `dual_layout`, the vmapped per-lambda and per-block solvers
-(multi_rhs=False, flat_blocks=False) and pcg="head_block", which needs the
-per-block step (the solver's head-block preconditioner itself is ported).
+  flat       the default: the multi-RHS lambda path (ops/tron_multi.py)
+             over the B blocks folded into one stacked problem, one joint
+             trust region per lambda, the strictest block's tolerance;
+  per_block  flat_blocks=False, or pcg="head_block": the same stacked data
+             solved as B independent problems (tron_multi(blocks=B), the
+             JAX vmap over blocks), each block with its own tolerance; with
+             "head_block" each block's head Gram is built by K2;
+  lanes      multi_rhs=False, or dual_layout: the batched reference TRON
+             (ops/tron.py) over L*B lanes whose data is shared by the L
+             lambdas (stride-0 views, never copied), the JAX
+             vmap(vmap(tron)); dual_layout adds the column-sorted copy.
+
+The data problem is stacked once when the trainer is built (the JAX step
+restacks it inside its jitted program); each step only sets the prior.
+
+Not ported yet (NotImplementedError, see ROADMAP.md): `run_fused` (A1, with
+A10b), the device mesh (A8) and a bfloat16 compute dtype (A15).
 """
 
 from __future__ import annotations
@@ -28,11 +38,13 @@ from typing import Any, Callable, Mapping, Sequence
 import numpy as np
 import torch
 
-from mlease_tpu_torch.core.dataset import BlockedData, pack_rows, to_hybrid
+from mlease_tpu_torch.core.dataset import (BlockedData, csc_arrays, pack_rows,
+                                           to_hybrid)
 from mlease_tpu_torch.core.linear_model import LinearModel
 from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
-from mlease_tpu_torch.ops.objective import class_balance_eps_scale
+from mlease_tpu_torch.ops.objective import LRProblem, class_balance_eps_scale
+from mlease_tpu_torch.ops.tron import tron
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, stack_blocks,
                                              tron_multi, with_prior)
 
@@ -62,12 +74,12 @@ class AdmmConfig:
     positive_weight: float = 1.0
     reference_l1_compat: bool = True
     relaxation: float = 1.0
-    dual_layout: bool = False     # not ported (raises)
+    dual_layout: bool = False     # CSC gather-based X'v (the "lanes" solve)
     head_size: int = 0
-    multi_rhs: bool = True        # False (vmapped lanes) not ported (raises)
-    pcg: Any = True               # True/"jacobi" or False; "head_block" raises
+    multi_rhs: bool = True        # False: the batched reference TRON lanes
+    pcg: Any = True               # True/"jacobi", False, or "head_block"
     head_dtype: Any = None        # storage dtype of the dense head
-    flat_blocks: bool = True      # False (per-block lock-step) not ported
+    flat_blocks: bool = True      # False: the per-block lock-step solve
     dtype: Any = torch.float32
     max_newton_iter: int = 1000
     max_cg_iter: int = 500
@@ -134,51 +146,139 @@ def _lambda_key(lam: float) -> str:
     return f"{sign}{digits[0]}.{fpart}E{e}"
 
 
-def build_admm_step(nblocks: int, regularizer: int, intercept_index: int | None,
-                    penalize_intercept: bool, reference_l1_compat: bool,
-                    max_newton_iter: int, max_cg_iter: int,
-                    relaxation: float = 1.0,
-                    dual_layout: bool = False,
-                    multi_rhs: bool = False,
-                    pcg: Any = False,
-                    flat_blocks: bool = False) -> Callable:
-    """Build the one-iteration function of the flat multi-RHS path.
+def solver_mode(multi_rhs: bool, flat_blocks: bool, dual_layout: bool,
+                pcg: Any) -> str:
+    """Which x-update solve a configuration takes, as the JAX trainers
+    decide it (AdmmTrainer._use_flat, build_admm_step): "lanes" for
+    multi_rhs=False or dual_layout, "flat" when the blocks may fold into
+    one problem, "per_block" otherwise ("head_block" needs a per-block
+    head). Every mode solves on the stacked ids, so they must fit int32
+    (stack_blocks raises otherwise; the JAX package then leaves the flat
+    form)."""
+    if not multi_rhs or dual_layout:
+        return "lanes"
+    if flat_blocks and pcg != "head_block":
+        return "flat"
+    return "per_block"
 
-    step(prob, present, z, u, lam_vec, rho_eff, rho_base, eps) takes the
-    stacked data problem (stack_blocks), present (B, n) bool, z (L, n),
-    u (L, B, n), lam_vec (L, n), rho_eff/rho_base (L,) and eps (B,); it
-    returns (z_new, u_new, diffs (L,), stats) with stats the lock-step
-    "newton_trips"/"cg_trips" counts of the solve."""
-    if dual_layout:
-        raise NotImplementedError(
-            "dual_layout is not ported (ROADMAP.md item A1)")
-    if not (multi_rhs and flat_blocks):
-        raise NotImplementedError(
-            "only the flat-blocks multi-RHS step is ported (multi_rhs=True, "
-            "flat_blocks=True); the vmapped solvers are ROADMAP.md item A1")
-    if regularizer not in (1, 2):
-        raise ValueError("Only L1 and L2 regularization supported!")
 
-    def step(prob: MultiProblem, present, z, u, lam_vec, rho_eff, rho_base,
-             eps):
-        # rho_eff (boost/decay-adapted) shapes only the x-subproblem prior;
-        # the consensus z-update uses the base rho
-        # (RegressionAdmmTrain.java:368-380, :648-658)
+def unstack_problem(prob: MultiProblem, B: int, n: int, dtype,
+                    csc=None) -> LRProblem:
+    """A stacked problem (stack_blocks: B blocks of R rows and n columns,
+    ids offset) back to its blocks, as the LRProblem the batched `tron`
+    solves: ids un-offset and int64, the priors left unset, a narrow head
+    widened to the compute dtype (the JAX package's solve promotes it the
+    same way), `csc` the (cols, rows, vals) dual layout, each (B, R*K)."""
+    R = prob.y.shape[0] // B
+    boff = torch.arange(B, device=prob.y.device)[:, None]
+
+    def ids(a, size):
+        return None if a is None else a.reshape(B, -1).long() - boff * size
+
+    def per_block(a):
+        return None if a is None else a.reshape(B, -1)
+
+    kw = {}
+    if prob.head_x is not None:
+        hx = prob.head_x if prob.head_x.dim() == 3 else prob.head_x[None]
+        kw = dict(head_x=hx.to(dtype), head_ids=ids(prob.head_ids, n),
+                  tail_rows=ids(prob.tail_rows, R),
+                  tail_cols=ids(prob.tail_cols, n),
+                  tail_vals=per_block(prob.tail_vals),
+                  tail_c_rows=ids(prob.tail_c_rows, R),
+                  tail_c_cols=ids(prob.tail_c_cols, n),
+                  tail_c_vals=per_block(prob.tail_c_vals))
+    if csc is not None:
+        cols, rows, vals = csc
+        kw.update(csc_cols=cols.long(), csc_rows=rows.long(), csc_vals=vals)
+    K = prob.indices.shape[-1]
+    return LRProblem(
+        indices=prob.indices.reshape(B, R, K).long() - boff[..., None] * n,
+        values=prob.values.reshape(B, R, K), y=prob.y.reshape(B, R),
+        weight=prob.weight.reshape(B, R), offset=prob.offset.reshape(B, R),
+        prior_mean=None, prior_var_inv=None, **kw)
+
+
+def build_x_update(mode: str, max_newton_iter: int, max_cg_iter: int,
+                   pcg: Any = True, relaxation: float = 1.0) -> Callable:
+    """The (lambda x block) x-update of one set of blocks, without the
+    consensus: solve(prob, present, z, u, rho_eff, eps) -> (x (L, B, n),
+    trips) for present (B, n) bool, z (L, n), u (L, B, n), rho_eff (L,) and
+    eps (B,) the blocks' tolerances; x is masked to the prior mean z - u_b
+    where a feature is absent from block b and over-relaxed. `prob` is the
+    blocks' stacked MultiProblem ("flat", "per_block") or their LRProblem
+    ("lanes"). trips is a (k, 2) array of (Newton, CG) counts: one row for
+    "flat", one per block for "per_block" (each block's own loops), one per
+    (lambda, block) lane for "lanes" (accepted Newton iterations and CG
+    iterations), as the JAX solves report them."""
+    if mode not in ("flat", "per_block", "lanes"):
+        raise ValueError(f"unknown solver mode {mode!r}")
+
+    def solve(prob, present, z, u, rho_eff, eps):
         L, n = z.shape
         B = u.shape[1]
-        prior_mean = z[:, None, :] - u                       # (L, B, n)
-        res = tron_multi(with_prior(prob, prior_mean, rho_eff),
-                         z.T.repeat(B, 1), eps.min(),
-                         max_iter=max_newton_iter, max_cg_iter=max_cg_iter,
-                         precondition=pcg)
-        x = res.w.reshape(B, n, L).permute(2, 0, 1)          # (L, B, n)
-        stats = {"newton_trips": res.newton_trips,
-                 "cg_trips": res.cg_trips}
+        prior_mean = z[:, None, :] - u                        # (L, B, n)
+        if mode == "lanes":
+            P = L * B
+            lanes = prob._replace(
+                prior_mean=prior_mean.reshape(P, n),
+                prior_var_inv=rho_eff[:, None, None].expand(L, B, n)
+                .reshape(P, n))
+            r = tron(lanes, z[:, None, :].expand(L, B, n).reshape(P, n),
+                     eps.repeat(L), max_iter=max_newton_iter,
+                     max_cg_iter=max_cg_iter)
+            x = r.w.view(L, B, n)
+            trips = torch.stack([r.iterations, r.cg_iterations],
+                                1).cpu().numpy()
+        else:
+            blocks = B if mode == "per_block" else 1
+            if blocks == 1 and mode == "per_block" \
+                    and prob.head_x is not None and prob.head_x.dim() == 3:
+                prob = prob._replace(head_x=prob.head_x[0])  # its own head
+            r = tron_multi(with_prior(prob, prior_mean, rho_eff),
+                           z.T.repeat(B, 1),
+                           eps if blocks > 1 else eps.min(),
+                           max_iter=max_newton_iter, max_cg_iter=max_cg_iter,
+                           precondition=pcg, blocks=blocks)
+            x = r.w.reshape(B, n, L).permute(2, 0, 1)        # (L, B, n)
+            trips = r.block_trips
         # absent-feature exactness: features with no data in block b solve
         # to the prior mean z - u_b (LibLinear.java:373-397)
         x = torch.where(present[None, :, :], x, prior_mean)
         if relaxation != 1.0:
+            # over-relaxation x_hat = alpha*x + (1-alpha)*z, post-masking
+            # (Boyd et al. 2011 section 3.4.3; off, alpha = 1, by default)
             x = relaxation * x + (1.0 - relaxation) * z[:, None, :]
+        return x, trips
+
+    return solve
+
+
+def build_admm_step(nblocks: int, regularizer: int, intercept_index: int | None,
+                    penalize_intercept: bool, reference_l1_compat: bool,
+                    max_newton_iter: int, max_cg_iter: int,
+                    relaxation: float = 1.0, mode: str = "flat",
+                    pcg: Any = False) -> Callable:
+    """Build the one-iteration function.
+
+    step(prob, present, z, u, lam_vec, rho_eff, rho_base, eps) takes the
+    data problem of `mode` (see build_x_update), present (B, n) bool, z
+    (L, n), u (L, B, n), lam_vec (L, n), rho_eff/rho_base (L,) and eps
+    (B,); it returns (z_new, u_new, diffs (L,), stats) with stats the
+    "newton_trips"/"cg_trips" maxima over the solve's counters, as the JAX
+    trainer's loop reads them."""
+    if regularizer not in (1, 2):
+        raise ValueError("Only L1 and L2 regularization supported!")
+    solve = build_x_update(mode, max_newton_iter, max_cg_iter, pcg,
+                           relaxation)
+
+    def step(prob, present, z, u, lam_vec, rho_eff, rho_base, eps):
+        # rho_eff (boost/decay-adapted) shapes only the x-subproblem prior;
+        # the consensus z-update uses the base rho
+        # (RegressionAdmmTrain.java:368-380, :648-658)
+        x, trips = solve(prob, present, z, u, rho_eff, eps)
+        stats = {"newton_trips": int(trips[:, 0].max()),
+                 "cg_trips": int(trips[:, 1].max())}
         v = x.sum(1) / nblocks + u.sum(1) / nblocks           # xbar + ubar
         rho = rho_base[:, None]
         if regularizer == 2:
@@ -217,13 +317,9 @@ class AdmmTrainer:
         dtype = config.dtype
         if dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(
-                f"compute dtype {dtype} is not ported; the solver and its "
-                f"kernel run float32 or float64")
-        if config.multi_rhs and config.pcg == "head_block":
-            raise NotImplementedError(
-                "pcg='head_block' needs the per-block (non-flat) ADMM step, "
-                "which is not ported yet (ROADMAP.md item A1); "
-                "tron_multi(precondition='head_block') itself is")
+                f"compute dtype {dtype} is not ported (ROADMAP.md item "
+                f"A15); the solvers and their kernels run float32 or "
+                f"float64")
 
         if config.head_size > 0 and data.head is None:
             data = to_hybrid(data, config.head_size)
@@ -253,11 +349,20 @@ class AdmmTrainer:
                     t(data.tail_vals, dtype), t(data.tail_c_rows),
                     t(data.tail_c_cols), t(data.tail_c_vals, dtype))
         L = len(self.lambdas)
+        self.mode = solver_mode(config.multi_rhs, config.flat_blocks,
+                                config.dual_layout, config.pcg)
         self.prob = stack_blocks(
             t(data.indices), t(data.values, dtype), y, weight,
             t(data.offset, dtype), head,
             torch.zeros((L, data.nblocks, self.dim), dtype=dtype, device=dev),
             torch.ones(L, dtype=dtype, device=dev))
+        if self.mode == "lanes":
+            csc = None
+            if config.dual_layout:
+                csc = tuple(t(a) for a in csc_arrays(data))
+                csc = (csc[0], csc[1], csc[2].to(dtype))
+            self.prob = unstack_problem(self.prob, data.nblocks, self.dim,
+                                        dtype, csc)
 
         lam_vecs = np.stack([
             admm_math.per_feature_lambda(l, self.dim, config.lambda_map,
@@ -274,10 +379,8 @@ class AdmmTrainer:
             max_newton_iter=config.max_newton_iter,
             max_cg_iter=config.max_cg_iter,
             relaxation=config.relaxation,
-            dual_layout=config.dual_layout,
-            multi_rhs=config.multi_rhs,
-            pcg=config.pcg,
-            flat_blocks=config.flat_blocks)
+            mode=self.mode,
+            pcg=config.pcg)
 
         # sample-test loglik arrays (first MAX_NTEST_EVENTS rows)
         self.test_arrays = None
@@ -294,7 +397,7 @@ class AdmmTrainer:
     def run_fused(self, *args, **kwargs):
         raise NotImplementedError(
             "run_fused (the on-device driver loop) is not ported yet; use "
-            "run() (ROADMAP.md)")
+            "run() (ROADMAP.md item A1, with A10b)")
 
     # ------------------------------------------------------------------
     def run(self, z0: np.ndarray | None = None,

@@ -1,0 +1,193 @@
+"""Naive trainer: independent per-(lambda, key) fits + optional model mean.
+
+Port of mlease_tpu/train/naive.py (reference:
+src/main/java/com/linkedin/mlease/regression/jobs/RegressionNaiveTrain.java):
+the reference fans every record out x nlambdas, shuffles to one reducer per
+(lambda, key) and fits an independent liblinear model per reducer. Here the
+keys are the blocks of one packed problem and every (lambda, key) model is
+a lane of one batched TRON solve; the optional divide-and-average
+`compute.model.mean` final model (:134-140,190-198) is a mean over the keys
+(core/linear_model.py::mean_model).
+
+Semantics kept from the reference reducer (:286-416):
+  * priorVar = 1/lambda by default, per-feature 1/lambda.map[k] overrides
+    (:333-339), intercept variance 100000 unless penalize.intercept (:342),
+    given to the feature named by intercept.key (default: the bias column)
+  * scalar prior.mean for every feature (default 0) (:395 via defaultPriorMean)
+  * bias column only when has.intercept (default true) (:361-369)
+  * keys with fewer than data.size.threshold rows are skipped (:379-382)
+  * output keys "lambda#key" (:228-241); each model carries only the features
+    present in its key's data
+
+The solve takes the JAX package's three branches on the same conditions:
+the multi-RHS lambda path over the keys folded into one stacked problem
+(the default: one joint trust region per lambda, the strictest key's
+tolerance), the same stacked data with one trust region per (lambda, key)
+(flat_blocks=False, tron_multi(blocks=K)), and the batched reference TRON
+over (lambda x key) lanes with the data shared by the lambdas
+(multi_rhs=False). The keys are packed as the JAX package packs them, in
+the ELL layout alone (no dense head, so no sorted tail): neither
+hand-written kernel runs in a naive solve. A device mesh (`mesh=`) is
+ROADMAP.md item A8.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from mlease_tpu_torch.core.dataset import pack_blocks
+from mlease_tpu_torch.core.linear_model import LinearModel, mean_model
+from mlease_tpu_torch.core.vocab import build_vocab
+from mlease_tpu_torch.device import resolve_device
+from mlease_tpu_torch.ops import admm_math
+from mlease_tpu_torch.ops.objective import class_balance_eps_scale
+from mlease_tpu_torch.ops.tron import tron
+from mlease_tpu_torch.ops.tron_multi import stack_blocks, tron_multi
+from mlease_tpu_torch.train.admm import _lambda_key, unstack_problem
+
+
+@dataclass
+class NaiveConfig:
+    """The fields and defaults of mlease_tpu's NaiveConfig, with torch
+    dtypes."""
+
+    lambdas: Sequence[float] = (1.0,)
+    liblinear_epsilon: float = 0.001  # RegressionNaiveTrain.java:149 default
+                                      # (the ADMM warm-start init path sets
+                                      # 0.01 explicitly, AdmmTrain.java:246)
+    has_intercept: bool = True
+    penalize_intercept: bool = False
+    prior_mean: float = 0.0
+    lambda_map: Mapping[str, float] | None = None
+    data_size_threshold: int = 0
+    compute_model_mean: bool = False
+    positive_weight: float = 1.0
+    multi_rhs: bool = True        # lambda path as one solve per data pass
+    pcg: bool = True              # Jacobi-preconditioned CG (multi-RHS only)
+    flat_blocks: bool = True      # keys folded into one (K*n, L) solve
+    dtype: Any = torch.float32
+    max_newton_iter: int = 1000
+    max_cg_iter: int = 500
+    intercept_prior_var: float = 100000.0  # RegressionNaiveTrain.java:342
+    intercept_key: str | None = None  # "intercept.key": the feature that
+                                      # gets the 1e5 prior variance; None =
+                                      # the bias column "(INTERCEPT)"
+
+
+@dataclass
+class NaiveResult:
+    models: dict[str, LinearModel]          # "lambda#key" -> model
+    mean_models: dict[str, LinearModel] | None  # "lambda" -> mean (final-model)
+    skipped_keys: list[str]
+    # where a run's time went: host packing, the solve (to the solution's
+    # readback) and its lock-step Newton / CG trips
+    solver_stats: dict = field(default_factory=dict)
+
+
+def train_naive(keyed_rows: Mapping[str, Sequence[Mapping]],
+                config: NaiveConfig, vocab=None, mesh=None,
+                device: str | torch.device = "cuda") -> NaiveResult:
+    """Fit one model per (lambda, key), on the card unless the caller asks
+    for device="cpu".
+
+    keyed_rows: {key -> canonical rows}; for block mode keys are "0".."N-1"
+    (reference NaiveMapper key selection, RegressionNaiveTrain.java:228-241).
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "train_naive over a device mesh is not ported yet: the mesh is "
+            "ROADMAP.md item A8")
+    dev = resolve_device(device)
+    cfg = config
+    dtype = cfg.dtype
+    keys = sorted(keyed_rows)
+    kept_keys = [k for k in keys
+                 if len(keyed_rows[k]) >= max(cfg.data_size_threshold, 1)]
+    skipped = [k for k in keys if k not in kept_keys]
+    if not kept_keys:
+        return NaiveResult({}, {} if cfg.compute_model_mean else None, skipped)
+
+    if vocab is None:
+        vocab = build_vocab((r for k in kept_keys for r in keyed_rows[k]),
+                            has_intercept=cfg.has_intercept)
+    bias = 1.0 if cfg.has_intercept else 0.0
+    t0 = time.monotonic()
+    data = pack_blocks([keyed_rows[k] for k in kept_keys], vocab, bias=bias)
+    lambdas = [float(l) for l in cfg.lambdas]
+    K, L, n = data.nblocks, len(lambdas), vocab.size
+
+    # prior variance per (lambda, feature): 1/lambda default, 1/lambda.map[k]
+    # overrides, and the unpenalized-intercept variance on the feature that
+    # intercept.key names (the bias column by default; a custom name leaves
+    # the bias column at 1/lambda, as the reference's variance map does)
+    icpt_idx = (vocab.get(cfg.intercept_key) if cfg.intercept_key
+                else vocab.intercept_index)
+    pvi = np.zeros((L, n))
+    for i, lam in enumerate(lambdas):
+        pvi[i] = admm_math.per_feature_lambda(lam, n, cfg.lambda_map, vocab)
+        if icpt_idx is not None and not cfg.penalize_intercept:
+            pvi[i, icpt_idx] = 1.0 / cfg.intercept_prior_var
+
+    def t(a, dt=None):
+        return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
+
+    y = t(data.y, dtype)
+    weight = t(data.weight, dtype)
+    if cfg.positive_weight != 1.0:
+        weight = torch.where(y == 1, cfg.positive_weight * weight, weight)
+    eps = t(cfg.liblinear_epsilon
+            * class_balance_eps_scale(data.y, data.nrows), dtype)  # (K,)
+    pvi_t = t(pvi, dtype)                                         # (L, n)
+    t1 = time.monotonic()
+    prob = stack_blocks(t(data.indices), t(data.values, dtype), y, weight,
+                        t(data.offset, dtype), (None,) * 8,
+                        torch.zeros((L, K, n), dtype=dtype, device=dev),
+                        torch.ones(L, dtype=dtype, device=dev))
+    common = dict(max_iter=cfg.max_newton_iter, max_cg_iter=cfg.max_cg_iter)
+    if cfg.multi_rhs:
+        prob = prob._replace(
+            prior_mean=torch.full((K * n, L), cfg.prior_mean, dtype=dtype,
+                                  device=dev),
+            prior_var_inv=pvi_t.T.repeat(K, 1))
+        W0 = torch.zeros((K * n, L), dtype=dtype, device=dev)
+        # the keys fold into the coefficient axis (one joint trust region
+        # per lambda, the strictest key's tolerance) while the stacked ids
+        # fit int32 (the JAX branch's condition), else one per key
+        if (cfg.flat_blocks and K * n < 2**31
+                and K * data.padded_rows < 2**31):
+            res = tron_multi(prob, W0, eps.min(), precondition=cfg.pcg,
+                             **common)
+        else:
+            res = tron_multi(prob, W0, eps, precondition=cfg.pcg, blocks=K,
+                             **common)
+        x = res.w.reshape(K, n, L).permute(2, 0, 1)               # (L, K, n)
+    else:
+        lanes = unstack_problem(prob, K, n, dtype)._replace(
+            prior_mean=torch.full((L * K, n), cfg.prior_mean, dtype=dtype,
+                                  device=dev),
+            prior_var_inv=pvi_t[:, None, :].expand(L, K, n).reshape(L * K, n))
+        res = tron(lanes, torch.zeros((L * K, n), dtype=dtype, device=dev),
+                   eps.repeat(L), **common)
+        x = res.w.view(L, K, n)
+    x = x.to(torch.float64).cpu().numpy()
+    stats = {"pack_s": t1 - t0, "solve_s": time.monotonic() - t1,
+             "newton_trips": res.newton_trips, "cg_trips": res.cg_trips}
+
+    models: dict[str, LinearModel] = {}
+    for i, lam in enumerate(lambdas):
+        for b, key in enumerate(kept_keys):
+            dense = np.where(data.present[b], x[i, b], 0.0)
+            models[f"{_lambda_key(lam)}#{key}"] = LinearModel.from_dense(
+                dense, vocab)
+
+    mean_models = None
+    if cfg.compute_model_mean:
+        mean_models = mean_model(models, nblocks=len(kept_keys),
+                                 nlambdas=len(lambdas))
+    return NaiveResult(models=models, mean_models=mean_models,
+                       skipped_keys=skipped, solver_stats=stats)

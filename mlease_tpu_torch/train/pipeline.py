@@ -18,9 +18,13 @@ set, and falls back to the record-at-a-time path with a warning when the
 decoder is absent or fails. `streaming.groups > 1` trains with the
 streaming trainer (train/streaming.py), with the post-hybrid groups kept in
 `pack.cache.dir` when it is set; `profile.dir` writes a torch.profiler
-trace of the training loop. Job keys of paths not ported yet raise
-NotImplementedError instead of running something else: mesh.feature.shards
-> 1, use.mesh, initialize.boost.rate > 0 (naive warm start) and fused.loop.
+trace of the training loop. `initialize.boost.rate > 0` with L2 first fits
+the naive models per block (train/naive.py), writes them to
+`<out>/initialModel/` and starts each lambda's z from its mean model
+(AdmmTrain.java:236-276); a boosted job of either regularizer reads its
+rows record by record and skips the pack cache, as the JAX pipeline does.
+Job keys of paths not ported yet raise NotImplementedError instead of
+running something else: mesh.feature.shards > 1, use.mesh and fused.loop.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from mlease_tpu_torch.io.records import (feature_key, normalize_row,
                                          split_feature_key)
 from mlease_tpu_torch.train.admm import (AdmmConfig, AdmmResult, AdmmTrainer,
                                          _lambda_key)
+from mlease_tpu_torch.train.naive import NaiveConfig, train_naive
 from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
 from mlease_tpu_torch.utils import checkpoint as ckpt
 from mlease_tpu_torch.utils.config import JobConfig
@@ -119,10 +124,8 @@ def _reject_unported(config: JobConfig, cfg: AdmmConfig) -> None:
          "feature-sharded training", "A8"),
         ("use.mesh", config.get_boolean("use.mesh", False),
          "the device mesh", "A8"),
-        ("initialize.boost.rate", cfg.initialize_boost_rate > 0,
-         "the naive warm start (train/naive.py)", "A4"),
         ("fused.loop", config.get_boolean("fused.loop", False),
-         "AdmmTrainer.run_fused", "A1"),
+         "AdmmTrainer.run_fused", "A1, with A10b"),
     ]
     for key, hit, what, item in unported:
         if hit:
@@ -149,6 +152,10 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
 
     input_files = avro.enumerate_avro_files(input_paths)
     streaming_groups = config.get_int("streaming.groups", 0)
+    # a boosted job reads its rows record by record and packs them anew:
+    # the L2 warm start fits the naive models on those rows (the JAX
+    # pipeline takes the same path for L1, which does not warm-start)
+    boosted = cfg.initialize_boost_rate > 0
 
     # ---- pack cache (pack.cache.dir, streaming jobs only) ------------
     # With pack.cache.dir set, the post-hybrid groups persist once and a
@@ -157,7 +164,7 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
     pack_cache_dir = config.get_string("pack.cache.dir", "")
     cached_groups = None
     pc_manifest = None
-    if pack_cache_dir and streaming_groups > 1:
+    if pack_cache_dir and streaming_groups > 1 and not boosted:
         pc_manifest = pack_cache.build_manifest(
             input_files, nblocks=nblocks, n_groups=streaming_groups,
             head_size=cfg.head_size,
@@ -173,8 +180,9 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
     # record-at-a-time path (tests/test_torch_ingest.py). Falls back to
     # pure Python, with a warning, when the decoder is absent or fails.
     data = None
+    z0 = None
     if (config.get_boolean("native.ingest", True) and not map_key
-            and input_files and cached_groups is None):
+            and input_files and cached_groups is None and not boosted):
         data, vocab = _native_prepare(config, cfg, input_files, nblocks,
                                       ignore_value, seed, out_base)
     if data is None and cached_groups is not None:
@@ -197,7 +205,11 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
             blocks[int(key)].append(row)
         vocab = build_vocab((r for _k, r in prepared), has_intercept=True)
         data = pack_blocks(blocks, vocab)
-        del records, prepared, blocks
+        del records, prepared
+        if boosted and cfg.regularizer == 2:
+            z0 = _naive_warm_start(config, cfg, blocks, vocab, out_base,
+                                   device)
+        del blocks
     vocab.save(os.path.join(out_base, "model-vocab.json"))
     if data is not None:
         logger.info("packed %d blocks, %d rows padded to (%d, %d), "
@@ -224,9 +236,8 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
                      for r in avro.read_records(first_part)]
 
     # ---- optional lambda-path extension warm start ---------------------
-    z0 = None
     init_model_path = config.get_string("init.model.path", "")
-    if init_model_path:
+    if z0 is None and init_model_path:
         prev_models = read_model_file(init_model_path)
         z0 = np.stack([
             _nearest_lambda_model(l, prev_models).to_dense(vocab)
@@ -352,6 +363,32 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
         result = trainer.run(callback=on_iteration, **run_kwargs)
     return _write_pipeline_outputs(config, result, out_base, test_path,
                                    test_records, ignore_value, device)
+
+
+def _naive_warm_start(config, cfg, blocks, vocab, out_base, device):
+    """The naive mean-model initialization (AdmmTrain.java:236-276, the JAX
+    pipeline's warm start): one naive model per (lambda, non-empty block)
+    at liblinear.epsilon (default 0.01), written to
+    <out>/initialModel/part-r-00000.avro; each lambda's z starts from its
+    mean model, or from zeros where that lambda has none. Returns z0
+    (L, n)."""
+    logger.info("warm start: naive mean-model initialization")
+    naive_cfg = NaiveConfig(
+        lambdas=sorted(set(cfg.lambdas)),
+        liblinear_epsilon=config.get_float("liblinear.epsilon", 0.01),
+        lambda_map=cfg.lambda_map, compute_model_mean=True, dtype=cfg.dtype)
+    keyed = {str(i): rows for i, rows in enumerate(blocks) if rows}
+    naive_res = train_naive(keyed, naive_cfg, vocab=vocab, device=device)
+    write_model_file(os.path.join(out_base, "initialModel",
+                                  "part-r-00000.avro"), naive_res.models)
+    z0 = np.stack([
+        naive_res.mean_models[_lambda_key(l)].to_dense(vocab)
+        if _lambda_key(l) in naive_res.mean_models else np.zeros(vocab.size)
+        for l in cfg.lambdas])
+    logger.info("warm start: z0 from %d naive models over %d blocks "
+                "(max|z0| %.6g)", len(naive_res.models), len(keyed),
+                float(np.abs(z0).max()))
+    return z0
 
 
 def _native_prepare(config, cfg, input_files, nblocks, ignore_value, seed,

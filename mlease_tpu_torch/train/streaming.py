@@ -1,10 +1,15 @@
 """Streaming ADMM for datasets larger than device memory, ported to PyTorch.
 
 Port of mlease_tpu/train/streaming.py (StreamingAdmmTrainer,
-build_group_solver) on its default solver: each group's x-update is the
-flat multi-RHS TRON solve of ops/tron_multi.py (the group's blocks folded
-into one stacked problem, every λ lane at once, Jacobi PCG), so K1's three
-fused tail reduces run inside every group solve. Blocks live in host RAM as
+build_group_solver). Each group's x-update is one of the in-memory
+trainer's solves (train/admm.py): by default the flat multi-RHS TRON solve
+of ops/tron_multi.py (the group's blocks folded into one stacked problem,
+every λ lane at once, Jacobi PCG), so K1's three fused tail reduces run
+inside every group solve; flat_blocks=False or pcg="head_block" solves the
+group's blocks as independent problems on the same stacked data (K1 as
+well; with "head_block" each block's head Gram is one K2 call, on a
+bfloat16 head its bf16-in route); multi_rhs=False runs the batched
+reference TRON over the (λ, block) lanes. Blocks live in host RAM as
 packed groups, and each ADMM iteration runs
 
   phase 1: for each group g: the next group's host->device copies are
@@ -47,9 +52,9 @@ can hold beside the streamed working set (see `_cap_budget`).
 scattered into the dense form on the card; a streamed row-sorted tail is
 gathered from the column-sorted copy by the inverse permutation.
 
-Not ported (NotImplementedError naming ROADMAP.md): the vmapped solvers
-(multi_rhs=False, flat_blocks=False) and pcg="head_block" (A1), and the
-device mesh (A8). dual_layout raises, as in the JAX package.
+Not ported (NotImplementedError naming ROADMAP.md): the device mesh (A8)
+and a bfloat16 compute dtype (A15). dual_layout raises, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -69,11 +74,11 @@ from mlease_tpu_torch.core.linear_model import LinearModel
 from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
-from mlease_tpu_torch.ops.tron_multi import (MultiProblem, tron_multi,
-                                             with_prior)
+from mlease_tpu_torch.ops.tron_multi import MultiProblem
 from mlease_tpu_torch.train.admm import (MAX_NTEST_EVENTS, AdmmConfig,
                                          AdmmResult, _lambda_key,
-                                         sample_loglik_lanes)
+                                         build_x_update, sample_loglik_lanes,
+                                         solver_mode, unstack_problem)
 
 logger = logging.getLogger(__name__)
 
@@ -207,41 +212,34 @@ def _check_sorted_ids(a: np.ndarray, bound: int, name: str,
 
 
 def build_group_solver(max_newton_iter: int, max_cg_iter: int,
-                       multi_rhs: bool = True,
-                       pcg=True, flat_blocks: bool = True,
+                       mode: str = "flat", pcg=True,
                        relaxation: float = 1.0) -> Callable:
-    """The (lambda x block) x-update of one group (no consensus): the flat
-    multi-RHS solve, the group's B blocks folded into one stacked problem
-    with a joint per-λ trust region and the strictest per-block tolerance
-    (the JAX package's solve_flat).
+    """The (lambda x block) x-update of one group (no consensus), in one of
+    the in-memory trainer's solve modes (train/admm.py::build_x_update):
+    "flat" (the group's B blocks folded into one stacked problem with a
+    joint per-λ trust region and the strictest block's tolerance, the JAX
+    package's solve_flat), "per_block" (each block its own problem, the
+    JAX vmap of tron_multi) or "lanes" (the batched reference TRON over
+    the (λ, block) lanes, the JAX vmap(vmap(tron))).
 
     solver(prob, present, z, u, rho_eff, eps) takes the group's stacked
     MultiProblem without its prior (ids offset into the group's (B*R rows,
     B*n columns) space, every array but the head flat), present (B, n)
-    bool, z (L, n), the group's u (L, B, n), rho_eff (L,) and eps (a
-    float); it returns (x (L, B, n), newton_trips, cg_trips)."""
-    if not (multi_rhs and flat_blocks) or pcg == "head_block":
-        raise NotImplementedError(
-            "streaming runs only the flat multi-RHS group solve (multi_rhs="
-            "True, flat_blocks=True, pcg jacobi or none); the vmapped "
-            "solvers and pcg='head_block' are ROADMAP.md item A1")
+    bool, z (L, n), the group's u (L, B, n), rho_eff (L,) and eps (B,) the
+    blocks' tolerances; it returns (x (L, B, n), newton_trips, cg_trips),
+    the trips summed over the solve's counters as the JAX group solve sums
+    them."""
+    solve = build_x_update(mode, max_newton_iter, max_cg_iter, pcg,
+                           relaxation)
 
-    def solve(prob: MultiProblem, present, z, u, rho_eff, eps):
-        L, n = z.shape
-        B = u.shape[1]
-        prior_mean = z[:, None, :] - u                        # (L, B, n)
-        r = tron_multi(with_prior(prob, prior_mean, rho_eff),
-                       z.T.repeat(B, 1), eps, max_iter=max_newton_iter,
-                       max_cg_iter=max_cg_iter, precondition=pcg)
-        x = r.w.reshape(B, n, L).permute(2, 0, 1)             # (L, B, n)
-        x = torch.where(present[None, :, :], x, prior_mean)
-        if relaxation != 1.0:
-            # over-relaxation x_hat = alpha*x + (1-alpha)*z, post-masking,
-            # as the in-memory trainer applies it
-            x = relaxation * x + (1.0 - relaxation) * z[:, None, :]
-        return x, r.newton_trips, r.cg_trips
+    def run(prob: MultiProblem, present, z, u, rho_eff, eps):
+        if mode == "lanes":
+            prob = unstack_problem(prob, u.shape[1], z.shape[1], z.dtype)
+        x, trips = solve(prob, present, z, u, rho_eff, eps)
+        nt, cg = trips.sum(0)
+        return x, int(nt), int(cg)
 
-    return solve
+    return run
 
 
 class StreamingAdmmTrainer:
@@ -277,15 +275,16 @@ class StreamingAdmmTrainer:
             raise NotImplementedError(
                 "streaming over a device mesh is not ported yet: the mesh "
                 "is ROADMAP.md item A8")
+        self.mode = solver_mode(config.multi_rhs, config.flat_blocks,
+                                False, config.pcg)
         self.solver = build_group_solver(
-            config.max_newton_iter, config.max_cg_iter,
-            multi_rhs=config.multi_rhs,
-            pcg=config.pcg, flat_blocks=config.flat_blocks,
-            relaxation=config.relaxation)
+            config.max_newton_iter, config.max_cg_iter, mode=self.mode,
+            pcg=config.pcg, relaxation=config.relaxation)
         if config.dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(
-                f"compute dtype {config.dtype} is not ported; the solver "
-                f"and its kernel run float32 or float64")
+                f"compute dtype {config.dtype} is not ported (ROADMAP.md "
+                f"item A15); the solvers and their kernels run float32 or "
+                f"float64")
         self.device = dev = resolve_device(device)
         on_card = dev.type == "cuda"
         dt = _numpy_dtype(config.dtype)
@@ -737,8 +736,9 @@ class StreamingAdmmTrainer:
             if ready is not None:
                 torch.cuda.current_stream(dev).wait_event(ready)
             u_g = u_groups[gi] if dev_consensus else u_dev
-            eps = float(np.asarray(inner_eps * scale,
-                                   self._compute_np_dtype).min())
+            eps = torch.as_tensor(np.asarray(inner_eps * scale,
+                                             self._compute_np_dtype),
+                                  device=dev)
             x, nt, cg = self.solver(prob, present, z, u_g, rho_eff, eps)
             trip_mat[gi] = (nt, cg)
             xs, us = x.sum(1), u_g.sum(1)

@@ -168,19 +168,44 @@ def test_lambda_key_is_byte_identical():
         assert _lambda_key(lam) == jax_lambda_key(lam), lam
 
 
-def test_unported_paths_raise():
-    data, vocab, _ = problem(seed=23, n_rows=60)
-    for kw in (dict(flat_blocks=False), dict(multi_rhs=False),
-               dict(dual_layout=True), dict(pcg="head_block", head_size=4),
-               dict(dtype=torch.bfloat16)):
-        base = dict(lambdas=[1.0], dtype=torch.float64)
-        base.update(kw)
-        with pytest.raises(NotImplementedError):
-            AdmmTrainer(data, vocab, AdmmConfig(**base), device="cpu")
-    trainer = AdmmTrainer(data, vocab, AdmmConfig(dtype=torch.float64),
+MODES = [dict(flat_blocks=False), dict(flat_blocks=False, head_size=4),
+         dict(multi_rhs=False), dict(multi_rhs=False, head_size=4),
+         dict(dual_layout=True), dict(pcg="head_block", head_size=4),
+         dict(dtype=torch.bfloat16)]
+
+
+@pytest.mark.parametrize("kw", MODES, ids=lambda kw: "-".join(
+    f"{k}={v}" for k, v in kw.items()))
+def test_unported_paths_raise(kw):
+    """The solver modes that once raised here now run as the JAX trainer
+    runs them, the same flags on both sides: z and u to 1e-8 with equal
+    per-iteration trip counts (the per-block maxima for flat_blocks=False
+    and head_block, the per-lane maxima of accepted Newton and CG
+    iterations for multi_rhs=False and dual_layout). A bfloat16 compute
+    dtype (A15) and run_fused (A1, with A10b) still raise."""
+    data, vocab, test_rows = problem(seed=23, n_rows=240)
+    if "dtype" in kw:
+        with pytest.raises(NotImplementedError, match="A15"):
+            AdmmTrainer(data, vocab, AdmmConfig(lambdas=[1.0], **kw),
+                        device="cpu")
+        trainer = AdmmTrainer(data, vocab, AdmmConfig(dtype=torch.float64),
+                              device="cpu")
+        with pytest.raises(NotImplementedError, match="run_fused"):
+            trainer.run_fused()
+        return
+    jcfg, tcfg = configs(num_iters=4, **kw)
+    want = JaxTrainer(data, vocab, jcfg, test_rows=test_rows).run()
+    trainer = AdmmTrainer(data, vocab, tcfg, test_rows=test_rows,
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="run_fused"):
-        trainer.run_fused()
+    assert trainer.mode == ("lanes" if "dual_layout" in kw
+                            or "multi_rhs" in kw else "per_block")
+    got = trainer.run()
+    assert got.iterations == want.iterations == 4
+    np.testing.assert_allclose(got.z, want.z, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(got.u, want.u, rtol=0, atol=1e-8)
+    assert got.solver_stats == [
+        {k: int(v) for k, v in s.items()} for s in want.solver_stats]
+    assert got.best_lambda == want.best_lambda
 
 
 def test_cuda_device_raises_without_a_card(monkeypatch):

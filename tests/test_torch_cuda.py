@@ -569,3 +569,92 @@ def test_head_block_solve_on_card_matches_cpu(cuda):
                                atol=1e-7)
     assert (got.newton_trips, got.cg_trips) == (want.newton_trips,
                                                 want.cg_trips)
+
+
+# ---------------------------------------------------------------------------
+# The per-block solves: K1 inside them, K2 building each block's head Gram
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(flat_blocks=False),
+                                dict(pcg="head_block"),
+                                dict(multi_rhs=False)],
+                         ids=["per_block", "head_block", "lanes"])
+def test_solver_modes_on_card_match_cpu(cuda, kw):
+    """AdmmTrainer's per-block, head-block and lanes solves on the card
+    against the same float64 runs on the CPU: z to 1e-8. K1 launches in the
+    per-block solves (the lanes solve has no sorted tail reduce); with
+    head_block K2 builds each block's head Gram, B calls per build, one
+    build per Newton trip plus one per solve. The per-block solves reduce
+    in a fixed order on both (the head product, K1), so their trip counts
+    are equal too. The lanes solve reduces its tail with scatter_add_,
+    whose float atomics add in a varying order on the card, so a CG stop
+    decision within rounding of its threshold can go either way: it solves
+    to liblinear.epsilon 1e-10 here, where both reach the same minimizer."""
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+
+    data = blocked_data(12, B=3, R=1500)
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    lanes = "multi_rhs" in kw
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=2, head_size=64,
+                     dtype=torch.float64,
+                     liblinear_epsilon=1e-10 if lanes else 0.01, **kw)
+    want = AdmmTrainer(data, vocab, cfg, device="cpu").run()
+    k1, k2 = segment_sum_sorted.launches, gram_batched.launches
+    got = AdmmTrainer(data, vocab, cfg, device=cuda).run()
+    k1, k2 = segment_sum_sorted.launches - k1, gram_batched.launches - k2
+    np.testing.assert_allclose(got.z, want.z, rtol=0, atol=1e-8)
+    assert lanes or got.solver_stats == want.solver_stats
+    assert (k1 > 0) == ("multi_rhs" not in kw)
+    builds = sum(s["newton_trips"] + 1 for s in got.solver_stats)
+    assert k2 == (3 * builds if kw.get("pcg") == "head_block" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dtype", [torch.float32, torch.bfloat16])
+def test_per_block_head_gram_matches_reference(cuda, monkeypatch,
+                                               head_dtype):
+    """Every head Gram that a per-block head-block solve builds on the card
+    (one K2 call per block, the head shared by the L lanes; a bfloat16 head
+    through K2's bf16-in route) against gram_batched_reference on the same
+    inputs, at K2's tolerance; and the solve itself against the CPU's."""
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.core.dataset import to_hybrid
+
+    data = to_hybrid(blocked_data(13, B=3, R=1200), 32,
+                     head_dtype=head_dtype)
+    B, n, L = data.nblocks, data.dim, 2
+
+    def problem(dev):
+        t = lambda a, dt=None: torch.as_tensor(a, device=dev, dtype=dt)  # noqa
+        f32 = torch.float32
+        head = (t(data.head, head_dtype), t(data.head_ids),
+                t(data.tail_rows), t(data.tail_cols),
+                t(data.tail_vals, f32), t(data.tail_c_rows),
+                t(data.tail_c_cols), t(data.tail_c_vals, f32))
+        return tm.stack_blocks(
+            t(data.indices), t(data.values, f32), t(data.y, f32),
+            t(data.weight, f32), t(data.offset, f32), head,
+            torch.zeros((L, B, n), dtype=f32, device=dev),
+            t([1.0, 10.0], f32))
+
+    calls = []
+    real = tm.gram_batched
+
+    def checked(x, d, pvi=None):
+        calls.append(x.shape)
+        return check_gram(x, d, pvi, 1e-5)
+
+    W0 = torch.zeros((B * n, L))
+    eps = torch.full((B,), 1e-4)
+    want = tm.tron_multi(problem("cpu"), W0, eps, precondition="head_block",
+                         blocks=B)
+    monkeypatch.setattr(tm, "gram_batched", checked)
+    got = tm.tron_multi(problem(cuda), W0.to(cuda), eps.to(cuda),
+                        precondition="head_block", blocks=B)
+    monkeypatch.setattr(tm, "gram_batched", real)
+    assert len(calls) == B * (got.newton_trips + 1)
+    assert set(calls) == {(1200, 32)}
+    scale = float(want.w.abs().max())
+    assert float((got.w.cpu() - want.w).abs().max()) <= 1e-4 * scale

@@ -49,6 +49,22 @@ def test_the_item_slice_modules_are_guarded():
     assert "mlease_tpu_torch/csrc/gram.cu" in rel
 
 
+def test_the_naive_fit_and_solver_mode_modules_are_guarded():
+    """The naive trainer, the partition ids, the re-exporting subpackages
+    and the modules that hold the solver modes are among the files the
+    guard reads and import cleanly with no CUDA toolchain."""
+    import importlib
+
+    rel = {os.path.relpath(p, REPO) for p in port_files()}
+    for mod in ("train/naive", "core/partition_ids", "train/admm",
+                "train/streaming", "train/pipeline", "ops/tron_multi",
+                "ops/objective", "cli", *(f"{sub}/__init__" for sub in (
+                    "core", "eval", "io", "ops", "train", "utils"))):
+        assert f"mlease_tpu_torch/{mod}.py" in rel, mod
+        importlib.import_module("mlease_tpu_torch." + mod.replace(
+            "/__init__", "").replace("/", "."))
+
+
 def test_guard_pattern_catches_each_form():
     for line in ("import jax", "from jax import numpy", "import jax.numpy",
                  "import mlease_tpu", "from mlease_tpu.ops import x",

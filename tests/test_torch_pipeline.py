@@ -120,19 +120,109 @@ def test_cli_device_cpu_smoke(tmp_path):
                           "part-r-00000.avro")
 
 
-def test_unported_job_keys_raise(tmp_path):
-    """Paths not ported raise, naming their ROADMAP.md item; streaming
-    jobs too for the solver modes the streaming trainer does not run."""
-    for extra, item in (
-            ({"use.mesh": "true"}, "A8"), ({"mesh.feature.shards": "2"}, "A8"),
-            ({"initialize.boost.rate": "2.0"}, "A4"),
-            ({"fused.loop": "true"}, "A1"), ({"pcg": "head_block"}, "A1"),
-            ({"streaming.groups": "2", "pcg": "head_block"}, "A1"),
-            ({"streaming.groups": "2", "flat.blocks": "false"}, "A1"),
-            ({"streaming.groups": "2", "multi.rhs": "false"}, "A1")):
-        props = job(str(tmp_path / "out"), **extra)
+def _capture_z0(monkeypatch, targets):
+    """Record the z0 each pipeline hands its trainer's run(); targets are
+    (module, class name) pairs where the pipeline looks the class up."""
+    seen = []
+    for module, name in targets:
+        cls = getattr(module, name)
+
+        class Recording(cls):
+            def run(self, *a, **kw):
+                seen.append(kw.get("z0"))
+                return super().run(*a, **kw)
+        monkeypatch.setattr(module, name, Recording)
+    return seen
+
+
+def _same_models(out_t, out_j, sub, atol):
+    mj = read_model_file(os.path.join(out_j, sub))
+    mt = read_model_file(os.path.join(out_t, sub))
+    assert sorted(mj) == sorted(mt)
+    for key in mj:
+        cj, ct = mj[key].coefficients, mt[key].coefficients
+        assert sorted(cj) == sorted(ct), key
+        np.testing.assert_allclose([ct[f] for f in sorted(cj)],
+                                   [cj[f] for f in sorted(cj)],
+                                   rtol=0, atol=atol)
+        assert abs(mt[key].intercept - mj[key].intercept) <= atol
+
+
+@pytest.mark.parametrize("extra,item", [
+    ({"use.mesh": "true"}, "A8"), ({"mesh.feature.shards": "2"}, "A8"),
+    ({"fused.loop": "true"}, "A1"),
+    ({"pcg": "head_block"}, None),
+    ({"streaming.groups": "2", "pcg": "head_block"}, None),
+    ({"streaming.groups": "2", "flat.blocks": "false"}, None),
+    ({"streaming.groups": "2", "multi.rhs": "false"}, None)],
+    ids=lambda v: "-".join(f"{k}={x}" for k, x in v.items())
+    if isinstance(v, dict) else str(v))
+def test_unported_job_keys_raise(tmp_path, extra, item):
+    """Paths not ported raise, naming their ROADMAP.md item (the mesh, A8;
+    the fused loop, A1 with A10b). The solver-mode keys that once raised
+    here (A1) now run as the JAX pipeline runs them: the same final models
+    to 1e-8 after 3 iterations, in memory and streamed."""
+    if item is not None:
         with pytest.raises(NotImplementedError, match=item):
-            torch_pipeline(JobConfig(props), device="cpu")
+            torch_pipeline(JobConfig(job(str(tmp_path / "out"), **extra)),
+                           device="cpu")
+        return
+    extra = dict(extra, **{"num.iters": "3"})
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
+    res_j = jax_pipeline(JobConfig(job(out_j, **extra)))
+    res_t = torch_pipeline(JobConfig(job(out_t, **extra)), device="cpu")
+    assert res_t.iterations == res_j.iterations == 3
+    if res_j.solver_stats:        # the JAX streaming trainer keeps none
+        assert res_t.solver_stats == [{k: int(v) for k, v in s.items()}
+                                      for s in res_j.solver_stats]
+    np.testing.assert_allclose(res_t.z, res_j.z, rtol=0, atol=1e-8)
+    _same_models(out_t, out_j, "final-model", 1e-8)
+
+
+@pytest.mark.parametrize("extra", [
+    {"regularizer": "2"}, {"regularizer": "1"},
+    {"regularizer": "2", "streaming.groups": "2"}],
+    ids=["l2", "l1", "l2-streaming"])
+def test_boosted_job_matches_jax(tmp_path, monkeypatch, extra):
+    """initialize.boost.rate > 0 (ROADMAP.md A4, C8). With L2 both
+    pipelines fit the naive models per block, write the same
+    initialModel/ records (1e-8) and start from the same mean-model z0
+    (1e-8); with L1 neither warm-starts (z0 None: the run starts from zero)
+    and both read the rows record by record. Then the same runs: final
+    models and sample logliks (iteration 0 is z0's) to 1e-8."""
+    import mlease_tpu.train.pipeline as jpl
+    import mlease_tpu.train.streaming as jst
+    import mlease_tpu_torch.train.pipeline as tpl
+    extra = dict(extra, **{"initialize.boost.rate": "2.0", "num.iters": "3",
+                           "pack.cache.dir": str(tmp_path / "cache")})
+    z0_j = _capture_z0(monkeypatch, [(jpl, "AdmmTrainer"),
+                                     (jst, "StreamingAdmmTrainer")])
+    z0_t = _capture_z0(monkeypatch, [(tpl, "AdmmTrainer"),
+                                     (tpl, "StreamingAdmmTrainer")])
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
+    res_j = jax_pipeline(JobConfig(job(out_j, **extra)))
+    res_t = torch_pipeline(JobConfig(job(out_t, **extra)), device="cpu")
+    assert len(z0_j) == len(z0_t) == 1
+    assert not os.path.exists(tmp_path / "cache")      # no pack cache
+    assert os.path.isdir(os.path.join(out_t, "tmp-data"))
+    if extra["regularizer"] == "1":
+        assert z0_j[0] is None and z0_t[0] is None
+        assert not os.path.exists(os.path.join(out_t, "initialModel"))
+    else:
+        np.testing.assert_allclose(z0_t[0], z0_j[0], rtol=0, atol=1e-8)
+        assert np.abs(z0_t[0]).max() > 0
+        _same_models(out_t, out_j, "initialModel", 1e-8)
+        assert len(read_model_file(os.path.join(out_t, "initialModel"))) \
+            == 3 * 4        # 3 lambdas x 4 blocks
+    assert tree(out_t) == tree(out_j)
+    np.testing.assert_allclose(res_t.z, res_j.z, rtol=0, atol=1e-8)
+    _same_models(out_t, out_j, "final-model", 1e-8)
+    assert [(e["iter"], e["lambda"]) for e in res_t.sample_loglik_history] \
+        == [(e["iter"], e["lambda"]) for e in res_j.sample_loglik_history]
+    np.testing.assert_allclose(
+        [e["testLoglik"] for e in res_t.sample_loglik_history],
+        [e["testLoglik"] for e in res_j.sample_loglik_history],
+        rtol=0, atol=1e-8)
 
 
 STREAM_KEYS = {"streaming.groups": "2", "head.dtype": "bfloat16",

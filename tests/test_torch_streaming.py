@@ -1,7 +1,8 @@
 """The port's streaming trainer (mlease_tpu_torch/train/streaming.py) against
-the JAX package's, float64 on the CPU, both on the flat multi-RHS group
-solve (flat_blocks=True, multi_rhs=True, Jacobi PCG), data from
-tests/test_admm.py::synth_rows packed by the JAX package.
+the JAX package's, float64 on the CPU, on the flat multi-RHS group solve
+(flat_blocks=True, multi_rhs=True, Jacobi PCG) and on the per-block,
+head-block and lanes solves, data from tests/test_admm.py::synth_rows
+packed by the JAX package.
 
 Tolerances: z, u and diff_history to atol 1e-8 after 6 iterations, sample
 logliks to 1e-9, with equal Newton/CG trip counts per group and iteration
@@ -289,12 +290,21 @@ def test_callback_u_deltas_reconstruct_x():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(multi_rhs=False), "A1"), (dict(flat_blocks=False), "A1"),
-    (dict(pcg="head_block"), "A1")])
+    (dict(pcg="head_block"), "A1"),
+    (dict(pcg="head_block", head_dtype="bfloat16"), "A1")])
 def test_unported_solver_modes_raise(kw, item):
-    groups, vocab, _t = problem(seed=2, n_rows=120, split=(1, 1))
-    _j, tcfg = configs(head_size=4, **kw)
-    with pytest.raises(NotImplementedError, match=item):
-        port(groups, vocab, tcfg)
+    """The group solves of ROADMAP.md item A1, which once raised here, now
+    run as the JAX streaming trainer runs them (the same flags on both
+    sides): z, u and diffs to 1e-8 with equal trip counts per group and
+    iteration. Groups of 1 and 2 blocks (a one-block group's head_block
+    solve takes the unbatched head), head 4, the bfloat16 head widened for
+    the float64 solve as the JAX package promotes it."""
+    groups, vocab, _t = problem(seed=2, n_rows=240, split=(1, 2))
+    jcfg, tcfg = configs(head_size=4, num_iters=4, **kw)
+    tj = JTrainer(groups, vocab, jcfg)
+    tt = port(groups, vocab, tcfg)
+    assert tt.mode == ("lanes" if "multi_rhs" in kw else "per_block"), item
+    assert_matches_jax(tt.run(), tj.run(), tt.trip_log, tj.trip_log)
 
 
 def test_mesh_dual_layout_and_dtype_raise():
