@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--seed 0] [--rows-per-block 1562500] [--iters 3]
                           [--out FILE.json]
                           [--gram-only | --segsum-only | --streaming-only
-                           | --modes-only]
+                           | --modes-only | --mesh-only]
 
 Phases, each of which fails the run when it fails:
 
@@ -139,6 +139,23 @@ Phases, each of which fails the run when it fails:
      through the CLI's main in this process: K2 builds the (513, 513)
      dense Hessian once; the same fit with K2 patched to its plain version
      must give the same .cov within 1e-9 * max|cov|.
+ 16. mesh phase (mlease_tpu_torch.parallel): (a) right after phase 14, its
+     data through AdmmTrainer on a one-rank NCCL mesh, per-block Jacobi
+     and head-block: z and u equal phase 14's no-mesh runs bit for bit (or
+     within 1e-6), equal trips, K1 (and K2 in head-block) launched, the
+     NCCL sum and trip maximum timed; then, after phase 15, 2 gloo ranks on
+     the one card, each a process of this script: (b) the same data, 4
+     blocks a rank, both solves, z within 1e-5 of (a) with equal trips,
+     every rank the same z and u, K1 and K2 launched on each rank and one
+     call of each held against its plain version on the rank's data; (c)
+     the streaming trainer with phase 11's split, nothing pinned, 2
+     iterations, within 2e-3 of (b)'s float32-head z; (d) the
+     feature-sharded trainer 1 x 2 in ELL at 8 x 125,000 rows, no kernel,
+     within 1e-5 of the same solve unsharded, the collectives' time
+     reported; (e) phase 8's 10,000 items split over the ranks, models and
+     posterior variances within 1e-6 of the one-rank run, every rank the
+     same bucket stats (20,000 problems); (f) `train --mesh 1 --device
+     cuda` on phase 5's job, checked as phase 5.
 
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
@@ -148,7 +165,9 @@ alone and stops there, without the closing lines (for work on K2);
 --segsum-only builds them, sets up the two trainers and runs phase 3 alone
 (for work on K1); --streaming-only builds them and runs phases 11 and 12
 alone (for work on the scale path); --modes-only builds them, sets up the
-two trainers and runs phases 14, 13 and 15 alone.
+two trainers and runs phases 14, 13 and 15 alone; --mesh-only builds
+them, sets up the two trainers and runs phase 16 alone (with its own
+no-mesh runs for (a)).
 """
 
 from __future__ import annotations
@@ -156,6 +175,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -855,7 +875,7 @@ def head_block_phase(args):
     return row
 
 
-def cli_phase():
+def cli_phase(extra_args=()):
     import numpy as np
     from mlease_tpu_torch.io import avro
     from mlease_tpu_torch.utils.config import JobConfig
@@ -874,7 +894,8 @@ def cli_phase():
         env = dict(os.environ, PYTHONPATH=REPO, MLEASE_LOG="WARNING")
         t0 = time.monotonic()
         proc = subprocess.run(
-            [sys.executable, "-m", "mlease_tpu_torch", "train", job],
+            [sys.executable, "-m", "mlease_tpu_torch", "train", job,
+             *extra_args],
             capture_output=True, text=True, env=env, cwd=REPO,
             timeout=CLI_TIMEOUT_S)
         wall = time.monotonic() - t0
@@ -899,7 +920,8 @@ def cli_phase():
         launches = summary["kernel_launches"]["segment_sum_sorted"]
         if launches <= 0:
             raise AssertionError("the CLI run never launched the kernel")
-    row = {"iterations": summary["iterations"], "wall_s": wall,
+    row = {"args": list(extra_args),
+           "iterations": summary["iterations"], "wall_s": wall,
            "solver_wall_s": summary["wall_time_s"],
            "sample_logliks": len(lls), "test_logliks": test_ll,
            "kernel_launches": launches}
@@ -1616,10 +1638,12 @@ def solver_modes_phase(trainers, args, flat_iter_s=None):
     B = data.nblocks
     jac, res_jac = run("per_block_jacobi",
                        dataclasses.replace(base, flat_blocks=False))
+    MESH_REFS["per_block_jacobi"] = res_jac       # phase 16 (a)'s reference
     z_jac = tight("tight_per_block_jacobi", jac)
     del jac
     hb, res_hb = run("head_block", dataclasses.replace(base,
                                                        pcg="head_block"))
+    MESH_REFS["head_block"] = res_hb
     builds = sum(s["newton_trips"] + 1 for s in res_hb.solver_stats)
     row = out["head_block"]
     row["expected_k2_launches"] = B * builds
@@ -1798,6 +1822,412 @@ def fit_phase(args):
             raise AssertionError(f"fit phase: {row}")
         return row
 
+# ---------------------------------------------------------------------------
+# phase 16: the mesh
+# ---------------------------------------------------------------------------
+
+MESH_REFS: dict = {}        # phase 14's no-mesh runs, phase 16 (a)'s reference
+MESH_WORLD = 2              # gloo ranks on the one card in (b)-(e)
+MESH_FS_ROWS = 125_000      # (d)'s rows per block (cut from 1,562,500)
+MESH_RANK_TIMEOUT_S = 600
+
+
+def _mesh_modes(base):
+    return {"per_block_jacobi": dataclasses.replace(base, flat_blocks=False),
+            "head_block": dataclasses.replace(base, pcg="head_block")}
+
+
+def _untimed(stats):
+    """solver_stats rows without their host timings (the *_s keys)."""
+    return [{k: v for k, v in s.items() if not k.endswith("_s")}
+            for s in stats]
+
+
+def _rel(a, b):
+    import numpy as np
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def mesh_one_rank_phase(trainers, args):
+    """Phase 16 (a): the full trainer's data through AdmmTrainer on a
+    one-rank NCCL mesh, per-block Jacobi and head-block, against phase 14's
+    no-mesh runs of the same configuration (run here when phase 14 did
+    not)."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.ops import gram
+    from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+    from mlease_tpu_torch.collectives import all_reduce
+    from mlease_tpu_torch.parallel import BLOCK_AXIS, distributed, make_mesh
+    from mlease_tpu_torch.train.admm import AdmmTrainer
+
+    full = trainers["full"]
+    data, vocab = full.data, full.vocab
+    base = dataclasses.replace(full.config, num_iters=args.iters)
+    out = {}
+    distributed.initialize_single("cuda")
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("a cuda mesh must run NCCL")
+        mesh = make_mesh(1, "cuda")
+        group = mesh.get_group(BLOCK_AXIS)
+        for name, cfg in _mesh_modes(base).items():
+            ref = MESH_REFS.get(name)
+            if ref is None:                  # --mesh-only
+                tr = AdmmTrainer(data, vocab, cfg, device="cuda")
+                ref = MESH_REFS[name] = tr.run()
+                del tr
+            tr = AdmmTrainer(data, vocab, cfg, mesh=mesh)
+            torch.cuda.synchronize()
+            segment_sum_sorted.launches = gram.gram_batched.launches = 0
+            res = tr.run()
+            torch.cuda.synchronize()
+            row = {"mode": tr.mode, "iter_s": res.iter_times,
+                   "steady_iter_s": steady_s(res.iter_times),
+                   "no_mesh_steady_iter_s": steady_s(ref.iter_times),
+                   "solver_stats": res.solver_stats,
+                   "trips_equal": res.solver_stats == ref.solver_stats,
+                   "k1_launches": segment_sum_sorted.launches,
+                   "k2_launches": gram.gram_batched.launches,
+                   "z_bitwise": bool(np.array_equal(res.z, ref.z)),
+                   "u_bitwise": bool(np.array_equal(res.u, ref.u)),
+                   "z_rel_diff": _rel(res.z, ref.z),
+                   "u_rel_diff": _rel(res.u, ref.u),
+                   "z_finite": bool(np.isfinite(res.z).all())}
+            row["mesh_minus_no_mesh_iter_s"] = (
+                row["steady_iter_s"] - row["no_mesh_steady_iter_s"])
+            del tr
+            torch.cuda.empty_cache()
+            out[name] = row
+            print(f"mesh (a) {name} " + json.dumps(row), flush=True)
+        # the step's two collectives alone: (2, L, n) sums, trip maxima
+        L, n = len(base.lambdas), data.dim
+        buf = torch.zeros((2, L, n), dtype=base.dtype, device="cuda")
+        trips = torch.zeros(2, dtype=torch.int64, device="cuda")
+        out["nccl_sum_ms"] = cuda_ms(lambda: all_reduce(buf, "sum",
+                                                        group))
+        out["nccl_trip_max_ms"] = cuda_ms(lambda: all_reduce(
+            trips, "max", group).cpu())
+    finally:
+        torch.distributed.destroy_process_group()
+    print("mesh (a) " + json.dumps({k: v for k, v in out.items()
+                                     if not isinstance(v, dict)}),
+          flush=True)
+    bad = [f"{k}: {what}" for k, r in out.items() if isinstance(r, dict)
+           for what, ok in (
+               ("finite z", r["z_finite"]),
+               ("per_block mode", r["mode"] == "per_block"),
+               ("equal trips", r["trips_equal"]),
+               ("z, u bit for bit or within 1e-6",
+                (r["z_bitwise"] and r["u_bitwise"])
+                or max(r["z_rel_diff"], r["u_rel_diff"]) <= 1e-6),
+               ("K1 launched", r["k1_launches"] > 0),
+               ("K2 in head-block only", (r["k2_launches"] > 0)
+                == (k == "head_block"))) if not ok]
+    if bad:
+        raise AssertionError(f"mesh (a): not {bad}")
+    return out
+
+
+def _rank_gram_check(hx, gen):
+    """K2 on one block of this rank's head (3 lanes sharing X, random
+    weights) against a float64 reference: per entry
+    |G - G64| <= 1e-5 * sum_r |d x_i x_j| (phase 4's tolerance)."""
+    import torch
+    from mlease_tpu_torch.ops import gram
+    R, H = hx.shape
+    d = torch.rand((3, R), generator=gen, device="cuda")
+    pvi = torch.rand((3, H), generator=gen, device="cuda") + 0.5
+    before = gram.gram_batched.launches
+    got = gram.gram_batched(hx, d, pvi)
+    launched = gram.gram_batched.launches - before
+    x64 = hx.double()
+    ref = torch.stack([(x64.T * d[b].double()) @ x64 for b in range(3)]) \
+        + torch.diag_embed(pvi.double())
+    scale = torch.stack([(x64.abs().T * d[b].double()) @ x64.abs()
+                         for b in range(3)])
+    err = (got.double() - ref).abs()
+    plain = gram.gram_batched_reference(hx, d, pvi)
+    return {"k2_check_launches": launched,
+            "k2_max_abs_err": float(err.max()),
+            "k2_ok": bool((err <= 1e-5 * scale + 1e-300).all()),
+            "k2_vs_plain_max_abs": float((got - plain).abs().max())}
+
+
+def _mesh_rank(args) -> int:
+    """One rank of phase 16 (b)-(e), started by mesh_phase: gloo over the
+    one card; writes its numbers to --mesh-out/rank<R>.json."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.core.dataset import split_blocks, to_hybrid
+    from mlease_tpu_torch.ops import gram
+    from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+    from mlease_tpu_torch.collectives import COLLECTIVE_STATS
+    from mlease_tpu_torch.parallel import distributed, make_mesh
+    from mlease_tpu_torch.parallel.mesh import make_mesh_2d
+    from mlease_tpu_torch.train import item
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+    from mlease_tpu_torch.train.feature_sharded import \
+        FeatureShardedAdmmTrainer
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+
+    rank, world = args.mesh_rank, MESH_WORLD
+    distributed.initialize("cuda", backend="gloo",
+                           init_method=f"file://{args.mesh_init}",
+                           world_size=world, rank=rank)
+    mesh = make_mesh(world, "cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + rank)
+    out = {"rank": rank}
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        distributed.barrier()
+        segment_sum_sorted.launches = gram.gram_batched.launches = 0
+        COLLECTIVE_STATS.update(calls=0, seconds=0.0)
+        t0 = time.monotonic()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, {"wall_s": time.monotonic() - t0,
+                     "k1_launches": segment_sum_sorted.launches,
+                     "k2_launches": gram.gram_batched.launches,
+                     "collective_calls": COLLECTIVE_STATS["calls"],
+                     "collective_s": COLLECTIVE_STATS["seconds"]}
+
+    # (b) the full trainer's data (ctr-12m widths), 4 blocks a rank
+    t0 = time.monotonic()
+    nf = 1_000_000
+    data = to_hybrid(synth_blocked_data(nf, 8, args.rows_per_block, 12,
+                                        args.seed), 128)
+    vocab = make_vocab(nf)
+    out["setup_s"] = time.monotonic() - t0
+    base = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=args.iters,
+                      head_size=128, pcg=True, flat_blocks=True,
+                      dtype=torch.float32)
+    z_at = {}
+    for name, cfg in _mesh_modes(base).items():
+        t0 = time.monotonic()
+        tr = AdmmTrainer(data, vocab, cfg, mesh=mesh)
+        build_s = time.monotonic() - t0
+
+        def keep(iteration, z, **_kw):
+            z_at[(name, iteration)] = z.double().cpu().numpy()
+        res, row = counted(lambda: tr.run(callback=keep))
+        row.update(build_s=build_s, mode=tr.mode, iter_s=res.iter_times,
+                   steady_iter_s=steady_s(res.iter_times),
+                   solver_stats=res.solver_stats,
+                   z_sha1=hashlib.sha1(res.z.tobytes()).hexdigest(),
+                   u_sha1=hashlib.sha1(res.u.tobytes()).hexdigest(),
+                   u_shape=list(res.u.shape),
+                   blocks_here=int(tr.data.nblocks))
+        if rank == 0:
+            np.save(os.path.join(args.mesh_out, f"z_{name}.npy"), res.z)
+        if name == "head_block":
+            # each kernel against its plain version on one call of this
+            # rank's data: K1 at the X'v site of its stacked problem, K2 on
+            # its first block's head
+            checks = []
+            fused_check_and_time(f"rank{rank}/xtv", fused_sites(tr)["xtv"],
+                                 3, torch.float32, gen, checks)
+            row["k1_check"] = {k: checks[0][k] for k in (
+                "max_abs_err", "max_rel_err", "ok", "kernel_ms",
+                "plain_ms")}
+            row["k2_check"] = _rank_gram_check(tr.prob.head_x[0], gen)
+        out[name] = row
+        del tr
+        torch.cuda.empty_cache()
+
+    # (c) streamed: phase 11's split (4 groups), nothing pinned, 2 iterations
+    scfg = dataclasses.replace(base, num_iters=2, head_dtype=torch.bfloat16)
+    t0 = time.monotonic()
+    st = StreamingAdmmTrainer(split_blocks(data, STREAM_GROUPS), vocab, scfg,
+                              mesh=mesh, resident_head=False)
+    build_s = time.monotonic() - t0
+    res, row = counted(st.run)
+    z2 = z_at[("per_block_jacobi", min(2, args.iters))]
+    row.update(build_s=build_s, mode=st.mode, iter_s=res.iter_times,
+               residency=st.residency_report(),
+               wire_bytes_per_iter=st.stream_wire_bytes(),
+               solver_stats=res.solver_stats,
+               z_sum=float(np.abs(res.z).sum()),
+               z_finite=bool(np.isfinite(res.z).all()),
+               z_vs_in_memory_f32_head_rel=_rel(res.z, z2))
+    out["streaming"] = row
+    del st, data, res
+    torch.cuda.empty_cache()
+
+    # (d) feature-sharded 1 x world, ELL at ctr-12m widths, rows cut
+    ell = synth_blocked_data(nf, 8, MESH_FS_ROWS, 12, args.seed)
+    fcfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=2, pcg=True,
+                      flat_blocks=False, dtype=torch.float32)
+    t0 = time.monotonic()
+    fst = FeatureShardedAdmmTrainer(ell, vocab, fcfg,
+                                    mesh=make_mesh_2d(1, world, "cuda"))
+    build_s = time.monotonic() - t0
+    res, row = counted(fst.run)
+    row.update(build_s=build_s, iter_s=res.iter_times,
+               solver_stats=res.solver_stats, z_sum=float(np.abs(
+                   res.z).sum()), z_finite=bool(np.isfinite(res.z).all()),
+               collective_s_per_iter=row["collective_s"] / res.iterations,
+               collective_calls_per_iter=(row["collective_calls"]
+                                          / res.iterations))
+    if rank == 0:
+        # the same data and solve on this rank alone, the columns whole
+        ref = AdmmTrainer(ell, vocab, fcfg, device="cuda").run()
+        row["z_vs_unsharded_rel"] = _rel(res.z, ref.z)
+        row["unsharded_solver_stats"] = ref.solver_stats
+        row["unsharded_iter_s"] = ref.iter_times
+    out["feature_sharded"] = row
+    del fst, ell, res
+    torch.cuda.empty_cache()
+
+    # (e) phase 8's 10,000 items, items split over the ranks
+    decoded = synth_item_decoded(10_000, 48, 12, args.seed)
+    icfg = item.ItemConfig(intercept_lambdas=[1.0],
+                           default_lambdas=[1.0, 10.0], compute_var=True,
+                           full_cov=True, solver="cholesky",
+                           dtype=torch.float32)
+    res, row = counted(lambda: item.train_item_models_columnar(
+        decoded, icfg, mesh=mesh))
+    row.update(models=len(res.models), buckets=res.solver_stats)
+    if rank == 0:
+        plain = item.train_item_models_columnar(decoded, icfg,
+                                                device="cuda")
+        diff, scale = max_model_diff(res.models, plain.models)
+        vdiff, vscale = max_model_diff(res.posterior_var,
+                                       plain.posterior_var)
+        row.update(w_vs_one_rank_max_abs=diff, w_max_abs=scale,
+                   var_vs_one_rank_max_abs=vdiff, var_max_abs=vscale,
+                   same_keys=set(res.models) == set(plain.models))
+    out["item"] = row
+    distributed.barrier()
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(args.mesh_out, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def mesh_phase(args):
+    """Phase 16 (b)-(f): MESH_WORLD gloo ranks on the one card, each a
+    process of this script (_mesh_rank), then `train --mesh 1` on the
+    card."""
+    import numpy as np
+
+    row = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        env = dict(os.environ, PYTHONPATH=REPO, MLEASE_LOG="WARNING")
+        for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                  "MASTER_PORT"):
+            env.pop(k, None)
+        t0 = time.monotonic()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(REPO, "chip_smoke.py"),
+             "--mesh-rank", str(r),
+             "--mesh-init", os.path.join(tmp, "pg"), "--mesh-out", tmp,
+             "--seed", str(args.seed), "--rows-per-block",
+             str(args.rows_per_block), "--iters", str(args.iters)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=REPO) for r in range(MESH_WORLD)]
+        logs = [""] * MESH_WORLD
+        try:
+            for r, p in enumerate(procs):
+                logs[r], _ = p.communicate(timeout=max(
+                    1.0, MESH_RANK_TIMEOUT_S - (time.monotonic() - t0)))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        row["ranks_wall_s"] = time.monotonic() - t0
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                raise AssertionError(f"mesh rank {r} failed "
+                                     f"({p.returncode}):\n{logs[r][-4000:]}")
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        zs = {name: np.load(os.path.join(tmp, f"z_{name}.npy"))
+              for name in ("per_block_jacobi", "head_block")}
+    bad = []
+    r0 = ranks[0]
+    for name in ("per_block_jacobi", "head_block"):
+        ref = MESH_REFS[name]
+        b = {"z_vs_one_rank_rel": _rel(zs[name], ref.z),
+             "trips_equal_one_rank": r0[name]["solver_stats"]
+             == ref.solver_stats,
+             "ranks_same_z": all(r[name]["z_sha1"] == r0[name]["z_sha1"]
+                                 for r in ranks),
+             "ranks_same_u": all(r[name]["u_sha1"] == r0[name]["u_sha1"]
+                                 for r in ranks),
+             "one_rank_steady_iter_s": steady_s(ref.iter_times)}
+        row[name] = b
+        bad += [f"(b) {name}: {w}" for w, ok in (
+            ("z within 1e-5 of one rank", b["z_vs_one_rank_rel"] <= 1e-5),
+            ("equal trips", b["trips_equal_one_rank"]),
+            ("every rank the same z and u",
+             b["ranks_same_z"] and b["ranks_same_u"]),
+            ("u gathered whole", r0[name]["u_shape"][1] == 8),
+            ("4 blocks a rank", all(r[name]["blocks_here"] == 4
+                                    for r in ranks)),
+            ("K1 launched on every rank", all(r[name]["k1_launches"] > 0
+                                              for r in ranks)))
+            if not ok]
+    bad += [f"(b) rank {r['rank']}: {w}" for r in ranks for w, ok in (
+        ("K2 launched in head-block",
+         r["head_block"]["k2_launches"] > 0
+         and r["per_block_jacobi"]["k2_launches"] == 0),
+        ("K1 vs plain", r["head_block"]["k1_check"]["ok"]),
+        ("K2 vs plain", r["head_block"]["k2_check"]["k2_ok"]
+         and r["head_block"]["k2_check"]["k2_check_launches"] == 1))
+        if not ok]
+    s0 = r0["streaming"]
+    bad += [f"(c) {w}" for w, ok in (
+        ("finite z", s0["z_finite"]),
+        ("every rank the same z", all(r["streaming"]["z_sum"]
+                                      == s0["z_sum"] for r in ranks)),
+        ("K1 launched on every rank", all(r["streaming"]["k1_launches"] > 0
+                                          for r in ranks)),
+        ("nothing pinned, dense wire",
+         s0["residency"]["heads_pinned"] == 0
+         and s0["residency"]["compact_wire_groups"] == 0),
+        ("z within 2e-3 of the float32-head run",
+         s0["z_vs_in_memory_f32_head_rel"] <= 2e-3)) if not ok]
+    f0 = r0["feature_sharded"]
+    bad += [f"(d) {w}" for w, ok in (
+        ("finite z", f0["z_finite"]),
+        ("every rank the same z", all(r["feature_sharded"]["z_sum"]
+                                      == f0["z_sum"] for r in ranks)),
+        ("no kernel (ELL)", all(r["feature_sharded"]["k1_launches"] == 0
+                                and r["feature_sharded"]["k2_launches"] == 0
+                                for r in ranks)),
+        ("z within 1e-5 of the unsharded solve",
+         f0["z_vs_unsharded_rel"] <= 1e-5)) if not ok]
+    i0 = r0["item"]
+    bad += [f"(e) {w}" for w, ok in (
+        ("20,000 models, the same keys", i0["models"] == 20_000
+         and i0["same_keys"]),
+        ("models within 1e-6 of one rank",
+         i0["w_vs_one_rank_max_abs"] <= 1e-6 * i0["w_max_abs"]),
+        ("posterior variances within 1e-6 of one rank",
+         i0["var_vs_one_rank_max_abs"] <= 1e-6 * i0["var_max_abs"]),
+        ("every rank the same bucket stats, 20,000 problems",
+         all(_untimed(r["item"]["buckets"]) == _untimed(i0["buckets"])
+             for r in ranks)
+         and sum(b["problems"] for b in i0["buckets"]) == 20_000),
+        ("K2 launched on every rank", all(r["item"]["k2_launches"] > 0
+                                          for r in ranks))) if not ok]
+    row["ranks"] = ranks
+    row["cli"] = cli_phase(extra_args=["--mesh", "1", "--device", "cuda"])
+    print("mesh " + json.dumps({k: v for k, v in row.items()
+                                if k != "ranks"}), flush=True)
+    for r in ranks:
+        print(f"mesh rank {r['rank']} " + json.dumps(r), flush=True)
+    if bad:
+        raise AssertionError(f"mesh: not {bad}")
+    return row
+
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1819,6 +2249,14 @@ def main(argv=None) -> int:
     ap.add_argument("--modes-only", action="store_true",
                     help="build, set up the trainers, run the naive, "
                          "solver-mode and fit phases (13-15) alone and stop")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build, set up the trainers, run the mesh phase "
+                         "(16) alone and stop")
+    # one rank of phase 16, started by the phase itself
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-init", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(REPO, "mlease_tpu_torch", "csrc")):
@@ -1832,6 +2270,8 @@ def main(argv=None) -> int:
         return fail("torch.cuda.is_available() is false: this smoke run "
                     "needs a CUDA device")
     sys.path.insert(0, REPO)
+    if args.mesh_rank is not None:
+        return _mesh_rank(args)
     from mlease_tpu_torch.device import resolve_device
     from mlease_tpu_torch.ops import _build, gram, segment_sum
     from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
@@ -1918,9 +2358,14 @@ def main(argv=None) -> int:
     trainers = None
     if not report["failed"]:
         trainers = phase("setup", setup)
-    if args.segsum_only or args.modes_only:
+    if args.segsum_only or args.modes_only or args.mesh_only:
         if trainers is not None and args.segsum_only:
             phase("kernel", kernel_phase, trainers, args)
+        elif trainers is not None and args.mesh_only:
+            phase("mesh_one_rank", mesh_one_rank_phase, trainers, args)
+            del trainers
+            torch.cuda.empty_cache()
+            phase("mesh", mesh_phase, args)
         elif trainers is not None:
             phase("solver_modes", solver_modes_phase, trainers, args)
             del trainers
@@ -1939,6 +2384,7 @@ def main(argv=None) -> int:
         speed = phase("speed", speed_phase, trainers, args)
         phase("solver_modes", solver_modes_phase, trainers, args,
               speed["full"]["steady_iter_s"] if speed else None)
+        phase("mesh_one_rank", mesh_one_rank_phase, trainers, args)
         del trainers
         torch.cuda.empty_cache()
         items = phase("item", item_phase, args)
@@ -1949,6 +2395,7 @@ def main(argv=None) -> int:
         phase("scale_cli", scale_cli_phase, args)
         phase("naive", naive_phase, args)
         phase("fit", fit_phase, args)
+        phase("mesh", mesh_phase, args)
     write_report()
     if report["failed"]:
         return fail(f"failed phases: {report['failed']}")

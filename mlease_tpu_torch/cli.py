@@ -20,6 +20,18 @@ the decoder is unavailable. --device defaults to cuda and fails without a
 CUDA device. The JSON summary line of train, naive, item and itemtest
 carries `kernel_launches`, the count of launches of each hand-written
 kernel in the run (0 on the CPU).
+
+`train --mesh N` runs the job on a block mesh of N ranks (the use.mesh /
+mesh.devices job keys), one process per rank, every rank running the
+whole job: start them with
+
+  python -m torch.distributed.run --nproc-per-node N \
+      -m mlease_tpu_torch train --mesh N job.job [--device cpu]
+
+(NCCL on the card, one card a rank; gloo with --device cpu). N must equal
+the launcher's world size. Outside a launcher `--mesh 1` starts a one-rank
+process group itself, and `--mesh N` for N > 1 raises, naming that command.
+Only rank 0 writes files and prints the summary line.
 """
 
 from __future__ import annotations
@@ -53,10 +65,18 @@ def _kernel_launches() -> dict:
 
 
 def cmd_train(args):
+    from mlease_tpu_torch.parallel import distributed
     from mlease_tpu_torch.train.pipeline import run_regression_pipeline
 
     config = _load_config(args.config)
+    if args.mesh:
+        # --mesh N: a block mesh of N ranks (overrides the use.mesh /
+        # mesh.devices job keys; the pipeline builds it)
+        config.put("use.mesh", "true")
+        config.put("mesh.devices", str(args.mesh))
     result = run_regression_pipeline(config, device=args.device)
+    if not distributed.is_main():
+        return 0
     print(json.dumps({
         "iterations": result.iterations,
         "converged": result.converged,
@@ -470,6 +490,11 @@ def main(argv=None):
         sp.add_argument("config", help="properties-format job config file")
         sp.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                         help=device_help)
+        if name == "train":
+            sp.add_argument("--mesh", type=int, default=0, metavar="N",
+                            help="run on a block mesh of N ranks (start "
+                                 "them with python -m torch.distributed.run"
+                                 " --nproc-per-node N)")
         sp.set_defaults(fn=fn)
     fit = sub.add_parser("fit")
     fit.add_argument("data", help="input file (libsvm/json/avro)")

@@ -30,6 +30,15 @@ the flat-blocks solve: one joint trust region per lambda. With a dense head
 and "head_block", each block's (L, H, H) head Gram is one K2 call on that
 block's head (B calls per build). Not ported: the lanes-minor pass
 functions.
+
+`group=` (a torch.distributed process group) is feature model
+parallelism, the JAX package's `axis_name`: the coefficient axis is
+column-sharded over the group's ranks (core/feature_shard.py, shard-local
+ids), and the solve makes one all_reduce(SUM) of the partial scores per Xv
+and of every dot, norm and prior term, where the JAX package psums them
+(collectives.py). Every (L,) or (L, B) trust-region scalar is then the
+same bits on every rank, so the ranks' lock-step loops take the
+same trips. group=None is the single-shard solve, unchanged.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import torch
 
 from mlease_tpu_torch.ops.gram import gram_batched
 from mlease_tpu_torch.ops.segment_sum import segment_sum_gather
+from mlease_tpu_torch.collectives import all_reduce
 
 # Trust-region update constants (Tron.java:31-35), as in mlease_tpu/ops/tron.py
 ETA0, ETA1, ETA2 = 1e-4, 0.25, 0.75
@@ -182,8 +192,17 @@ def _head_t(hx: torch.Tensor, D: torch.Tensor,
     return D @ _widen(hx, D.dtype, square)
 
 
-def _xv_lm(prob: MultiProblem, V: torch.Tensor) -> torch.Tensor:
-    """(L, n) -> (L, R) scores."""
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
+    """Row-space partials summed over the feature shards of `group`
+    (None: one shard, the identity)."""
+    return x if group is None else all_reduce(x, "sum", group)
+
+
+def _xv_lm(prob: MultiProblem, V: torch.Tensor,
+           group=None) -> torch.Tensor:
+    """(L, n) -> (L, R) scores; under feature sharding each rank computes
+    its columns' partial scores and the all_reduce assembles full rows (the
+    only collective of the matvec pair: X'v is column-local)."""
     R = prob.y.shape[0]
     L = V.shape[0]
     if prob.indices.shape[-1] > 0:
@@ -208,7 +227,7 @@ def _xv_lm(prob: MultiProblem, V: torch.Tensor) -> torch.Tensor:
     if prob.tail_cols is not None:
         segment_sum_gather(prob.tail_vals, V, prob.tail_cols, prob.tail_rows,
                            R, out=out)
-    return out
+    return _psum(out, group)
 
 
 def _xtv_lm(prob: MultiProblem, D: torch.Tensor) -> torch.Tensor:
@@ -272,18 +291,20 @@ def _seg(a: torch.Tensor, blocks: int) -> torch.Tensor:
 
 def _fun_grad_curvature_lm(prob: MultiProblem, W: torch.Tensor,
                            with_diag: bool = False,
-                           blocks: int | None = None):
+                           blocks: int | None = None, group=None):
     """Objective + gradient + curvature (+ Jacobi diagonal) sharing ONE
     scores pass. F is (L,), or (L, B) per block with `blocks=B` (the rows
-    and columns of a stacked problem in B equal segments)."""
-    yz = prob.y[None, :] * (_xv_lm(prob, W) + prob.offset[None, :])
+    and columns of a stacked problem in B equal segments). Under feature
+    sharding the prior term of F is summed over the shards."""
+    yz = prob.y[None, :] * (_xv_lm(prob, W, group) + prob.offset[None, :])
     dw = W - prob.prior_mean
     loss = prob.weight[None, :] * _softplus_neg(yz)
     quad = dw * dw * prob.prior_var_inv
     if blocks is None:
-        F = loss.sum(1) + 0.5 * quad.sum(1)
+        F = loss.sum(1) + 0.5 * _psum(quad.sum(1), group)
     else:
-        F = _seg(loss, blocks).sum(-1) + 0.5 * _seg(quad, blocks).sum(-1)
+        F = _seg(loss, blocks).sum(-1) + 0.5 * _psum(
+            _seg(quad, blocks).sum(-1), group)
     p = torch.sigmoid(yz)
     coeff = prob.weight[None, :] * (p - 1.0) * prob.y[None, :]
     Dm = prob.weight[None, :] * p * (1.0 - p)
@@ -304,23 +325,26 @@ def _grad_at_zero_lm(prob: MultiProblem, n_rhs: int) -> torch.Tensor:
     return _xtv_lm(prob, coeff) - prob.prior_mean * prob.prior_var_inv
 
 
-def _grad_norm_at_zero_lm(prob: MultiProblem, n_rhs: int) -> torch.Tensor:
+def _grad_norm_at_zero_lm(prob: MultiProblem, n_rhs: int,
+                          group=None) -> torch.Tensor:
     """||grad at W=0|| per lane in one X'v pass (Xv(0) == 0 exactly)."""
-    return _norm_lm(_grad_at_zero_lm(prob, n_rhs))
+    return _norm_lm(_grad_at_zero_lm(prob, n_rhs), group)
 
 
 def _hv_lm(prob: MultiProblem, Dm: torch.Tensor,
-           S: torch.Tensor) -> torch.Tensor:
-    return _xtv_lm(prob, Dm * _xv_lm(prob, S)) + S * prob.prior_var_inv
+           S: torch.Tensor, group=None) -> torch.Tensor:
+    return (_xtv_lm(prob, Dm * _xv_lm(prob, S, group))
+            + S * prob.prior_var_inv)
 
 
-def _dot_lm(a, b):
-    """Per-lane dot over the last axis: (L, n) -> (L,), (L, B, n) -> (L, B)."""
-    return (a * b).sum(-1)
+def _dot_lm(a, b, group=None):
+    """Per-lane dot over the last axis: (L, n) -> (L,), (L, B, n) -> (L, B);
+    summed over the feature shards of `group`."""
+    return _psum((a * b).sum(-1), group)
 
 
-def _norm_lm(a):
-    return torch.sqrt(_dot_lm(a, a))
+def _norm_lm(a, group=None):
+    return torch.sqrt(_dot_lm(a, a, group))
 
 
 class HeadBlockPrecond(NamedTuple):
@@ -432,7 +456,8 @@ def _safe_div(num, den, ok):
 
 
 def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
-          M: torch.Tensor | HeadBlockPrecond | None = None, running=None):
+          M: torch.Tensor | HeadBlockPrecond | None = None, running=None,
+          group=None):
     """Per-lane truncated CG with lock-step data passes (Tron.java:126-179).
 
     The state is (L, B, n) (B = 1: one segment per lane), per-lane scalars
@@ -440,7 +465,8 @@ def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
     or a HeadBlockPrecond measures the trust region in the M-norm and tests
     the residual in ||r||_{M^-1}. `running` (1, B) marks the blocks whose
     Newton loop is running: the others' lanes start done and hold nothing
-    open. Returns (s, r, snorm, global trips, trips per block (B,))."""
+    open. Every dot goes through the shards' all_reduce under `group`.
+    Returns (s, r, snorm, global trips, trips per block (B,))."""
     L, B, _n = G.shape
     flat = (L, -1)
     if M is None:
@@ -448,25 +474,26 @@ def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
             return r
 
         def mdot(a, b):
-            return _dot_lm(a, b)
+            return _dot_lm(a, b, group)
     elif isinstance(M, HeadBlockPrecond):
         def precond(r):
             return _head_solve(M, r.view(flat)).view(L, B, -1)
 
         def mdot(a, b):
-            return _dot_lm(a, _head_apply(M, b.view(flat)).view(L, B, -1))
+            return _dot_lm(a, _head_apply(M, b.view(flat)).view(L, B, -1),
+                           group)
     else:
         def precond(r):
             return r / M
 
         def mdot(a, b):
-            return _dot_lm(a * M, b)
+            return _dot_lm(a * M, b, group)
 
     def hv(d):
-        return _seg(_hv_lm(prob, Dm.view(flat), d.view(flat)), B)
+        return _seg(_hv_lm(prob, Dm.view(flat), d.view(flat), group), B)
 
     z = precond(-G)
-    rz = _dot_lm(-G, z)
+    rz = _dot_lm(-G, z, group)
     cgtol = 0.1 * torch.sqrt(rz)
     s, r, d = torch.zeros_like(G), -G, z
     done = ~running.expand(L, B)
@@ -474,10 +501,11 @@ def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
     it = 0
     while it < max_cg_iter and bool((~done).any()):
         block_it += (~done).any(0)
-        small = torch.sqrt(torch.clamp(_dot_lm(r, z), min=0.0)) <= cgtol
+        small = torch.sqrt(torch.clamp(_dot_lm(r, z, group),
+                                       min=0.0)) <= cgtol
 
         Hd = hv(d)
-        dHd = _dot_lm(d, Hd)
+        dHd = _dot_lm(d, Hd, group)
         alpha = _safe_div(rz, dHd, dHd > 0)
         s_try = s + alpha[..., None] * d
         boundary = torch.sqrt(mdot(s_try, s_try)) > delta
@@ -496,7 +524,7 @@ def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
         r_bnd = r - alpha_b[..., None] * Hd
         r_int = r - alpha[..., None] * Hd
         z_int = precond(r_int)
-        rz_new = _dot_lm(r_int, z_int)
+        rz_new = _dot_lm(r_int, z_int, group)
         beta = _safe_div(rz_new, rz, rz > 0)
         d_int = z_int + beta[..., None] * d
 
@@ -517,7 +545,8 @@ def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
 
 def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
                max_iter: int = 1000, max_cg_iter: int = 500,
-               precondition=False, blocks: int = 1) -> MultiTronResult:
+               precondition=False, blocks: int = 1,
+               group=None) -> MultiTronResult:
     """Warm-started TRON over L simultaneous lambda-problems (Tron.java:30-124
     per lane; stall thresholds as in mlease_tpu/ops/tron.py).
 
@@ -531,7 +560,12 @@ def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
     B equal segments, as stack_blocks lays them out) as B independent
     problems, each (lambda, block) lane with its own trust region, CG and
     stop rule: the JAX package's vmap of tron_multi over blocks. eps is
-    then a scalar or (B,), one tolerance per block."""
+    then a scalar or (B,), one tolerance per block.
+
+    group (a torch.distributed process group) solves a problem whose
+    columns are sharded over the group's ranks (shard-local ids; W0 and the
+    priors this rank's (n_local, L) slices): the JAX package's axis_name.
+    Every rank of the group must make the same call."""
     dtype = W0.dtype
     N, L = W0.shape
     B = int(blocks)
@@ -562,7 +596,8 @@ def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
     flat = (L, -1)
 
     def fgc(W, with_diag):
-        out = _fun_grad_curvature_lm(prob, W.view(flat), with_diag, B)
+        out = _fun_grad_curvature_lm(prob, W.view(flat), with_diag, B,
+                                     group)
         return (out[0],) + tuple(_seg(t, B) for t in out[1:])
 
     def precond_of(Dm, Hd):
@@ -571,18 +606,18 @@ def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
         return torch.clamp(Hd, min=1e-12)
 
     W = _seg(W0.T.contiguous(), B)
-    gnorm1 = _norm_lm(_seg(_grad_at_zero_lm(prob, L), B))
+    gnorm1 = _norm_lm(_seg(_grad_at_zero_lm(prob, L), B), group)
     if kind == "none":
         F, G, Dm = fgc(W, False)
         M = None
-        delta = _norm_lm(G)
+        delta = _norm_lm(G, group)
     else:
         F, G, Dm, Hd0 = fgc(W, True)
         M = precond_of(Dm, Hd0)
         Minv_G = (_seg(_head_solve(M, G.view(flat)), B)
                   if kind == "head_block" else G / M)
-        delta = torch.sqrt(_dot_lm(G, Minv_G))
-    gnorm = _norm_lm(G)
+        delta = torch.sqrt(_dot_lm(G, Minv_G, group))
+    gnorm = _norm_lm(G, group)
     stall_rtol = 1e-12 if dtype == torch.float64 else 1e-5
 
     it = torch.ones((L, B), dtype=torch.int32, device=dev)
@@ -597,10 +632,10 @@ def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
         if not bool(running.any()):
             break
         S, Rres, snorm, cg_it, cg_b = _trcg(prob, Dm, G, delta, max_cg_iter,
-                                            M, running)
+                                            M, running, group)
         W_new = W + S
-        gs = _dot_lm(G, S)
-        prered = -0.5 * (gs - _dot_lm(S, Rres))
+        gs = _dot_lm(G, S, group)
+        prered = -0.5 * (gs - _dot_lm(S, Rres, group))
         # one fused data pass yields f/g/D (+ diag) at the trial point; the
         # accept select below discards them on rejection
         if kind == "none":
@@ -650,7 +685,7 @@ def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
                                  _seg(M.diag, B)).view(flat))
         elif kind == "jacobi":
             M = torch.where(acc3, M_new, M)
-        gnorm = torch.where(accept, _norm_lm(G_new), gnorm)
+        gnorm = torch.where(accept, _norm_lm(G_new, group), gnorm)
         it = it + accept.to(torch.int32)
 
         done = accept & (gnorm <= eps * gnorm1)

@@ -7,11 +7,11 @@ from mlease_tpu_torch.train.item import (
     write_item_models,
 )
 from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+from mlease_tpu_torch.train.feature_sharded import FeatureShardedAdmmTrainer
 
-# FeatureShardedAdmmTrainer (mesh.feature.shards) is ROADMAP.md item A8
 __all__ = [
     "AdmmConfig", "AdmmResult", "AdmmTrainer",
     "NaiveConfig", "NaiveResult", "train_naive",
     "ItemConfig", "ItemResult", "train_item_models", "write_item_models",
-    "StreamingAdmmTrainer",
+    "StreamingAdmmTrainer", "FeatureShardedAdmmTrainer",
 ]

@@ -24,8 +24,17 @@ The x-update takes one of the JAX package's three solves (`solver_mode`):
 The data problem is stacked once when the trainer is built (the JAX step
 restacks it inside its jitted program); each step only sets the prior.
 
+`mesh=` (parallel/mesh.py::make_mesh) runs the trainer on every rank of a
+torch.distributed block mesh, one process per rank: each rank pads the
+block axis to a multiple of the mesh, keeps its contiguous range of blocks
+(never the flat solve: the blocks keep their own problems, as the JAX
+package's mesh path keeps its vmap axis), and the consensus is one
+all_reduce(SUM) of the (2, L, n) partial sums per iteration, padded blocks
+masked out. z is replicated; every rank returns the same result (u gathered
+to (L, B, n), the trips the maxima over the ranks).
+
 Not ported yet (NotImplementedError, see ROADMAP.md): `run_fused` (A1, with
-A10b), the device mesh (A8) and a bfloat16 compute dtype (A15).
+A10b) and a bfloat16 compute dtype (A15).
 """
 
 from __future__ import annotations
@@ -47,6 +56,10 @@ from mlease_tpu_torch.ops.objective import LRProblem, class_balance_eps_scale
 from mlease_tpu_torch.ops.tron import tron
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, stack_blocks,
                                              tron_multi, with_prior)
+from mlease_tpu_torch.collectives import all_gather, all_reduce, max_over
+from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, axis_size,
+                                            block_sharding, local_blocks,
+                                            mesh_device)
 
 logger = logging.getLogger(__name__)
 
@@ -147,17 +160,18 @@ def _lambda_key(lam: float) -> str:
 
 
 def solver_mode(multi_rhs: bool, flat_blocks: bool, dual_layout: bool,
-                pcg: Any) -> str:
+                pcg: Any, mesh=None) -> str:
     """Which x-update solve a configuration takes, as the JAX trainers
     decide it (AdmmTrainer._use_flat, build_admm_step): "lanes" for
     multi_rhs=False or dual_layout, "flat" when the blocks may fold into
-    one problem, "per_block" otherwise ("head_block" needs a per-block
-    head). Every mode solves on the stacked ids, so they must fit int32
+    one problem (never under a mesh: the blocks keep their own problems
+    there), "per_block" otherwise ("head_block" needs a per-block head).
+    Every mode solves on the stacked ids, so they must fit int32
     (stack_blocks raises otherwise; the JAX package then leaves the flat
     form)."""
     if not multi_rhs or dual_layout:
         return "lanes"
-    if flat_blocks and pcg != "head_block":
+    if flat_blocks and pcg != "head_block" and mesh is None:
         return "flat"
     return "per_block"
 
@@ -258,28 +272,46 @@ def build_admm_step(nblocks: int, regularizer: int, intercept_index: int | None,
                     penalize_intercept: bool, reference_l1_compat: bool,
                     max_newton_iter: int, max_cg_iter: int,
                     relaxation: float = 1.0, mode: str = "flat",
-                    pcg: Any = False) -> Callable:
+                    pcg: Any = False, group=None) -> Callable:
     """Build the one-iteration function.
 
-    step(prob, present, z, u, lam_vec, rho_eff, rho_base, eps) takes the
-    data problem of `mode` (see build_x_update), present (B, n) bool, z
-    (L, n), u (L, B, n), lam_vec (L, n), rho_eff/rho_base (L,) and eps
-    (B,); it returns (z_new, u_new, diffs (L,), stats) with stats the
-    "newton_trips"/"cg_trips" maxima over the solve's counters, as the JAX
-    trainer's loop reads them."""
+    step(prob, present, z, u, lam_vec, rho_eff, rho_base, eps,
+    block_valid=None) takes the data problem of `mode` (see
+    build_x_update), present (B, n) bool, z (L, n), u (L, B, n), lam_vec
+    (L, n), rho_eff/rho_base (L,) and eps (B,); it returns (z_new, u_new,
+    diffs (L,), stats) with stats the "newton_trips"/"cg_trips" maxima over
+    the solve's counters, as the JAX trainer's loop reads them.
+
+    With `group` (the block group of a mesh) the B blocks are this rank's
+    share of the `nblocks` real ones: the partial sums of x and u are one
+    all_reduce(SUM) over the group and the trip maxima one all_reduce(MAX),
+    so every rank gets the same z. block_valid (B,) bool masks padded
+    blocks out of the sums (torch.where, so a NaN in one cannot leak) and
+    keeps their duals at 0."""
     if regularizer not in (1, 2):
         raise ValueError("Only L1 and L2 regularization supported!")
     solve = build_x_update(mode, max_newton_iter, max_cg_iter, pcg,
                            relaxation)
 
-    def step(prob, present, z, u, lam_vec, rho_eff, rho_base, eps):
+    def step(prob, present, z, u, lam_vec, rho_eff, rho_base, eps,
+             block_valid=None):
         # rho_eff (boost/decay-adapted) shapes only the x-subproblem prior;
         # the consensus z-update uses the base rho
         # (RegressionAdmmTrain.java:368-380, :648-658)
         x, trips = solve(prob, present, z, u, rho_eff, eps)
-        stats = {"newton_trips": int(trips[:, 0].max()),
-                 "cg_trips": int(trips[:, 1].max())}
-        v = x.sum(1) / nblocks + u.sum(1) / nblocks           # xbar + ubar
+        trip_max = trips.max(0)
+        if block_valid is not None:
+            bv = block_valid[None, :, None]
+            x = torch.where(bv, x, torch.zeros_like(x))
+        # consensus means over real blocks only; under a mesh this is the
+        # one collective replacing meanModel (RegressionAdmmTrain.java:362-364)
+        sums = torch.stack([x.sum(1), u.sum(1)])             # (2, L, n)
+        if group is not None:
+            all_reduce(sums, "sum", group)
+            trip_max = max_over(trip_max, group, z.device)
+        stats = {"newton_trips": int(trip_max[0]),
+                 "cg_trips": int(trip_max[1])}
+        v = sums[0] / nblocks + sums[1] / nblocks             # xbar + ubar
         rho = rho_base[:, None]
         if regularizer == 2:
             z_new = admm_math.z_update_l2(v, lam_vec, rho, nblocks,
@@ -289,6 +321,8 @@ def build_admm_step(nblocks: int, regularizer: int, intercept_index: int | None,
                 v, lam_vec, rho, nblocks, intercept_index, penalize_intercept,
                 reference_compat=reference_l1_compat)
         u_new = admm_math.u_update(u, x, z_new[:, None, :])
+        if block_valid is not None:
+            u_new = torch.where(bv, u_new, torch.zeros_like(u_new))
         diffs = admm_math.max_abs_diff(z_new, z, axis=-1)
         return z_new, u_new, diffs, stats
 
@@ -307,13 +341,22 @@ def sample_loglik_lanes(indices, values, y, weight, offset,
 
 
 class AdmmTrainer:
+    """The in-memory trainer. `mesh`: a 1-D block mesh
+    (parallel/mesh.py::make_mesh); every rank of it builds the trainer from
+    the whole host data and runs it (the device is then the mesh's: this
+    rank's card, or the CPU of a gloo mesh). `data` then stays the rank's
+    own blocks, padded."""
+
     def __init__(self, data: BlockedData, vocab, config: AdmmConfig,
                  test_rows: Sequence[Mapping] | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            device = mesh_device(mesh)
         self.device = dev = resolve_device(device)
         self.vocab = vocab
         self.config = config
-        self.nblocks = data.nblocks
+        self.nblocks = data.nblocks      # real block count (the divisor)
         dtype = config.dtype
         if dtype not in (torch.float32, torch.float64):
             raise NotImplementedError(
@@ -323,6 +366,14 @@ class AdmmTrainer:
 
         if config.head_size > 0 and data.head is None:
             data = to_hybrid(data, config.head_size)
+        self.block_valid = None
+        self._group = None
+        if mesh is not None:
+            # the whole host data on every rank (the head ids are the full
+            # data's), padded to the mesh; this rank keeps its own blocks
+            data, valid = local_blocks(mesh, data)
+            self.block_valid = torch.as_tensor(valid, device=dev)
+            self._group = mesh.get_group(BLOCK_AXIS)
         self.data = data
         self.dim = data.dim
         self.lambdas = [float(l) for l in config.lambdas]
@@ -350,7 +401,7 @@ class AdmmTrainer:
                     t(data.tail_c_cols), t(data.tail_c_vals, dtype))
         L = len(self.lambdas)
         self.mode = solver_mode(config.multi_rhs, config.flat_blocks,
-                                config.dual_layout, config.pcg)
+                                config.dual_layout, config.pcg, mesh)
         self.prob = stack_blocks(
             t(data.indices), t(data.values, dtype), y, weight,
             t(data.offset, dtype), head,
@@ -380,7 +431,8 @@ class AdmmTrainer:
             max_cg_iter=config.max_cg_iter,
             relaxation=config.relaxation,
             mode=self.mode,
-            pcg=config.pcg)
+            pcg=config.pcg,
+            group=self._group)
 
         # sample-test loglik arrays (first MAX_NTEST_EVENTS rows)
         self.test_arrays = None
@@ -411,7 +463,9 @@ class AdmmTrainer:
         checkpoint (utils/checkpoint, or a JAX run's state through
         mlease_tpu_torch.convert) — the analogue of restarting from the
         reference's iter-i/ HDFS state. The callback receives z and u as
-        tensors on the trainer's device."""
+        tensors on the trainer's device; under a mesh u0 is the global
+        (L, B, n) (each rank takes its slice) and the callback's u is the
+        global one, gathered over the ranks (every rank must take part)."""
         cfg = self.config
         L, n = len(self.lambdas), self.dim
         dtype, dev = cfg.dtype, self.device
@@ -419,9 +473,13 @@ class AdmmTrainer:
         z = (torch.zeros((L, n), dtype=dtype, device=dev) if z0 is None
              else torch.as_tensor(np.broadcast_to(z0, (L, n)).copy(),
                                   dtype=dtype, device=dev))
-        u_np = np.zeros((L, self.data.nblocks, n))
+        B_all = self.data.nblocks * (1 if self.mesh is None else axis_size(
+            self.mesh, BLOCK_AXIS))
+        u_np = np.zeros((L, B_all, n))
         if u0 is not None:
             u_np[:, :u0.shape[1], :] = np.asarray(u0)
+        if self.mesh is not None:
+            u_np = block_sharding(self.mesh, 1).take(u_np)
         u = torch.as_tensor(u_np, dtype=dtype, device=dev)
 
         inner_eps = (cfg.liblinear_epsilon if inner_eps0 is None
@@ -462,7 +520,7 @@ class AdmmTrainer:
 
             z, u, diffs, stats = self.step(self.prob, self.present, z, u,
                                            self.lam_vec, rho_eff, rho_base,
-                                           eps)
+                                           eps, self.block_valid)
             diffs_np = diffs.to(torch.float64).cpu().numpy()  # host sync
             iter_times.append(time.monotonic() - t_iter)
             solver_stats.append(dict(stats))
@@ -492,8 +550,9 @@ class AdmmTrainer:
                             z[li].to(torch.float64).cpu().numpy(), self.vocab)
 
             if callback is not None:
-                callback(iteration=iteration, z=z, u=u, diffs=diffs_np,
-                         inner_eps=inner_eps, logliks=iter_logliks)
+                callback(iteration=iteration, z=z, u=self._global_u(u),
+                         diffs=diffs_np, inner_eps=inner_eps,
+                         logliks=iter_logliks)
 
             if admm_math.should_stop(maxdiff, inner_eps, cfg.epsilon,
                                      cfg.inner_eps_floor):
@@ -509,5 +568,12 @@ class AdmmTrainer:
             best_loglik=best_loglik, iterations=iteration,
             sample_loglik_history=loglik_history, diff_history=diff_history,
             iter_times=iter_times, solver_stats=solver_stats,
-            z=z_np, u=u.to(torch.float64).cpu().numpy()[:, :self.nblocks],
+            z=z_np, u=self._global_u(u).to(torch.float64).cpu().numpy(),
             converged=converged, wall_time=time.monotonic() - t_start)
+
+    def _global_u(self, u: torch.Tensor) -> torch.Tensor:
+        """The (L, nblocks, n) duals: under a mesh every rank's blocks,
+        gathered in block order, the padding dropped."""
+        if self.mesh is not None:
+            u = all_gather(u, self._group, dim=1)
+        return u[:, :self.nblocks]

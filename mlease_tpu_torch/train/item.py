@@ -16,6 +16,13 @@ size with copies of item 0, only so that XLA reuses a compiled program for
 other item counts. PyTorch compiles nothing, so the port does not pad the
 item axis; results are unchanged. The (R, K, F) shape buckets stay.
 
+Under a mesh (`mesh=`, a 1-D block mesh of parallel/mesh.py, every rank
+calling with the whole input) a bucket's item axis is padded to a multiple
+of the ranks with copies of item 0 (as the JAX package pads it) and each
+rank solves its contiguous share, with no collective inside the solve;
+then one all_gather of w, the posterior variances and the covariances per
+bucket, and every rank assembles the same ItemResult.
+
 Reference semantics kept:
   * grid keys "ilambda:dlambda#item" (ItemModelTrain.java:265)
   * intercept prior mean from intercept.prior.mean.map else
@@ -46,6 +53,9 @@ from mlease_tpu_torch.io.records import INTERCEPT_NAME
 from mlease_tpu_torch.ops import objective as obj
 from mlease_tpu_torch.ops.newton import newton_cholesky
 from mlease_tpu_torch.ops.tron import tron
+from mlease_tpu_torch.collectives import all_gather, max_over
+from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, axis_size,
+                                            block_sharding, mesh_device)
 from mlease_tpu_torch.train.admm import _lambda_key
 
 
@@ -367,9 +377,7 @@ def _train_packed(packed, config: ItemConfig, mesh=None,
                   device="cuda") -> ItemResult:
     cfg = config
     if mesh is not None:
-        raise NotImplementedError(
-            "per-item training over a mesh is not ported yet: the mesh is "
-            "ROADMAP.md item A8")
+        device = mesh_device(mesh)
     if cfg.solver not in ("cholesky", "tron"):
         raise ValueError(f"unknown solver {cfg.solver!r}")
     dev = resolve_device(device)
@@ -393,7 +401,17 @@ def _train_packed(packed, config: ItemConfig, mesh=None,
 
     for (R, K, F), arrs, meta in packed:
         t_start = time.monotonic()
-        I = len(meta)
+        I_all = I = len(meta)
+        if mesh is not None:
+            # items shard like blocks: pad with copies of item 0 (real,
+            # solvable, discarded), then this rank's contiguous share
+            W = axis_size(mesh, BLOCK_AXIS)
+            I_pad = -(-I // W) * W
+            sh = block_sharding(mesh, 0)
+            arrs = {k: sh.take(np.concatenate(
+                [v, np.broadcast_to(v[:1], (I_pad - I,) + v.shape[1:])]))
+                for k, v in arrs.items()}
+            I = I_pad // W
         eps = cfg.liblinear_epsilon * obj.class_balance_eps_scale(
             arrs["y"], arrs["nrows"])
         # prior precision per grid point g and item i: pvi[0] = il_g;
@@ -422,25 +440,36 @@ def _train_packed(packed, config: ItemConfig, mesh=None,
         if cfg.solver == "cholesky":
             res = newton_cholesky(prob, w0, eps_t,
                                   max_iter=min(cfg.max_newton_iter, 100))
-            stats.append({"shape": (R, K, F), "problems": G * I,
-                          "newton_trips": res.trips})
+            trips = {"newton_trips": res.trips}
         else:
             res = tron(prob, w0, eps_t, max_iter=cfg.max_newton_iter,
                        max_cg_iter=cfg.max_cg_iter)
-            stats.append({"shape": (R, K, F), "problems": G * I,
-                          "newton_trips": res.newton_trips,
-                          "cg_trips": res.cg_trips})
+            trips = {"newton_trips": res.newton_trips,
+                     "cg_trips": res.cg_trips}
+        if mesh is not None:      # the bucket's trips: the slowest rank's
+            trips = dict(zip(trips, max_over(
+                list(trips.values()), mesh.get_group(BLOCK_AXIS), dev)))
+        stats.append({"shape": (R, K, F), "problems": G * I_all, **trips})
         w_t = res.w
+
+        def items(t, *tail):
+            """(G*I, ...) -> (G, I_all, ...): under a mesh every rank's
+            items gathered in order, the padding dropped."""
+            t = t.reshape(G, I, *tail)
+            if mesh is not None:
+                t = all_gather(t, mesh.get_group(BLOCK_AXIS),
+                               dim=1)[:, :I_all]
+            return t.double().cpu().numpy()
         cov = None
         if cfg.compute_var:
             if cfg.full_cov:
                 cov_t = torch.linalg.inv(obj.dense_hessian(prob, w_t))
                 pvar_t = torch.diagonal(cov_t, dim1=-2, dim2=-1)
-                cov = cov_t.reshape(G, I, F, F).double().cpu().numpy()
+                cov = items(cov_t, F, F)
             else:
                 pvar_t = 1.0 / obj.hessian_diagonal(prob, w_t)
-            pvar = pvar_t.reshape(G, I, F).double().cpu().numpy()
-        w = w_t.reshape(G, I, F).double().cpu().numpy()
+            pvar = items(pvar_t, F)
+        w = items(w_t, F)
         t_solved = time.monotonic()
 
         # plain Python floats from here on: one tolist() per array instead

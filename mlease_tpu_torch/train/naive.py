@@ -27,8 +27,12 @@ tolerance), the same stacked data with one trust region per (lambda, key)
 over (lambda x key) lanes with the data shared by the lambdas
 (multi_rhs=False). The keys are packed as the JAX package packs them, in
 the ELL layout alone (no dense head, so no sorted tail): neither
-hand-written kernel runs in a naive solve. A device mesh (`mesh=`) is
-ROADMAP.md item A8.
+hand-written kernel runs in a naive solve. Under a mesh (`mesh=`, a 1-D
+block mesh of parallel/mesh.py, every rank calling with the whole rows)
+the keys are padded to a multiple of the ranks and split over them, each
+rank solves its own keys one problem per key (never the joint flat solve,
+as in the JAX package), and the solutions are gathered, so every rank
+returns the same models.
 """
 
 from __future__ import annotations
@@ -48,6 +52,9 @@ from mlease_tpu_torch.ops import admm_math
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
 from mlease_tpu_torch.ops.tron import tron
 from mlease_tpu_torch.ops.tron_multi import stack_blocks, tron_multi
+from mlease_tpu_torch.collectives import all_gather, max_over
+from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, local_blocks,
+                                            mesh_device)
 from mlease_tpu_torch.train.admm import _lambda_key, unstack_problem
 
 
@@ -99,9 +106,7 @@ def train_naive(keyed_rows: Mapping[str, Sequence[Mapping]],
     (reference NaiveMapper key selection, RegressionNaiveTrain.java:228-241).
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "train_naive over a device mesh is not ported yet: the mesh is "
-            "ROADMAP.md item A8")
+        device = mesh_device(mesh)
     dev = resolve_device(device)
     cfg = config
     dtype = cfg.dtype
@@ -117,9 +122,12 @@ def train_naive(keyed_rows: Mapping[str, Sequence[Mapping]],
                             has_intercept=cfg.has_intercept)
     bias = 1.0 if cfg.has_intercept else 0.0
     t0 = time.monotonic()
-    data = pack_blocks([keyed_rows[k] for k in kept_keys], vocab, bias=bias)
+    data = pad_data = pack_blocks([keyed_rows[k] for k in kept_keys], vocab,
+                                  bias=bias)
+    if mesh is not None:      # padded keys solve to the prior, dropped below
+        pad_data, _valid = local_blocks(mesh, data)
     lambdas = [float(l) for l in cfg.lambdas]
-    K, L, n = data.nblocks, len(lambdas), vocab.size
+    K, L, n = pad_data.nblocks, len(lambdas), vocab.size
 
     # prior variance per (lambda, feature): 1/lambda default, 1/lambda.map[k]
     # overrides, and the unpenalized-intercept variance on the feature that
@@ -136,16 +144,17 @@ def train_naive(keyed_rows: Mapping[str, Sequence[Mapping]],
     def t(a, dt=None):
         return torch.as_tensor(np.asarray(a), dtype=dt, device=dev)
 
-    y = t(data.y, dtype)
-    weight = t(data.weight, dtype)
+    y = t(pad_data.y, dtype)
+    weight = t(pad_data.weight, dtype)
     if cfg.positive_weight != 1.0:
         weight = torch.where(y == 1, cfg.positive_weight * weight, weight)
     eps = t(cfg.liblinear_epsilon
-            * class_balance_eps_scale(data.y, data.nrows), dtype)  # (K,)
+            * class_balance_eps_scale(pad_data.y, pad_data.nrows),
+            dtype)                                                # (K,)
     pvi_t = t(pvi, dtype)                                         # (L, n)
     t1 = time.monotonic()
-    prob = stack_blocks(t(data.indices), t(data.values, dtype), y, weight,
-                        t(data.offset, dtype), (None,) * 8,
+    prob = stack_blocks(t(pad_data.indices), t(pad_data.values, dtype), y,
+                        weight, t(pad_data.offset, dtype), (None,) * 8,
                         torch.zeros((L, K, n), dtype=dtype, device=dev),
                         torch.ones(L, dtype=dtype, device=dev))
     common = dict(max_iter=cfg.max_newton_iter, max_cg_iter=cfg.max_cg_iter)
@@ -158,7 +167,7 @@ def train_naive(keyed_rows: Mapping[str, Sequence[Mapping]],
         # the keys fold into the coefficient axis (one joint trust region
         # per lambda, the strictest key's tolerance) while the stacked ids
         # fit int32 (the JAX branch's condition), else one per key
-        if (cfg.flat_blocks and K * n < 2**31
+        if (cfg.flat_blocks and mesh is None and K * n < 2**31
                 and K * data.padded_rows < 2**31):
             res = tron_multi(prob, W0, eps.min(), precondition=cfg.pcg,
                              **common)
@@ -174,9 +183,13 @@ def train_naive(keyed_rows: Mapping[str, Sequence[Mapping]],
         res = tron(lanes, torch.zeros((L * K, n), dtype=dtype, device=dev),
                    eps.repeat(L), **common)
         x = res.w.view(L, K, n)
+    trips = [res.newton_trips, res.cg_trips]
+    if mesh is not None:      # every rank's keys, the padding dropped
+        x = all_gather(x, mesh.get_group(BLOCK_AXIS), dim=1)[:, :data.nblocks]
+        trips = max_over(trips, mesh.get_group(BLOCK_AXIS), dev)
     x = x.to(torch.float64).cpu().numpy()
     stats = {"pack_s": t1 - t0, "solve_s": time.monotonic() - t1,
-             "newton_trips": res.newton_trips, "cg_trips": res.cg_trips}
+             "newton_trips": trips[0], "cg_trips": trips[1]}
 
     models: dict[str, LinearModel] = {}
     for i, lam in enumerate(lambdas):

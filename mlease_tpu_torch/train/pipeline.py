@@ -23,8 +23,18 @@ the naive models per block (train/naive.py), writes them to
 `<out>/initialModel/` and starts each lambda's z from its mean model
 (AdmmTrain.java:236-276); a boosted job of either regularizer reads its
 rows record by record and skips the pack cache, as the JAX pipeline does.
-Job keys of paths not ported yet raise NotImplementedError instead of
-running something else: mesh.feature.shards > 1, use.mesh and fused.loop.
+
+`use.mesh` (with `mesh.devices`, 0 = every rank) runs the trainers on a
+block mesh of the process group's ranks (parallel/), and
+`mesh.feature.shards` > 1 the in-memory job on a (world / shards) x shards
+feature-sharded mesh (resume, write.train.output and profile.dir are then
+ignored with a warning, as in the JAX pipeline). Every rank runs the whole
+pipeline on the whole input; rank 0 alone writes files (outputs,
+checkpoints, initialModel/, the pack cache, the overwrite's rmtree) and the
+others wait for it at barriers. Outside a launcher, use.mesh with at most
+one device starts a one-rank process group itself.
+The job key of a path not ported yet raises NotImplementedError instead of
+running something else: fused.loop.
 """
 
 from __future__ import annotations
@@ -53,8 +63,11 @@ from mlease_tpu_torch.io import avro, fast_decode, pack_cache, schemas
 from mlease_tpu_torch.io.records import (feature_key, normalize_row,
                                          row_to_prepare_record,
                                          split_feature_key)
+from mlease_tpu_torch.parallel import distributed
+from mlease_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 from mlease_tpu_torch.train.admm import (AdmmConfig, AdmmResult, AdmmTrainer,
                                          _lambda_key)
+from mlease_tpu_torch.train.feature_sharded import FeatureShardedAdmmTrainer
 from mlease_tpu_torch.train.naive import NaiveConfig, train_naive
 from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
 from mlease_tpu_torch.utils import checkpoint as ckpt
@@ -120,10 +133,6 @@ def admm_config_from_job(config: JobConfig, dtype=None) -> AdmmConfig:
 def _reject_unported(config: JobConfig, cfg: AdmmConfig) -> None:
     """Job keys whose paths are not ported raise here, before any work."""
     unported = [
-        ("mesh.feature.shards", config.get_int("mesh.feature.shards", 0) > 1,
-         "feature-sharded training", "A8"),
-        ("use.mesh", config.get_boolean("use.mesh", False),
-         "the device mesh", "A8"),
         ("fused.loop", config.get_boolean("fused.loop", False),
          "AdmmTrainer.run_fused", "A1, with A10b"),
     ]
@@ -134,15 +143,39 @@ def _reject_unported(config: JobConfig, cfg: AdmmConfig) -> None:
                 f"mlease_tpu_torch yet (ROADMAP.md item {item})")
 
 
+def _job_mesh(config: JobConfig, device):
+    """The block mesh of use.mesh / mesh.devices (None without use.mesh);
+    joins the launcher's process group when there is one."""
+    feat_shards = config.get_int("mesh.feature.shards", 0)
+    use_mesh = config.get_boolean("use.mesh", False)
+    if use_mesh or feat_shards > 1:
+        distributed.initialize(device)
+    if not use_mesh:
+        return None
+    ndev = config.get_int("mesh.devices", 0)
+    if ndev <= 1:
+        distributed.initialize_single(device)
+    mesh = make_mesh(ndev or None, device)
+    logger.info("mesh over %d ranks", mesh.size())
+    return mesh
+
+
 def run_regression_pipeline(config: JobConfig, dtype=None,
-                            device: str | torch.device = "cuda"
-                            ) -> AdmmResult:
+                            device: str | torch.device = "cuda",
+                            mesh=None) -> AdmmResult:
+    """The whole train job on `device`; with `mesh` (or the use.mesh job
+    key) on every rank of a block mesh, each rank calling it."""
     cfg = admm_config_from_job(config, dtype=dtype)
     _reject_unported(config, cfg)
+    if mesh is None:
+        mesh = _job_mesh(config, device)
+    main = distributed.is_main()
     out_base = config.get_string("output.base.path")
-    if config.get_boolean("force.output.overwrite", False):
-        shutil.rmtree(out_base, ignore_errors=True)
-    os.makedirs(out_base, exist_ok=True)
+    if main:
+        if config.get_boolean("force.output.overwrite", False):
+            shutil.rmtree(out_base, ignore_errors=True)
+        os.makedirs(out_base, exist_ok=True)
+    distributed.barrier()
 
     nblocks = config.get_int("num.blocks")
     ignore_value = config.get_boolean("binary.feature", False)
@@ -174,6 +207,8 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
         hit = pack_cache.load_groups(pack_cache_dir, pc_manifest)
         if hit is not None:
             cached_groups, vocab = hit
+        # every rank has looked before rank 0 may write the cache below
+        distributed.barrier()
 
     # ---- Prepare (RegressionPrepare) --------------------------------
     # Native C++ columnar ingest when possible; the same semantics as the
@@ -184,7 +219,7 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
     if (config.get_boolean("native.ingest", True) and not map_key
             and input_files and cached_groups is None and not boosted):
         data, vocab = _native_prepare(config, cfg, input_files, nblocks,
-                                      ignore_value, seed, out_base)
+                                      ignore_value, seed, out_base, main)
     if data is None and cached_groups is not None:
         logger.info("pack cache hit: ingest/pack skipped (%d groups, %d "
                     "features)", len(cached_groups), cached_groups[0].dim)
@@ -195,7 +230,7 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
             records, nblocks, map_key=map_key,
             num_click_replicates=cfg.num_click_replicates,
             ignore_value=ignore_value, seed=seed))
-        if config.get_boolean("write.tmp.data", True):
+        if main and config.get_boolean("write.tmp.data", True):
             avro.write_records(
                 os.path.join(out_base, "tmp-data", "part-m-00000.avro"),
                 schemas.REGRESSION_PREPARE_OUTPUT,
@@ -208,20 +243,22 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
         del records, prepared
         if boosted and cfg.regularizer == 2:
             z0 = _naive_warm_start(config, cfg, blocks, vocab, out_base,
-                                   device)
+                                   device, mesh)
         del blocks
-    vocab.save(os.path.join(out_base, "model-vocab.json"))
+    if main:
+        vocab.save(os.path.join(out_base, "model-vocab.json"))
     if data is not None:
         logger.info("packed %d blocks, %d rows padded to (%d, %d), "
                     "%d features", data.nblocks, int(data.nrows.sum()),
                     data.padded_rows, data.max_nnz, data.dim)
 
     # lambda -> rho map file (RegressionAdmmTrain.java:200-201)
-    avro.write_records(
-        os.path.join(out_base, "lambda-rho", "part-r-00000.avro"),
-        schemas.LAMBDA_RHO_MAP,
-        [{"lambda": float(l), "rho": float(r)}
-         for l, r in zip(cfg.lambdas, cfg.resolved_rhos())])
+    if main:
+        avro.write_records(
+            os.path.join(out_base, "lambda-rho", "part-r-00000.avro"),
+            schemas.LAMBDA_RHO_MAP,
+            [{"lambda": float(l), "rho": float(r)}
+             for l, r in zip(cfg.lambdas, cfg.resolved_rhos())])
 
     # ---- test rows for per-iteration sample loglik -------------------
     test_path = config.get_string("test.path", "")
@@ -283,6 +320,8 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
                           ignore_errors=True)
 
     def on_iteration(iteration, z, u, diffs, inner_eps, logliks=None):
+        if not main:              # the trainer gathered u on every rank
+            return
         z_np, u_np = z.cpu().numpy(), u.cpu().numpy()
         ckpt.save_checkpoint(ckpt_dir, iteration, z_np, u_np,
                              inner_eps=inner_eps, mindiff=float(diffs.min()),
@@ -320,7 +359,7 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
         else:
             groups = split_blocks(data, streaming_groups)
             del data
-            if pack_cache_dir and pc_manifest is not None:
+            if main and pack_cache_dir and pc_manifest is not None:
                 # convert to hybrid HERE (the trainer then skips groups
                 # that already carry a head) so the cache stores the final
                 # packed layout; in place, group by group, for peak RSS
@@ -340,7 +379,7 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
                     hybrid_s, time.monotonic() - t0)
         choice = {"auto": "auto", "true": True, "false": False}
         trainer = StreamingAdmmTrainer(
-            groups, vocab, cfg, test_rows=test_rows, device=device,
+            groups, vocab, cfg, test_rows=test_rows, device=device, mesh=mesh,
             resident_head=choice[config.get_string(
                 "streaming.resident.head", "auto")],
             resident_head_budget_gb=config.get_float(
@@ -356,16 +395,38 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
         logger.info("streaming residency: %s; %.3f GB on the wire per "
                     "iteration", json.dumps(trainer.residency_report()),
                     trainer.stream_wire_bytes() / 1e9)
+    elif config.get_int("mesh.feature.shards", 0) > 1:
+        # feature model parallelism: the coefficient axis column-sharded
+        # over a (block x feat) mesh of the ranks (train/feature_sharded.py)
+        shards = config.get_int("mesh.feature.shards", 0)
+        ranks = (mesh.size() if mesh is not None
+                 else distributed.world_size())
+        block = max(ranks // shards, 1)
+        mesh2d = make_mesh_2d(block, shards, device)
+        logger.info("feature-sharded mesh: %d block x %d feat ranks",
+                    block, shards)
+        for unsupported in ("resume", "write.train.output", "profile.dir"):
+            if config.get_string(unsupported, ""):
+                logger.warning(
+                    "%s is not supported with mesh.feature.shards and is "
+                    "ignored (the feature-sharded trainer has no "
+                    "checkpoint/interop dump path yet)", unsupported)
+        result = FeatureShardedAdmmTrainer(
+            data, vocab, cfg, test_rows=test_rows, mesh=mesh2d).run(z0=z0)
+        return _write_pipeline_outputs(config, result, out_base, test_path,
+                                       test_records, ignore_value, device,
+                                       main)
     else:
         trainer = AdmmTrainer(data, vocab, cfg, test_rows=test_rows,
-                              device=device)
-    with trace(config.get_string("profile.dir", "")):
+                              device=device, mesh=mesh)
+    with trace(config.get_string("profile.dir", "") if main else ""):
         result = trainer.run(callback=on_iteration, **run_kwargs)
     return _write_pipeline_outputs(config, result, out_base, test_path,
-                                   test_records, ignore_value, device)
+                                   test_records, ignore_value, device, main)
 
 
-def _naive_warm_start(config, cfg, blocks, vocab, out_base, device):
+def _naive_warm_start(config, cfg, blocks, vocab, out_base, device,
+                      mesh=None):
     """The naive mean-model initialization (AdmmTrain.java:236-276, the JAX
     pipeline's warm start): one naive model per (lambda, non-empty block)
     at liblinear.epsilon (default 0.01), written to
@@ -378,9 +439,11 @@ def _naive_warm_start(config, cfg, blocks, vocab, out_base, device):
         liblinear_epsilon=config.get_float("liblinear.epsilon", 0.01),
         lambda_map=cfg.lambda_map, compute_model_mean=True, dtype=cfg.dtype)
     keyed = {str(i): rows for i, rows in enumerate(blocks) if rows}
-    naive_res = train_naive(keyed, naive_cfg, vocab=vocab, device=device)
-    write_model_file(os.path.join(out_base, "initialModel",
-                                  "part-r-00000.avro"), naive_res.models)
+    naive_res = train_naive(keyed, naive_cfg, vocab=vocab, device=device,
+                            mesh=mesh)
+    if distributed.is_main():
+        write_model_file(os.path.join(out_base, "initialModel",
+                                      "part-r-00000.avro"), naive_res.models)
     z0 = np.stack([
         naive_res.mean_models[_lambda_key(l)].to_dense(vocab)
         if _lambda_key(l) in naive_res.mean_models else np.zeros(vocab.size)
@@ -392,7 +455,7 @@ def _naive_warm_start(config, cfg, blocks, vocab, out_base, device):
 
 
 def _native_prepare(config, cfg, input_files, nblocks, ignore_value, seed,
-                    out_base):
+                    out_base, main=True):
     """Native columnar ingest: decode, merge, vocabulary, prepare and pack,
     with each phase's wall seconds logged (the scale jobs' cold start is
     ingest-dominated, so every run records where the minutes went).
@@ -427,7 +490,7 @@ def _native_prepare(config, cfg, input_files, nblocks, ignore_value, seed,
         logger.info("ingest phase breakdown: %s; %.0f rows/s",
                     json.dumps({k: round(v, 3) for k, v in ph.items()}),
                     rows / max(sum(ph.values()), 1e-9))
-        if config.get_boolean("write.tmp.data", True):
+        if main and config.get_boolean("write.tmp.data", True):
             _write_tmp_from_columnar(
                 os.path.join(out_base, "tmp-data", "part-m-00000.avro"),
                 decoded, row_ids, partitions, weights, vocab)
@@ -464,9 +527,19 @@ def _write_tmp_from_columnar(path, decoded, row_ids, partitions, weights,
 
 def _write_pipeline_outputs(config, result, out_base, test_path,
                             test_records, ignore_value,
-                            device) -> AdmmResult:
+                            device, main=True) -> AdmmResult:
     """final-model / sample-test-loglik / best-model files + the Test and
-    TestLoglik jobs (Regression.java:63-80)."""
+    TestLoglik jobs (Regression.java:63-80), on rank 0; every rank returns
+    once they are written."""
+    if main:
+        _write_outputs(config, result, out_base, test_path, test_records,
+                       ignore_value, device)
+    distributed.barrier()
+    return result
+
+
+def _write_outputs(config, result, out_base, test_path, test_records,
+                   ignore_value, device) -> None:
     write_model_file(os.path.join(out_base, "final-model",
                                   "part-r-00000.avro"), result.models)
     if result.sample_loglik_history:
@@ -498,7 +571,6 @@ def _write_pipeline_outputs(config, result, out_base, test_path,
             for name, rec in logliks.items():
                 logger.info("test loglik %s: %.6f (n=%.0f)", name,
                             rec["testLoglik"], rec["count"])
-    return result
 
 
 def _nearest_lambda_model(lam: float, models: Mapping[str, Any]):

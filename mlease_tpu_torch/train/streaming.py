@@ -52,9 +52,17 @@ can hold beside the streamed working set (see `_cap_budget`).
 scattered into the dense form on the card; a streamed row-sorted tail is
 gathered from the column-sorted copy by the inverse permutation.
 
-Not ported (NotImplementedError naming ROADMAP.md): the device mesh (A8)
-and a bfloat16 compute dtype (A15). dual_layout raises, as in the JAX
-package.
+**Mesh** (`mesh=`, a 1-D block mesh of parallel/mesh.py): every rank
+builds the trainer from the whole list of groups; each group is padded to a
+multiple of the block dimension and each rank streams only its own slice of
+each group. The partial sums of all its groups are one all_reduce(SUM) per
+iteration, in both consensus placements; padded blocks are masked out of
+them and keep zero duals. Never the flat solve, and never the compact wire
+(compact_wire=True raises, "auto" stays dense), as in the JAX package. Every
+rank returns the same result (u gathered over the ranks).
+
+Not ported (NotImplementedError naming ROADMAP.md): a bfloat16 compute
+dtype (A15). dual_layout raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -75,6 +83,10 @@ from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
 from mlease_tpu_torch.ops.tron_multi import MultiProblem
+from mlease_tpu_torch.collectives import all_gather, all_reduce
+from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, axis_size,
+                                            block_sharding, local_blocks,
+                                            mesh_device)
 from mlease_tpu_torch.train.admm import (MAX_NTEST_EVENTS, AdmmConfig,
                                          AdmmResult, _lambda_key,
                                          build_x_update, sample_loglik_lanes,
@@ -271,12 +283,15 @@ class StreamingAdmmTrainer:
             raise NotImplementedError(
                 "dual layout in streaming mode: the CSC arrays double the "
                 "per-iteration PCIe transfer; use the HBM-resident trainer")
+        if compact_wire is True and mesh is not None:
+            raise ValueError("compact_wire=True requires a single device "
+                             "(each rank streams its own blocks dense "
+                             "under a mesh)")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "streaming over a device mesh is not ported yet: the mesh "
-                "is ROADMAP.md item A8")
+            device = mesh_device(mesh)
         self.mode = solver_mode(config.multi_rhs, config.flat_blocks,
-                                False, config.pcg)
+                                False, config.pcg, mesh)
         self.solver = build_group_solver(
             config.max_newton_iter, config.max_cg_iter, mode=self.mode,
             pcg=config.pcg, relaxation=config.relaxation)
@@ -341,6 +356,17 @@ class StreamingAdmmTrainer:
 
         self.nblocks = sum(g.nblocks for g in groups)
         self.real_nblocks = [g.nblocks for g in groups]
+        # under a mesh: each group padded to the block dimension, this
+        # rank's slice of it; pad_idx[gi] the padded local blocks (masked)
+        self._group_comm = None
+        self.pad_idx: list = [None] * len(groups)
+        if mesh is not None:
+            self._group_comm = mesh.get_group(BLOCK_AXIS)
+            for i, g in enumerate(groups):
+                groups[i], valid = local_blocks(mesh, g)
+                if not valid.all():
+                    self.pad_idx[i] = torch.as_tensor(
+                        np.nonzero(~valid)[0], device=dev)
         self.vocab = vocab
         self.config = config
         self.dim = groups[0].dim
@@ -352,7 +378,7 @@ class StreamingAdmmTrainer:
         self._compute_np_dtype = dt
 
         # ---- compact-wire host encodings need the unstacked tails -------
-        want_compact = (self.use_head
+        want_compact = (self.use_head and mesh is None
                         and (compact_wire is True or compact_wire == "auto"))
         inv_perms = ([_tail_inv_perm(g.tail_cols) for g in groups]
                      if want_compact and tails_ok else None)
@@ -741,6 +767,9 @@ class StreamingAdmmTrainer:
                                   device=dev)
             x, nt, cg = self.solver(prob, present, z, u_g, rho_eff, eps)
             trip_mat[gi] = (nt, cg)
+            pad = self.pad_idx[gi]
+            if pad is not None:         # mesh padding: out of the sums
+                x = x.index_fill(1, pad, 0.0)
             xs, us = x.sum(1), u_g.sum(1)
             xsum = xs if xsum is None else xsum + xs
             usum = us if usum is None else usum + us
@@ -750,6 +779,14 @@ class StreamingAdmmTrainer:
                 xh = self._pin(torch.empty(x.shape, dtype=dtype))
                 x_keep.append(xh.copy_(x, non_blocking=True))
             del prob, present, u_dev, x, u_g
+        if self._group_comm is not None:
+            # the mesh's one collective of the iteration: every rank's
+            # partial sums, then the same z on every rank
+            sums = all_reduce(torch.stack([xsum, usum]), "sum",
+                              self._group_comm)
+            xsum, usum = sums[0], sums[1]
+            t = torch.as_tensor(trip_mat, device=dev)
+            trip_mat = all_reduce(t, "sum", self._group_comm).cpu().numpy()
         # consensus shrinkage uses the BASE rho; adaptation only shapes the
         # x-subproblem (RegressionAdmmTrain.java:368-380 vs :648-658)
         v = (xsum + usum) / N
@@ -778,6 +815,9 @@ class StreamingAdmmTrainer:
         z_ref = z_new if dev_consensus else z_new.cpu()
         for gi in range(G):
             u_groups[gi].add_(x_keep[gi]).sub_(z_ref[:, None, :])
+            pad = self.pad_idx[gi]
+            if pad is not None:         # padded blocks keep zero duals
+                u_groups[gi].index_fill_(1, pad.to(u_groups[gi].device), 0.0)
         return z_new, diffs, lls, trip_mat
 
     # ------------------------------------------------------------------
@@ -803,13 +843,17 @@ class StreamingAdmmTrainer:
         z_np = (np.zeros((L, n)) if z0 is None
                 else np.broadcast_to(np.asarray(z0, np.float64),
                                      (L, n)).copy())
-        u_np = [np.zeros((L, g.nblocks, n)) for g in self.groups]
+        parts = (1 if self.mesh is None
+                 else axis_size(self.mesh, BLOCK_AXIS))
+        u_np = [np.zeros((L, g.nblocks * parts, n)) for g in self.groups]
         if u0 is not None:
             u0 = np.asarray(u0, np.float64)
             off = 0
             for gi, real in enumerate(self.real_nblocks):
                 u_np[gi][:, :real] = u0[:, off:off + real]
                 off += real
+        if self.mesh is not None:
+            u_np = [block_sharding(self.mesh, 1).take(u) for u in u_np]
         z = torch.as_tensor(z_np, dtype=dtype, device=dev)
         if self._consensus_device:
             u_groups = [torch.as_tensor(u, dtype=dtype, device=dev)
@@ -896,9 +940,8 @@ class StreamingAdmmTrainer:
 
             if callback is not None:
                 callback(iteration=iteration, z=z,
-                         u=torch.cat([u[:, :real] for u, real in zip(
-                             u_groups, self.real_nblocks)], dim=1),
-                         diffs=diffs, inner_eps=inner_eps, logliks=iter_lls)
+                         u=self._global_u(u_groups), diffs=diffs,
+                         inner_eps=inner_eps, logliks=iter_lls)
 
             if admm_math.should_stop(maxdiff, inner_eps, cfg.epsilon,
                                      cfg.inner_eps_floor):
@@ -906,8 +949,7 @@ class StreamingAdmmTrainer:
                 break
 
         z_out = z.to(torch.float64).cpu().numpy()
-        u_full = torch.cat([u[:, :real] for u, real in zip(
-            u_groups, self.real_nblocks)], dim=1).to(torch.float64).cpu()
+        u_full = self._global_u(u_groups).to(torch.float64).cpu()
         models = {_lambda_key(l): LinearModel.from_dense(z_out[i], self.vocab)
                   for i, l in enumerate(self.lambdas)}
         return AdmmResult(models=models, best_model=best_model,
@@ -918,6 +960,17 @@ class StreamingAdmmTrainer:
                           u=u_full.numpy(), converged=converged,
                           iter_times=iter_times, solver_stats=solver_stats,
                           wall_time=time.monotonic() - t_start)
+
+
+    def _global_u(self, u_groups) -> torch.Tensor:
+        """The (L, nblocks, n) duals in block order: under a mesh each
+        group's slices gathered over the ranks, its padding (a suffix of
+        the group) dropped."""
+        if self.mesh is not None:
+            u_groups = [all_gather(u, self._group_comm, dim=1)
+                        for u in u_groups]
+        return torch.cat([u[:, :real] for u, real in zip(
+            u_groups, self.real_nblocks)], dim=1)
 
 
 def _to_head_dtype(head, hdt):

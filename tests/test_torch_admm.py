@@ -25,6 +25,7 @@ from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer, _lambda_key
 from mlease_tpu_torch.utils import checkpoint as ckpt
 
 from test_admm import synth_rows
+from torch_mesh_worker import launch
 
 torch.set_num_threads(1)
 
@@ -216,3 +217,36 @@ def test_cuda_device_raises_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="cuda"):
         AdmmTrainer(data, vocab, AdmmConfig())
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_mesh_resume_takes_each_ranks_slice(tmp_path):
+    """Under a mesh the run's callback gets the gathered (L, B, n) u (what
+    rank 0 checkpoints) and a resume hands every rank the global u0, of
+    which each takes its own blocks: 2 of 3 ranks over 5 blocks (padded
+    to 6), stopped after iteration 2 and resumed by new trainers for 2
+    more, equal the uninterrupted 4 iterations bit for bit, and the JAX
+    trainer on a 3-device mesh to 1e-8."""
+    from mlease_tpu.parallel import cpu_devices, make_mesh
+    rng = np.random.default_rng(25)
+    rows = synth_rows(rng, 250)
+    kw = dict(lambdas=[0.5, 5.0], num_iters=4, flat_blocks=False,
+              head_size=4)
+    cases = [(name, "admm", dict(rows=rows, nblocks=5, mesh=3,
+                                 config=dict(kw, dtype="float64"), **extra))
+             for name, extra in (("whole", {}), ("resumed",
+                                                 {"resume_at": 2}))]
+    runs = launch(cases, 3, tmp_path, timeout=120)
+    whole, resumed = runs["whole"][0], runs["resumed"][0]
+    assert resumed["u0_shape"] == (2, 5, whole["z"].shape[1])
+    np.testing.assert_array_equal(resumed["z"], whole["z"])
+    np.testing.assert_array_equal(resumed["u"], whole["u"])
+    assert resumed["solver_stats"] == whole["solver_stats"][2:]
+    for r in runs["resumed"][1:]:
+        np.testing.assert_array_equal(r["z"], resumed["z"])
+    vocab = build_vocab(rows)
+    data = pack_blocks([rows[i::5] for i in range(5)], vocab)
+    want = JaxTrainer(data, vocab, JaxConfig(dtype=jnp.float64, **kw),
+                      mesh=make_mesh(cpu_devices(), n=3)).run()
+    atol = 1e-8 * float(np.abs(want.z).max())
+    np.testing.assert_allclose(resumed["z"], want.z, rtol=0, atol=atol)
+    np.testing.assert_allclose(resumed["u"], want.u, rtol=0, atol=atol)

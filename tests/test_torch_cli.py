@@ -199,3 +199,91 @@ def test_naive_cli_matches_jax(tmp_path, capsys, keying):
             np.testing.assert_allclose(
                 list(mt[key].coefficients.values()),
                 list(m.coefficients.values()), rtol=0, atol=1e-8 * scale)
+
+
+def test_train_mesh_under_the_launcher_matches_jax(tmp_path, capsys):
+    """`python -m torch.distributed.run --nproc-per-node 2 -m
+    mlease_tpu_torch train --mesh 2 --device cpu job` (the JAX test
+    tests/test_cli.py::test_cli_predict_alias_and_mesh_flag's job, 4
+    blocks) against `python -m mlease_tpu train --mesh 2` on its virtual
+    devices: rank 0 alone prints the summary line, with the JAX line's
+    iterations, models and best loglik (1e-9), and writes the same final
+    models (1e-8). The launcher takes a free port from the OS
+    (--standalone), so concurrent test workers cannot collide; the run has
+    a deadline."""
+    import subprocess
+    import sys
+
+    from test_cli import synth_avro, write_job
+    data = synth_avro(tmp_path)
+    keys = {"input.paths": data, "test.path": data, "num.blocks": 4,
+            "lambda": "1", "num.iters": 3, "regularizer": 2,
+            "force.output.overwrite": "true", "dtype": "float64"}
+    (tmp_path / "j").mkdir()
+    (tmp_path / "t").mkdir()
+    job_j = write_job(tmp_path / "j", **keys,
+                      **{"output.base.path": str(tmp_path / "out_j")})
+    job_t = write_job(tmp_path / "t", **keys,
+                      **{"output.base.path": str(tmp_path / "out_t")})
+    assert jcli.main(["train", job_j, "--mesh", "2"]) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("JAX_", "XLA_"))}
+    env.update(OMP_NUM_THREADS="1", PYTHONPATH=repo)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2", "-m", "mlease_tpu_torch", "train",
+         "--mesh", "2", "--device", "cpu", job_t],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(tmp_path))
+    try:
+        out, err = proc.communicate(timeout=150)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        pytest.fail("the 2-rank train --mesh run exceeded its deadline")
+    assert proc.returncode == 0, err[-4000:]
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    assert len(lines) == 1, out          # rank 0 alone prints
+    got = json.loads(lines[0])
+    for k in ("iterations", "converged", "best_lambda", "models"):
+        assert got[k] == want[k], k
+    assert got["best_loglik"] == pytest.approx(want["best_loglik"],
+                                               rel=1e-9)
+    assert got["device"] == "cpu"
+    mj = read_model_file(str(tmp_path / "out_j" / "final-model"))
+    mt = read_model_file(str(tmp_path / "out_t" / "final-model"))
+    assert sorted(mj) == sorted(mt)
+    for k in mj:
+        assert abs(mt[k].intercept - mj[k].intercept) <= 1e-8
+        for f, w in mj[k].coefficients.items():
+            assert abs(mt[k].coefficients[f] - w) <= 1e-8
+
+
+def test_train_mesh_outside_a_launcher(tmp_path, capsys, monkeypatch):
+    """Outside a launcher `train --mesh 1` starts a one-rank group itself
+    and runs; `--mesh 2` raises and names the launcher command."""
+    import torch.distributed as dist
+
+    from test_cli import synth_avro, write_job
+    data = synth_avro(tmp_path)
+    job = write_job(tmp_path, **{
+        "input.paths": data, "output.base.path": str(tmp_path / "o"),
+        "num.blocks": 2, "lambda": "1", "num.iters": 2, "regularizer": 2,
+        "dtype": "float64"})
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError,
+                       match="torch.distributed.run --nproc-per-node 2"):
+        tcli.main(["train", job, "--mesh", "2", "--device", "cpu"])
+    assert not dist.is_initialized()
+    try:
+        assert tcli.main(["train", job, "--mesh", "1", "--device",
+                          "cpu"]) == 0
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    got = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert got["iterations"] == 2 and got["models"] == ["1.0"]

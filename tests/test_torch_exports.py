@@ -1,5 +1,5 @@
 """The port's subpackages export what the JAX package's do (ROADMAP.md C7),
-minus the names of the items still to port, and its copy of
+minus the names that have no counterpart in the port, and its copy of
 core/partition_ids.py (A9) gives the same ids and files."""
 
 import importlib
@@ -9,13 +9,13 @@ import pytest
 from mlease_tpu.core import partition_ids as jpi
 from mlease_tpu_torch.core import partition_ids as tpi
 
-# FeatureShardedAdmmTrainer and the whole parallel package are the mesh,
-# ROADMAP.md item A8
-UNPORTED = {"train": {"FeatureShardedAdmmTrainer"}}
+# cpu_devices lists the XLA host devices of a virtual multi-device mesh; a
+# CPU mesh of the port is gloo ranks, one process each (no device list)
+UNPORTED = {"parallel": {"cpu_devices"}}
 
 
-@pytest.mark.parametrize("sub", ["core", "eval", "io", "ops", "train",
-                                 "utils"])
+@pytest.mark.parametrize("sub", ["core", "eval", "io", "ops", "parallel",
+                                 "train", "utils"])
 def test_subpackage_all_matches_jax(sub):
     jax_mod = importlib.import_module(f"mlease_tpu.{sub}")
     port = importlib.import_module(f"mlease_tpu_torch.{sub}")
@@ -30,8 +30,26 @@ def test_subpackage_all_matches_jax(sub):
 
 
 def test_parallel_is_not_ported():
-    with pytest.raises(ImportError):
-        importlib.import_module("mlease_tpu_torch.parallel")
+    """What of the JAX package's parallel/ is not ported: cpu_devices
+    alone; its modules and every other name are (the mesh, A8)."""
+    import mlease_tpu.parallel as jpar
+    port = importlib.import_module("mlease_tpu_torch.parallel")
+    assert not hasattr(port, "cpu_devices")
+    assert set(jpar.__all__) - set(port.__all__) == {"cpu_devices"}
+    from mlease_tpu.parallel import distributed as jdist
+    from mlease_tpu.parallel import mesh as jmesh
+    from mlease_tpu_torch.parallel import distributed as tdist
+    from mlease_tpu_torch.parallel import mesh as tmesh
+    for name in ("initialize", "global_mesh", "host_block_range",
+                 "make_global_blocked_arrays"):
+        assert callable(getattr(jdist, name)) and callable(getattr(tdist,
+                                                                   name))
+    for name in ("BLOCK_AXIS", "FEAT_AXIS", "make_mesh", "make_mesh_2d",
+                 "block_sharding", "replicated", "pad_blocks",
+                 "shard_blocked_arrays"):
+        assert hasattr(jmesh, name) and hasattr(tmesh, name), name
+    assert (tmesh.BLOCK_AXIS, tmesh.FEAT_AXIS) == (jmesh.BLOCK_AXIS,
+                                                   jmesh.FEAT_AXIS)
 
 
 @pytest.mark.parametrize("lambdas", [None, [1.0, 0.5, 1e-4, 12345678.0]])

@@ -97,3 +97,33 @@ def test_the_scale_slice_modules_are_guarded():
     for path in port_files():
         with open(path) as f:
             assert "libmlease_native.so" not in f.read(), path
+
+
+def test_the_mesh_slice_modules_are_guarded():
+    """The mesh (parallel/, collectives), the feature sharding and the
+    feature-sharded trainer are read by the guard, import cleanly with no
+    CUDA toolchain, and no module of the port raises NotImplementedError
+    for the mesh. The ops layer reaches the collectives without the mesh's
+    data layout."""
+    import importlib
+    import subprocess
+    import sys
+
+    rel = {os.path.relpath(p, REPO) for p in port_files()}
+    for mod in ("collectives", "parallel/__init__", "parallel/mesh",
+                "parallel/distributed",
+                "core/feature_shard", "train/feature_sharded",
+                "train/admm", "train/streaming", "train/item",
+                "train/naive", "train/pipeline", "ops/tron_multi", "cli"):
+        assert f"mlease_tpu_torch/{mod}.py" in rel, mod
+        importlib.import_module("mlease_tpu_torch." + mod.replace(
+            "/__init__", "").replace("/", "."))
+    for path in port_files():
+        with open(path) as f:
+            text = f.read()
+        assert "item A8" not in text and '"A8"' not in text, path
+    loaded = subprocess.run(
+        [sys.executable, "-c", "import sys, mlease_tpu_torch.ops.tron_multi;"
+         " print('mlease_tpu_torch.parallel.mesh' in sys.modules)"],
+        capture_output=True, text=True, check=True, cwd=REPO).stdout
+    assert loaded.strip() == "False"

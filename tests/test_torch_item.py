@@ -24,6 +24,7 @@ from mlease_tpu_torch.io.records import INTERCEPT_NAME
 
 from test_admm import synth_rows
 from test_item import _decoded_from_keyed
+from torch_mesh_worker import launch
 
 torch.set_num_threads(1)
 
@@ -262,8 +263,66 @@ def test_item_float32_default_and_errors():
     with pytest.raises(ValueError, match="unknown solver"):
         titem.train_item_models(keyed, titem.ItemConfig(solver="lbfgs"),
                                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
-        titem.train_item_models(keyed, cfg32, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="item key column"):
         titem.pack_buckets_columnar(
             titem.DecodedRows(*[None] * 7, keys=None), cfg32)
+
+
+@pytest.mark.parametrize("solver", SOLVERS)
+def test_item_mesh_matches_jax_mesh(tmp_path, solver):
+    """Per-item solves sharded over 3 ranks (10 items padded to 12 with
+    copies of item 0, 4 a rank, gathered per bucket) against the JAX
+    package on a 3-device mesh (tests/test_item.py::test_item_mesh_parity):
+    with solver="tron", which takes the same steps in both packages,
+    models, posterior variances and covariances to 1e-10 relative; with
+    "cholesky" (float32 factorisations, rounded differently by LAPACK and
+    XLA) to the module's tolerances. Every rank assembles the same result,
+    solver stats included, equal to the port's own run without a mesh: a
+    bucket counts all its G * I problems, and its Newton trips (the
+    slowest rank's) are the unsharded run's."""
+    import jax
+
+    from mlease_tpu.parallel import make_mesh
+    rng = np.random.default_rng(13)
+    keyed = {f"k{i}": synth_rows(rng, 40, n_feat=5) for i in range(10)}
+    kw = dict(intercept_lambdas=[1.0], default_lambdas=[1.0, 4.0],
+              compute_var=True, full_cov=True, solver=solver)
+    jcfg, tcfg = configs(**kw)
+    want = jitem.train_item_models(keyed, jcfg,
+                                   mesh=make_mesh(jax.devices("cpu"), n=3))
+    per_rank = launch([("item", "item", dict(
+        keyed=keyed, mesh=3, config=dict(kw, dtype="float64")))], 3,
+        tmp_path)["item"]
+    for r in per_rank[1:]:
+        assert r == per_rank[0]
+    got = per_rank[0]
+    plain = titem.train_item_models(keyed, tcfg, device="cpu")
+    assert [(s["shape"], s["problems"], s["newton_trips"])
+            for s in got["stats"]] == [
+        (s["shape"], s["problems"], s["newton_trips"])
+        for s in plain.solver_stats]
+    assert sum(s["problems"] for s in got["stats"]) == 2 * len(keyed)
+    rtol = 1e-10 if solver == "tron" else 1e-6
+    for field, want_m, plain_m in (("models", want.models, plain.models),
+                                   ("pvar", want.posterior_var,
+                                    plain.posterior_var)):
+        assert set(got[field]) == set(want_m) == set(plain_m)
+        for key, m in want_m.items():
+            icpt, coefs = got[field][key]
+            assert set(coefs) == set(m.coefficients), key
+            np.testing.assert_allclose(
+                [icpt] + [coefs[f] for f in sorted(coefs)],
+                [m.intercept] + [m.coefficients[f] for f in sorted(coefs)],
+                rtol=rtol, atol=1e-12 if solver == "tron" else 1e-8)
+            pm = plain_m[key]
+            np.testing.assert_allclose(
+                [icpt] + [coefs[f] for f in sorted(coefs)],
+                [pm.intercept] + [pm.coefficients[f] for f in sorted(coefs)],
+                rtol=1e-10, atol=1e-12)
+    assert set(got["cov"]) == set(want.covariances)
+    for key, c in want.covariances.items():
+        assert set(got["cov"][key]) == set(c)
+        np.testing.assert_allclose(
+            [got["cov"][key][p] for p in sorted(c)],
+            [c[p] for p in sorted(c)], rtol=rtol,
+            atol=1e-12 if solver == "tron" else 1e-8)

@@ -1,7 +1,8 @@
 """The port's naive trainer (mlease_tpu_torch.train.naive) against the JAX
-package's, float64 on the CPU: the cases of tests/test_naive.py but the
-mesh one (ROADMAP.md item A8, a refusal here), each run through both
-packages on the same rows.
+package's, float64 on the CPU: the cases of tests/test_naive.py, each run
+through both packages on the same rows; the mesh one on gloo ranks of the
+port (tests/torch_mesh_worker.py) against the JAX package's virtual
+devices.
 
 Every comparison is the same branch on both sides: the flat multi-RHS solve
 (the default), the per-key multi-RHS solve (flat_blocks=False) and the
@@ -23,6 +24,7 @@ from mlease_tpu_torch.core import build_vocab
 from mlease_tpu_torch.train import NaiveConfig, NaiveResult, train_naive
 
 from test_admm import synth_rows
+from torch_mesh_worker import launch
 
 torch.set_num_threads(1)
 
@@ -167,11 +169,64 @@ def test_naive_intercept_key_redirects_unpenalized_variance():
 
 
 def test_naive_mesh_and_card_raise(monkeypatch):
+    """A mesh needs a process group (make_mesh names the launcher), and
+    device="cuda" without a card raises."""
+    from mlease_tpu_torch.parallel import make_mesh
     rng = np.random.default_rng(5)
     keyed = {"0": synth_rows(rng, 40)}
-    with pytest.raises(NotImplementedError, match="A8"):
-        train_naive(keyed, NaiveConfig(dtype=torch.float64), mesh=object(),
-                    device="cpu")
+    with pytest.raises(RuntimeError, match="torch.distributed.run"):
+        train_naive(keyed, NaiveConfig(dtype=torch.float64),
+                    mesh=make_mesh(2, "cpu"), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         train_naive(keyed, NaiveConfig(dtype=torch.float64))
+
+
+def test_naive_on_mesh_matches_jax_mesh(tmp_path):
+    """3 keys over 2 ranks (padded to 4, 2 a rank, one key solve each, the
+    models gathered) in both branches that run on a mesh (per-key
+    multi-RHS, flat_blocks=True included: never flat on a mesh; and the
+    lanes), against the JAX package on a 2-device mesh
+    (tests/test_naive.py::test_naive_on_mesh_matches_single): models and
+    mean models to 1e-8 * max|w|, every rank the same, trip counts
+    included; the Newton trips (the slowest rank's) equal the port's own
+    run of the branch without a mesh."""
+    import jax
+
+    from mlease_tpu.parallel import make_mesh
+    rng = np.random.default_rng(5)
+    keyed = {str(i): synth_rows(rng, 60 + 10 * i) for i in range(3)}
+    names = None
+    cases = {"per_key": {"flat_blocks": True}, "lanes": {"multi_rhs": False}}
+    base = dict(lambdas=[1.0, 4.0], compute_model_mean=True)
+    runs = launch([(k, "naive", dict(keyed=keyed, mesh=2, config=dict(
+        base, dtype="float64", **kw))) for k, kw in cases.items()], 2,
+        tmp_path)
+    vocab = jax_build_vocab([r for k in sorted(keyed) for r in keyed[k]])
+    for name, kw in cases.items():
+        per_rank = runs[name]
+        for r in per_rank[1:]:
+            assert r["trips"] == per_rank[0]["trips"]
+            assert r["models"].keys() == per_rank[0]["models"].keys()
+            for k, v in r["models"].items():
+                np.testing.assert_array_equal(v, per_rank[0]["models"][k])
+        got = per_rank[0]
+        names = got["names"]
+        assert names == vocab.names
+        one = train_naive(keyed, NaiveConfig(dtype=torch.float64, **{
+            **base, **kw, "flat_blocks": False}), device="cpu")
+        assert got["trips"]["newton_trips"] == one.solver_stats[
+            "newton_trips"]
+        want = jax_train_naive(keyed, JaxNaiveConfig(dtype=jnp.float64,
+                                                     **base, **kw),
+                               vocab=vocab,
+                               mesh=make_mesh(jax.devices("cpu"), n=2))
+        assert sorted(got["models"]) == sorted(want.models)
+        scale = max(np.abs(m.to_dense(vocab)).max()
+                    for m in want.models.values())
+        for key, m in want.models.items():
+            np.testing.assert_allclose(got["models"][key], m.to_dense(vocab),
+                                       rtol=0, atol=1e-8 * scale)
+        for key, m in want.mean_models.items():
+            np.testing.assert_allclose(got["mean"][key], m.to_dense(vocab),
+                                       rtol=0, atol=1e-8 * scale)

@@ -12,9 +12,12 @@ import os
 import subprocess
 import sys
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from mlease_tpu.core.linear_model import read_model_file
 from mlease_tpu.io import avro
@@ -22,6 +25,8 @@ from mlease_tpu.train.pipeline import run_regression_pipeline as jax_pipeline
 from mlease_tpu.utils.config import JobConfig
 from mlease_tpu_torch.train.pipeline import \
     run_regression_pipeline as torch_pipeline
+
+from torch_mesh_worker import launch
 
 torch.set_num_threads(1)
 
@@ -149,7 +154,7 @@ def _same_models(out_t, out_j, sub, atol):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"use.mesh": "true"}, "A8"), ({"mesh.feature.shards": "2"}, "A8"),
+    ({"use.mesh": "true"}, None), ({"mesh.feature.shards": "2"}, None),
     ({"fused.loop": "true"}, "A1"),
     ({"pcg": "head_block"}, None),
     ({"streaming.groups": "2", "pcg": "head_block"}, None),
@@ -158,10 +163,13 @@ def _same_models(out_t, out_j, sub, atol):
     ids=lambda v: "-".join(f"{k}={x}" for k, x in v.items())
     if isinstance(v, dict) else str(v))
 def test_unported_job_keys_raise(tmp_path, extra, item):
-    """Paths not ported raise, naming their ROADMAP.md item (the mesh, A8;
-    the fused loop, A1 with A10b). The solver-mode keys that once raised
-    here (A1) now run as the JAX pipeline runs them: the same final models
-    to 1e-8 after 3 iterations, in memory and streamed."""
+    """A path not ported raises, naming its ROADMAP.md item (the fused
+    loop, A1 with A10b). The keys that once raised here now run as the JAX
+    pipeline runs them, to the same final models to 1e-8 after 3
+    iterations: the solver modes (A1) in memory and streamed, and the mesh
+    (A8): use.mesh on a one-rank mesh that the pipeline starts itself
+    (the JAX pipeline: its 8 virtual devices), mesh.feature.shards=2 on 2
+    gloo ranks (tests/torch_mesh_worker.py; JAX: a 4 x 2 mesh)."""
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             torch_pipeline(JobConfig(job(str(tmp_path / "out"), **extra)),
@@ -170,7 +178,17 @@ def test_unported_job_keys_raise(tmp_path, extra, item):
     extra = dict(extra, **{"num.iters": "3"})
     out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
     res_j = jax_pipeline(JobConfig(job(out_j, **extra)))
-    res_t = torch_pipeline(JobConfig(job(out_t, **extra)), device="cpu")
+    if "mesh.feature.shards" in extra:
+        got = launch([("p", "pipeline", dict(props=job(out_t, **extra)))],
+                     2, tmp_path / "ranks", timeout=150)["p"][0]
+        res_t = SimpleNamespace(**got)
+    else:
+        try:
+            res_t = torch_pipeline(JobConfig(job(out_t, **extra)),
+                                   device="cpu")
+        finally:
+            if dist.is_initialized():       # use.mesh's one-rank group
+                dist.destroy_process_group()
     assert res_t.iterations == res_j.iterations == 3
     if res_j.solver_stats:        # the JAX streaming trainer keeps none
         assert res_t.solver_stats == [{k: int(v) for k, v in s.items()}
@@ -294,3 +312,42 @@ def test_streaming_cache_hit_gives_the_same_bits_and_a_trace(stream_runs):
     assert len(traces) == 1 and traces[0].endswith(".json")
     with open(base / "trace" / traces[0]) as f:
         assert json.load(f)["traceEvents"]
+
+
+def test_pipeline_use_mesh_matches_jax(tmp_path):
+    """use.mesh=true, mesh.devices=2 on 2 gloo ranks against the JAX
+    pipeline on 2 virtual devices (tests/test_pipeline.py::
+    test_pipeline_use_mesh_config's job: 160 records, 4 blocks): z to
+    1e-8 * max|z| with the same trips, the same final models; rank 0 alone
+    wrote the outputs (one final-model, checkpoints), every rank returned
+    the same z."""
+    from mlease_tpu.io import avro as javro, schemas
+    rng = np.random.default_rng(4)
+    recs = []
+    for _ in range(160):
+        feats = [{"name": f"f{int(j)}", "term": "", "value": 1.0}
+                 for j in rng.choice(6, 2, replace=False)]
+        recs.append({"key": "", "response": int(rng.integers(0, 2)),
+                     "features": feats, "weight": 1.0, "offset": 0.0})
+    data = str(tmp_path / "m.avro")
+    javro.write_records(data, schemas.REGRESSION_PREPARE_OUTPUT, recs)
+
+    def props(out):
+        return {"input.paths": data, "output.base.path": str(tmp_path / out),
+                "num.blocks": "4", "lambda": "1", "num.iters": "4",
+                "regularizer": "2", "force.output.overwrite": "true",
+                "use.mesh": "true", "mesh.devices": "2", "dtype": "float64",
+                "test.path": data, "test.loglik.per.iter": "true"}
+    want = jax_pipeline(JobConfig(props("j")))
+    per_rank = launch([("p", "pipeline", dict(props=props("t")))], 2,
+                      tmp_path / "ranks", timeout=150)["p"]
+    np.testing.assert_array_equal(per_rank[1]["z"], per_rank[0]["z"])
+    got = per_rank[0]
+    np.testing.assert_allclose(got["z"], want.z, rtol=0,
+                               atol=1e-8 * float(np.abs(want.z).max()))
+    assert got["solver_stats"] == [{k: int(v) for k, v in s.items()}
+                                   for s in want.solver_stats]
+    assert got["best_lambda"] == want.best_lambda
+    _same_models(str(tmp_path / "t"), str(tmp_path / "j"), "final-model",
+                 1e-8)
+    assert os.listdir(tmp_path / "t" / "checkpoint")

@@ -26,6 +26,7 @@ from mlease_tpu_torch.train.admm import AdmmConfig
 from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
 
 from test_admm import synth_rows
+from torch_mesh_worker import launch
 
 torch.set_num_threads(1)
 
@@ -307,11 +308,29 @@ def test_unported_solver_modes_raise(kw, item):
     assert_matches_jax(tt.run(), tj.run(), tt.trip_log, tj.trip_log)
 
 
-def test_mesh_dual_layout_and_dtype_raise():
+def test_mesh_dual_layout_and_dtype_raise(tmp_path):
+    """Under a mesh the compact wire is refused (compact_wire=True raises,
+    as the JAX package's does; "auto" stays dense: the JAX test
+    test_compact_wire_requires_single_device, here on a one-rank mesh);
+    the dual layout and a bfloat16 compute dtype raise."""
+    import torch.distributed as dist
+
+    from mlease_tpu_torch.parallel import distributed, make_mesh
     groups, vocab, _t = problem(seed=2, n_rows=120, split=(1, 1))
-    _j, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="A8"):
-        port(groups, vocab, tcfg, mesh=object())
+    _j, tcfg = configs(head_size=4)
+    distributed.initialize("cpu", init_method=f"file://{tmp_path}/pg",
+                           world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, "cpu")
+        with pytest.raises(ValueError, match="single device"):
+            port(groups, vocab, tcfg, mesh=mesh, compact_wire=True)
+        t = port(groups, vocab, tcfg, mesh=mesh, compact_wire="auto",
+                 resident_head=False)
+        assert not t._wire and t.mode == "per_block"
+        assert port(groups, vocab, tcfg, compact_wire="auto",
+                    resident_head=False)._wire
+    finally:
+        dist.destroy_process_group()
     _j, tcfg = configs(dual_layout=True)
     with pytest.raises(NotImplementedError, match="dual layout"):
         port(groups, vocab, tcfg)
@@ -319,3 +338,85 @@ def test_mesh_dual_layout_and_dtype_raise():
     tcfg.dtype = torch.bfloat16
     with pytest.raises(NotImplementedError, match="compute dtype"):
         port(groups, vocab, tcfg)
+
+
+MESH_CASES = {
+    # name: (config extra, trainer keywords)
+    "lanes": (dict(multi_rhs=False, num_iters=4), {}),
+    "jacobi_head": (dict(flat_blocks=False, head_size=4, num_iters=4), {}),
+    "jacobi_head_host": (dict(flat_blocks=False, head_size=4, num_iters=4),
+                         dict(consensus_device=False)),
+    "flat_key": (dict(flat_blocks=True, num_iters=4,
+                      test_loglik_per_iter=True), {}),
+}
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    rng = np.random.default_rng(5)
+    rows = synth_rows(rng, 300)
+    test_rows = synth_rows(rng, 60)
+    blocks = [rows[i::3] for i in range(3)]
+    cases = []
+    for name, (extra, kw) in MESH_CASES.items():
+        _j, _t = configs(**extra)
+        cfg = dict(lambdas=[1.0, 10.0], num_iters=6, multi_rhs=True,
+                   flat_blocks=True, pcg=True, dtype="float64")
+        cfg.update(extra)
+        cases.append((name, "streaming", dict(
+            blocks=blocks, split=(2, 1), mesh=3, config=cfg, kw=kw,
+            test_rows=test_rows)))
+    return launch(cases, 3, tmp_path_factory.mktemp("stream-mesh"),
+                  timeout=150), blocks, test_rows
+
+
+@pytest.mark.parametrize("name", ["lanes", "jacobi_head", "flat_key"])
+def test_streaming_mesh_matches_jax_mesh(mesh_runs, name):
+    """Groups of 2 + 1 blocks over 3 ranks (each group padded to 3, each
+    rank streaming its one block of each) against the JAX trainer on a
+    3-device mesh (tests/test_streaming.py::test_streaming_mesh_parity):
+    z, u and diffs to 1e-8, the same trips per group and iteration, every
+    rank the same result; flat_blocks=True runs per block on a mesh."""
+    import jax
+
+    from mlease_tpu.parallel import make_mesh as jax_make_mesh
+    runs, blocks, test_rows = mesh_runs
+    per_rank = runs[name]
+    for r in per_rank[1:]:
+        np.testing.assert_array_equal(r["z"], per_rank[0]["z"])
+        np.testing.assert_array_equal(r["u"], per_rank[0]["u"])
+        assert r["solver_stats"] == per_rank[0]["solver_stats"]
+    got = per_rank[0]
+    extra, _kw = MESH_CASES[name]
+    jcfg, _t = configs(**extra)
+    vocab = build_vocab([r for b in blocks for r in b])
+    groups = [pack_blocks(blocks[:2], vocab), pack_blocks(blocks[2:], vocab)]
+    tj = JTrainer(groups, vocab, jcfg, test_rows=test_rows,
+                  mesh=jax_make_mesh(jax.devices("cpu"), n=3))
+    want = tj.run()
+    assert got["mode"] == ("lanes" if name == "lanes" else "per_block")
+    assert not got["residency"]["compact_wire_groups"]
+
+    class R:                       # the fields assert_matches_jax reads
+        pass
+    res = R()
+    for k in ("z", "u", "iterations", "diff_history"):
+        setattr(res, k, got[k])
+    assert got["u"].shape == want.u.shape == (2, 3, vocab.size)
+    assert_matches_jax(res, want, got["trip_log"], tj.trip_log)
+    for a, b in zip(got["sample_loglik_history"],
+                    want.sample_loglik_history):
+        assert abs(a["testLoglik"] - b["testLoglik"]) <= 1e-9
+
+
+def test_streaming_mesh_host_and_device_consensus_same_bits(mesh_runs):
+    """Both consensus placements take the same all_reduced sums and the
+    same elementwise dual update under a mesh too."""
+    runs, _b, _t = mesh_runs
+    dev, host = runs["jacobi_head"][0], runs["jacobi_head_host"][0]
+    assert not host["residency"]["consensus_device"]
+    assert dev["residency"]["consensus_device"]
+    np.testing.assert_array_equal(host["z"], dev["z"])
+    np.testing.assert_array_equal(host["u"], dev["u"])
+    for a, b in zip(host["trip_log"], dev["trip_log"]):
+        np.testing.assert_array_equal(a, b)
