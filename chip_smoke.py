@@ -4,14 +4,15 @@
     python3 chip_smoke.py [--seed 0] [--rows-per-block 1562500] [--iters 3]
                           [--out FILE.json]
                           [--gram-only | --segsum-only | --streaming-only
-                           | --modes-only | --mesh-only]
+                           | --modes-only | --mesh-only | --fused-only]
 
 Phases, each of which fails the run when it fails:
 
   1. the card (nvidia-smi name and power limit) and the torch/CUDA versions;
   2. build the port's kernels (mlease_tpu_torch/csrc/segment_sum.cu, gram.cu
-     and gram_mma_{f32,bf16,f64}.cu) with nvcc from the sources in this
-     checkout, one nvcc process per source, started together;
+     and gram_mma_{f32,bf16,f64}.cu) and the fused loop's graph builder
+     (csrc/device_loop.cu) with nvcc from the sources in this checkout, one
+     nvcc process per source, started together;
   3. kernel phase K1: the contrib form `segment_sum_sorted` against its
      plain version on the card, at the main path's tail streams (the
      bench-default shape and the full-width shape of phase 6), float32 with
@@ -156,6 +157,31 @@ Phases, each of which fails the run when it fails:
      posterior variances within 1e-6 of the one-rank run, every rank the
      same bucket stats (20,000 problems); (f) `train --mesh 1 --device
      cuda` on phase 5's job, checked as phase 5.
+ 17. fused-loop phase (AdmmTrainer.run_fused: the driver loop as a CUDA
+     graph that loops on the card, ops/device_loop.py and
+     csrc/device_loop.cu), run right after phase 16 (a) on the two
+     trainers: run() against run_fused() on (b) bench.py's default step,
+     10 iterations, and (a) the full trainer (flat Jacobi) and new
+     per-block Jacobi and head-block trainers on its data, --iters
+     iterations: z, u and the diffs bit for bit (or within 1e-6 * max|z|,
+     the difference printed), equal iterations and trip totals, and K1
+     (and K2 in head-block) executed inside the loop's graphs as often as
+     run() launches them (counted on the card by an add each wrapper
+     makes right after its kernel, captured with it, and equal to the
+     captured launches x branch executions); s/iteration, the end-to-end
+     seconds of each run with run_fused's capture included, capture
+     seconds, peak memory, the card's idle share of run() (profiler) and
+     of the loop (against run()'s busy time); at bench, checkpoint_every=2
+     against
+     one chunk bit for bit with one callback per chunk, a chunk under
+     torch.cuda.set_sync_debug_mode("error"), and the synchronizing calls
+     of run() and run_fused() counted under "warn"; then (c) the train
+     CLI on phase 5's job with fused.loop = true and checkpoint.every = 2:
+     final models within 1e-10 of phase 5's, the last two chunk ends'
+     checkpoints and every iteration's sample-test-loglik file. Phases 11
+     and 12 log and check each streamed run's pass-floor decomposition
+     (utils/floor.py, tools/torch_pass_floors*.json measured on the card):
+     a numeric util from a table of this card.
 
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
@@ -167,7 +193,8 @@ alone and stops there, without the closing lines (for work on K2);
 alone (for work on the scale path); --modes-only builds them, sets up the
 two trainers and runs phases 14, 13 and 15 alone; --mesh-only builds
 them, sets up the two trainers and runs phase 16 alone (with its own
-no-mesh runs for (a)).
+no-mesh runs for (a)); --fused-only builds them, sets up the two trainers
+and runs phase 17 alone (with its own eager CLI run for (c)).
 """
 
 from __future__ import annotations
@@ -875,8 +902,15 @@ def head_block_phase(args):
     return row
 
 
-def cli_phase(extra_args=()):
+CLI_MODELS: dict = {}       # phase 5's final models, phase 17 (c)'s reference
+
+
+def cli_phase(extra_args=(), extra_props=None, tag="eager"):
+    """Phase 5 (and phase 17 (c) with extra job keys): the train CLI on
+    breast-cancer.job in float64; the final models are kept under `tag`,
+    and with checkpoint.every the checkpoint files are listed."""
     import numpy as np
+    from mlease_tpu_torch.core.linear_model import read_model_file
     from mlease_tpu_torch.io import avro
     from mlease_tpu_torch.utils.config import JobConfig
 
@@ -887,7 +921,7 @@ def cli_phase(extra_args=()):
         props.update({"input.paths": os.path.join(data, "train"),
                       "test.path": os.path.join(data, "test"),
                       "output.base.path": out, "head.size": "16",
-                      "dtype": "float64"})
+                      "dtype": "float64", **(extra_props or {})})
         job = os.path.join(tmp, "breast-cancer.job")
         with open(job, "w") as f:
             f.writelines(f"{k}={v}\n" for k, v in props.items())
@@ -920,7 +954,15 @@ def cli_phase(extra_args=()):
         launches = summary["kernel_launches"]["segment_sum_sorted"]
         if launches <= 0:
             raise AssertionError("the CLI run never launched the kernel")
-    row = {"args": list(extra_args),
+        CLI_MODELS[tag] = {
+            k: (m.intercept, dict(m.coefficients)) for k, m in
+            read_model_file(os.path.join(out, "final-model")).items()}
+        ckpt_dir = os.path.join(out, "checkpoint")
+        checkpoints = (sorted(os.listdir(ckpt_dir))
+                       if os.path.isdir(ckpt_dir) else [])
+        ll_files = sorted(os.listdir(ll_dir))
+    row = {"args": list(extra_args), "props": extra_props or {},
+           "checkpoints": checkpoints, "sample_loglik_files": ll_files,
            "iterations": summary["iterations"], "wall_s": wall,
            "solver_wall_s": summary["wall_time_s"],
            "sample_logliks": len(lls), "test_logliks": test_ll,
@@ -1159,6 +1201,8 @@ def streaming_phase(args, in_memory_iter_s=None):
                                                   segment_sum_sorted)
     from mlease_tpu_torch.train.admm import AdmmConfig
     from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+    from mlease_tpu_torch.utils.floor import (measure_put_bandwidth,
+                                              streaming_floor)
 
     t0 = time.monotonic()
     nf = 1_000_000
@@ -1208,7 +1252,12 @@ def streaming_phase(args, in_memory_iter_s=None):
                "kernel_launches": launches,
                "max_memory_allocated_bytes":
                    int(torch.cuda.max_memory_allocated()),
-               "z_finite": bool(np.isfinite(res.z).all())}
+               "z_finite": bool(np.isfinite(res.z).all()),
+               # the pipeline's log line (utils/floor.py, this card's table)
+               "pass_floor": streaming_floor(
+                   tr.groups, tr.trip_log, tr.stream_wire_bytes(),
+                   steady_s(res.iter_times), measure_put_bandwidth(),
+                   len(cfg.lambdas))}
         if name in ("a_job_budget", "c_streamed_compact"):
             if row["wire_bytes_per_iter"]:
                 put_s = timed_puts(tr)
@@ -1240,6 +1289,7 @@ def streaming_phase(args, in_memory_iter_s=None):
         results[name] = res
         if launches == 0 or not row["z_finite"]:
             raise AssertionError(f"streaming {name}: {row}")
+        check_floor(row["pass_floor"], f"streaming {name}")
 
     a, a2 = results["a_job_budget"], results["a_again"]
     rerun = max(float(np.abs(a.z - a2.z).max()),
@@ -1280,6 +1330,21 @@ def streaming_phase(args, in_memory_iter_s=None):
                              f"{c['z_kernel_vs_plain_max_abs']} vs max|z| "
                              f"{c['z_max_abs']}")
     return rows
+
+
+FLOOR_TAG = "streaming pass-floor decomposition: "
+
+
+def check_floor(sf, what):
+    """A streamed run's pass-floor decomposition (utils/floor.py) must come
+    from a table measured on this card, with a numeric util."""
+    import torch
+    name = torch.cuda.get_device_name(0)
+    print(f"pass-floor {what} " + json.dumps(sf), flush=True)
+    if not sf or not isinstance(sf.get("util"), float) \
+            or name not in str(sf.get("source")):
+        raise AssertionError(f"{what}: no floor decomposition from a table "
+                             f"of {name}: {sf}")
 
 
 def write_scale_dataset(path, n_rows, seed):
@@ -1380,9 +1445,11 @@ def scale_cli_phase(args):
             for line in log.splitlines():
                 for key, tag in (("ingest", "ingest phase breakdown: "),
                                  ("pack_phases", "streaming pack phases: "),
-                                 ("residency", "streaming residency: ")):
+                                 ("residency", "streaming residency: "),
+                                 ("pass_floor", FLOOR_TAG)):
                     if tag in line:
                         row[key] = line.split(tag, 1)[1]
+            row["pass_floor"] = json.loads(row.get("pass_floor", "null"))
             models = avro.read_records(os.path.join(
                 props["output.base.path"], "final-model"))
             row["models"] = len(models)
@@ -1403,6 +1470,8 @@ def scale_cli_phase(args):
             ("models bit for bit", m1 == m2 and len(m1) > 0)) if not ok]
         if bad:
             raise AssertionError(f"scale CLI: not {bad}: {out}")
+        for k, r in ((1, r1), (2, r2)):
+            check_floor(r["pass_floor"], f"scale CLI run {k}")
         return out
 
 
@@ -1825,6 +1894,222 @@ def fit_phase(args):
 # ---------------------------------------------------------------------------
 # phase 16: the mesh
 # ---------------------------------------------------------------------------
+
+def _fused_totals(stats):
+    return {k: sum(int(s[k]) for s in stats)
+            for k in ("newton_trips", "cg_trips")}
+
+
+def _count_syncs(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): the number of
+    synchronizing calls (blocking host reads and waits) it made."""
+    import warnings
+    import torch
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def fused_compare(name, tr, iters, profile=True):
+    """run() against run_fused() on one trainer, --iters (or `iters`)
+    iterations: bit for bit (or within 1e-6 * max|z| with equal trips,
+    the difference recorded); the loop's K1 / K2 executions (counted on
+    the card, and as captured launches x branch executions) against
+    run()'s launches; s/iteration, the seconds of each whole run
+    (run_fused's warm-up and capture included), capture seconds and peak
+    memory of each; the card's idle share of
+    run() from its profile and of the fused loop against run()'s busy
+    time (the same kernels on the same values)."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.ops import gram
+    from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+
+    tr.config = dataclasses.replace(tr.config, num_iters=1)
+    tr.run()                  # warm: the first call on a trainer is cold
+    tr.config = dataclasses.replace(tr.config, num_iters=iters)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    segment_sum_sorted.launches = gram.gram_batched.launches = 0
+    t0 = time.monotonic()
+    run = tr.run()
+    torch.cuda.synchronize()
+    run_call_s = time.monotonic() - t0
+    k_run = (segment_sum_sorted.launches, gram.gram_batched.launches)
+    run_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    fused = tr.run_fused()
+    torch.cuda.synchronize()
+    fused_call_s = time.monotonic() - t0
+    fused_peak = torch.cuda.max_memory_allocated()
+    counts = fused.loop_counts
+    kexec = counts["kernel_executions"]
+    derived = {c: sum(n[c] * counts["branch_executions"][b]
+                      for b, n in counts["captured_launches"].items())
+               for c in kexec}
+    zmax = float(np.abs(run.z).max())
+    row = {
+        "mode": tr.mode, "iterations": [run.iterations, fused.iterations],
+        "bit_for_bit": bool(np.array_equal(run.z, fused.z)
+                            and np.array_equal(run.u, fused.u)
+                            and run.diff_history == fused.diff_history),
+        "max_abs_diff": max(float(np.abs(run.z - fused.z).max()),
+                            float(np.abs(run.u - fused.u).max())),
+        "z_max_abs": zmax,
+        "trips_run": _fused_totals(run.solver_stats),
+        "trips_fused": fused.solver_stats[0],
+        # the fused loop reports wall / iterations: compare it with run()'s
+        # mean over the same iterations (the first one takes more trips)
+        "run_iter_s": steady_s(run.iter_times),
+        "run_mean_iter_s": sum(run.iter_times) / len(run.iter_times),
+        "fused_iter_s": fused.iter_times[0] if fused.iter_times else None,
+        "compile_s": fused.compile_time,
+        # each call end to end as its caller waits for it: run_fused's
+        # warm-up and capture, and both results' copies to the host
+        "run_call_s": run_call_s, "fused_call_s": fused_call_s,
+        "k1_run_launches": k_run[0], "k2_run_launches": k_run[1],
+        "k1_fused_executions": kexec["segment_sum_gather"],
+        "k2_fused_executions": kexec["gram_batched"],
+        "k1_k2_captured_x_branch_runs": [derived["segment_sum_gather"],
+                                         derived["gram_batched"]],
+        "branch_executions": counts["branch_executions"],
+        "captured_launches": counts["captured_launches"],
+        "run_peak_bytes": int(run_peak), "fused_peak_bytes": int(fused_peak),
+    }
+    if profile:
+        keys = ("wall_ms", "device_busy_ms", "device_idle_share",
+                "segment_sum_kernel_count", "gram_kernel_count")
+        # run() under the profiler: its host overhead lengthens run()'s
+        # waits on the host, so this idle share is an upper bound
+        prof = device_time(tr.run)
+        if prof:
+            row["run_profile"] = {k: prof[k] for k in keys}
+        # the loop alone: the window is its launch to the chunk end, where
+        # the host does nothing but wait
+        from mlease_tpu_torch.ops.device_loop import DeviceLoop
+        launch, box = DeviceLoop.run, {}
+
+        def profiled(self):
+            box["p"] = device_time(lambda: launch(self))
+        DeviceLoop.run = profiled
+        try:
+            tr.run_fused()
+        finally:
+            DeviceLoop.run = launch
+        if box.get("p"):
+            row["fused_loop_profile"] = {k: box["p"][k] for k in keys}
+    print(f"fused {name} " + json.dumps(row), flush=True)
+    bad = []
+    if row["trips_fused"] != row["trips_run"] or \
+            run.iterations != fused.iterations:
+        bad.append("trips or iterations differ")
+    if not row["bit_for_bit"] and not row["max_abs_diff"] <= 1e-6 * zmax:
+        bad.append(f"z/u differ by {row['max_abs_diff']}")
+    if row["k1_fused_executions"] != k_run[0] or k_run[0] == 0:
+        bad.append(f"K1 ran {row['k1_fused_executions']} times in the loop "
+                   f"against {k_run[0]} launches in run()")
+    if row["k2_fused_executions"] != k_run[1]:
+        bad.append(f"K2 ran {row['k2_fused_executions']} times in the loop "
+                   f"against {k_run[1]} launches in run()")
+    if derived != kexec:
+        bad.append(f"kernel executions counted on the card {kexec} differ "
+                   f"from captured launches x branch executions {derived}")
+    if bad:
+        raise AssertionError(f"fused {name}: {bad}")
+    return row, run, fused
+
+
+def fused_phase(trainers, args):
+    """Phase 17: AdmmTrainer.run_fused, the driver loop as a CUDA graph
+    that loops on the card, against run(): (a) full width (flat Jacobi,
+    per-block Jacobi, head-block); (b) bench.py's default step, with
+    checkpoint_every=2 against one chunk, a chunk under the sync debug
+    mode "error" and the blocking host reads of each driver counted; (c)
+    the train CLI with fused.loop = true and checkpoint.every = 2 against
+    phase 5's eager run."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.ops.device_loop import DeviceLoop
+    from mlease_tpu_torch.train.admm import AdmmTrainer
+
+    out = {}
+    # (b) first: the small shape, host-bound under run()
+    bench = trainers["bench"]
+    row, run, one = fused_compare("bench_flat", bench, 10)
+    calls = []
+    launch = DeviceLoop.run
+
+    def checked(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            launch(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    DeviceLoop.run = checked
+    try:
+        chunked = bench.run_fused(checkpoint_every=2,
+                                  callback=lambda **kw: calls.append(
+                                      kw["iteration"]))
+    finally:
+        DeviceLoop.run = launch
+    row["chunked_bit_for_bit"] = bool(
+        np.array_equal(chunked.z, one.z) and np.array_equal(chunked.u, one.u)
+        and chunked.diff_history == one.diff_history)
+    row["chunk_callbacks"] = calls
+    _, row["syncs_run"] = _count_syncs(bench.run)
+    _, row["syncs_fused"] = _count_syncs(bench.run_fused)
+    _, row["syncs_fused_chunked"] = _count_syncs(
+        lambda: bench.run_fused(checkpoint_every=2))
+    print("fused bench_chunks " + json.dumps(
+        {k: row[k] for k in ("chunked_bit_for_bit", "chunk_callbacks",
+                             "syncs_run", "syncs_fused",
+                             "syncs_fused_chunked")}), flush=True)
+    want_calls = list(range(2, one.iterations + 1, 2))
+    if one.iterations % 2:
+        want_calls.append(one.iterations)
+    if not row["chunked_bit_for_bit"] or calls != want_calls:
+        raise AssertionError(f"chunked fused run: {row}")
+    out["bench"] = row
+    # (a) full width: phase 7's trainer, then the per-block solves
+    full = trainers["full"]
+    out["full_flat"] = fused_compare("full_flat", full, args.iters)[0]
+    for name, kw in (("full_per_block", dict(flat_blocks=False)),
+                     ("full_head_block", dict(pcg="head_block"))):
+        tr = AdmmTrainer(full.data, full.vocab,
+                         dataclasses.replace(full.config, **kw))
+        out[name] = fused_compare(name, tr, args.iters)[0]
+        del tr
+        torch.cuda.empty_cache()
+    # (c) the CLI: fused.loop with checkpoint.every against phase 5's run
+    if "eager" not in CLI_MODELS:
+        cli_phase()
+    cli = cli_phase(extra_props={"fused.loop": "true",
+                                 "checkpoint.every": "2"}, tag="fused")
+    ref, got = CLI_MODELS["eager"], CLI_MODELS["fused"]
+    diff = max(
+        [abs(got[k][0] - ref[k][0]) for k in ref]
+        + [abs(got[k][1][f] - ref[k][1][f]) for k in ref for f in ref[k][1]])
+    cli["max_abs_diff_vs_eager"] = diff
+    out["cli"] = cli
+    print("fused cli " + json.dumps(cli), flush=True)
+    its = cli["iterations"]
+    want_ckpt = sorted(f"iter-{i:05d}.{e}" for i in
+                       sorted({*range(2, its + 1, 2), its})[-2:]
+                       for e in ("json", "npz"))
+    if sorted(got) != sorted(ref) or any(
+            sorted(got[k][1]) != sorted(ref[k][1]) for k in ref) \
+            or not diff <= 1e-10 or cli["checkpoints"] != want_ckpt \
+            or len(cli["sample_loglik_files"]) != its:
+        raise AssertionError(f"fused CLI run: {cli}, checkpoints wanted "
+                             f"{want_ckpt}")
+    return out
+
 
 MESH_REFS: dict = {}        # phase 14's no-mesh runs, phase 16 (a)'s reference
 MESH_WORLD = 2              # gloo ranks on the one card in (b)-(e)
@@ -2252,6 +2537,9 @@ def main(argv=None) -> int:
     ap.add_argument("--mesh-only", action="store_true",
                     help="build, set up the trainers, run the mesh phase "
                          "(16) alone and stop")
+    ap.add_argument("--fused-only", action="store_true",
+                    help="build, set up the trainers, run the fused-loop "
+                         "phase (17) alone and stop")
     # one rank of phase 16, started by the phase itself
     ap.add_argument("--mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
@@ -2273,7 +2561,7 @@ def main(argv=None) -> int:
     if args.mesh_rank is not None:
         return _mesh_rank(args)
     from mlease_tpu_torch.device import resolve_device
-    from mlease_tpu_torch.ops import _build, gram, segment_sum
+    from mlease_tpu_torch.ops import _build, device_loop, gram, segment_sum
     from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
 
     report = {"phases": {}, "failed": []}
@@ -2300,8 +2588,8 @@ def main(argv=None) -> int:
 
     def build():
         t0 = time.monotonic()
-        paths = _build.build_many([segment_sum.SOURCE, *gram.SOURCES],
-                                  verbose=True)
+        paths = _build.build_many([segment_sum.SOURCE, *gram.SOURCES,
+                                   device_loop.SOURCE], verbose=True)
         row = {"libraries": [os.path.relpath(p, REPO) for p in paths],
                "build_s": time.monotonic() - t0}
         print("build " + json.dumps(row), flush=True)
@@ -2358,9 +2646,12 @@ def main(argv=None) -> int:
     trainers = None
     if not report["failed"]:
         trainers = phase("setup", setup)
-    if args.segsum_only or args.modes_only or args.mesh_only:
+    if args.segsum_only or args.modes_only or args.mesh_only \
+            or args.fused_only:
         if trainers is not None and args.segsum_only:
             phase("kernel", kernel_phase, trainers, args)
+        elif trainers is not None and args.fused_only:
+            phase("fused", fused_phase, trainers, args)
         elif trainers is not None and args.mesh_only:
             phase("mesh_one_rank", mesh_one_rank_phase, trainers, args)
             del trainers
@@ -2385,6 +2676,7 @@ def main(argv=None) -> int:
         phase("solver_modes", solver_modes_phase, trainers, args,
               speed["full"]["steady_iter_s"] if speed else None)
         phase("mesh_one_rank", mesh_one_rank_phase, trainers, args)
+        phase("fused", fused_phase, trainers, args)
         del trainers
         torch.cuda.empty_cache()
         items = phase("item", item_phase, args)

@@ -200,7 +200,8 @@ def gram_batched(x: torch.Tensor, d: torch.Tensor,
     """(B, F, F) weighted Gram matrices in the accumulate type of x (float32
     for float32 and bfloat16, float64 for float64). CPU tensors take the
     plain version; CUDA tensors launch the kernel (launches counted in
-    `gram_batched.launches`) or raise."""
+    `gram_batched.launches`, and on the card in `device_launches` where a
+    device loop captures the call) or raise."""
     if d.dim() != 2 or x.dim() not in (2, 3) or x.shape[-2] != d.shape[1] \
             or (x.dim() == 3 and x.shape[0] != d.shape[0]):
         raise ValueError(f"expected x (B, R, F) or (R, F) and d (B, R); got "
@@ -257,10 +258,13 @@ def gram_batched(x: torch.Tensor, d: torch.Tensor,
         raise RuntimeError(f"gram_batched launch failed ({cfg}): CUDA error "
                            f"{err}")
     gram_batched.launches += 1
+    if gram_batched.device_launches is not None:
+        gram_batched.device_launches.add_(1)
     return out
 
 
 gram_batched.launches = 0
+gram_batched.device_launches = None    # set by ops/device_loop.py
 
 
 def gram_matrix(x: torch.Tensor, d: torch.Tensor,

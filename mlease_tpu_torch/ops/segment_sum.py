@@ -26,8 +26,9 @@ design) or raise. On a CPU tensor they run the plain version,
 `segment_sum_gather_reference`. There is no fallback from the card to the
 plain version. Every call on the card adds one to
 `segment_sum_sorted.launches`, K1's launch count (its carry passes belong
-to the call). The kernel uses no float atomics: the same inputs give the
-same bits in every run.
+to the call), and, where a device loop captures it, one on the card to
+`segment_sum_sorted.device_launches` (ops/device_loop.py). The kernel
+uses no float atomics: the same inputs give the same bits in every run.
 
 V is lanes-major (L, m), or a lanes-minor view (the transpose of an (m, L)
 tensor), which the kernel gathers from directly: one sector per entry for
@@ -213,6 +214,8 @@ def segment_sum_gather(vals: torch.Tensor, V: torch.Tensor | None,
     if err != 0:
         raise RuntimeError(f"segment_sum launch failed: CUDA error {err}")
     segment_sum_sorted.launches += 1
+    if segment_sum_sorted.device_launches is not None:
+        segment_sum_sorted.device_launches.add_(1)
     return out
 
 
@@ -233,6 +236,7 @@ def segment_sum_sorted(contrib: torch.Tensor, seg: torch.Tensor,
 
 
 segment_sum_sorted.launches = 0
+segment_sum_sorted.device_launches = None    # set by ops/device_loop.py
 
 
 def min_bytes(L: int, T: int, S: int, itemsize: int, *,

@@ -4,8 +4,12 @@ Port of the lanes-major solver of mlease_tpu/ops/tron_multi.py: the same
 algorithm (Tron.java:30-179 with the warm-start modification, run
 independently per lambda lane), the same lock-step trip counting and the
 same masked per-lane updates. All trust-region scalars (f, delta, ||g||,
-accept/reject) are (L,) tensors; the JAX package's `lax.while_loop`s become
-host loops whose condition (`any(active)`) is read back once per trip.
+accept/reject) are (L,) tensors. The JAX package's `lax.while_loop`s are
+split into functions of a state (`MultiSolver`: the Newton init, one CG
+trip, the Newton epilogue) whose counters stay on the device; `tron_multi`
+runs them in host loops whose condition (`any(active)`) is read back once
+per trip, and AdmmTrainer.run_fused runs the same functions inside a CUDA
+graph that loops on the card (ops/device_loop.py).
 
 Internally the state is lanes-major, (L, n) and (L, R); the public contract
 is the JAX one, (n, L) in and (n, L) out. Each sorted sparse-tail reduce is
@@ -404,10 +408,14 @@ def build_head_precond(prob: MultiProblem, Dm: torch.Tensor,
         pvb = pvi_head.view(L, B, H)
         A = torch.stack([gram_batched(_gram_head(hx[b], dtype), Dmb[:, b],
                                       pvb[:, b]) for b in range(B)], dim=1)
-    chol = torch.linalg.cholesky_ex(A.to(torch.float32))[0].to(dtype)
+    # row-major, as run_fused's static copy of it is: the triangular
+    # solves' rounding follows the factor's layout (cholesky_ex returns
+    # each factor column-major)
+    chol = torch.linalg.cholesky_ex(A.to(torch.float32))[0].to(
+        dtype).contiguous()
     head_mask = torch.zeros((1, Hdiag.shape[1]), dtype=dtype,
                             device=Hdiag.device)
-    head_mask[0, ids] = 1.0
+    head_mask.index_fill_(1, ids, 1.0)     # no host value: graph-safe
     diag = torch.where(head_mask > 0, torch.ones_like(Hdiag),
                        torch.clamp(Hdiag, min=1e-12))
     return HeadBlockPrecond(chol=chol, diag=diag, head_mask=head_mask,
@@ -415,10 +423,14 @@ def build_head_precond(prob: MultiProblem, Dm: torch.Tensor,
 
 
 def _head_solve(pc: HeadBlockPrecond, r: torch.Tensor) -> torch.Tensor:
-    """M^{-1} r, (L, n): cholesky_solve on the head coordinates, a divide
-    on the tail."""
+    """M^{-1} r, (L, n): two triangular solves with the Cholesky factor on
+    the head coordinates, a divide on the tail. Not cholesky_solve: on the
+    card torch gives a batched cholesky_solve to MAGMA, which allocates
+    inside the call and so cannot run inside AdmmTrainer.run_fused's CUDA
+    graphs; the triangular solves are cuBLAS's trsm."""
     rh = r[:, pc.head_ids].view(*pc.chol.shape[:-1], 1)
-    sol = torch.cholesky_solve(rh, pc.chol)
+    y = torch.linalg.solve_triangular(pc.chol, rh, upper=False)
+    sol = torch.linalg.solve_triangular(pc.chol.mT, y, upper=True)
     out = r / pc.diag
     out[:, pc.head_ids] = sol.reshape(r.shape[0], -1)
     return out
@@ -455,56 +467,197 @@ def _safe_div(num, den, ok):
                        torch.zeros_like(num))
 
 
-def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
-          M: torch.Tensor | HeadBlockPrecond | None = None, running=None,
-          group=None):
-    """Per-lane truncated CG with lock-step data passes (Tron.java:126-179).
+class NewtonState(NamedTuple):
+    """The Newton loop's carried state (Tron.java:30-124 per lane), every
+    field a tensor: W, G, the Jacobi M (L, B, n); F, delta, gnorm, gnorm1,
+    eps, it, active (L, B); Dm (L, R); the counters block_nt, block_cg (B,)
+    and trips, cg_trips (0-d). M is None for the reference CG and a
+    HeadBlockPrecond for "head_block"."""
 
-    The state is (L, B, n) (B = 1: one segment per lane), per-lane scalars
-    (L, B). M None reproduces the reference; an (L, B, n) Jacobi diagonal
-    or a HeadBlockPrecond measures the trust region in the M-norm and tests
-    the residual in ||r||_{M^-1}. `running` (1, B) marks the blocks whose
-    Newton loop is running: the others' lanes start done and hold nothing
-    open. Every dot goes through the shards' all_reduce under `group`.
-    Returns (s, r, snorm, global trips, trips per block (B,))."""
-    L, B, _n = G.shape
-    flat = (L, -1)
-    if M is None:
-        def precond(r):
-            return r
+    W: torch.Tensor
+    F: torch.Tensor
+    G: torch.Tensor
+    Dm: torch.Tensor
+    M: torch.Tensor | HeadBlockPrecond | None
+    delta: torch.Tensor
+    gnorm: torch.Tensor
+    gnorm1: torch.Tensor
+    eps: torch.Tensor
+    it: torch.Tensor          # (L, B) int32: accepted Newton steps + 1
+    active: torch.Tensor
+    block_nt: torch.Tensor
+    block_cg: torch.Tensor
+    trips: torch.Tensor
+    cg_trips: torch.Tensor
 
-        def mdot(a, b):
-            return _dot_lm(a, b, group)
-    elif isinstance(M, HeadBlockPrecond):
-        def precond(r):
-            return _head_solve(M, r.view(flat)).view(L, B, -1)
 
-        def mdot(a, b):
-            return _dot_lm(a, _head_apply(M, b.view(flat)).view(L, B, -1),
-                           group)
-    else:
-        def precond(r):
-            return r / M
+class CgState(NamedTuple):
+    """One Newton trip's truncated-CG state (Tron.java:126-179): s, r, z, d
+    (L, B, n); rz, cgtol, done (L, B); it (0-d, the trip's CG trips so far);
+    block_it (B,) per block; running (1, B) the blocks whose Newton loop
+    runs this trip (the others' lanes start done and hold nothing open)."""
 
-        def mdot(a, b):
-            return _dot_lm(a * M, b, group)
+    s: torch.Tensor
+    r: torch.Tensor
+    z: torch.Tensor
+    d: torch.Tensor
+    rz: torch.Tensor
+    cgtol: torch.Tensor
+    done: torch.Tensor
+    it: torch.Tensor
+    block_it: torch.Tensor
+    running: torch.Tensor
 
-    def hv(d):
-        return _seg(_hv_lm(prob, Dm.view(flat), d.view(flat), group), B)
 
-    z = precond(-G)
-    rz = _dot_lm(-G, z, group)
-    cgtol = 0.1 * torch.sqrt(rz)
-    s, r, d = torch.zeros_like(G), -G, z
-    done = ~running.expand(L, B)
-    block_it = torch.zeros(B, dtype=torch.int64, device=G.device)
-    it = 0
-    while it < max_cg_iter and bool((~done).any()):
-        block_it += (~done).any(0)
+def lanes_major(prob: MultiProblem) -> MultiProblem:
+    """prob with its (n, L) priors as the solver's (L, n) lanes-major
+    tensors: one transpose of each per solve."""
+    return prob._replace(
+        prior_mean=prob.prior_mean.T.contiguous(),
+        prior_var_inv=torch.broadcast_to(
+            prob.prior_var_inv, prob.prior_mean.shape).T.contiguous())
+
+
+class MultiSolver:
+    """`tron_multi`'s two loops as functions of a state, so that the eager
+    solve and the device loop of AdmmTrainer.run_fused run the same ops:
+    `init` (the Newton init), `running`, `cg_init`, `cg_open`, `cg_trip`
+    (one trip of the CG loop) and `epilogue` (the Newton step that follows
+    the CG loop). None of them reads the device from the host. `prob` is
+    lanes-major (`lanes_major`); every other argument is tron_multi's."""
+
+    def __init__(self, prob: MultiProblem, L: int, precondition=False,
+                 blocks: int = 1, max_iter: int = 1000,
+                 max_cg_iter: int = 500, group=None):
+        B = int(blocks)
+        kind = {False: "none", True: "jacobi"}.get(precondition, precondition)
+        if kind not in ("none", "jacobi", "head_block"):
+            raise ValueError(
+                f"precondition must be False/True/'jacobi'/'head_block'; "
+                f"got {precondition!r}")
+        # a batched head needs one block per segment: the flat-blocks solve
+        # (B = 1 over a stacked head) has no per-block head Gram, as in JAX
+        if kind == "head_block" and (prob.head_x is None or (
+                prob.head_x.dim() == 3 and (B == 1
+                                            or prob.head_x.shape[0] != B))):
+            raise ValueError("head_block preconditioning needs the hybrid "
+                             "dense-head layout (head_size > 0, non-flat)")
+        N = prob.prior_mean.shape[-1]
+        if N % B or prob.y.shape[0] % B:
+            raise ValueError(f"blocks={B} does not divide the stacked "
+                             f"problem's {N} columns and {prob.y.shape[0]} "
+                             f"rows")
+        self.prob, self.L, self.B, self.kind = prob, L, B, kind
+        self.max_iter, self.max_cg_iter = max_iter, max_cg_iter
+        self.group = group
+        self.flat = (L, -1)
+        self.stall_rtol = 1e-12 if prob.prior_mean.dtype == torch.float64 \
+            else 1e-5
+
+    # -- pieces ---------------------------------------------------------
+    def fgc(self, W, with_diag):
+        out = _fun_grad_curvature_lm(self.prob, W.view(self.flat), with_diag,
+                                     self.B, self.group)
+        return (out[0],) + tuple(_seg(t, self.B) for t in out[1:])
+
+    def precond_of(self, Dm, Hd):
+        if self.kind == "head_block":
+            return build_head_precond(self.prob, Dm.view(self.flat),
+                                      Hd.view(self.flat))
+        return torch.clamp(Hd, min=1e-12)
+
+    def _cg_ops(self, M):
+        """(precond, mdot) of the CG under M: M None reproduces the
+        reference; an (L, B, n) Jacobi diagonal or a HeadBlockPrecond
+        measures the trust region in the M-norm and tests the residual in
+        ||r||_{M^-1}. Every dot goes through the shards' all_reduce."""
+        L, B, group, flat = self.L, self.B, self.group, self.flat
+        if M is None:
+            def precond(r):
+                return r
+
+            def mdot(a, b):
+                return _dot_lm(a, b, group)
+        elif isinstance(M, HeadBlockPrecond):
+            def precond(r):
+                return _head_solve(M, r.view(flat)).view(L, B, -1)
+
+            def mdot(a, b):
+                return _dot_lm(a, _head_apply(M, b.view(flat)).view(L, B, -1),
+                               group)
+        else:
+            def precond(r):
+                return r / M
+
+            def mdot(a, b):
+                return _dot_lm(a * M, b, group)
+        return precond, mdot
+
+    # -- the Newton loop --------------------------------------------------
+    def init(self, W0: torch.Tensor, eps) -> NewtonState:
+        """The state before the first Newton trip, from W0 (n, L)."""
+        L, B, group, dev = self.L, self.B, self.group, W0.device
+        dtype = W0.dtype
+        eps = torch.as_tensor(eps, dtype=dtype, device=dev).expand(L, B)
+        W = _seg(W0.T.contiguous(), B)
+        gnorm1 = _norm_lm(_seg(_grad_at_zero_lm(self.prob, L), B), group)
+        if self.kind == "none":
+            F, G, Dm = self.fgc(W, False)
+            M = None
+            delta = _norm_lm(G, group)
+        else:
+            F, G, Dm, Hd0 = self.fgc(W, True)
+            M = self.precond_of(Dm, Hd0)
+            Minv_G = (_seg(_head_solve(M, G.view(self.flat)), B)
+                      if self.kind == "head_block" else G / M)
+            delta = torch.sqrt(_dot_lm(G, Minv_G, group))
+        gnorm = _norm_lm(G, group)
+        it = torch.ones((L, B), dtype=torch.int32, device=dev)
+        active = gnorm > eps * gnorm1
+        zeros_b = torch.zeros(B, dtype=torch.int64, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        return NewtonState(W=W, F=F, G=G, Dm=Dm, M=M, delta=delta,
+                           gnorm=gnorm, gnorm1=gnorm1, eps=eps, it=it,
+                           active=active, block_nt=zeros_b,
+                           block_cg=zeros_b.clone(), trips=zero,
+                           cg_trips=zero.clone())
+
+    def running(self, ns: NewtonState) -> torch.Tensor:
+        """(1, B): a block's loop runs while one of its lanes is active and
+        under the cap; a block whose loop has ended keeps its whole
+        state."""
+        return (ns.active & (ns.it <= self.max_iter)).any(0, keepdim=True)
+
+    # -- the CG loop ------------------------------------------------------
+    def cg_init(self, ns: NewtonState, running: torch.Tensor) -> CgState:
+        L, B, group = self.L, self.B, self.group
+        precond, _ = self._cg_ops(ns.M)
+        G = ns.G
+        z = precond(-G)
+        rz = _dot_lm(-G, z, group)
+        return CgState(
+            s=torch.zeros_like(G), r=-G, z=z, d=z, rz=rz,
+            cgtol=0.1 * torch.sqrt(rz), done=~running.expand(L, B),
+            it=torch.zeros((), dtype=torch.int64, device=G.device),
+            block_it=torch.zeros(B, dtype=torch.int64, device=G.device),
+            running=running)
+
+    def cg_open(self, cs: CgState) -> torch.Tensor:
+        """0-d bool: the CG loop takes another trip."""
+        return (cs.it < self.max_cg_iter) & (~cs.done).any()
+
+    def cg_trip(self, ns: NewtonState, cs: CgState) -> CgState:
+        """One lock-step CG trip: a data pass (Hv) serving every lane, the
+        lanes already done kept as they are."""
+        group, B, flat = self.group, self.B, self.flat
+        precond, mdot = self._cg_ops(ns.M)
+        s, r, z, d, rz, done = cs.s, cs.r, cs.z, cs.d, cs.rz, cs.done
+        delta = ns.delta
+        block_it = cs.block_it + (~done).any(0)
         small = torch.sqrt(torch.clamp(_dot_lm(r, z, group),
-                                       min=0.0)) <= cgtol
+                                       min=0.0)) <= cs.cgtol
 
-        Hd = hv(d)
+        Hd = _seg(_hv_lm(self.prob, ns.Dm.view(flat), d.view(flat), group), B)
         dHd = _dot_lm(d, Hd, group)
         alpha = _safe_div(rz, dHd, dHd > 0)
         s_try = s + alpha[..., None] * d
@@ -532,117 +685,35 @@ def _trcg(prob: MultiProblem, Dm, G, delta, max_cg_iter: int,
         take_bnd = step & boundary
         take_int = step & ~boundary
         bnd2, int2 = take_bnd[..., None], take_int[..., None]
-        s = torch.where(bnd2, s_bnd, torch.where(int2, s_try, s))
-        r = torch.where(bnd2, r_bnd, torch.where(int2, r_int, r))
-        z = torch.where(int2, z_int, z)
-        d = torch.where(int2, d_int, d)
-        rz = torch.where(take_int, rz_new, rz)
-        done = done | small | take_bnd
-        it += 1
-    snorm = torch.sqrt(torch.clamp(mdot(s, s), min=0.0))
-    return s, r, snorm, it, block_it
+        return cs._replace(
+            s=torch.where(bnd2, s_bnd, torch.where(int2, s_try, s)),
+            r=torch.where(bnd2, r_bnd, torch.where(int2, r_int, r)),
+            z=torch.where(int2, z_int, z),
+            d=torch.where(int2, d_int, d),
+            rz=torch.where(take_int, rz_new, rz),
+            done=done | small | take_bnd, it=cs.it + 1, block_it=block_it)
 
-
-def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
-               max_iter: int = 1000, max_cg_iter: int = 500,
-               precondition=False, blocks: int = 1,
-               group=None) -> MultiTronResult:
-    """Warm-started TRON over L simultaneous lambda-problems (Tron.java:30-124
-    per lane; stall thresholds as in mlease_tpu/ops/tron.py).
-
-    precondition=True or "jacobi" runs the Jacobi-preconditioned CG with an
-    M-norm trust region; "head_block" also solves the dense-head curvature
-    block exactly (HeadBlockPrecond; it needs the hybrid layout, one block
-    or a per-block head with blocks=B); False or "none" the reference CG.
-    The outer stop rule (euclidean ||g|| <= eps*||g0||) is the same for all.
-
-    blocks=B > 1 solves the stacked problem's B blocks (rows and columns in
-    B equal segments, as stack_blocks lays them out) as B independent
-    problems, each (lambda, block) lane with its own trust region, CG and
-    stop rule: the JAX package's vmap of tron_multi over blocks. eps is
-    then a scalar or (B,), one tolerance per block.
-
-    group (a torch.distributed process group) solves a problem whose
-    columns are sharded over the group's ranks (shard-local ids; W0 and the
-    priors this rank's (n_local, L) slices): the JAX package's axis_name.
-    Every rank of the group must make the same call."""
-    dtype = W0.dtype
-    N, L = W0.shape
-    B = int(blocks)
-    dev = W0.device
-    eps = torch.as_tensor(eps, dtype=dtype, device=dev).expand(L, B)
-    kind = {False: "none", True: "jacobi"}.get(precondition, precondition)
-    if kind not in ("none", "jacobi", "head_block"):
-        raise ValueError(
-            f"precondition must be False/True/'jacobi'/'head_block'; "
-            f"got {precondition!r}")
-    # a batched head needs one block per segment: the flat-blocks solve
-    # (B = 1 over a stacked head) has no per-block head Gram, as in JAX
-    if kind == "head_block" and (prob.head_x is None or (
-            prob.head_x.dim() == 3 and (B == 1
-                                        or prob.head_x.shape[0] != B))):
-        raise ValueError("head_block preconditioning needs the hybrid "
-                         "dense-head layout (head_size > 0, non-flat)")
-    if N % B or prob.y.shape[0] % B:
-        raise ValueError(f"blocks={B} does not divide the stacked problem's "
-                         f"{N} columns and {prob.y.shape[0]} rows")
-
-    # lanes-major inside: one transpose of the (n, L) inputs per solve; the
-    # state is (L, B, n) views of (L, B*n) tensors
-    prob = prob._replace(
-        prior_mean=prob.prior_mean.T.contiguous(),
-        prior_var_inv=torch.broadcast_to(
-            prob.prior_var_inv, prob.prior_mean.shape).T.contiguous())
-    flat = (L, -1)
-
-    def fgc(W, with_diag):
-        out = _fun_grad_curvature_lm(prob, W.view(flat), with_diag, B,
-                                     group)
-        return (out[0],) + tuple(_seg(t, B) for t in out[1:])
-
-    def precond_of(Dm, Hd):
-        if kind == "head_block":
-            return build_head_precond(prob, Dm.view(flat), Hd.view(flat))
-        return torch.clamp(Hd, min=1e-12)
-
-    W = _seg(W0.T.contiguous(), B)
-    gnorm1 = _norm_lm(_seg(_grad_at_zero_lm(prob, L), B), group)
-    if kind == "none":
-        F, G, Dm = fgc(W, False)
-        M = None
-        delta = _norm_lm(G, group)
-    else:
-        F, G, Dm, Hd0 = fgc(W, True)
-        M = precond_of(Dm, Hd0)
-        Minv_G = (_seg(_head_solve(M, G.view(flat)), B)
-                  if kind == "head_block" else G / M)
-        delta = torch.sqrt(_dot_lm(G, Minv_G, group))
-    gnorm = _norm_lm(G, group)
-    stall_rtol = 1e-12 if dtype == torch.float64 else 1e-5
-
-    it = torch.ones((L, B), dtype=torch.int32, device=dev)
-    active = gnorm > eps * gnorm1
-    block_nt = torch.zeros(B, dtype=torch.int64, device=dev)
-    block_cg = torch.zeros(B, dtype=torch.int64, device=dev)
-    trips = cg_trips = 0
-    while True:
-        # a block's loop runs while one of its lanes is active and under the
-        # cap; a block whose loop has ended keeps its whole state
-        running = (active & (it <= max_iter)).any(0, keepdim=True)  # (1, B)
-        if not bool(running.any()):
-            break
-        S, Rres, snorm, cg_it, cg_b = _trcg(prob, Dm, G, delta, max_cg_iter,
-                                            M, running, group)
+    # -- the Newton step after the CG loop --------------------------------
+    def epilogue(self, ns: NewtonState, cs: CgState) -> NewtonState:
+        """The trial point, its fused f/g/D (+ diag) data pass, the trust
+        region update and the accept select, for the blocks of
+        cs.running; the others keep their whole state."""
+        group, B, flat, kind = self.group, self.B, self.flat, self.kind
+        _, mdot = self._cg_ops(ns.M)
+        S, Rres, running = cs.s, cs.r, cs.running
+        snorm = torch.sqrt(torch.clamp(mdot(S, S), min=0.0))
+        W, F, G, Dm, M = ns.W, ns.F, ns.G, ns.Dm, ns.M
+        delta, it, active = ns.delta, ns.it, ns.active
         W_new = W + S
         gs = _dot_lm(G, S, group)
         prered = -0.5 * (gs - _dot_lm(S, Rres, group))
         # one fused data pass yields f/g/D (+ diag) at the trial point; the
         # accept select below discards them on rejection
         if kind == "none":
-            F_new, G_new, Dm_new = fgc(W_new, False)
+            F_new, G_new, Dm_new = self.fgc(W_new, False)
         else:
-            F_new, G_new, Dm_new, Hd_new = fgc(W_new, True)
-            M_new = precond_of(Dm_new, Hd_new)
+            F_new, G_new, Dm_new, Hd_new = self.fgc(W_new, True)
+            M_new = self.precond_of(Dm_new, Hd_new)
         actred = F - F_new
 
         delta = torch.where(running & (it == 1),
@@ -685,24 +756,75 @@ def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
                                  _seg(M.diag, B)).view(flat))
         elif kind == "jacobi":
             M = torch.where(acc3, M_new, M)
-        gnorm = torch.where(accept, _norm_lm(G_new, group), gnorm)
+        gnorm = torch.where(accept, _norm_lm(G_new, group), ns.gnorm)
         it = it + accept.to(torch.int32)
 
+        eps, gnorm1 = ns.eps, ns.gnorm1
         done = accept & (gnorm <= eps * gnorm1)
         done = done | (F < -1.0e32)
         done = done | ((torch.abs(actred) <= 0) & (prered <= 0))
-        done = done | ((torch.abs(actred) <= stall_rtol * torch.abs(F))
-                       & (torch.abs(prered) <= stall_rtol * torch.abs(F)))
-        active = active & ~(done & live)
-        block_nt += running[0]
-        block_cg += cg_b
-        trips += 1
-        cg_trips += cg_it
+        done = done | ((torch.abs(actred) <= self.stall_rtol * torch.abs(F))
+                       & (torch.abs(prered)
+                          <= self.stall_rtol * torch.abs(F)))
+        return ns._replace(
+            W=W, F=F, G=G, Dm=Dm, M=M, delta=delta, gnorm=gnorm, it=it,
+            active=active & ~(done & live),
+            block_nt=ns.block_nt + running[0],
+            block_cg=ns.block_cg + cs.block_it, trips=ns.trips + 1,
+            cg_trips=ns.cg_trips + cs.it)
 
-    def out(t):
-        return t[:, 0] if B == 1 else t
-    return MultiTronResult(
-        w=W.reshape(flat).T, f=out(F), gnorm=out(gnorm),
-        iterations=out(it - 1), converged=out(gnorm <= eps * gnorm1),
-        newton_trips=trips, cg_trips=cg_trips,
-        block_trips=torch.stack([block_nt, block_cg], 1).cpu().numpy())
+    # -- the result ---------------------------------------------------------
+    def block_trips(self, ns: NewtonState) -> torch.Tensor:
+        """(B, 2) int64 on the device: each block's Newton and CG trips."""
+        return torch.stack([ns.block_nt, ns.block_cg], 1)
+
+    def result(self, ns: NewtonState) -> MultiTronResult:
+        """The solve's result, with the trip counters read to the host."""
+        def out(t):
+            return t[:, 0] if self.B == 1 else t
+        return MultiTronResult(
+            w=ns.W.reshape(self.flat).T, f=out(ns.F), gnorm=out(ns.gnorm),
+            iterations=out(ns.it - 1),
+            converged=out(ns.gnorm <= ns.eps * ns.gnorm1),
+            newton_trips=int(ns.trips), cg_trips=int(ns.cg_trips),
+            block_trips=self.block_trips(ns).cpu().numpy())
+
+
+def tron_multi(prob: MultiProblem, W0: torch.Tensor, eps,
+               max_iter: int = 1000, max_cg_iter: int = 500,
+               precondition=False, blocks: int = 1,
+               group=None) -> MultiTronResult:
+    """Warm-started TRON over L simultaneous lambda-problems (Tron.java:30-124
+    per lane; stall thresholds as in mlease_tpu/ops/tron.py).
+
+    precondition=True or "jacobi" runs the Jacobi-preconditioned CG with an
+    M-norm trust region; "head_block" also solves the dense-head curvature
+    block exactly (HeadBlockPrecond; it needs the hybrid layout, one block
+    or a per-block head with blocks=B); False or "none" the reference CG.
+    The outer stop rule (euclidean ||g|| <= eps*||g0||) is the same for all.
+
+    blocks=B > 1 solves the stacked problem's B blocks (rows and columns in
+    B equal segments, as stack_blocks lays them out) as B independent
+    problems, each (lambda, block) lane with its own trust region, CG and
+    stop rule: the JAX package's vmap of tron_multi over blocks. eps is
+    then a scalar or (B,), one tolerance per block.
+
+    group (a torch.distributed process group) solves a problem whose
+    columns are sharded over the group's ranks (shard-local ids; W0 and the
+    priors this rank's (n_local, L) slices): the JAX package's axis_name.
+    Every rank of the group must make the same call.
+
+    The loops run on the host: one read of "any lane open" per CG trip and
+    per Newton trip (MultiSolver holds the trips themselves)."""
+    solver = MultiSolver(lanes_major(prob), W0.shape[1], precondition,
+                         blocks, max_iter, max_cg_iter, group)
+    ns = solver.init(W0, eps)
+    while True:
+        running = solver.running(ns)
+        if not bool(running.any()):
+            break
+        cs = solver.cg_init(ns, running)
+        while bool(solver.cg_open(cs)):
+            cs = solver.cg_trip(ns, cs)
+        ns = solver.epilogue(ns, cs)
+    return solver.result(ns)

@@ -33,8 +33,12 @@ all_reduce(SUM) of the (2, L, n) partial sums per iteration, padded blocks
 masked out. z is replicated; every rank returns the same result (u gathered
 to (L, B, n), the trips the maxima over the ranks).
 
-Not ported yet (NotImplementedError, see ROADMAP.md): `run_fused` (A1, with
-A10b) and a bfloat16 compute dtype (A15).
+`run_fused` runs the same iteration with the whole driver loop on the
+device (`_FusedRun`: five branches over a static state, looped on the card
+by ops/device_loop.py), for the flat and per-block solves.
+
+Not ported yet (NotImplementedError, see ROADMAP.md): `run_fused` of the
+lanes solve or under a mesh (A1b) and a bfloat16 compute dtype (A15).
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from typing import Any, Callable, Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from mlease_tpu_torch.core.dataset import (BlockedData, csc_arrays, pack_rows,
                                            to_hybrid)
@@ -54,7 +59,11 @@ from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
 from mlease_tpu_torch.ops.objective import LRProblem, class_balance_eps_scale
 from mlease_tpu_torch.ops.tron import tron
-from mlease_tpu_torch.ops.tron_multi import (MultiProblem, stack_blocks,
+from mlease_tpu_torch.ops.device_loop import DeviceLoop
+from mlease_tpu_torch.ops.gram import gram_batched
+from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+from mlease_tpu_torch.ops.tron_multi import (MultiProblem, MultiSolver,
+                                             lanes_major, stack_blocks,
                                              tron_multi, with_prior)
 from mlease_tpu_torch.collectives import all_gather, all_reduce, max_over
 from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, axis_size,
@@ -121,6 +130,8 @@ class AdmmResult:
     u: np.ndarray                                  # (L, B, n) final duals
     converged: bool
     wall_time: float = 0.0
+    compile_time: float = 0.0   # run_fused: warm-up and capture, not in wall
+    loop_counts: dict = field(default_factory=dict)  # run_fused: what ran
     iter_times: list[float] = field(default_factory=list)  # seconds/iteration
     solver_stats: list[dict] = field(default_factory=list)  # per-iteration
     # {"newton_trips": int, "cg_trips": int} lock-step loop-trip counts
@@ -213,6 +224,25 @@ def unstack_problem(prob: MultiProblem, B: int, n: int, dtype,
         prior_mean=None, prior_var_inv=None, **kw)
 
 
+def x_prior(z: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Each block's prior mean z - u_b, (L, B, n)."""
+    return z[:, None, :] - u
+
+
+def multi_problem(prob: MultiProblem, mode: str, B: int) -> MultiProblem:
+    """The stacked problem as the multi-RHS solve of `mode` takes it: a
+    one-block per-block solve gets its head unbatched."""
+    if B == 1 and mode == "per_block" and prob.head_x is not None \
+            and prob.head_x.dim() == 3:
+        return prob._replace(head_x=prob.head_x[0])
+    return prob
+
+
+def w_to_x(w: torch.Tensor, B: int, n: int) -> torch.Tensor:
+    """A multi-RHS solution (B*n, L) as the (L, B, n) x-update (a view)."""
+    return w.reshape(B, n, w.shape[1]).permute(2, 0, 1)
+
+
 def build_x_update(mode: str, max_newton_iter: int, max_cg_iter: int,
                    pcg: Any = True, relaxation: float = 1.0) -> Callable:
     """The (lambda x block) x-update of one set of blocks, without the
@@ -231,7 +261,7 @@ def build_x_update(mode: str, max_newton_iter: int, max_cg_iter: int,
     def solve(prob, present, z, u, rho_eff, eps):
         L, n = z.shape
         B = u.shape[1]
-        prior_mean = z[:, None, :] - u                        # (L, B, n)
+        prior_mean = x_prior(z, u)                            # (L, B, n)
         if mode == "lanes":
             P = L * B
             lanes = prob._replace(
@@ -246,16 +276,17 @@ def build_x_update(mode: str, max_newton_iter: int, max_cg_iter: int,
                                 1).cpu().numpy()
         else:
             blocks = B if mode == "per_block" else 1
-            if blocks == 1 and mode == "per_block" \
-                    and prob.head_x is not None and prob.head_x.dim() == 3:
-                prob = prob._replace(head_x=prob.head_x[0])  # its own head
-            r = tron_multi(with_prior(prob, prior_mean, rho_eff),
+            r = tron_multi(with_prior(multi_problem(prob, mode, B),
+                                      prior_mean, rho_eff),
                            z.T.repeat(B, 1),
                            eps if blocks > 1 else eps.min(),
                            max_iter=max_newton_iter, max_cg_iter=max_cg_iter,
                            precondition=pcg, blocks=blocks)
-            x = r.w.reshape(B, n, L).permute(2, 0, 1)        # (L, B, n)
+            x = w_to_x(r.w, B, n)
             trips = r.block_trips
+        return finish(x, present, prior_mean, z), trips
+
+    def finish(x, present, prior_mean, z):
         # absent-feature exactness: features with no data in block b solve
         # to the prior mean z - u_b (LibLinear.java:373-397)
         x = torch.where(present[None, :, :], x, prior_mean)
@@ -263,8 +294,9 @@ def build_x_update(mode: str, max_newton_iter: int, max_cg_iter: int,
             # over-relaxation x_hat = alpha*x + (1-alpha)*z, post-masking
             # (Boyd et al. 2011 section 3.4.3; off, alpha = 1, by default)
             x = relaxation * x + (1.0 - relaxation) * z[:, None, :]
-        return x, trips
+        return x
 
+    solve.finish = finish
     return solve
 
 
@@ -287,19 +319,18 @@ def build_admm_step(nblocks: int, regularizer: int, intercept_index: int | None,
     all_reduce(SUM) over the group and the trip maxima one all_reduce(MAX),
     so every rank gets the same z. block_valid (B,) bool masks padded
     blocks out of the sums (torch.where, so a NaN in one cannot leak) and
-    keeps their duals at 0."""
+    keeps their duals at 0. `step.solve` is the x-update (build_x_update)
+    and `step.consensus(x, z, u, lam_vec, rho_base, block_valid)` the rest
+    of the iteration, on the device; `step` reads the trip maxima to the
+    host."""
     if regularizer not in (1, 2):
         raise ValueError("Only L1 and L2 regularization supported!")
     solve = build_x_update(mode, max_newton_iter, max_cg_iter, pcg,
                            relaxation)
 
-    def step(prob, present, z, u, lam_vec, rho_eff, rho_base, eps,
-             block_valid=None):
-        # rho_eff (boost/decay-adapted) shapes only the x-subproblem prior;
-        # the consensus z-update uses the base rho
-        # (RegressionAdmmTrain.java:368-380, :648-658)
-        x, trips = solve(prob, present, z, u, rho_eff, eps)
-        trip_max = trips.max(0)
+    def consensus(x, z, u, lam_vec, rho_base, block_valid=None):
+        """The consensus, z-update, dual update and diffs of an x-update
+        (L, B, n), all on the device: (z_new, u_new, diffs (L,))."""
         if block_valid is not None:
             bv = block_valid[None, :, None]
             x = torch.where(bv, x, torch.zeros_like(x))
@@ -308,10 +339,10 @@ def build_admm_step(nblocks: int, regularizer: int, intercept_index: int | None,
         sums = torch.stack([x.sum(1), u.sum(1)])             # (2, L, n)
         if group is not None:
             all_reduce(sums, "sum", group)
-            trip_max = max_over(trip_max, group, z.device)
-        stats = {"newton_trips": int(trip_max[0]),
-                 "cg_trips": int(trip_max[1])}
         v = sums[0] / nblocks + sums[1] / nblocks             # xbar + ubar
+        # rho_eff (boost/decay-adapted) shapes only the x-subproblem prior;
+        # the consensus z-update uses the base rho
+        # (RegressionAdmmTrain.java:368-380, :648-658)
         rho = rho_base[:, None]
         if regularizer == 2:
             z_new = admm_math.z_update_l2(v, lam_vec, rho, nblocks,
@@ -324,8 +355,22 @@ def build_admm_step(nblocks: int, regularizer: int, intercept_index: int | None,
         if block_valid is not None:
             u_new = torch.where(bv, u_new, torch.zeros_like(u_new))
         diffs = admm_math.max_abs_diff(z_new, z, axis=-1)
+        return z_new, u_new, diffs
+
+    def step(prob, present, z, u, lam_vec, rho_eff, rho_base, eps,
+             block_valid=None):
+        x, trips = solve(prob, present, z, u, rho_eff, eps)
+        z_new, u_new, diffs = consensus(x, z, u, lam_vec, rho_base,
+                                        block_valid)
+        trip_max = trips.max(0)
+        if group is not None:
+            trip_max = max_over(trip_max, group, z.device)
+        stats = {"newton_trips": int(trip_max[0]),
+                 "cg_trips": int(trip_max[1])}
         return z_new, u_new, diffs, stats
 
+    step.solve = solve
+    step.consensus = consensus
     return step
 
 
@@ -446,10 +491,125 @@ class AdmmTrainer:
     def sample_loglik(self, z: torch.Tensor) -> np.ndarray:
         return sample_loglik_lanes(*self.test_arrays, z).cpu().numpy()
 
-    def run_fused(self, *args, **kwargs):
-        raise NotImplementedError(
-            "run_fused (the on-device driver loop) is not ported yet; use "
-            "run() (ROADMAP.md item A1, with A10b)")
+    def run_fused(self, z0: np.ndarray | None = None, *,
+                  checkpoint_every: int | None = None,
+                  callback: Callable | None = None) -> AdmmResult:
+        """The whole ADMM driver loop on the device, run() without the host
+        in the loop: the inner-eps ladder, the rho schedule (a table made
+        on the host by admm_math.rho_effective, put on the device once),
+        the stop rule, the per-iteration sample loglik and best-model
+        tracking, as the JAX package's run_fused (one lax.while_loop per
+        checkpoint chunk). On a CUDA device the loop is a CUDA graph that
+        loops on the card (ops/device_loop.py): one launch and one blocking
+        read per chunk, none inside it. On the CPU the same branches run
+        eagerly. Either way the result is run()'s, bit for bit: the same
+        ops on the same values in the same order.
+
+        checkpoint_every=None runs the whole training as one chunk;
+        checkpoint_every=C pauses every C iterations to call
+        callback(iteration=, z=, u=, diffs=, inner_eps=, logliks=) with the
+        latest state (z and u copies on the device, each loglik entry
+        delivered once). compile_time holds the warm-up and capture
+        seconds, which wall_time leaves out; iter_times is wall / iterations
+        per iteration and solver_stats one entry of the trip totals (the
+        sums of the per-iteration maxima); loop_counts what the loop ran
+        (DeviceLoop.counts: branch executions, and on the card the K1 and
+        K2 executions counted on the card). The loop's graphs and state
+        are freed before run_fused returns.
+
+        Not ported (NotImplementedError, ROADMAP.md A1b): the lanes solve
+        (multi_rhs=False, dual_layout) and a mesh (NCCL inside a graph)."""
+        cfg = self.config
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "run_fused under a mesh is not ported (ROADMAP.md item A1b: "
+                "its collectives would be NCCL calls inside the CUDA graph, "
+                "and gloo cannot be captured); use run()")
+        if self.mode == "lanes":
+            raise NotImplementedError(
+                "run_fused of the lanes solve (multi_rhs=False or "
+                "dual_layout, ops/tron.py's own loops) is not ported "
+                "(ROADMAP.md item A1b); use run()")
+        L, max_it = len(self.lambdas), cfg.num_iters
+        track_ll = self.test_arrays is not None and cfg.test_loglik_per_iter
+
+        t0 = time.monotonic()
+        st = _FusedRun(self, z0, track_ll)
+        loop = st.loop
+        try:
+            loop.prepare()
+            if st.on_card:
+                torch.cuda.synchronize(self.device)
+            compile_time = time.monotonic() - t0
+            t_start = time.monotonic()
+            chunk = (max_it if checkpoint_every is None
+                     else max(int(checkpoint_every), 1))
+            it_now, done, seen_ll = 1, False, 0
+            while not done and it_now <= max_it:
+                st.start_chunk(min(it_now + chunk - 1, max_it))
+                loop.run()
+                it_now = int(st.it)          # the chunk's one blocking read
+                done = bool(st.done)
+                if callback is None:
+                    continue
+                diffs_row = st.diffs_h[it_now - 1].to(torch.float64)
+                logliks = None
+                if track_ll:
+                    ll_chunk = st.ll_h.to(torch.float64).cpu().numpy()
+                    logliks = [
+                        {"lambda": _lambda_key(lam), "iter": i,
+                         "testLoglik": float(ll)}
+                        for i in range(seen_ll + 1, it_now)
+                        for lam, ll in zip(self.lambdas, ll_chunk[i])]
+                    seen_ll = it_now - 1
+                callback(iteration=it_now - 1, z=st.z.clone(),
+                         u=st.u[:, :self.nblocks].clone(),
+                         diffs=diffs_row.cpu().numpy(),
+                         inner_eps=float(st.inner_eps), logliks=logliks)
+            diffs_np = st.diffs_h.to(torch.float64).cpu().numpy()
+            wall = time.monotonic() - t_start
+            loop_counts = loop.counts()
+        finally:
+            loop.close()
+        iterations = it_now - 1
+
+        ll_np = st.ll_h.to(torch.float64).cpu().numpy()
+        loglik_history: list[dict] = []
+        if z0 is not None and track_ll:
+            for lam, ll in zip(self.lambdas, self.sample_loglik(st.z0)):
+                loglik_history.append({"lambda": _lambda_key(lam), "iter": 0,
+                                       "testLoglik": float(ll)})
+        diff_history = []
+        for i in range(1, iterations + 1):
+            diff_history.append({_lambda_key(lam): float(d) for lam, d
+                                 in zip(self.lambdas, diffs_np[i])})
+            if track_ll:
+                for lam, ll in zip(self.lambdas, ll_np[i]):
+                    loglik_history.append({"lambda": _lambda_key(lam),
+                                           "iter": i,
+                                           "testLoglik": float(ll)})
+        best_model = best_lambda = None
+        best_loglik = float(st.best_ll)
+        if track_ll and best_loglik > -9999998.0:
+            best_model = LinearModel.from_dense(
+                st.best_z.to(torch.float64).cpu().numpy(), self.vocab)
+            best_lambda = _lambda_key(self.lambdas[int(st.best_lam)])
+        else:
+            best_loglik = -9999999.0
+        z_np = st.z.to(torch.float64).cpu().numpy()
+        models = {
+            _lambda_key(lam): LinearModel.from_dense(z_np[i], self.vocab)
+            for i, lam in enumerate(self.lambdas)}
+        return AdmmResult(
+            models=models, best_model=best_model, best_lambda=best_lambda,
+            best_loglik=best_loglik, iterations=iterations,
+            sample_loglik_history=loglik_history, diff_history=diff_history,
+            iter_times=[wall / max(iterations, 1)] * iterations,
+            solver_stats=[{"newton_trips": int(st.nt_tot),
+                           "cg_trips": int(st.cg_tot)}],
+            z=z_np, u=st.u[:, :self.nblocks].to(torch.float64).cpu().numpy(),
+            converged=done, wall_time=wall, compile_time=compile_time,
+            loop_counts=loop_counts)
 
     # ------------------------------------------------------------------
     def run(self, z0: np.ndarray | None = None,
@@ -577,3 +737,203 @@ class AdmmTrainer:
         if self.mesh is not None:
             u = all_gather(u, self._group, dim=1)
         return u[:, :self.nblocks]
+
+
+class _FusedRun:
+    """run_fused's static state and the five branches of its device loop.
+
+    Every tensor here is made before the loop; each branch reads and
+    writes only these (MultiSolver's states copied in place) and sets the
+    next phase. A pass of the loop takes the branches in the order
+    CG, EPILOGUE, ITER_END, ITER_START, CG_START, so one pass can run a CG
+    trip, the Newton step after it, the end of the ADMM iteration and the
+    next one's start. Each branch does what run() does at that point, with
+    the same ops in the same order:
+
+      ITER_START  the inner-eps ladder, the rho row, eps, the priors z - u,
+                  the Newton init (MultiSolver.init) and its running mask;
+      CG_START    MultiSolver.cg_init;
+      CG          one MultiSolver.cg_trip;
+      EPILOGUE    MultiSolver.epilogue and the next running mask;
+      ITER_END    the mask and relaxation of the x-update, the consensus,
+                  z- and u-updates and diffs (step.consensus), the trip
+                  maxima, the sample loglik and best-model tracking and
+                  the stop rule (maxdiff in float64 against epsilon, as
+                  run() compares), then the next iteration or a stop."""
+
+    CG, EPILOGUE, ITER_END, ITER_START, CG_START = 1, 2, 3, 4, 5
+
+    def __init__(self, trainer: AdmmTrainer, z0, track_ll: bool):
+        self.tr = tr = trainer
+        cfg = tr.config
+        dev, dtype = tr.device, cfg.dtype
+        self.on_card = dev.type == "cuda"
+        L, n, B = len(tr.lambdas), tr.dim, tr.data.nblocks
+        self.max_it = max_it = cfg.num_iters
+        self.track_ll = track_ll
+        self.B, self.n = B, n
+
+        def full(shape, value, dt=dtype):
+            return torch.full(shape, value, dtype=dt, device=dev)
+
+        self.z0 = (None if z0 is None else torch.as_tensor(
+            np.broadcast_to(z0, (L, n)).copy(), dtype=dtype, device=dev))
+        self.z = (full((L, n), 0.0) if z0 is None else self.z0.clone())
+        self.u = full((L, B, n), 0.0)
+        self.inner_eps = full((), cfg.liblinear_epsilon, torch.float64)
+        self.mindiff = full((), 99999999.0, torch.float64)
+        self.it = full((), 1, torch.int64)
+        self.chunk_end = full((), 0, torch.int64)
+        self.done = full((), False, torch.bool)
+        self.diffs_h = full((max_it + 1, L), float("nan"))
+        self.ll_h = full((max_it + 1, L), float("nan"))
+        self.best_ll = full((), -9999999.0)
+        self.best_z = full((n,), 0.0)
+        self.best_lam = full((), 0, torch.int64)
+        self.best_it = full((), 0, torch.int64)
+        self.nt_tot = full((), 0, torch.int64)
+        self.cg_tot = full((), 0, torch.int64)
+        self.phase = full((), 0, torch.int32)
+        # rho_eff per iteration, made by run()'s own function (row 0 is
+        # iteration 1's, never read)
+        boost = cfg.initialize_boost_rate if z0 is not None else 0.0
+        self.rho_tab = torch.as_tensor([
+            [admm_math.rho_effective(
+                r, max(i, 1), initialize_boost_rate=boost,
+                rho_adapt_coefficient=cfg.rho_adapt_coefficient)
+             for r in tr.rhos] for i in range(max_it + 1)],
+            dtype=dtype, device=dev)
+        self.rho_base = torch.as_tensor(tr.rhos, dtype=dtype, device=dev)
+
+        # the solve, over the stacked problem with its priors in place
+        self.blocks = B if tr.mode == "per_block" else 1
+        self.solve = tr.step.solve
+        prob = multi_problem(tr.prob, tr.mode, B)
+        self.prob = prob
+        pl = self._priors(self.rho_tab[1])
+        self.pm = _materialize(pl.prior_mean)
+        self.pvi = _materialize(pl.prior_var_inv)
+        self.solver = MultiSolver(
+            pl._replace(prior_mean=self.pm, prior_var_inv=self.pvi), L,
+            cfg.pcg, self.blocks, cfg.max_newton_iter, cfg.max_cg_iter)
+        ns = self.solver.init(self.z.T.repeat(B, 1), self._eps())
+        self.ns = _materialize(ns)
+        self.running = _materialize(self.solver.running(self.ns))
+        self.cs = _materialize(self.solver.cg_init(self.ns, self.running))
+
+        state = [self.z, self.u, self.inner_eps, self.mindiff, self.it,
+                 self.done, self.diffs_h, self.ll_h, self.best_ll,
+                 self.best_z, self.best_lam, self.best_it, self.nt_tot,
+                 self.cg_tot, self.pm, self.pvi, self.running,
+                 *_leaves(self.ns), *_leaves(self.cs)]
+        self.loop = DeviceLoop(
+            [(self.CG, "cg_trip", self.cg_trip),
+             (self.EPILOGUE, "newton_epilogue", self.epilogue),
+             (self.ITER_END, "iteration_end", self.iteration_end),
+             (self.ITER_START, "iteration_start", self.iteration_start),
+             (self.CG_START, "cg_init", self.cg_init)],
+            self.phase, state,
+            kernels={"segment_sum_gather": segment_sum_sorted,
+                     "gram_batched": gram_batched})
+
+    def _priors(self, rho_eff):
+        return lanes_major(with_prior(self.prob, x_prior(self.z, self.u),
+                                      rho_eff))
+
+    def _eps(self):
+        # run() computes inner_eps * eps_scale from a Python float: the
+        # scalar is rounded to the compute dtype, as here
+        eps = self.inner_eps.to(self.tr.config.dtype) * self.tr.eps_scale
+        return eps if self.blocks > 1 else eps.min()
+
+    def _next(self, cond, yes, no):
+        self.phase.copy_(torch.where(cond, yes, no))
+
+    def start_chunk(self, last_iteration: int) -> None:
+        """Run iterations up to `last_iteration` (no host read)."""
+        self.chunk_end.fill_(last_iteration)
+        self.phase.fill_(self.ITER_START)
+
+    # -- branches ---------------------------------------------------------
+    def iteration_start(self):
+        cfg = self.tr.config
+        it, ie = self.it, self.inner_eps
+        if cfg.aggressive_liblinear_epsilon_decay:
+            ie_new = torch.where(it > 5, ie / 10.0, ie)
+        else:
+            ie_new = torch.where((it > 1) & (self.mindiff < 0.001),
+                                 ie / 10.0, ie)
+        ie.copy_(ie_new)
+        pl = self._priors(self.rho_tab.index_select(0, it.view(1))[0])
+        self.pm.copy_(pl.prior_mean)
+        self.pvi.copy_(pl.prior_var_inv)
+        _assign(self.ns, self.solver.init(self.z.T.repeat(self.B, 1),
+                                          self._eps()))
+        self.running.copy_(self.solver.running(self.ns))
+        self._next(self.running.any(), self.CG_START, self.ITER_END)
+
+    def cg_init(self):
+        _assign(self.cs, self.solver.cg_init(self.ns, self.running))
+        self._next(self.solver.cg_open(self.cs), self.CG, self.EPILOGUE)
+
+    def cg_trip(self):
+        _assign(self.cs, self.solver.cg_trip(self.ns, self.cs))
+        self._next(self.solver.cg_open(self.cs), self.CG, self.EPILOGUE)
+
+    def epilogue(self):
+        _assign(self.ns, self.solver.epilogue(self.ns, self.cs))
+        self.running.copy_(self.solver.running(self.ns))
+        self._next(self.running.any(), self.CG_START, self.ITER_END)
+
+    def iteration_end(self):
+        tr, cfg, it = self.tr, self.tr.config, self.it
+        prior_mean = x_prior(self.z, self.u)
+        x = self.solve.finish(
+            w_to_x(self.ns.W.reshape(len(tr.lambdas), -1).T, self.B, self.n),
+            tr.present, prior_mean, self.z)
+        z_new, u_new, diffs = tr.step.consensus(x, self.z, self.u,
+                                                tr.lam_vec, self.rho_base)
+        self.diffs_h.index_copy_(0, it.view(1), diffs[None])
+        trip_max = self.solver.block_trips(self.ns).amax(0)
+        self.nt_tot += trip_max[0]
+        self.cg_tot += trip_max[1]
+        d64 = diffs.to(torch.float64)
+        self.mindiff.copy_(d64.min())
+        if self.track_ll:
+            ll = sample_loglik_lanes(*tr.test_arrays, z_new)
+            self.ll_h.index_copy_(0, it.view(1), ll[None])
+            # run()'s lambda-order scan with a strict >: the first maximum
+            bi = torch.argmax(ll)
+            top = ll.index_select(0, bi.view(1))[0]
+            better = top > self.best_ll
+            self.best_ll.copy_(torch.where(better, top, self.best_ll))
+            self.best_z.copy_(torch.where(
+                better, z_new.index_select(0, bi.view(1))[0], self.best_z))
+            self.best_lam.copy_(torch.where(better, bi, self.best_lam))
+            self.best_it.copy_(torch.where(better, it, self.best_it))
+        self.done.copy_((d64.max() < cfg.epsilon)
+                        & (self.inner_eps <= cfg.inner_eps_floor))
+        self.z.copy_(z_new)
+        self.u.copy_(u_new)
+        it += 1
+        self._next(~self.done & (it <= self.chunk_end), self.ITER_START, 0)
+
+
+def _leaves(tree) -> list[torch.Tensor]:
+    return [t for t in pytree.tree_leaves(tree) if t is not None]
+
+
+def _materialize(tree):
+    """A copy of every tensor of a state (NamedTuples nested, None kept),
+    dense and owned, to be written in place by the device loop."""
+    leaves, spec = pytree.tree_flatten(tree)
+    return pytree.tree_unflatten(
+        [None if t is None else torch.empty_like(
+            t, memory_format=torch.contiguous_format).copy_(t)
+         for t in leaves], spec)
+
+
+def _assign(dst, src) -> None:
+    """Copy a state into the static state of the same structure."""
+    for d, s in zip(_leaves(dst), _leaves(src), strict=True):
+        d.copy_(s)

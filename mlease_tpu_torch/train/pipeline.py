@@ -33,8 +33,18 @@ pipeline on the whole input; rank 0 alone writes files (outputs,
 checkpoints, initialModel/, the pack cache, the overwrite's rmtree) and the
 others wait for it at barriers. Outside a launcher, use.mesh with at most
 one device starts a one-rank process group itself.
-The job key of a path not ported yet raises NotImplementedError instead of
-running something else: fused.loop.
+`fused.loop = true` trains in memory with AdmmTrainer.run_fused (the
+driver loop on the device: a CUDA graph that loops on the card, or the
+same branches eagerly on the CPU) under the JAX pipeline's conditions:
+not when resuming from a checkpoint, not with write.train.output, not for
+a streaming or feature-sharded job (which ignore it); `checkpoint.every =
+C` writes a checkpoint and the chunk's sample-test-loglik files every C
+iterations, and `fused.device.budget.gb` (10) warns when the estimated
+footprint passes it. After a streaming run with no mesh the pipeline logs
+the pass-floor decomposition (utils/floor.py).
+A job key of a path not ported yet raises NotImplementedError instead of
+running something else: fused.loop on the lanes solve or under use.mesh
+(ROADMAP.md A1b).
 """
 
 from __future__ import annotations
@@ -66,12 +76,13 @@ from mlease_tpu_torch.io.records import (feature_key, normalize_row,
 from mlease_tpu_torch.parallel import distributed
 from mlease_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 from mlease_tpu_torch.train.admm import (AdmmConfig, AdmmResult, AdmmTrainer,
-                                         _lambda_key)
+                                         _lambda_key, solver_mode)
 from mlease_tpu_torch.train.feature_sharded import FeatureShardedAdmmTrainer
 from mlease_tpu_torch.train.naive import NaiveConfig, train_naive
 from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
 from mlease_tpu_torch.utils import checkpoint as ckpt
 from mlease_tpu_torch.utils.config import JobConfig
+from mlease_tpu_torch.utils.floor import measure_put_bandwidth, streaming_floor
 from mlease_tpu_torch.utils.profiling import trace
 
 logger = logging.getLogger(__name__)
@@ -131,16 +142,61 @@ def admm_config_from_job(config: JobConfig, dtype=None) -> AdmmConfig:
 
 
 def _reject_unported(config: JobConfig, cfg: AdmmConfig) -> None:
-    """Job keys whose paths are not ported raise here, before any work."""
-    unported = [
-        ("fused.loop", config.get_boolean("fused.loop", False),
-         "AdmmTrainer.run_fused", "A1, with A10b"),
-    ]
-    for key, hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"job key {key!r} needs {what}, which is not ported to "
-                f"mlease_tpu_torch yet (ROADMAP.md item {item})")
+    """Job keys whose paths are not ported raise here, before any work:
+    fused.loop on an in-memory job whose solve is the lanes solve or which
+    runs under use.mesh (run_fused's A1b)."""
+    in_memory = (config.get_int("streaming.groups", 0) <= 1
+                 and config.get_int("mesh.feature.shards", 0) <= 1)
+    if config.get_boolean("fused.loop", False) and in_memory and (
+            config.get_boolean("use.mesh", False)
+            or solver_mode(cfg.multi_rhs, cfg.flat_blocks, cfg.dual_layout,
+                           cfg.pcg) == "lanes"):
+        raise NotImplementedError(
+            "job key 'fused.loop' with use.mesh, multi.rhs=false or "
+            "dual.layout needs AdmmTrainer.run_fused on the lanes solve or "
+            "a mesh, which is not ported to mlease_tpu_torch yet (ROADMAP.md "
+            "item A1b)")
+
+
+def _warn_fused_footprint(config: JobConfig, cfg: AdmmConfig, data) -> None:
+    """fused.device.budget.gb: the JAX pipeline's rough device-bytes
+    estimate of a fused run (data arrays + the carried state, (L, B, n) u
+    and the multi-RHS solver workspace), with a warning past the budget."""
+    L = len(cfg.lambdas)
+    est = sum(int(getattr(data, f).nbytes)
+              for f in ("indices", "values", "head", "tail_rows",
+                        "tail_cols", "tail_vals", "tail_c_rows",
+                        "tail_c_cols", "tail_c_vals")
+              if getattr(data, f, None) is not None)
+    est += 12 * 4 * L * (data.nblocks + 1) * data.dim  # u/z/solver ws
+    budget = config.get_float("fused.device.budget.gb", 10.0)
+    if est > budget * (1 << 30):
+        logger.warning(
+            "fused.loop at ~%.1f GB estimated device footprint (budget "
+            "%.1f GB): the whole problem, its state and the loop's graph "
+            "memory stay on the card, and past its memory the run fails "
+            "out of memory — prefer streaming.groups=N (resident-head mode "
+            "keeps the hot columns on the card) or fused.loop=false",
+            est / (1 << 30), budget)
+
+
+def _log_streaming_floor(trainer, result, n_lambdas: int) -> None:
+    """The probe-composed utilization of a streamed run, logged so that
+    every streaming run records its distance from the measured per-pass
+    floor (utils/floor.py); "source" says why when no table applies.
+    Accounting never fails the job."""
+    if not result.iter_times:
+        return
+    try:
+        steady = (float(np.median(result.iter_times[1:]))
+                  if len(result.iter_times) > 1 else result.iter_times[0])
+        sf = streaming_floor(
+            trainer.groups, trainer.trip_log, trainer.stream_wire_bytes(),
+            steady, measure_put_bandwidth(device=trainer.device), n_lambdas,
+            device=trainer.device)
+        logger.info("streaming pass-floor decomposition: %s", json.dumps(sf))
+    except Exception as e:  # noqa: BLE001 - accounting never fails the job
+        logger.info("pass-floor decomposition unavailable: %r", e)
 
 
 def _job_mesh(config: JobConfig, device):
@@ -419,8 +475,40 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
     else:
         trainer = AdmmTrainer(data, vocab, cfg, test_rows=test_rows,
                               device=device, mesh=mesh)
+    # fused.loop=true: the driver loop on the device (run_fused), the same
+    # result as run(); iter-i interop dumps need per-iteration u deltas, so
+    # write.train.output keeps the host loop, as does a resume
+    fused = (streaming_groups <= 1 and config.get_boolean("fused.loop", False)
+             and "start_iteration" not in run_kwargs
+             and not write_train_output)
     with trace(config.get_string("profile.dir", "") if main else ""):
-        result = trainer.run(callback=on_iteration, **run_kwargs)
+        if fused:
+            _warn_fused_footprint(config, cfg, data)
+
+            def on_chunk(iteration, z, u, diffs, inner_eps, logliks=None):
+                ckpt.save_checkpoint(ckpt_dir, iteration, z.cpu().numpy(),
+                                     u.cpu().numpy(), inner_eps=inner_eps,
+                                     mindiff=float(np.min(diffs)),
+                                     best_loglik=-9999999.0)
+                if not keep_all:
+                    ckpt.prune_checkpoints(ckpt_dir, keep=keep_n)
+                by_iter: dict[int, list] = {}
+                for entry in logliks or []:
+                    by_iter.setdefault(entry["iter"], []).append(entry)
+                for it, entries in by_iter.items():
+                    avro.write_records(
+                        os.path.join(out_base, "sample-test-loglik",
+                                     f"iteration-{it}.avro"),
+                        schemas.SAMPLE_TEST_LOGLIK, entries)
+
+            result = trainer.run_fused(
+                z0=run_kwargs.get("z0"),
+                checkpoint_every=config.get_int("checkpoint.every", 0) or None,
+                callback=on_chunk)
+        else:
+            result = trainer.run(callback=on_iteration, **run_kwargs)
+    if streaming_groups > 1 and mesh is None:
+        _log_streaming_floor(trainer, result, len(cfg.lambdas))
     return _write_pipeline_outputs(config, result, out_base, test_path,
                                    test_records, ignore_value, device, main)
 

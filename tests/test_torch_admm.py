@@ -183,15 +183,16 @@ def test_unported_paths_raise(kw):
     per-iteration trip counts (the per-block maxima for flat_blocks=False
     and head_block, the per-lane maxima of accepted Newton and CG
     iterations for multi_rhs=False and dual_layout). A bfloat16 compute
-    dtype (A15) and run_fused (A1, with A10b) still raise."""
+    dtype (A15) still raises, and so does run_fused of the lanes solve
+    (A1b; tests/test_torch_fused.py holds the modes it runs)."""
     data, vocab, test_rows = problem(seed=23, n_rows=240)
     if "dtype" in kw:
         with pytest.raises(NotImplementedError, match="A15"):
             AdmmTrainer(data, vocab, AdmmConfig(lambdas=[1.0], **kw),
                         device="cpu")
-        trainer = AdmmTrainer(data, vocab, AdmmConfig(dtype=torch.float64),
-                              device="cpu")
-        with pytest.raises(NotImplementedError, match="run_fused"):
+        trainer = AdmmTrainer(data, vocab, AdmmConfig(
+            dtype=torch.float64, multi_rhs=False), device="cpu")
+        with pytest.raises(NotImplementedError, match="A1b"):
             trainer.run_fused()
         return
     jcfg, tcfg = configs(num_iters=4, **kw)

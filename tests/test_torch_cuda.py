@@ -658,3 +658,69 @@ def test_per_block_head_gram_matches_reference(cuda, monkeypatch,
     assert set(calls) == {(1200, 32)}
     scale = float(want.w.abs().max())
     assert float((got.w.cpu() - want.w).abs().max()) <= 1e-4 * scale
+
+
+# ---------------------------------------------------------------------------
+# run_fused: the driver loop as a CUDA graph that loops on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(pcg=True), dict(flat_blocks=False),
+                                dict(pcg="head_block")],
+                         ids=["flat", "per_block", "head_block"])
+def test_run_fused_on_card_equals_run(cuda, kw):
+    """AdmmTrainer.run_fused on the card gives run()'s z, u, diffs and
+    trip totals bit for bit, in one chunk and in chunks of 2; K1 (and K2
+    with head_block) execute inside the loop's graphs; and a chunk runs
+    clean under torch.cuda.set_sync_debug_mode("error"): no host read or
+    wait between its launch and the chunk end."""
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.ops.device_loop import DeviceLoop
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+
+    data = blocked_data(13, B=3, R=1500)
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=4, head_size=64,
+                     dtype=torch.float32, test_loglik_per_iter=False, **kw)
+    trainer = AdmmTrainer(data, vocab, cfg, device=cuda)
+    run = trainer.run()
+    one = trainer.run_fused()
+    counts = one.loop_counts
+    np.testing.assert_array_equal(one.z, run.z)
+    np.testing.assert_array_equal(one.u, run.u)
+    assert one.diff_history == run.diff_history
+    assert one.iterations == run.iterations
+    assert one.solver_stats == [{k: sum(s[k] for s in run.solver_stats)
+                                 for k in ("newton_trips", "cg_trips")}]
+    # K1 and K2 executions as counted on the card, and as captured
+    # launches times branch executions: the same
+    ke, runs = counts["kernel_executions"], counts["branch_executions"]
+    assert ke == {c: sum(n[c] * runs[b] for b, n in
+                         counts["captured_launches"].items()) for c in ke}
+    assert ke["segment_sum_gather"] > 0
+    assert (ke["gram_batched"] > 0) == (kw.get("pcg") == "head_block")
+    # one execution of the CG branch per lock-step trip: the flat solve's
+    # count; a per-block solve's trips are each block's, maxed
+    cg_runs = runs["cg_trip"]
+    assert (cg_runs == one.solver_stats[0]["cg_trips"]
+            if trainer.mode == "flat"
+            else cg_runs >= one.solver_stats[0]["cg_trips"])
+
+    launch = DeviceLoop.run
+
+    def checked(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            launch(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    calls = []
+    DeviceLoop.run = checked
+    try:
+        chunked = trainer.run_fused(
+            checkpoint_every=2, callback=lambda **kw: calls.append(kw))
+    finally:
+        DeviceLoop.run = launch
+    np.testing.assert_array_equal(chunked.z, run.z)
+    assert [c["iteration"] for c in calls] == [2, 4]

@@ -127,3 +127,18 @@ def test_the_mesh_slice_modules_are_guarded():
          " print('mlease_tpu_torch.parallel.mesh' in sys.modules)"],
         capture_output=True, text=True, check=True, cwd=REPO).stdout
     assert loaded.strip() == "False"
+
+
+def test_the_fused_loop_and_floor_modules_are_guarded():
+    """run_fused's device loop (its Python side and csrc/device_loop.cu),
+    the floor accounting and the per-pass microbenchmark are read by the
+    guard, and the modules import cleanly with no CUDA toolchain."""
+    import importlib
+
+    rel = {os.path.relpath(p, REPO) for p in port_files()}
+    for mod in ("ops/device_loop", "utils/floor", "ops/tron_multi",
+                "train/admm", "train/pipeline"):
+        assert f"mlease_tpu_torch/{mod}.py" in rel, mod
+        importlib.import_module("mlease_tpu_torch." + mod.replace("/", "."))
+    assert "mlease_tpu_torch/csrc/device_loop.cu" in rel
+    assert "tools/torch_pass_microbench.py" in rel

@@ -153,23 +153,33 @@ def _same_models(out_t, out_j, sub, atol):
         assert abs(mt[key].intercept - mj[key].intercept) <= atol
 
 
+def _ids(v):
+    return ("-".join(f"{k}={x}" for k, x in v.items()) if isinstance(v, dict)
+            else str(v))
+
+
 @pytest.mark.parametrize("extra,item", [
     ({"use.mesh": "true"}, None), ({"mesh.feature.shards": "2"}, None),
-    ({"fused.loop": "true"}, "A1"),
+    pytest.param({"fused.loop": "true"}, None, id="fused.loop=true-A1"),
+    ({"fused.loop": "true", "checkpoint.every": "2"}, None),
+    ({"fused.loop": "true", "multi.rhs": "false"}, "A1b"),
+    ({"fused.loop": "true", "use.mesh": "true"}, "A1b"),
     ({"pcg": "head_block"}, None),
     ({"streaming.groups": "2", "pcg": "head_block"}, None),
     ({"streaming.groups": "2", "flat.blocks": "false"}, None),
-    ({"streaming.groups": "2", "multi.rhs": "false"}, None)],
-    ids=lambda v: "-".join(f"{k}={x}" for k, x in v.items())
-    if isinstance(v, dict) else str(v))
+    ({"streaming.groups": "2", "multi.rhs": "false"}, None)], ids=_ids)
 def test_unported_job_keys_raise(tmp_path, extra, item):
-    """A path not ported raises, naming its ROADMAP.md item (the fused
-    loop, A1 with A10b). The keys that once raised here now run as the JAX
-    pipeline runs them, to the same final models to 1e-8 after 3
-    iterations: the solver modes (A1) in memory and streamed, and the mesh
-    (A8): use.mesh on a one-rank mesh that the pipeline starts itself
-    (the JAX pipeline: its 8 virtual devices), mesh.feature.shards=2 on 2
-    gloo ranks (tests/torch_mesh_worker.py; JAX: a 4 x 2 mesh)."""
+    """A path not ported raises, naming its ROADMAP.md item: fused.loop on
+    the lanes solve or under use.mesh (A1b). The keys that once raised
+    here now run as the JAX pipeline runs them, to the same final models
+    to 1e-8 after 3 iterations: the solver modes (A1) in memory and
+    streamed, the mesh (A8): use.mesh on a one-rank mesh that the pipeline
+    starts itself (the JAX pipeline: its 8 virtual devices),
+    mesh.feature.shards=2 on 2 gloo ranks (tests/torch_mesh_worker.py;
+    JAX: a 4 x 2 mesh), and fused.loop (A1's run_fused) against the JAX
+    pipeline's fused run, the trip totals equal; with checkpoint.every=2
+    both write a checkpoint at each chunk end (iterations 2 and 3) and
+    every sample-test-loglik file, the same entries to 1e-8."""
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             torch_pipeline(JobConfig(job(str(tmp_path / "out"), **extra)),
@@ -195,6 +205,23 @@ def test_unported_job_keys_raise(tmp_path, extra, item):
                                       for s in res_j.solver_stats]
     np.testing.assert_allclose(res_t.z, res_j.z, rtol=0, atol=1e-8)
     _same_models(out_t, out_j, "final-model", 1e-8)
+    if "checkpoint.every" in extra:
+        for out in (out_j, out_t):
+            assert sorted(os.listdir(os.path.join(out, "checkpoint"))) == [
+                f"iter-{i:05d}.{ext}" for i in (2, 3)
+                for ext in ("json", "npz")]
+        ll_dir = "sample-test-loglik"
+        names = sorted(os.listdir(os.path.join(out_t, ll_dir)))
+        assert names == sorted(os.listdir(os.path.join(out_j, ll_dir))) == [
+            f"iteration-{i}.avro" for i in (1, 2, 3)]
+        for name in names:
+            want = avro.read_records(os.path.join(out_j, ll_dir, name))
+            got = avro.read_records(os.path.join(out_t, ll_dir, name))
+            assert [(r["lambda"], r["iter"]) for r in got] == \
+                [(r["lambda"], r["iter"]) for r in want]
+            np.testing.assert_allclose([r["testLoglik"] for r in got],
+                                       [r["testLoglik"] for r in want],
+                                       rtol=0, atol=1e-8)
 
 
 @pytest.mark.parametrize("extra", [
