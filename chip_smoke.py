@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--seed 0] [--rows-per-block 1562500] [--iters 3]
                           [--out FILE.json]
                           [--gram-only | --segsum-only | --streaming-only
-                           | --modes-only | --mesh-only | --fused-only]
+                           | --modes-only | --mesh-only | --fused-only
+                           | --bf16-only]
 
 Phases, each of which fails the run when it fails:
 
@@ -182,6 +183,33 @@ Phases, each of which fails the run when it fails:
      and 12 log and check each streamed run's pass-floor decomposition
      (utils/floor.py, tools/torch_pass_floors*.json measured on the card):
      a numeric util from a table of this card.
+ 18. bfloat16 phase (dtype = bfloat16, ROADMAP.md A15), in six parts run
+     beside the float32 phases they compare with: (a) after phase 17, K1's
+     bf16 entry against its plain version at the full trainer's three
+     fused sites into float32 accumulators, as a bf16 solve calls it (the
+     stream's values and V rounded to bf16; per segment |kernel - ref64|
+     <= 1e-5 * (|out0| + sum|contrib|)), and at the `_xtv_lm` site and the
+     contrib form into bf16 (+ 2^-8 * |ref64|), library call beside each;
+     (b) the full trainer's data in a bfloat16 AdmmTrainer, flat Jacobi,
+     --iters iterations, K1 counted around exactly this run: z finite,
+     within 1% of max|z_f32| after iteration 1 and 5% after the last
+     against phase 6's run, trips, s an iteration and a CG trip and device
+     memory beside phase 6's; (c) the bench cell in bf16, per-block Jacobi
+     and head-block (K2 bf16-in): run_fused against run() bit for bit
+     (phase 17's comparison, unprofiled), then the lanes solve
+     (multi_rhs=False) in float32 and bf16: s an iteration, trips, z within
+     5% of max|z_f32|; (e) after phase 8, its items in
+     bf16: Cholesky on the 10,000 items against phase 8's main run, TRON
+     on its 1,000 items at liblinear.epsilon 1e-6 against its TRON run,
+     models within 1e-2 * max|w|, models/s of both routes on the 10,000
+     items; (d) after phase 11, its stream (a) data in bf16
+     compute: the job's budget, one pinned head, nothing pinned, the same
+     bits, a floor decomposition from a bfloat16 table of this card, s an
+     iteration and the copy kernels of 3 profiled iterations beside phase
+     11's (a); (f) after phase 15, `train --device
+     cuda` on phase 5's job with dtype = bfloat16: phase 5's layout,
+     models within 5% of max|w| of phase 5's, checkpoints of the bf16
+     bits (|V2).
 
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
@@ -194,7 +222,10 @@ alone (for work on the scale path); --modes-only builds them, sets up the
 two trainers and runs phases 14, 13 and 15 alone; --mesh-only builds
 them, sets up the two trainers and runs phase 16 alone (with its own
 no-mesh runs for (a)); --fused-only builds them, sets up the two trainers
-and runs phase 17 alone (with its own eager CLI run for (c)).
+and runs phase 17 alone (with its own eager CLI run for (c)); --bf16-only
+builds them, sets up the two trainers, makes the float32 runs phase 18
+compares with (phase 5, phase 6, phase 8's first run, phase 11's (a) once)
+and runs phase 18 alone.
 """
 
 from __future__ import annotations
@@ -300,6 +331,19 @@ def stacked_tails(trainer):
             "xtv_cols": (prob.tail_c_cols, prob.prior_mean.shape[0])}
 
 
+def k1_tolerances():
+    """K1's per-segment bound against the float64 sum of the same inputs:
+    |got - ref64| <= tol * (|out0| + sum|contrib|) + rel * |ref64|, rel
+    the one rounding of a bfloat16 result."""
+    import torch
+    return {torch.float32: (1e-5, 0.0), torch.float64: (1e-12, 0.0),
+            torch.bfloat16: (1e-5, 2.0 ** -8)}
+
+
+# K1 does a bfloat16 call's arithmetic in float32, on the CUDA cores
+K1_ARITH = {"bfloat16": "float32"}
+
+
 def check_and_time(name, seg, S, L, dtype, gen, results):
     """Kernel vs plain version at one shape; appends a result row."""
     import torch
@@ -314,13 +358,13 @@ def check_and_time(name, seg, S, L, dtype, gen, results):
     scale = segment_sum_sorted_reference(contrib.double().abs(), seg, S)
     torch.cuda.synchronize()
     err = (got.double() - ref64).abs()
-    tol = 1e-5 if dtype == torch.float32 else 1e-12
-    ok = bool((err <= tol * scale).all()) and same_bits
+    tol, rel = k1_tolerances()[dtype]
+    ok = bool((err <= tol * scale + rel * ref64.abs()).all()) and same_bits
     lib_out = torch.zeros((L, S), dtype=dtype, device="cuda")
     dname = str(dtype).replace("torch.", "")
     # least time: the bytes it must move, or one add per entry and lane
     bytes_ms = min_bytes(L, T, S, contrib.element_size()) / HBM_BYTES_PER_S
-    ops_ms = L * T / PEAK_OPS[dname]
+    ops_ms = L * T / PEAK_OPS[K1_ARITH.get(dname, dname)]
     row = {
         "shape": name, "L": L, "T": T, "S": S, "dtype": dname,
         "max_abs_err": float(err.max()),
@@ -355,22 +399,28 @@ def fused_sites(trainer):
             "xtv": (*c, 1), "xtv_sqdiag": (*c, 2)}
 
 
-def fused_check_and_time(name, site, L, dtype, gen, results):
+def fused_check_and_time(name, site, L, dtype, gen, results,
+                         variants=True, out_dtype=None):
     """The fused gather + weight + reduce into an accumulator against its
     plain version, the unfused path it replaced (torch gather, multiply,
     cat, zero-filled K1, `out + ...`; PR 3's, with this PR's K1) and the
     library's (gather, multiply, index_add_), at one site's real stream
-    with random V and accumulator; appends a result row."""
+    with random V and accumulator; appends a result row. variants=False
+    times the kernel (V lanes-major), the plain version and the library
+    call only. out_dtype (default dtype) is the accumulator's type: a
+    bfloat16 solve passes float32 sums (ops/tron_multi.py)."""
     import torch
     from mlease_tpu_torch.ops.segment_sum import (
         min_bytes, segment_sum_gather, segment_sum_gather_reference,
         segment_sum_sorted)
     vals, idx, seg, m, S, lanes = site
     vals = vals.to(dtype)
+    out_dtype = out_dtype or dtype
     L2 = lanes * L
     sf = L if lanes == 2 else None
     V = torch.randn((L2, m), generator=gen, device="cuda", dtype=dtype)
-    out0 = torch.randn((L2, S), generator=gen, device="cuda", dtype=dtype)
+    out0 = torch.randn((L2, S), generator=gen, device="cuda",
+                       dtype=out_dtype)
     T = seg.numel()
     got = segment_sum_gather(vals, V, idx, seg, S, out=out0.clone(),
                              square_from=sf)
@@ -386,15 +436,16 @@ def fused_check_and_time(name, site, L, dtype, gen, results):
         out=out0.double().abs(), square_from=sf)
     torch.cuda.synchronize()
     err = (got.double() - ref64).abs()
+    tol, rel = k1_tolerances()[out_dtype]
+    ok = bool((err <= tol * scale + rel * ref64.abs()).all()) and same_bits
     del ref64
-    tol = 1e-5 if dtype == torch.float32 else 1e-12
-    ok = bool((err <= tol * scale).all()) and same_bits
     dname = str(dtype).replace("torch.", "")
     m_hit = int(torch.unique(idx).numel())
     S_hit = int((seg[1:] != seg[:-1]).sum()) + 1 if T else 0
     bytes_ms = min_bytes(L2, T, S, V.element_size(), m_hit=m_hit,
-                         S_hit=S_hit) / HBM_BYTES_PER_S
-    ops_ms = 2 * L2 * T / PEAK_OPS[dname]
+                         S_hit=S_hit, out_itemsize=out0.element_size()
+                         ) / HBM_BYTES_PER_S
+    ops_ms = 2 * L2 * T / PEAK_OPS[K1_ARITH.get(dname, dname)]
     acc = out0.clone()
 
     def contrib():
@@ -410,6 +461,7 @@ def fused_check_and_time(name, site, L, dtype, gen, results):
     row = {
         "shape": name, "L": L2, "square_from": sf, "T": T, "S": S, "m": m,
         "m_hit": m_hit, "S_hit": S_hit, "dtype": dname,
+        "out_dtype": str(out_dtype).replace("torch.", ""),
         "max_abs_err": float(err.max()),
         "max_rel_err": float((err / scale.clamp_min(1e-300)).max()),
         "same_bits_again": same_bits, "ok": ok,
@@ -424,23 +476,26 @@ def fused_check_and_time(name, site, L, dtype, gen, results):
         # V lanes-major, as the sites pass it; then a lanes-minor view, and
         # a lanes-minor copy of V made for the call (counted in it)
         row["kernel_ms"] = cuda_ms(fused(V))
-        Vm = V.t().contiguous().t()
-        row["kernel_ms_lanes_minor_given"] = cuda_ms(fused(Vm))
-        del Vm
-        row["kernel_ms_lanes_minor_copy"] = cuda_ms(
-            lambda: fused(V.t().contiguous().t())())
+        if variants:
+            Vm = V.t().contiguous().t()
+            row["kernel_ms_lanes_minor_given"] = cuda_ms(fused(Vm))
+            del Vm
+            row["kernel_ms_lanes_minor_copy"] = cuda_ms(
+                lambda: fused(V.t().contiguous().t())())
         row["plain_ms"] = cuda_ms(lambda: segment_sum_gather_reference(
             vals, V, idx, seg, S, out=acc, square_from=sf))
-        row["unfused_ms"] = cuda_ms(unfused)
-        row["library_ms"] = cuda_ms(lambda: acc.index_add_(1, seg,
-                                                           contrib()))
+        if variants:
+            row["unfused_ms"] = cuda_ms(unfused)
+        row["library_ms"] = cuda_ms(lambda: acc.index_add_(
+            1, seg, contrib().to(acc.dtype)))
     del V, acc, out0
     print("kernel-check fused " + json.dumps(row), flush=True)
     results.append(row)
     if not ok:
         raise AssertionError(f"segment_sum_gather disagrees at {name} "
-                             f"L={L2} {dtype}: max err {row['max_abs_err']},"
-                             f" same bits again {same_bits}")
+                             f"L={L2} {dtype} into {out_dtype}: max err "
+                             f"{row['max_abs_err']}, same bits again "
+                             f"{same_bits}")
     return row
 
 
@@ -675,6 +730,7 @@ def item_phase(args):
     gram_batched.launches = 0                # main path: count from here
     res, cold_s = run()
     launches = gram_batched.launches         # ... to here
+    F32_BASE["item"] = {"decoded": decoded, "models": res.models}
     expected = sum(s["newton_trips"] + 1 for s in res.solver_stats)
     n_models = len(res.models)
     finite = all(
@@ -738,6 +794,7 @@ def item_phase(args):
     chol = item.train_item_models_columnar(small, tight, device="cuda")
     tron = item.train_item_models_columnar(
         small, dataclasses.replace(tight, solver="tron"), device="cuda")
+    F32_BASE["item"].update(small=small, tight=tight, tron=tron.models)
     diff, scale = max_model_diff(chol.models, tron.models)
     row["tron_vs_cholesky_max_abs"], row["tron_w_max_abs"] = diff, scale
     row["tron_buckets"] = tron.solver_stats
@@ -903,6 +960,10 @@ def head_block_phase(args):
 
 
 CLI_MODELS: dict = {}       # phase 5's final models, phase 17 (c)'s reference
+CLI_ROWS: dict = {}         # phase 5's row (its output layout), phase 18 (f)'s
+# the float32 runs phase 18 compares its bfloat16 runs with, kept by phases
+# 6, 8 and 11 (or made by --bf16-only)
+F32_BASE: dict = {}
 
 
 def cli_phase(extra_args=(), extra_props=None, tag="eager"):
@@ -960,14 +1021,27 @@ def cli_phase(extra_args=(), extra_props=None, tag="eager"):
         ckpt_dir = os.path.join(out, "checkpoint")
         checkpoints = (sorted(os.listdir(ckpt_dir))
                        if os.path.isdir(ckpt_dir) else [])
+        arrays = [c for c in checkpoints if c.endswith(".npz")]
+        ckpt_dtypes = {}
+        if arrays:
+            with np.load(os.path.join(ckpt_dir, arrays[-1])) as z:
+                ckpt_dtypes = {k: [z[k].dtype.str, list(z[k].shape)]
+                               for k in ("z", "u")}
         ll_files = sorted(os.listdir(ll_dir))
+        files = sorted(
+            os.path.relpath(os.path.join(d, f), out)
+            for d, _sub, fs in os.walk(out) for f in fs
+            if os.path.relpath(d, out).split(os.sep)[0]
+            not in ("checkpoint", "tmp-data"))
     row = {"args": list(extra_args), "props": extra_props or {},
-           "checkpoints": checkpoints, "sample_loglik_files": ll_files,
+           "checkpoints": checkpoints, "checkpoint_arrays": ckpt_dtypes,
+           "files": files, "sample_loglik_files": ll_files,
            "iterations": summary["iterations"], "wall_s": wall,
            "solver_wall_s": summary["wall_time_s"],
            "sample_logliks": len(lls), "test_logliks": test_ll,
            "kernel_launches": launches}
     print("cli " + json.dumps(row), flush=True)
+    CLI_ROWS[tag] = row
     return row
 
 
@@ -986,11 +1060,16 @@ def full_width_phase(trainer, args):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     segment_sum_sorted.launches = 0          # main path: count from here
     res = trainer.run(callback=keep_first)
     torch.cuda.synchronize()
     launches = segment_sum_sorted.launches   # ... to here
     peak = torch.cuda.max_memory_allocated()
+    F32_BASE["full"] = {"z1": z_first["z"].double().cpu().numpy(),
+                        "z": res.z, "solver_stats": res.solver_stats,
+                        "iter_s": res.iter_times, "peak_bytes": int(peak),
+                        "resident_bytes": int(resident)}
     nt = sum(s["newton_trips"] for s in res.solver_stats)
     cg = sum(s["cg_trips"] for s in res.solver_stats)
     expected = 2 * cg + 2 * nt + 3 * len(res.solver_stats)
@@ -1291,6 +1370,12 @@ def streaming_phase(args, in_memory_iter_s=None):
             raise AssertionError(f"streaming {name}: {row}")
         check_floor(row["pass_floor"], f"streaming {name}")
 
+    F32_BASE["stream"] = {
+        "groups": groups, "setup_s": setup_s,
+        "steady_iter_s": rows["a_job_budget"]["steady_iter_s"],
+        "solver_stats": rows["a_job_budget"]["solver_stats"],
+        "profiled_iterations": rows["a_job_budget"].get(
+            "profiled_iterations")}
     a, a2 = results["a_job_budget"], results["a_again"]
     rerun = max(float(np.abs(a.z - a2.z).max()),
                 float(np.abs(a.u - a2.u).max()))
@@ -2514,6 +2599,426 @@ def mesh_phase(args):
 
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the bfloat16 compute dtype
+# ---------------------------------------------------------------------------
+
+def bf16_kernel_phase(trainer, args):
+    """Phase 18 (a): K1's bf16 entry against its plain version at the full
+    trainer's three fused sites (`_xv_lm`, `_xtv_lm`, the 2L site) as a
+    bfloat16 solve calls them, the stream's values and random V rounded to
+    bfloat16 and a float32 accumulator (per segment |kernel - ref64| <=
+    1e-5 * (|out0| + sum|contrib|)); the `_xtv_lm` site into a bfloat16
+    accumulator and the contrib form on its column stream (one rounding
+    more: + 2^-8 * |ref64|); the library call (gather, multiply in
+    bfloat16, index_add_ in the accumulator's type)."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 18)
+    results = []
+    for site, streams in fused_sites(trainer).items():
+        for out_dtype in ((torch.float32, torch.bfloat16) if site == "xtv"
+                          else (torch.float32,)):
+            fused_check_and_time(f"full/{site}", streams, 3, torch.bfloat16,
+                                 gen, results, variants=False,
+                                 out_dtype=out_dtype)
+            torch.cuda.empty_cache()
+    seg, S = stacked_tails(trainer)["xtv_cols"]
+    check_and_time("full/xtv_cols", seg, S, 3, torch.bfloat16, gen, results)
+    torch.cuda.empty_cache()
+    return results
+
+
+def _prob_bytes(trainer) -> int:
+    import torch.utils._pytree as pytree
+    return sum(t.numel() * t.element_size()
+               for t in pytree.tree_leaves(trainer.prob)
+               if hasattr(t, "element_size"))
+
+
+def bf16_full_phase(trainer, args):
+    """Phase 18 (b): the full trainer's data (phases 6 and 7) through a
+    bfloat16 AdmmTrainer, flat Jacobi, --iters iterations: K1's bf16 entry
+    counted around exactly this run; z finite, within 1% of max|z_f32|
+    after iteration 1 and 5% after the last, against phase 6's float32 run
+    of the same data; trips, s an iteration and a CG trip, and device
+    memory beside phase 6's."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+    from mlease_tpu_torch.train.admm import AdmmTrainer
+
+    base = F32_BASE["full"]
+    cfg = dataclasses.replace(trainer.config, dtype=torch.bfloat16,
+                              num_iters=args.iters)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    tr = AdmmTrainer(trainer.data, trainer.vocab, cfg)
+    torch.cuda.synchronize()
+    setup_s = time.monotonic() - t0
+    resident = torch.cuda.memory_allocated()
+    z_first = {}
+
+    def keep_first(iteration, z, **_kw):
+        if iteration == 1:
+            z_first["z"] = z.double().cpu().numpy()
+
+    torch.cuda.reset_peak_memory_stats()
+    segment_sum_sorted.launches = 0          # this path: count from here
+    res = tr.run(callback=keep_first)
+    torch.cuda.synchronize()
+    launches = segment_sum_sorted.launches   # ... to here
+    peak = torch.cuda.max_memory_allocated()
+
+    def per_cg_trip(stats, iter_s):
+        cg = sum(s["cg_trips"] for s in stats[1:] or stats)
+        return steady_s(iter_s) * len(stats[1:] or stats) / max(cg, 1)
+
+    nt = sum(s["newton_trips"] for s in res.solver_stats)
+    cg = sum(s["cg_trips"] for s in res.solver_stats)
+    zmax1 = float(np.abs(base["z1"]).max())
+    zmax = float(np.abs(base["z"]).max())
+    row = {
+        "rows": int(tr.data.nrows.sum()), "dim": tr.dim,
+        "setup_s": setup_s, "iterations": res.iterations,
+        "kernel_launches": launches,
+        "expected_launches": 2 * cg + 2 * nt + 3 * len(res.solver_stats),
+        "z_finite": bool(np.isfinite(res.z).all()),
+        "z1_vs_f32_max_abs": float(np.abs(z_first["z"] - base["z1"]).max()),
+        "z1_f32_max_abs": zmax1,
+        "z_vs_f32_max_abs": float(np.abs(res.z - base["z"]).max()),
+        "z_f32_max_abs": zmax,
+        "trips_bf16": res.solver_stats, "trips_f32": base["solver_stats"],
+        "iter_s_bf16": res.iter_times, "iter_s_f32": base["iter_s"],
+        "steady_iter_s_bf16": steady_s(res.iter_times),
+        "steady_iter_s_f32": steady_s(base["iter_s"]),
+        "s_per_cg_trip_bf16": per_cg_trip(res.solver_stats, res.iter_times),
+        "s_per_cg_trip_f32": per_cg_trip(base["solver_stats"],
+                                         base["iter_s"]),
+        "data_bytes_bf16": _prob_bytes(tr),
+        "data_bytes_f32": _prob_bytes(trainer),
+        "allocated_by_setup_bytes_bf16": int(resident - before),
+        "run_peak_over_resident_bytes_bf16": int(peak - resident),
+        "run_peak_over_resident_bytes_f32": int(base["peak_bytes"]
+                                                - base["resident_bytes"]),
+        "max_memory_allocated_bytes_bf16": int(peak),
+        "max_memory_allocated_bytes_f32": base["peak_bytes"],
+    }
+    del tr
+    torch.cuda.empty_cache()
+    print("bf16-full " + json.dumps(row), flush=True)
+    bad = []
+    if not row["z_finite"]:
+        bad.append("z not finite")
+    if launches == 0 or launches != row["expected_launches"]:
+        bad.append(f"K1 launched {launches} times, expected "
+                   f"{row['expected_launches']}")
+    if not row["z1_vs_f32_max_abs"] <= 0.01 * zmax1:
+        bad.append("iteration 1 not within 1% of max|z_f32|")
+    if not row["z_vs_f32_max_abs"] <= 0.05 * zmax:
+        bad.append(f"iteration {res.iterations} not within 5% of "
+                   f"max|z_f32|")
+    if bad:
+        raise AssertionError(f"bf16 full width: {bad}: {row}")
+    return row
+
+
+def bf16_bench_phase(trainer, args):
+    """Phase 18 (c): the bench cell in bfloat16, per-block Jacobi and
+    head-block (K2's bf16-in route in the head-block build): run_fused
+    against run() bit for bit, K1 (and K2) executions in the loop equal to
+    run()'s launches (phase 17's fused_compare, unprofiled); then the lanes
+    solve timed in both types."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.train.admm import AdmmTrainer
+
+    rows = {}
+    for mode, kw in (("per_block", dict(flat_blocks=False, pcg=True)),
+                     ("head_block", dict(pcg="head_block"))):
+        cfg = dataclasses.replace(trainer.config, dtype=torch.bfloat16,
+                                  num_iters=args.iters, **kw)
+        tr = AdmmTrainer(trainer.data, trainer.vocab, cfg)
+        row, _run, _fused = fused_compare(f"bf16 bench/{mode}", tr,
+                                          args.iters, profile=False)
+        del tr, _run, _fused
+        torch.cuda.empty_cache()
+        rows[mode] = row
+        if not row["bit_for_bit"]:
+            raise AssertionError(f"bf16 bench/{mode}: run_fused differs "
+                                 f"from run() by {row['max_abs_diff']}")
+        if mode == "head_block" and row["k2_run_launches"] == 0:
+            raise AssertionError("bf16 head-block: K2 never launched")
+    # the lanes solve (multi_rhs=False; ops/objective.py, no kernel) in
+    # bfloat16 and float32 on the same data: s an iteration and trips, z
+    # within (b)'s 5% of max|z_f32| after the last iteration
+    lanes = {}
+    for dt in (torch.float32, torch.bfloat16):
+        cfg = dataclasses.replace(trainer.config, dtype=dt, multi_rhs=False,
+                                  num_iters=args.iters)
+        tr = AdmmTrainer(trainer.data, trainer.vocab, cfg)
+        res = tr.run()
+        torch.cuda.synchronize()
+        lanes[dt] = res
+        del tr
+        torch.cuda.empty_cache()
+    f32, bf = lanes[torch.float32], lanes[torch.bfloat16]
+    zmax = float(np.abs(f32.z).max())
+    row = {"iter_s_f32": f32.iter_times, "iter_s_bf16": bf.iter_times,
+           "steady_iter_s_f32": steady_s(f32.iter_times),
+           "steady_iter_s_bf16": steady_s(bf.iter_times),
+           "trips_f32": f32.solver_stats, "trips_bf16": bf.solver_stats,
+           "z_finite": bool(np.isfinite(bf.z).all()),
+           "z_vs_f32_max_abs": float(np.abs(bf.z - f32.z).max()),
+           "z_f32_max_abs": zmax}
+    print("bf16-bench lanes " + json.dumps(row), flush=True)
+    rows["lanes"] = row
+    if not row["z_finite"] or not row["z_vs_f32_max_abs"] <= 0.05 * zmax:
+        raise AssertionError(f"bf16 bench lanes: {row}")
+    return rows
+
+
+def _copy_kernel_ms(prof):
+    """Device ms of the elementwise copy kernels (dtype conversions among
+    them) in a span_profile's top kernels."""
+    if not prof:
+        return None
+    return sum(k["ms"] for k in prof["top"] if "copy" in k["name"].lower())
+
+
+def bf16_stream_phase(args):
+    """Phase 18 (d): phase 11's stream (a) data (ctr-12m's split, 4 groups)
+    in bfloat16 compute, the head stored as bfloat16 and read as stored:
+    the job's budget, one pinned head, and nothing pinned with the compact
+    wire, --iters iterations each, the same bits, each run's pass-floor
+    decomposition from a bfloat16 table of this card; s an iteration
+    beside phase 11's (a) (float32 compute, bfloat16 head), and the copy
+    kernels (the head's widening among them) of 3 profiled iterations of
+    each."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+    from mlease_tpu_torch.train.admm import AdmmConfig
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+    from mlease_tpu_torch.utils.floor import (measure_put_bandwidth,
+                                              streaming_floor)
+
+    base = F32_BASE.pop("stream")
+    groups = base["groups"]
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=args.iters,
+                     head_size=128, head_dtype=torch.bfloat16, pcg=True,
+                     flat_blocks=True, dtype=torch.bfloat16)
+    head0 = int(groups[0].head.nbytes + groups[0].head_ids.nbytes)
+    settings = {
+        "a_job_budget": dict(resident_head_budget_gb=8.0),
+        "b_one_head": dict(resident_head_budget_gb=1.2 * head0 / 2**30),
+        "c_streamed_compact": dict(resident_head=False, compact_wire=True),
+    }
+    rows, results = {}, {}
+    vocab = make_vocab(1_000_000)
+    put_bw = measure_put_bandwidth()         # one card: measured once
+    for name, kw in settings.items():
+        t0 = time.monotonic()
+        tr = StreamingAdmmTrainer(groups, vocab, cfg, **kw)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        torch.cuda.reset_peak_memory_stats()
+        segment_sum_sorted.launches = 0          # this path: count from here
+        res = tr.run()
+        torch.cuda.synchronize()
+        launches = segment_sum_sorted.launches   # ... to here
+        row = {"residency": tr.residency_report(), "build_s": build_s,
+               "wire_bytes_per_iter": tr.stream_wire_bytes(),
+               "iter_s": res.iter_times,
+               "steady_iter_s": steady_s(res.iter_times),
+               "solver_stats": res.solver_stats, "kernel_launches": launches,
+               "max_memory_allocated_bytes":
+                   int(torch.cuda.max_memory_allocated()),
+               "z_finite": bool(np.isfinite(res.z).all()),
+               # the pipeline's log line: a bfloat16 run takes a bfloat16
+               # table (tools/torch_pass_floors*_bf16.json) or none
+               "pass_floor": streaming_floor(
+                   tr.groups, tr.trip_log, tr.stream_wire_bytes(),
+                   steady_s(res.iter_times), put_bw, len(cfg.lambdas),
+                   dtype=cfg.dtype)}
+        if name == "a_job_budget":
+            tr.config = dataclasses.replace(cfg, num_iters=3)
+            prof = span_profile(tr.run, "stream_iteration")
+            row["profiled_iterations"] = prof
+            row["copy_kernel_ms_3_iterations"] = _copy_kernel_ms(prof)
+        del tr
+        torch.cuda.empty_cache()
+        print(f"bf16-stream {name} " + json.dumps(row), flush=True)
+        rows[name], results[name] = row, res
+        if launches == 0 or not row["z_finite"]:
+            raise AssertionError(f"bf16 stream {name}: {row}")
+        check_floor(row["pass_floor"], f"bf16 stream {name}")
+        if "bfloat16" not in row["pass_floor"]["source"]:
+            raise AssertionError(f"bf16 stream {name}: the floor is not "
+                                 f"from a bfloat16 table")
+    del groups, base["groups"]
+    a = results["a_job_budget"]
+    same = {name: bool(np.array_equal(r.z, a.z) and np.array_equal(r.u, a.u))
+            for name, r in results.items()}
+    summary = {
+        "same_bits_as_a": same,
+        "steady_iter_s_bf16": rows["a_job_budget"]["steady_iter_s"],
+        "steady_iter_s_f32_compute": base["steady_iter_s"],
+        "trips_bf16": rows["a_job_budget"]["solver_stats"],
+        "trips_f32_compute": base["solver_stats"],
+        "copy_kernel_ms_3_iterations_bf16":
+            rows["a_job_budget"]["copy_kernel_ms_3_iterations"],
+        "copy_kernel_ms_3_iterations_f32_compute":
+            _copy_kernel_ms(base["profiled_iterations"]),
+    }
+    print("bf16-stream-summary " + json.dumps(summary), flush=True)
+    rows["summary"] = summary
+    if not all(same.values()):
+        raise AssertionError(f"bf16 stream: residency settings differ: "
+                             f"{same}")
+    return rows
+
+
+def bf16_item_phase(args):
+    """Phase 18 (e): phase 8's items in bfloat16, each route against
+    phase 8's float32 models of that route: the Cholesky route (K2's
+    bf16-in route, launches counted) on its 10,000 items at its settings,
+    posterior variances on the diagonal, against its main run; TRON on
+    its 1,000 items solved to liblinear.epsilon 1e-6, against its TRON
+    run. Models within 1e-2 * max|w|. models/s of both routes on the
+    10,000 items at phase 8's settings (TRON's timed only: at
+    liblinear.epsilon 0.01 the float32 TRON itself stops up to about 1%
+    of max|w| from the optimum, so its models are held at 1e-6)."""
+    import math
+    import torch
+    from mlease_tpu_torch.ops.gram import gram_batched
+    from mlease_tpu_torch.train import item
+
+    base = F32_BASE.pop("item")
+    cfg = item.ItemConfig(intercept_lambdas=[1.0],
+                          default_lambdas=[1.0, 10.0], compute_var=True,
+                          full_cov=False, solver="cholesky",
+                          dtype=torch.bfloat16)
+    runs = {
+        "cholesky": (base["decoded"], cfg, base["models"]),
+        "tron": (base["decoded"], dataclasses.replace(cfg, solver="tron"),
+                 None),
+        "tron_tight": (base["small"], dataclasses.replace(
+            base["tight"], dtype=torch.bfloat16, solver="tron"),
+            base["tron"])}
+    rows = {}
+    for name, (decoded, rcfg, ref) in runs.items():
+        gram_batched.launches = 0            # this path: count from here
+        t0 = time.monotonic()
+        res = item.train_item_models_columnar(decoded, rcfg, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = gram_batched.launches     # ... to here
+        finite = all(math.isfinite(m.intercept) and all(
+            math.isfinite(v) for v in m.coefficients.values())
+            for m in res.models.values())
+        row = {"models": len(res.models), "s": wall,
+               "models_per_s": len(res.models) / wall,
+               "liblinear_epsilon": rcfg.liblinear_epsilon,
+               "buckets": res.solver_stats, "gram_launches": launches,
+               "finite": finite}
+        if ref is not None:
+            row["w_vs_f32_max_abs"], row["w_f32_max_abs"] = \
+                max_model_diff(res.models, ref)
+        print(f"bf16-item {name} " + json.dumps(row), flush=True)
+        rows[name] = row
+        if not finite or (ref is not None and not row[
+                "w_vs_f32_max_abs"] <= 1e-2 * row["w_f32_max_abs"]) or (
+                name == "cholesky" and launches == 0):
+            raise AssertionError(f"bf16 items ({name}): {row}")
+    return rows
+
+
+def bf16_cli_phase(args):
+    """Phase 18 (f): `train --device cuda` on phase 5's job with dtype =
+    bfloat16: phase 5's output layout, final models within 5% of
+    max|w| of phase 5's (float64), checkpoint arrays of the bf16 bits
+    (|V2, as the JAX package writes them)."""
+    row = cli_phase(extra_props={"dtype": "bfloat16"}, tag="bf16")
+    ref, got = CLI_MODELS["eager"], CLI_MODELS["bf16"]
+    diff = scale = 0.0
+    for key, (b, coef) in ref.items():
+        gb, gcoef = got[key]
+        diff = max(diff, abs(gb - b), *(abs(gcoef[k] - v)
+                                        for k, v in coef.items()))
+        scale = max(scale, abs(b), *(abs(v) for v in coef.values()))
+    row.update(models_vs_float64_max_abs=diff, models_float64_max_abs=scale,
+               same_layout_as_phase_5=row["files"] == CLI_ROWS["eager"][
+                   "files"])
+    print("bf16-cli " + json.dumps({k: row[k] for k in (
+        "models_vs_float64_max_abs", "models_float64_max_abs",
+        "same_layout_as_phase_5", "checkpoint_arrays")}), flush=True)
+    bad = []
+    if not row["same_layout_as_phase_5"]:
+        bad.append("output layout differs from phase 5's")
+    if sorted(got) != sorted(ref) or not diff <= 0.05 * scale:
+        bad.append("models not within 5% of max|w| of phase 5's")
+    if any(v[0] != "|V2" for v in row["checkpoint_arrays"].values()) or \
+            not row["checkpoint_arrays"]:
+        bad.append("checkpoint arrays are not the bf16 bits (|V2)")
+    if bad:
+        raise AssertionError(f"bf16 CLI: {bad}: {row}")
+    return row
+
+
+def bf16_baselines(trainers, args):
+    """--bf16-only: the float32 runs phase 18 compares with, made as the
+    full run's phases 5, 6, 8 and 11 make them (phase 6 whole; phase 8's
+    first run; phase 11's stream (a) once, 3 iterations profiled)."""
+    import torch
+    from mlease_tpu_torch.core.dataset import split_blocks, to_hybrid
+    from mlease_tpu_torch.train import item
+    from mlease_tpu_torch.train.admm import AdmmConfig
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+
+    cli_phase()
+    full_width_phase(trainers["full"], args)
+    decoded = synth_item_decoded(10_000, 48, 12, args.seed)
+    cfg = item.ItemConfig(intercept_lambdas=[1.0], default_lambdas=[1.0, 10.0],
+                          compute_var=True, full_cov=True, solver="cholesky",
+                          dtype=torch.float32)
+    small = synth_item_decoded(1_000, 48, 12, args.seed + 1)
+    tight = dataclasses.replace(cfg, full_cov=False, liblinear_epsilon=1e-6)
+    F32_BASE["item"] = {
+        "decoded": decoded, "small": small, "tight": tight,
+        "models": item.train_item_models_columnar(
+            decoded, cfg, device="cuda").models,
+        "tron": item.train_item_models_columnar(
+            small, dataclasses.replace(tight, solver="tron"),
+            device="cuda").models}
+    t0 = time.monotonic()
+    groups = split_blocks(synth_blocked_data(1_000_000, 8,
+                                             args.rows_per_block, 12,
+                                             args.seed), STREAM_GROUPS)
+    for i, g in enumerate(groups):
+        groups[i] = to_hybrid(g, 128, column_sorted=True,
+                              head_dtype=torch.bfloat16)
+    setup_s = time.monotonic() - t0
+    scfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=args.iters,
+                      head_size=128, head_dtype=torch.bfloat16, pcg=True,
+                      flat_blocks=True, dtype=torch.float32)
+    tr = StreamingAdmmTrainer(groups, make_vocab(1_000_000), scfg,
+                              resident_head_budget_gb=8.0)
+    res = tr.run()
+    tr.config = dataclasses.replace(scfg, num_iters=3)
+    prof = span_profile(tr.run, "stream_iteration")
+    del tr
+    torch.cuda.empty_cache()
+    F32_BASE["stream"] = {"groups": groups, "setup_s": setup_s,
+                          "steady_iter_s": steady_s(res.iter_times),
+                          "solver_stats": res.solver_stats,
+                          "profiled_iterations": prof}
+    return {"stream_setup_s": setup_s,
+            "stream_steady_iter_s": steady_s(res.iter_times)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2540,6 +3045,10 @@ def main(argv=None) -> int:
     ap.add_argument("--fused-only", action="store_true",
                     help="build, set up the trainers, run the fused-loop "
                          "phase (17) alone and stop")
+    ap.add_argument("--bf16-only", action="store_true",
+                    help="build, set up the trainers, make the float32 "
+                         "runs phase 18 compares with, run phase 18 (the "
+                         "bfloat16 compute dtype) and stop")
     # one rank of phase 16, started by the phase itself
     ap.add_argument("--mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
@@ -2647,8 +3156,18 @@ def main(argv=None) -> int:
     if not report["failed"]:
         trainers = phase("setup", setup)
     if args.segsum_only or args.modes_only or args.mesh_only \
-            or args.fused_only:
-        if trainers is not None and args.segsum_only:
+            or args.fused_only or args.bf16_only:
+        if trainers is not None and args.bf16_only:
+            phase("bf16_baselines", bf16_baselines, trainers, args)
+            phase("bf16_kernel", bf16_kernel_phase, trainers["full"], args)
+            phase("bf16_full", bf16_full_phase, trainers["full"], args)
+            phase("bf16_bench", bf16_bench_phase, trainers["bench"], args)
+            del trainers
+            torch.cuda.empty_cache()
+            phase("bf16_item", bf16_item_phase, args)
+            phase("bf16_stream", bf16_stream_phase, args)
+            phase("bf16_cli", bf16_cli_phase, args)
+        elif trainers is not None and args.segsum_only:
             phase("kernel", kernel_phase, trainers, args)
         elif trainers is not None and args.fused_only:
             phase("fused", fused_phase, trainers, args)
@@ -2677,16 +3196,26 @@ def main(argv=None) -> int:
               speed["full"]["steady_iter_s"] if speed else None)
         phase("mesh_one_rank", mesh_one_rank_phase, trainers, args)
         phase("fused", fused_phase, trainers, args)
+        # phase 18, the bfloat16 compute dtype: (a)-(c) on the trainers'
+        # data, (d)-(f) right after the float32 phases they compare with
+        bf16_kernels = phase("bf16_kernel", bf16_kernel_phase,
+                             trainers["full"], args)
+        bf16_full = phase("bf16_full", bf16_full_phase, trainers["full"],
+                          args)
+        phase("bf16_bench", bf16_bench_phase, trainers["bench"], args)
         del trainers
         torch.cuda.empty_cache()
         items = phase("item", item_phase, args)
+        phase("bf16_item", bf16_item_phase, args)
         phase("item_cli", item_cli_phase, args)
         phase("head_block", head_block_phase, args)
         phase("streaming", streaming_phase, args,
               speed["full"]["steady_iter_s"] if speed else None)
+        phase("bf16_stream", bf16_stream_phase, args)
         phase("scale_cli", scale_cli_phase, args)
         phase("naive", naive_phase, args)
         phase("fit", fit_phase, args)
+        phase("bf16_cli", bf16_cli_phase, args)
         phase("mesh", mesh_phase, args)
     write_report()
     if report["failed"]:
@@ -2697,18 +3226,33 @@ def main(argv=None) -> int:
                     and r["dtype"] == "float32")
     gram_row = next(r for r in grams
                     if (r["shape"], r["dtype"]) == ITEM_K2_ROW)
+    bf16_row = next(r for r in bf16_kernels
+                    if r["shape"] == "full/xtv" and r["L"] == 3
+                    and r["out_dtype"] == "float32")
     print(json.dumps({"kernels": [{
         "name": "segment_sum_gather", "route": "cuda",
         "source": "mlease_tpu_torch/csrc/segment_sum.cu",
         "replaces": "mlease_tpu/ops/pallas/tile_sum.py:72",
+        "dtype": "float32",
         "launches": full["kernel_launches"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"]}, {
+        # K1's bf16 entry: launches from phase 18 (b)'s bfloat16 run
+        "name": "segment_sum_gather_bf16", "route": "cuda",
+        "source": "mlease_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "mlease_tpu/ops/pallas/tile_sum.py:72",
+        "dtype": "bfloat16",
+        "launches": bf16_full["kernel_launches"],
+        "max_abs_err": bf16_row["max_abs_err"],
+        "ms": bf16_row["kernel_ms"], "plain_ms": bf16_row["plain_ms"],
+        "bound_ms": bf16_row["bound_ms"], "bound_by": bf16_row["bound_by"],
+        "library_ms": bf16_row["library_ms"]}, {
         "name": "gram_batched", "route": "cuda",
         "source": "mlease_tpu_torch/csrc/gram.cu",
         "replaces": "mlease_tpu/ops/pallas/gram.py:77",
+        "dtype": "float32",
         "launches": items["kernel_launches"],
         "max_abs_err": gram_row["max_abs_err"],
         "ms": gram_row["kernel_ms"], "plain_ms": gram_row["plain_ms"],

@@ -31,14 +31,26 @@ import numpy as np
 from mlease_tpu_torch.utils import checkpoint as ckpt
 
 
+def _widened(a) -> np.ndarray:
+    """A state array as float64: a bfloat16 state may come as its bits
+    (uint16, or the 2-byte void arrays of a JAX bfloat16 checkpoint, which
+    numpy reads without ml_dtypes) or as float32; every bfloat16 value is
+    exact in either."""
+    a = np.asarray(a)
+    if ckpt.is_bf16_bits(a):
+        a = ckpt.bf16_bits_to_float(a)
+    return np.asarray(a, np.float64)
+
+
 def state_from_numpy(z, u, *, iteration: int = 0,
                      inner_eps: float | None = None,
                      mindiff: float = 99999999.0,
                      best_loglik: float = -9999999.0) -> dict[str, Any]:
     """Resume kwargs for AdmmTrainer.run after `iteration` completed
-    iterations of a run whose state is (z (L, n), u (L, B, n))."""
-    z = np.asarray(z, np.float64)
-    u = np.asarray(u, np.float64)
+    iterations of a run whose state is (z (L, n), u (L, B, n)); a bfloat16
+    state as its bits or as float32 (see `_widened`)."""
+    z = _widened(z)
+    u = _widened(u)
     if z.ndim != 2 or u.ndim != 3 or u.shape[0] != z.shape[0] \
             or u.shape[2] != z.shape[1]:
         raise ValueError(f"expected z (L, n) and u (L, B, n); got "

@@ -69,10 +69,25 @@
 //    step is reduced by a tree of steps, never by one thread. Untouched
 //    segments keep their bits.
 //
+// Types. segment_sum_f32 and _f64 read, sum and write one type.
+// segment_sum_bf16 reads bfloat16 vals, V and out (8 entries per 16-byte
+// load), segment_sum_bf16_f32 the same vals and V into a float32 out (the
+// solver's scores, kept in float32), and both do everything else in
+// float32: each product w_l(v) * V is
+// formed from the widened values (v * v squared in float32), the runs, the
+// scan and the carry stream between steps and levels are float32 (a bf16
+// carry would round again at every step boundary), and a segment is
+// written once, on the level where its run closes, as its old value
+// widened plus the sum, rounded to nearest even (__float2bfloat16_rn). The
+// kernel is one template over (In, Acc, Out): the stream's type, the
+// accumulate type and out's type; the carry levels of a bf16 call are
+// <float, float, bf16>, those of float32 and float64 the first level's.
+//
 // Plain C interface, loaded with ctypes: pointers and the stream arrive as
 // void*, and the entry returns the first nonzero cudaGetLastError() of its
 // launches (cudaErrorInvalidValue when the workspace is too small).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -95,17 +110,42 @@ constexpr int kEnds = kStep + 4;                // run ends a step can hold
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int64_t kCarryAlign = 4;              // carry lane stride, entries
 
-template <typename T>
+using bf16 = __nv_bfloat16;
+
+// The three types of a launch: In, the type the stream's values and V are
+// read in; Acc, the type every product, sum and carry is formed in; Out,
+// the type of out. float32 and float64 take one type for all three (the
+// arithmetic of the first versions); bfloat16 reads and writes bf16 and
+// accumulates in float32, and its carry levels read the float32 carry
+// stream (In = Acc = float, Out = bf16 or float). widen() reads a value into Acc,
+// Narrow<Out>::of rounds an Acc into Out (to nearest even for bf16).
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ double widen(double v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
+template <typename Out>
+struct Narrow {
+  template <typename A>
+  __device__ __forceinline__ static Out of(A v) { return static_cast<Out>(v); }
+};
+template <>
+struct Narrow<bf16> {
+  __device__ __forceinline__ static bf16 of(float v) {
+    return __float2bfloat16_rn(v);
+  }
+};
+
+template <typename In, typename Acc, typename Out>
 struct Params {
-  const T* vals;        // gather form (T,); contrib form (L, lane stride)
+  const In* vals;       // gather form (T,); contrib form (L, lane stride)
   int64_t vals_lane;
-  const T* V;           // gather form: V[l * v_lane + idx * v_id]
+  const In* V;          // gather form: V[l * v_lane + idx * v_id]
   int64_t v_lane, v_id;
   const int* idx;
   const int* seg;
-  T* out;               // (L, S) contiguous
+  Out* out;             // (L, S) contiguous
   int64_t S;
-  T* carry_val;         // (L, carry_lane): 2 entries per step; null on
+  Acc* carry_val;       // (L, carry_lane): 2 entries per step; null on
   int* carry_seg;       // the last level (one step)
   int64_t carry_lane;
   int64_t n;            // stream entries
@@ -114,32 +154,32 @@ struct Params {
 
 // Bytes of one step of the stream in a warp's ring: seg, then idx and vals
 // (gather form) or the lanes' contributions (contrib form).
-template <typename T, int NL, bool kGather>
+template <typename In, int NL, bool kGather>
 __host__ __device__ constexpr int stage_bytes() {
-  return kStep * (4 + (kGather ? 4 + static_cast<int>(sizeof(T))
-                               : NL * static_cast<int>(sizeof(T))));
+  return kStep * (4 + (kGather ? 4 + static_cast<int>(sizeof(In))
+                               : NL * static_cast<int>(sizeof(In))));
 }
 
 // Shared memory of one warp: its ring of kDepth steps, then the step's run
 // ends compacted (segment ids, then one lane's sums at a time).
-template <typename T, int NL, bool kGather>
+template <typename In, typename Acc, int NL, bool kGather>
 __host__ __device__ constexpr int warp_smem_bytes() {
-  return kDepth * stage_bytes<T, NL, kGather>() +
-         kEnds * (4 + static_cast<int>(sizeof(T)));
+  return kDepth * stage_bytes<In, NL, kGather>() +
+         kEnds * (4 + static_cast<int>(sizeof(Acc)));
 }
 
 // Warps of a block: as many as the shared-memory budget holds, up to 8.
-template <typename T, int NL, bool kGather>
+template <typename In, typename Acc, int NL, bool kGather>
 __host__ __device__ constexpr int block_warps() {
-  return kSmemBudget / warp_smem_bytes<T, NL, kGather>() >= kMaxWarps
+  return kSmemBudget / warp_smem_bytes<In, Acc, NL, kGather>() >= kMaxWarps
              ? kMaxWarps
-             : (kSmemBudget / warp_smem_bytes<T, NL, kGather>() > 0
-                    ? kSmemBudget / warp_smem_bytes<T, NL, kGather>()
+             : (kSmemBudget / warp_smem_bytes<In, Acc, NL, kGather>() > 0
+                    ? kSmemBudget / warp_smem_bytes<In, Acc, NL, kGather>()
                     : 1);
 }
 
 // kVec consecutive U of shared memory from a 16-byte boundary, by 16-byte
-// loads.
+// loads (one for a lane's 8 bf16 entries).
 template <typename U>
 __device__ __forceinline__ void lds_vec(const U* p, U (&d)[kVec]) {
   constexpr int kPer = 16 / static_cast<int>(sizeof(U));
@@ -181,13 +221,13 @@ __device__ __forceinline__ void copy_row(U* dst, const U* src, int lane) {
 // steps of aligned streams by cp.async; the stream's ragged end, or
 // unaligned pointers, by scalar loads, entries past the end joining its
 // last segment with value 0 (idx -1: no gather).
-template <typename T, int NL, bool kGather>
-__device__ __forceinline__ void stage_step(const Params<T>& p, char* stage,
-                                           int64_t sbase, int l0,
-                                           int seg_pad, int lane) {
+template <typename In, typename Acc, typename Out, int NL, bool kGather>
+__device__ __forceinline__ void stage_step(const Params<In, Acc, Out>& p,
+                                           char* stage, int64_t sbase,
+                                           int l0, int seg_pad, int lane) {
   int* sg = reinterpret_cast<int*>(stage);
   int* id = sg + kStep;
-  T* tv = reinterpret_cast<T*>(sg + (kGather ? 2 : 1) * kStep);
+  In* tv = reinterpret_cast<In*>(sg + (kGather ? 2 : 1) * kStep);
   if (sbase + kStep <= p.n && p.vec) {
     copy_row(sg, p.seg + sbase, lane);
     if constexpr (kGather) {
@@ -202,18 +242,19 @@ __device__ __forceinline__ void stage_step(const Params<T>& p, char* stage,
     }
     return;
   }
+  const In zero = Narrow<In>::of(0.0f);
   for (int k = lane; k < kStep; k += 32) {
     const int64_t i = sbase + k;
     const bool in = i < p.n;
     sg[k] = in ? p.seg[i] : seg_pad;
     if constexpr (kGather) {
       id[k] = in ? p.idx[i] : -1;
-      tv[k] = in ? p.vals[i] : T(0);
+      tv[k] = in ? p.vals[i] : zero;
     } else {
 #pragma unroll
       for (int j = 0; j < NL; ++j)
         if (l0 + j < p.L)
-          tv[j * kStep + k] = in ? p.vals[(l0 + j) * p.vals_lane + i] : T(0);
+          tv[j * kStep + k] = in ? p.vals[(l0 + j) * p.vals_lane + i] : zero;
     }
   }
 }
@@ -242,17 +283,17 @@ __device__ __forceinline__ T warp_scan(T v, unsigned takes) {
   return v;
 }
 
-template <typename T, int NL, bool kGather>
+template <typename In, typename Acc, typename Out, int NL, bool kGather>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-segment_sum_kernel(const Params<T> p) {
-  constexpr int kWarps = block_warps<T, NL, kGather>();
+segment_sum_kernel(const Params<In, Acc, Out> p) {
+  constexpr int kWarps = block_warps<In, Acc, NL, kGather>();
   extern __shared__ __align__(16) char smem[];
-  constexpr int kStage = stage_bytes<T, NL, kGather>();
+  constexpr int kStage = stage_bytes<In, NL, kGather>();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  char* ring = smem + warp * warp_smem_bytes<T, NL, kGather>();
+  char* ring = smem + warp * warp_smem_bytes<In, Acc, NL, kGather>();
   int* end_seg = reinterpret_cast<int*>(ring + kDepth * kStage);
-  T* end_val = reinterpret_cast<T*>(end_seg + kEnds);   // [kEnds]
+  Acc* end_val = reinterpret_cast<Acc*>(end_seg + kEnds);   // [kEnds]
   // The warp takes steps first, first + stride, ...: neighbouring warps
   // read neighbouring memory at any time.
   const int64_t nsteps = (p.n + kStep - 1) / kStep;
@@ -266,9 +307,9 @@ segment_sum_kernel(const Params<T> p) {
 #pragma unroll
     for (int q = 0; q < kDepth - 1; ++q) {
       if (first + q * stride < nsteps)
-        stage_step<T, NL, kGather>(p, ring + q * kStage,
-                                   (first + q * stride) * kStep, l0, seg_pad,
-                                   lane);
+        stage_step<In, Acc, Out, NL, kGather>(
+            p, ring + q * kStage, (first + q * stride) * kStep, l0, seg_pad,
+            lane);
       cp_async_commit();
     }
 
@@ -277,15 +318,15 @@ segment_sum_kernel(const Params<T> p) {
       __syncwarp();      // every lane is done with the slot refilled here
       const int64_t ahead = step + (kDepth - 1) * stride;
       if (ahead < nsteps)
-        stage_step<T, NL, kGather>(p, ring + ((q + kDepth - 1) % kDepth) *
-                                              kStage,
-                                   ahead * kStep, l0, seg_pad, lane);
+        stage_step<In, Acc, Out, NL, kGather>(
+            p, ring + ((q + kDepth - 1) % kDepth) * kStage, ahead * kStep,
+            l0, seg_pad, lane);
       cp_async_commit();
       cp_async_wait<kDepth - 1>();   // this lane's copies of this step
       __syncwarp();                  // ... and every lane's
       const char* stage = ring + (q % kDepth) * kStage;
       const int* ssg = reinterpret_cast<const int*>(stage);
-      const T* stv = reinterpret_cast<const T*>(
+      const In* stv = reinterpret_cast<const In*>(
           ssg + (kGather ? 2 : 1) * kStep);
       int sg[kVec];
       lds_vec(ssg + lane * kVec, sg);
@@ -294,12 +335,12 @@ segment_sum_kernel(const Params<T> p) {
         if (lane == 31) p.carry_seg[2 * step + 1] = sg[kVec - 1];
       }
 
-      // contributions (every lane's gathers issued before the scan)
-      T c[NL][kVec];
+      // contributions in Acc (every lane's gathers issued before the scan)
+      Acc c[NL][kVec];
       if constexpr (kGather) {
         int id[kVec];
         lds_vec(ssg + kStep + lane * kVec, id);
-        T tv[kVec];
+        In tv[kVec];
         lds_vec(stv + lane * kVec, tv);
 #pragma unroll
         for (int j = 0; j < NL; ++j) {
@@ -307,10 +348,11 @@ segment_sum_kernel(const Params<T> p) {
           const bool sq = l >= p.square_from;
 #pragma unroll
           for (int k = 0; k < kVec; ++k) {
-            T v = T(0);
+            Acc v = Acc(0);
             if (l < p.L && id[k] >= 0) {
-              const T w = sq ? tv[k] * tv[k] : tv[k];
-              v = w * __ldg(p.V + l * p.v_lane + id[k] * p.v_id);
+              const Acc x = widen(tv[k]);
+              const Acc w = sq ? x * x : x;
+              v = w * widen(__ldg(p.V + l * p.v_lane + id[k] * p.v_id));
             }
             c[j][k] = v;
           }
@@ -320,10 +362,13 @@ segment_sum_kernel(const Params<T> p) {
         for (int j = 0; j < NL; ++j) {
           const bool sq = l0 + j >= p.square_from;
           if (l0 + j < p.L) {
-            lds_vec(stv + j * kStep + lane * kVec, c[j]);
+            In raw[kVec];
+            lds_vec(stv + j * kStep + lane * kVec, raw);
+#pragma unroll
+            for (int k = 0; k < kVec; ++k) c[j][k] = widen(raw[k]);
           } else {
 #pragma unroll
-            for (int k = 0; k < kVec; ++k) c[j][k] = T(0);
+            for (int k = 0; k < kVec; ++k) c[j][k] = Acc(0);
           }
 #pragma unroll
           for (int k = 0; k < kVec; ++k)
@@ -375,13 +420,13 @@ segment_sum_kernel(const Params<T> p) {
       for (int j = 0; j < NL; ++j) {
         const int l = l0 + j;
         if (l >= p.L) break;
-        T tail = T(0);      // this thread's last run, its own entries only
+        Acc tail = Acc(0);  // this thread's last run, its own entries only
 #pragma unroll
         for (int k = 0; k < kVec; ++k)
           tail = ((hb >> k) & 1u) ? c[j][k] : tail + c[j][k];
-        const T incl = warp_scan(tail, takes);
-        T acc = __shfl_up_sync(kFull, incl, 1);
-        if (lane == 0) acc = T(0);
+        const Acc incl = warp_scan(tail, takes);
+        Acc acc = __shfl_up_sync(kFull, incl, 1);
+        if (lane == 0) acc = Acc(0);
         if (j > 0) __syncwarp();   // the previous lane's sums are written
 #pragma unroll
         for (int k = 0; k < kVec; ++k) {
@@ -389,24 +434,28 @@ segment_sum_kernel(const Params<T> p) {
           if ((ib >> k) & 1u) {
             end_val[at + __popc(ib & ((1u << k) - 1u))] = acc;
           } else if (!last_level && ((eb >> k) & 1u)) {
-            T* cv = p.carry_val + l * p.carry_lane + 2 * step;
+            Acc* cv = p.carry_val + l * p.carry_lane + 2 * step;
             if ((last >> k) & 1u) {
               cv[1] = acc;                       // the step's last run
-              if (heads == 0) cv[0] = T(0);      // ... is also its first
+              if (heads == 0) cv[0] = Acc(0);    // ... is also its first
             } else {
               cv[0] = acc;                       // the step's first run
             }
           }
         }
         __syncwarp();
+        // each segment is written once, on the level where its run ends
+        // inside a step: out's value widened, the sum added in Acc, one
+        // rounding into Out
         for (int i = lane; i < total; i += 32) {
           const int sid = end_seg[i];
           if (sid < 0 || sid >= p.S) continue;   // ids are validated by the
-          T* o = p.out + l * p.S + sid;          // caller; others drop
+          Out* o = p.out + l * p.S + sid;        // caller; others drop
 #ifdef SEGSUM_ABLATE_NO_STORE
-          if (end_val[i] == T(12345)) *o = T(0);   // probe only
+          if (end_val[i] == Acc(12345)) *o = Narrow<Out>::of(Acc(0));  // probe
 #else
-          *o = p.accumulate ? *o + end_val[i] : end_val[i];
+          *o = Narrow<Out>::of(p.accumulate ? widen(*o) + end_val[i]
+                                            : end_val[i]);
 #endif
         }
       }
@@ -427,53 +476,54 @@ int lanes_per_pass(int L) {
 int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 int64_t round_up(int64_t a, int64_t b) { return ceil_div(a, b) * b; }
 
-template <typename T, int NL, bool kGather>
+template <typename In, typename Acc, int NL, bool kGather>
 constexpr int smem_bytes() {
-  return block_warps<T, NL, kGather>() * warp_smem_bytes<T, NL, kGather>();
+  return block_warps<In, Acc, NL, kGather>() *
+         warp_smem_bytes<In, Acc, NL, kGather>();
 }
 
-// Warps of kernel <T, NL, kGather> that fit on the card at once (blocks per
-// SM from the occupancy query, times the SMs); 0 when a query fails. Asked
-// once per build: a process drives one kind of card.
-template <typename T, int NL, bool kGather>
+// Warps of a kernel that fit on the card at once (blocks per SM from the
+// occupancy query, times the SMs); 0 when a query fails. Asked once per
+// build: a process drives one kind of card.
+template <typename In, typename Acc, typename Out, int NL, bool kGather>
 int64_t warps_on_card() {
   static int64_t warps = 0;
   if (warps == 0) {
-    auto* kernel = segment_sum_kernel<T, NL, kGather>;
+    auto* kernel = segment_sum_kernel<In, Acc, Out, NL, kGather>;
+    constexpr int kSmem = smem_bytes<In, Acc, NL, kGather>();
+    constexpr int kWarps = block_warps<In, Acc, NL, kGather>();
     int dev = 0, sms = 0, per_sm = 0;
     if (cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_bytes<T, NL, kGather>()) != cudaSuccess ||
+                             kSmem) != cudaSuccess ||
         cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
             cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, kernel, 32 * block_warps<T, NL, kGather>(),
-            smem_bytes<T, NL, kGather>()) != cudaSuccess)
+            &per_sm, kernel, 32 * kWarps, kSmem) != cudaSuccess)
       return 0;
-    warps = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1) *
-            block_warps<T, NL, kGather>();
+    warps = static_cast<int64_t>(sms) * (per_sm > 0 ? per_sm : 1) * kWarps;
   }
   return warps;
 }
 
-template <typename T, bool kGather>
+template <typename In, typename Acc, bool kGather>
 int64_t level_block_warps(int L) {
   switch (lanes_per_pass(L)) {
-    case 1: return block_warps<T, 1, kGather>();
-    case 2: return block_warps<T, 2, kGather>();
-    case 3: return block_warps<T, 3, kGather>();
-    default: return block_warps<T, 4, kGather>();
+    case 1: return block_warps<In, Acc, 1, kGather>();
+    case 2: return block_warps<In, Acc, 2, kGather>();
+    case 3: return block_warps<In, Acc, 3, kGather>();
+    default: return block_warps<In, Acc, 4, kGather>();
   }
 }
 
-template <typename T, bool kGather>
+template <typename In, typename Acc, typename Out, bool kGather>
 int64_t level_warps(int L) {
   switch (lanes_per_pass(L)) {
-    case 1: return warps_on_card<T, 1, kGather>();
-    case 2: return warps_on_card<T, 2, kGather>();
-    case 3: return warps_on_card<T, 3, kGather>();
-    default: return warps_on_card<T, 4, kGather>();
+    case 1: return warps_on_card<In, Acc, Out, 1, kGather>();
+    case 2: return warps_on_card<In, Acc, Out, 2, kGather>();
+    case 3: return warps_on_card<In, Acc, Out, 3, kGather>();
+    default: return warps_on_card<In, Acc, Out, 4, kGather>();
   }
 }
 
@@ -484,14 +534,14 @@ struct Plan {
   int64_t steps, blocks;
 };
 
-template <typename T>
+template <typename In, typename Acc, typename Out>
 Plan level_plan(int64_t n, int L, bool gather) {
-  const int64_t warps = gather ? level_warps<T, true>(L)
-                               : level_warps<T, false>(L);
+  const int64_t warps = gather ? level_warps<In, Acc, Out, true>(L)
+                               : level_warps<In, Acc, Out, false>(L);
   if (warps <= 0) return {0, 0};
   const int64_t steps = ceil_div(n, kStep);
-  const int64_t per_block = gather ? level_block_warps<T, true>(L)
-                                   : level_block_warps<T, false>(L);
+  const int64_t per_block = gather ? level_block_warps<In, Acc, true>(L)
+                                   : level_block_warps<In, Acc, false>(L);
   return {steps, ceil_div(steps < warps ? steps : warps, per_block)};
 }
 
@@ -502,35 +552,40 @@ int64_t carry_bytes(int64_t steps, int64_t L, int64_t itemsize) {
          round_up(carry_lane(steps) * 4, 16);
 }
 
-// Bytes of carry stream all levels need; -1 on a failed query.
-template <typename T>
+// Bytes of carry stream (in Acc) all levels need; -1 on a failed query.
+// The first level reads In, the carry levels Acc.
+template <typename In, typename Acc, typename Out>
 int64_t workspace(int64_t n, int64_t L, bool gather) {
   int64_t total = 0;
   for (bool first = true;; first = false) {
-    const Plan plan = level_plan<T>(n, static_cast<int>(L), first && gather);
+    const Plan plan =
+        first ? level_plan<In, Acc, Out>(n, static_cast<int>(L), gather)
+              : level_plan<Acc, Acc, Out>(n, static_cast<int>(L), false);
     if (plan.steps == 0) return -1;
     if (plan.steps == 1) return total;
-    total += carry_bytes(plan.steps, L, sizeof(T));
+    total += carry_bytes(plan.steps, L, sizeof(Acc));
     n = 2 * plan.steps;
   }
 }
 
-template <typename T, int NL, bool kGather>
-void launch_kernel(const Params<T>& p, int64_t blocks, cudaStream_t stream) {
-  constexpr int kSmem = smem_bytes<T, NL, kGather>();
+template <typename In, typename Acc, typename Out, int NL, bool kGather>
+void launch_kernel(const Params<In, Acc, Out>& p, int64_t blocks,
+                   cudaStream_t stream) {
+  constexpr int kSmem = smem_bytes<In, Acc, NL, kGather>();
   const dim3 grid(static_cast<unsigned>(blocks));
-  constexpr int kThreads = 32 * block_warps<T, NL, kGather>();
-  segment_sum_kernel<T, NL, kGather><<<grid, kThreads, kSmem, stream>>>(p);
+  constexpr int kThreads = 32 * block_warps<In, Acc, NL, kGather>();
+  segment_sum_kernel<In, Acc, Out, NL, kGather>
+      <<<grid, kThreads, kSmem, stream>>>(p);
 }
 
-template <typename T, bool kGather>
-cudaError_t launch_level(const Params<T>& p, int64_t blocks,
+template <typename In, typename Acc, typename Out, bool kGather>
+cudaError_t launch_level(const Params<In, Acc, Out>& p, int64_t blocks,
                          cudaStream_t stream) {
   switch (lanes_per_pass(p.L)) {
-    case 1: launch_kernel<T, 1, kGather>(p, blocks, stream); break;
-    case 2: launch_kernel<T, 2, kGather>(p, blocks, stream); break;
-    case 3: launch_kernel<T, 3, kGather>(p, blocks, stream); break;
-    default: launch_kernel<T, 4, kGather>(p, blocks, stream); break;
+    case 1: launch_kernel<In, Acc, Out, 1, kGather>(p, blocks, stream); break;
+    case 2: launch_kernel<In, Acc, Out, 2, kGather>(p, blocks, stream); break;
+    case 3: launch_kernel<In, Acc, Out, 3, kGather>(p, blocks, stream); break;
+    default: launch_kernel<In, Acc, Out, 4, kGather>(p, blocks, stream); break;
   }
   return cudaGetLastError();
 }
@@ -539,7 +594,35 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15u) == 0;
 }
 
-template <typename T>
+// One level: its carry stream carved from the workspace (none on the last
+// level, one step), then its launch. Returns the CUDA error, or
+// cudaErrorInvalidValue when the workspace is too small; *steps gets the
+// level's steps (0 on a failed occupancy query).
+template <typename In, typename Acc, typename Out>
+int run_level(Params<In, Acc, Out>& p, bool gather, char* ws, int64_t& used,
+              int64_t workspace_bytes, cudaStream_t stream, int64_t* steps) {
+  const Plan plan = level_plan<In, Acc, Out>(p.n, p.L, gather);
+  *steps = plan.steps;
+  if (plan.steps == 0) return static_cast<int>(cudaGetLastError());
+  p.carry_val = nullptr;
+  p.carry_seg = nullptr;
+  p.carry_lane = 0;
+  if (plan.steps > 1) {
+    p.carry_lane = carry_lane(plan.steps);
+    const int64_t bytes = carry_bytes(plan.steps, p.L, sizeof(Acc));
+    if (used + bytes > workspace_bytes) return cudaErrorInvalidValue;
+    p.carry_val = reinterpret_cast<Acc*>(ws + used);
+    p.carry_seg = reinterpret_cast<int*>(
+        ws + used + round_up(p.L * p.carry_lane * sizeof(Acc), 16));
+    used += bytes;
+  }
+  const cudaError_t err =
+      gather ? launch_level<In, Acc, Out, true>(p, plan.blocks, stream)
+             : launch_level<In, Acc, Out, false>(p, plan.blocks, stream);
+  return static_cast<int>(err);
+}
+
+template <typename In, typename Acc, typename Out>
 int run(const void* vals, long long vals_lane, const void* V,
         long long v_lane, long long v_id, const void* idx, const void* seg,
         void* out, long long L, long long n, long long S,
@@ -548,15 +631,15 @@ int run(const void* vals, long long vals_lane, const void* V,
   if (L <= 0 || n <= 0 || S <= 0) return 0;
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const bool gather = V != nullptr;
-  Params<T> p{};
-  p.vals = static_cast<const T*>(vals);
+  Params<In, Acc, Out> p{};
+  p.vals = static_cast<const In*>(vals);
   p.vals_lane = vals_lane;
-  p.V = static_cast<const T*>(V);
+  p.V = static_cast<const In*>(V);
   p.v_lane = v_lane;
   p.v_id = v_id;
   p.idx = static_cast<const int*>(idx);
   p.seg = static_cast<const int*>(seg);
-  p.out = static_cast<T*>(out);
+  p.out = static_cast<Out*>(out);
   p.S = S;
   p.n = n;
   p.L = static_cast<int>(L);
@@ -564,40 +647,32 @@ int run(const void* vals, long long vals_lane, const void* V,
   p.accumulate = accumulate;
   p.vec = aligned16(vals) && aligned16(seg) &&
           (gather ? aligned16(idx)
-                  : (vals_lane * static_cast<long long>(sizeof(T))) % 16 == 0);
+                  : (vals_lane * static_cast<long long>(sizeof(In))) % 16 ==
+                        0);
   char* ws = static_cast<char*>(workspace_ptr);
-  int64_t used = 0;
-  for (bool first = true;; first = false) {
-    const Plan plan = level_plan<T>(p.n, p.L, first && gather);
-    if (plan.steps == 0) return static_cast<int>(cudaGetLastError());
-    const int64_t steps = plan.steps;
-    p.carry_val = nullptr;
-    p.carry_seg = nullptr;
-    p.carry_lane = 0;
-    if (steps > 1) {
-      p.carry_lane = carry_lane(steps);
-      const int64_t bytes = carry_bytes(steps, L, sizeof(T));
-      if (used + bytes > workspace_bytes) return cudaErrorInvalidValue;
-      p.carry_val = reinterpret_cast<T*>(ws + used);
-      p.carry_seg = reinterpret_cast<int*>(
-          ws + used + round_up(L * p.carry_lane * sizeof(T), 16));
-      used += bytes;
-    }
-    const cudaError_t err =
-        (first && gather) ? launch_level<T, true>(p, plan.blocks, stream)
-                          : launch_level<T, false>(p, plan.blocks, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (steps == 1) return 0;
-    // the carry stream: (L, 2 * steps) partial sums, added into out
-    p.vals = p.carry_val;
-    p.vals_lane = p.carry_lane;
-    p.V = nullptr;
-    p.idx = nullptr;
-    p.seg = p.carry_seg;
-    p.n = 2 * steps;
-    p.square_from = p.L;
-    p.accumulate = 1;
-    p.vec = 1;
+  int64_t used = 0, steps = 0;
+  int err = run_level(p, gather, ws, used, workspace_bytes, stream, &steps);
+  if (err != 0 || steps <= 1) return err;
+  // the carry stream: (L, 2 * steps) partial sums in Acc, added into out
+  // level after level until one step is left
+  Params<Acc, Acc, Out> c{};
+  c.vals = p.carry_val;
+  c.vals_lane = p.carry_lane;
+  c.seg = p.carry_seg;
+  c.out = p.out;
+  c.S = S;
+  c.n = 2 * steps;
+  c.L = p.L;
+  c.square_from = p.L;
+  c.accumulate = 1;
+  c.vec = 1;
+  for (;;) {
+    err = run_level(c, false, ws, used, workspace_bytes, stream, &steps);
+    if (err != 0 || steps <= 1) return err;
+    c.vals = c.carry_val;
+    c.vals_lane = c.carry_lane;
+    c.seg = c.carry_seg;
+    c.n = 2 * steps;
   }
 }
 
@@ -617,9 +692,9 @@ int segment_sum_f32(const void* vals, long long vals_lane, const void* V,
                     long long S, long long square_from, int accumulate,
                     void* workspace, long long workspace_bytes,
                     void* stream) {
-  return run<float>(vals, vals_lane, V, v_lane, v_id, idx, seg, out, L, n,
-                    S, square_from, accumulate, workspace, workspace_bytes,
-                    stream);
+  return run<float, float, float>(vals, vals_lane, V, v_lane, v_id, idx, seg,
+                                  out, L, n, S, square_from, accumulate,
+                                  workspace, workspace_bytes, stream);
 }
 
 int segment_sum_f64(const void* vals, long long vals_lane, const void* V,
@@ -628,19 +703,54 @@ int segment_sum_f64(const void* vals, long long vals_lane, const void* V,
                     long long S, long long square_from, int accumulate,
                     void* workspace, long long workspace_bytes,
                     void* stream) {
-  return run<double>(vals, vals_lane, V, v_lane, v_id, idx, seg, out, L, n,
-                     S, square_from, accumulate, workspace, workspace_bytes,
-                     stream);
+  return run<double, double, double>(vals, vals_lane, V, v_lane, v_id, idx,
+                                     seg, out, L, n, S, square_from,
+                                     accumulate, workspace, workspace_bytes,
+                                     stream);
 }
 
-// Bytes of carry stream that segment_sum_f32/f64 need for n entries and L
-// lanes, gather form or not (the wrapper allocates them); -1 when the
+// bfloat16 vals, V and out; products, sums and the carry stream in float32;
+// one rounding into out per segment.
+int segment_sum_bf16(const void* vals, long long vals_lane, const void* V,
+                     long long v_lane, long long v_id, const void* idx,
+                     const void* seg, void* out, long long L, long long n,
+                     long long S, long long square_from, int accumulate,
+                     void* workspace, long long workspace_bytes,
+                     void* stream) {
+  return run<bf16, float, bf16>(vals, vals_lane, V, v_lane, v_id, idx, seg,
+                                out, L, n, S, square_from, accumulate,
+                                workspace, workspace_bytes, stream);
+}
+
+// bfloat16 vals and V into a float32 out; the arithmetic of
+// segment_sum_bf16, and the sum added into out without a rounding.
+int segment_sum_bf16_f32(const void* vals, long long vals_lane, const void* V,
+                         long long v_lane, long long v_id, const void* idx,
+                         const void* seg, void* out, long long L, long long n,
+                         long long S, long long square_from, int accumulate,
+                         void* workspace, long long workspace_bytes,
+                         void* stream) {
+  return run<bf16, float, float>(vals, vals_lane, V, v_lane, v_id, idx, seg,
+                                 out, L, n, S, square_from, accumulate,
+                                 workspace, workspace_bytes, stream);
+}
+
+// Bytes of carry stream that the entry points need for n entries and L
+// lanes, gather form or not (the wrapper allocates them); itemsize and
+// out_itemsize name the entry point (4 4, 8 8, 2 2 or 2 4); -1 when the
 // occupancy query fails.
 long long segment_sum_workspace_bytes(long long n, long long L,
-                                      long long itemsize, int gather) {
+                                      long long itemsize,
+                                      long long out_itemsize, int gather) {
   if (n <= 0 || L <= 0) return 0;
-  return itemsize == 8 ? workspace<double>(n, L, gather != 0)
-                       : workspace<float>(n, L, gather != 0);
+  switch (itemsize) {
+    case 8: return workspace<double, double, double>(n, L, gather != 0);
+    case 2:
+      return out_itemsize == 4
+                 ? workspace<bf16, float, float>(n, L, gather != 0)
+                 : workspace<bf16, float, bf16>(n, L, gather != 0);
+    default: return workspace<float, float, float>(n, L, gather != 0);
+  }
 }
 
 }  // extern "C"

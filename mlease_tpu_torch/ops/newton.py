@@ -14,7 +14,9 @@ As in ops/tron.py, the JAX package's vmapped `lax.while_loop`s are written
 out as masked lock-step loops over the problem axis P: a lane whose
 condition is false keeps its state, so per-lane results and iteration
 counts equal the JAX solver's. The factorisation runs in float32 whatever
-the solve's dtype and is cast back, as in the JAX solver.
+the solve's dtype and is cast back, as in the JAX solver; in bfloat16 the
+step is solved with the float32 factor and rounded to bfloat16 (the JAX
+solver rounds the factor and solves in bfloat16, which torch cannot).
 `torch.linalg.cholesky_ex` and `torch.cholesky_solve` are library calls, as
 the JAX package leaves them to its library outside any kernel.
 """
@@ -27,6 +29,7 @@ import torch
 
 from mlease_tpu_torch.ops import objective as obj
 from mlease_tpu_torch.ops.gram import gram_batched
+from mlease_tpu_torch.ops.segment_sum import accumulate_dtype
 
 
 class NewtonResult(NamedTuple):
@@ -50,6 +53,10 @@ def newton_cholesky(prob: obj.LRProblem, w0: torch.Tensor, eps,
     ops/tron.py::tron; meant for problems whose dense dimension is small
     (per-item models)."""
     dtype = w0.dtype
+    # torch has no bfloat16 Cholesky solve (neither has the card's cuBLAS a
+    # bfloat16 trsm): a bfloat16 solve takes the float32 factor as it is
+    # and rounds the step once; float32 and float64 solve in their own type
+    solve_dtype = accumulate_dtype(dtype)
     P = w0.shape[0]
     eps = torch.as_tensor(eps, dtype=dtype, device=w0.device).expand(P)
     X = obj.densify(prob)
@@ -68,18 +75,22 @@ def newton_cholesky(prob: obj.LRProblem, w0: torch.Tensor, eps,
         lanes = active & (it < max_iter)
         if not bool(lanes.any()):
             break
-        yz = prob.y * (torch.bmm(X, w[:, :, None])[:, :, 0] + prob.offset)
+        # the margins in float32 (ops/objective.py's rule; the dense
+        # bfloat16 product is accumulated in float32 and rounded once)
+        yz = prob.y * (torch.bmm(X, w[:, :, None])[:, :, 0].to(solve_dtype)
+                       + prob.offset)
         p = torch.sigmoid(yz)
-        D = prob.weight * p * (1.0 - p)
+        D = (prob.weight * p * (1.0 - p)).to(dtype)
         H = gram_batched(X, D, prob.prior_var_inv)
         # a factorisation that fails gives NaN, which stops its lane below
         L, info = torch.linalg.cholesky_ex(H.to(torch.float32))
-        L = torch.where((info != 0)[:, None, None], nan, L).to(dtype)
-        s = torch.cholesky_solve(-g[:, :, None], L)[:, :, 0]
+        L = torch.where((info != 0)[:, None, None], nan, L).to(solve_dtype)
+        s = torch.cholesky_solve(-g[:, :, None].to(solve_dtype),
+                                 L)[:, :, 0].to(dtype)
         gs = (g * s).sum(-1)
 
         # Armijo backtracking: t starts at 2 and halves before every trial
-        t = torch.full_like(f, 2.0)
+        t = torch.full_like(f, 2.0, dtype=dtype)
         fn = inf
         k = torch.zeros_like(it)
         while True:

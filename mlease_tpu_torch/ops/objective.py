@@ -35,6 +35,7 @@ import torch
 
 from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops.gram import gram_batched
+from mlease_tpu_torch.ops.segment_sum import accumulate_dtype
 
 
 class LRProblem(NamedTuple):
@@ -115,7 +116,11 @@ def _ids(ids: torch.Tensor, L: int) -> torch.Tensor:
 
 
 def _zeros3(prob: LRProblem, L: int, width: int) -> torch.Tensor:
-    return torch.zeros((L, prob.y.shape[0], width), dtype=prob.values.dtype,
+    """A zero (L, B, width) scatter-add target in the accumulate type
+    (bfloat16 sums in float32 and rounds once, as K1 sums: on the card a
+    bfloat16 scatter-add rounds after every entry)."""
+    return torch.zeros((L, prob.y.shape[0], width),
+                       dtype=accumulate_dtype(prob.values.dtype),
                        device=prob.values.device)
 
 
@@ -124,35 +129,43 @@ def _zeros3(prob: LRProblem, L: int, width: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _xv3(prob: LRProblem, v3: torch.Tensor) -> torch.Tensor:
-    """X @ v on (L, B, n) lanes -> (L, B, R)."""
+    """X @ v on (L, B, n) lanes -> (L, B, R) in the accumulate type: for a
+    bfloat16 v the scores stay float32, products of the data as stored and
+    the widened v, every sum in float32; the dense head's product is a
+    bfloat16 bmm, accumulated in float32 and rounded once
+    (ops/tron_multi.py's docstring states the rule for both solvers)."""
     L = v3.shape[0]
     B, R = prob.y.shape
     K = prob.indices.shape[-1]
+    va = v3.to(accumulate_dtype(v3.dtype))
     if K > 0:
-        gathered = v3.gather(2, _ids(prob.indices, L))
+        gathered = va.gather(2, _ids(prob.indices, L))
         out = (prob.values * gathered.view(L, B, R, K)).sum(-1)
     else:
-        out = _zeros3(prob, L, R)
+        out = torch.zeros((L, B, R), dtype=va.dtype, device=va.device)
     if prob.head_x is not None:
         hv_ = v3.gather(2, _ids(prob.head_ids, L))             # (L, B, H)
         out = out + torch.bmm(prob.head_x,
                               hv_.permute(1, 2, 0)).permute(2, 0, 1)
     if prob.tail_cols is not None:
-        contrib = prob.tail_vals * v3.gather(2, _ids(prob.tail_cols, L))
         out = out + _zeros3(prob, L, R).scatter_add_(
-            2, _ids(prob.tail_rows, L), contrib)
+            2, _ids(prob.tail_rows, L),
+            prob.tail_vals * va.gather(2, _ids(prob.tail_cols, L)))
     return out
 
 
 def xv(prob: LRProblem, v: torch.Tensor) -> torch.Tensor:
-    """X @ v: (P, n) -> (P, R) scores. ELL: gather + row reduction; hybrid:
-    the dense head product plus a flat-COO pass over the tail."""
+    """X @ v: (P, n) -> (P, R) scores, in the accumulate type. ELL: gather
+    + row reduction; hybrid: the dense head product plus a flat-COO pass
+    over the tail."""
     return _xv3(prob, _lanes(prob, v)).reshape(v.shape[0], -1)
 
 
 def xtv(prob: LRProblem, d: torch.Tensor) -> torch.Tensor:
     """X' @ d: (P, R) -> (P, n) accumulation (one batched scatter-add; with
-    the CSC dual layout, the column-sorted copy of the same nonzeros)."""
+    the CSC dual layout, the column-sorted copy of the same nonzeros). d is
+    in the accumulate type (float32 for bfloat16 data: the products of the
+    data as stored and d, every sum in float32)."""
     d3 = _lanes(prob, d)
     L = d3.shape[0]
     K = prob.indices.shape[-1]
@@ -163,9 +176,11 @@ def xtv(prob: LRProblem, d: torch.Tensor) -> torch.Tensor:
     elif K > 0:
         out.scatter_add_(2, _ids(prob.indices, L),
                          (prob.values * d3[..., None]).flatten(2))
-    if prob.head_x is not None:
-        head = torch.bmm(prob.head_x.transpose(1, 2), d3.permute(1, 2, 0))
-        out.scatter_add_(2, _ids(prob.head_ids, L), head.permute(2, 0, 1))
+    if prob.head_x is not None:     # the GEMM reads d in the head's type
+        head = torch.bmm(prob.head_x.transpose(1, 2),
+                         d3.to(prob.head_x.dtype).permute(1, 2, 0))
+        out.scatter_add_(2, _ids(prob.head_ids, L),
+                         head.permute(2, 0, 1).to(out.dtype))
     if prob.tail_c_cols is not None:
         out.scatter_add_(2, _ids(prob.tail_c_cols, L), prob.tail_c_vals
                          * d3.gather(2, _ids(prob.tail_c_rows, L)))
@@ -188,28 +203,36 @@ def scores(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _curvature(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
-    """D_ii = weight_i * p_i * (1 - p_i) at w."""
+    """D_ii = weight_i * p_i * (1 - p_i) at w, rounded once to w's type."""
     p = torch.sigmoid(prob.y * _scores3(prob, w))
-    return (prob.weight * p * (1.0 - p)).reshape(w.shape[0], -1)
+    return (prob.weight * p * (1.0 - p)).to(w.dtype).reshape(w.shape[0], -1)
 
 
 def fun(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
-    """loss(w), (P,). log(1 + exp(-yz)) as logaddexp(0, -yz), the stable
-    two-branch form of LogisticRegressionL2.java:170-177."""
+    """loss(w), (P,), in the accumulate type. log(1 + exp(-yz)) as
+    logaddexp(0, -yz), the stable two-branch form of
+    LogisticRegressionL2.java:170-177. For a bfloat16 w the margins, the
+    row losses, the prior term and their sum stay float32, as
+    ops/tron_multi.py keeps its F: a bfloat16 objective of about 100
+    moves in steps of 0.5 (the JAX package's does, ROADMAP C9), and the
+    trust region and the line search, which weigh a step by the difference
+    of two objectives, would refuse every step that gains less."""
     yz = prob.y * _scores3(prob, w)
     data_loss = (prob.weight * torch.logaddexp(yz.new_zeros(()), -yz)).sum(-1)
-    dw = w - prob.prior_mean
-    return (data_loss.reshape(-1)
-            + 0.5 * (dw * dw * prob.prior_var_inv).sum(-1))
+    dw = w.to(yz.dtype) - prob.prior_mean
+    return data_loss.reshape(-1) + 0.5 * (dw * dw * prob.prior_var_inv).sum(-1)
 
 
 def grad_and_curvature(prob: LRProblem, w: torch.Tensor):
     """(gradient (P, n), D (P, R)); D is the IRLS curvature reused by
-    Hessian-vector products (LogisticRegressionL2.java:199-225)."""
+    Hessian-vector products (LogisticRegressionL2.java:199-225). For a
+    bfloat16 w both are formed in float32 and round once to w's type."""
     p = torch.sigmoid(prob.y * _scores3(prob, w))
     coeff = (prob.weight * (p - 1.0) * prob.y).reshape(w.shape[0], -1)
-    g = xtv(prob, coeff) + (w - prob.prior_mean) * prob.prior_var_inv
-    return g, (prob.weight * p * (1.0 - p)).reshape(w.shape[0], -1)
+    g = xtv(prob, coeff).to(w.dtype) \
+        + (w - prob.prior_mean) * prob.prior_var_inv
+    return g, (prob.weight * p * (1.0 - p)).to(w.dtype).reshape(
+        w.shape[0], -1)
 
 
 def grad(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
@@ -218,8 +241,10 @@ def grad(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
 
 def hv(prob: LRProblem, D: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """(diag(1/priorVar) + X' D X) @ s: two sparse passes
-    (LogisticRegressionL2.java:231-248)."""
-    return xtv(prob, D * xv(prob, s)) + s * prob.prior_var_inv
+    (LogisticRegressionL2.java:231-248); for a bfloat16 s, D * Xs and the
+    product in float32, rounded once to s's type."""
+    return (xtv(prob, D * xv(prob, s)).to(s.dtype)
+            + s * prob.prior_var_inv)
 
 
 def hessian_diagonal(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
@@ -229,24 +254,26 @@ def hessian_diagonal(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
     q3 = _lanes(prob, _curvature(prob, w))
     L = q3.shape[0]
     K = prob.indices.shape[-1]
-    out = _lanes(prob, prob.prior_var_inv.clone())
+    acc = accumulate_dtype(prob.prior_var_inv.dtype)
+    out = _lanes(prob, prob.prior_var_inv.to(acc, copy=True))
     if K > 0:
         out.scatter_add_(2, _ids(prob.indices, L),
                          (prob.values * prob.values
-                          * q3[..., None]).flatten(2))
+                          * q3[..., None]).flatten(2).to(acc))
     if prob.head_x is not None:
         sq = prob.head_x * prob.head_x
         head = torch.bmm(sq.transpose(1, 2), q3.permute(1, 2, 0))
-        out.scatter_add_(2, _ids(prob.head_ids, L), head.permute(2, 0, 1))
+        out.scatter_add_(2, _ids(prob.head_ids, L),
+                         head.permute(2, 0, 1).to(acc))
     if prob.tail_c_cols is not None:
-        out.scatter_add_(2, _ids(prob.tail_c_cols, L),
-                         prob.tail_c_vals * prob.tail_c_vals
-                         * q3.gather(2, _ids(prob.tail_c_rows, L)))
+        out.scatter_add_(2, _ids(prob.tail_c_cols, L), (
+            prob.tail_c_vals * prob.tail_c_vals
+            * q3.gather(2, _ids(prob.tail_c_rows, L))).to(acc))
     elif prob.tail_cols is not None:
-        out.scatter_add_(2, _ids(prob.tail_cols, L),
-                         prob.tail_vals * prob.tail_vals
-                         * q3.gather(2, _ids(prob.tail_rows, L)))
-    return out.reshape(w.shape[0], -1)
+        out.scatter_add_(2, _ids(prob.tail_cols, L), (
+            prob.tail_vals * prob.tail_vals
+            * q3.gather(2, _ids(prob.tail_rows, L))).to(acc))
+    return out.to(w.dtype).reshape(w.shape[0], -1)
 
 
 def densify(prob: LRProblem) -> torch.Tensor:

@@ -19,6 +19,14 @@ package writes each of them as one fused expression.
 `segment_sum_sorted(contrib (L, T), seg, S)` keeps the first version's
 contract on top of the contrib form: the (L, S) sums, zero-filled.
 
+Types: float32 and float64 compute in their own type; bfloat16 vals and V
+are read as bfloat16, every product (v * v squared from the bfloat16
+value), sum and carry is float32, and each touched segment of `out` is
+rounded once (its old value widened, the sum added in float32). A bfloat16
+call may also take a float32 `out` (the solver's scores, which stay in
+float32), added into without a rounding. The ids are int32 in every
+type.
+
 On a CUDA tensor both launch the hand-written kernel in
 `mlease_tpu_torch/csrc/segment_sum.cu` (which replaces
 mlease_tpu/ops/pallas/tile_sum.py::tile_segment_sum; its header gives the
@@ -61,8 +69,11 @@ SOURCE = _build.CSRC / "segment_sum.cu"
 # around a multiple of the step, and streams of many steps, are the edges
 CHUNK = 256
 
-_FN_NAMES = {torch.float32: "segment_sum_f32",
-             torch.float64: "segment_sum_f64"}
+# (vals' dtype, out's dtype) -> entry point
+_FN_NAMES = {(torch.float32, torch.float32): "segment_sum_f32",
+             (torch.float64, torch.float64): "segment_sum_f64",
+             (torch.bfloat16, torch.bfloat16): "segment_sum_bf16",
+             (torch.bfloat16, torch.float32): "segment_sum_bf16_f32"}
 _fns: dict = {}
 
 
@@ -73,19 +84,19 @@ def build(verbose: bool = False) -> Path:
 
 
 def _load() -> dict:
-    """{dtype: C entry point, "workspace": workspace size}, building and
-    loading the library once."""
+    """{(dtype, out dtype): C entry point, "workspace": workspace size},
+    building and loading the library once."""
     if not _fns:
         lib = _build.load(SOURCE)
         ll, vp = ctypes.c_longlong, ctypes.c_void_p
-        for dtype, name in _FN_NAMES.items():
+        for key, name in _FN_NAMES.items():
             fn = getattr(lib, name)
             fn.argtypes = [vp, ll, vp, ll, ll, vp, vp, vp, ll, ll, ll, ll,
                            ctypes.c_int, vp, ll, vp]
             fn.restype = ctypes.c_int
-            _fns[dtype] = fn
+            _fns[key] = fn
         ws = lib.segment_sum_workspace_bytes
-        ws.argtypes = [ll, ll, ll, ctypes.c_int]
+        ws.argtypes = [ll, ll, ll, ll, ctypes.c_int]
         ws.restype = ll
         _fns["workspace"] = ws
     return _fns
@@ -98,24 +109,39 @@ def _weights(vals: torch.Tensor, L: int, square_from: int) -> torch.Tensor:
     return torch.cat([vals[:square_from], (vals * vals)[square_from:]])
 
 
+def accumulate_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type K1 forms its products and sums in: float32 for bfloat16,
+    the values' own type otherwise. The port's bfloat16 solves sum, solve
+    and take objective values in this type too (ops/objective.py,
+    ops/tron_multi.py, ops/newton.py)."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def segment_sum_gather_reference(vals, V, idx, seg, num_segments: int, *,
                                  out=None, square_from=None):
     """Plain version: the contributions w * V[:, idx] (or w(vals)), then one
     index_add_ along the stream into `out` (zero-filled when None).
-    Sortedness is not needed here, but the kernel relies on it."""
+    Sortedness is not needed here, but the kernel relies on it. bfloat16
+    computes the kernel's function: the values widened to float32, the
+    products and the index_add_ in float32, one rounding into `out` (a
+    bfloat16 index_add_ would round at every entry)."""
     L = (V if V is not None else vals).shape[0]
     sf = L if square_from is None else square_from
+    acc = accumulate_dtype(vals.dtype)
     if V is None:
-        contrib = _weights(vals, L, sf)
+        contrib = _weights(vals.to(acc), L, sf)
     else:
-        tv = vals[None, :]
-        rows = V[:, idx]
+        tv = vals[None, :].to(acc)
+        rows = V[:, idx].to(acc)
         contrib = (torch.cat([tv * rows[:sf], (tv * tv) * rows[sf:]])
                    if sf < L else tv * rows)
     if out is None:
-        out = torch.zeros((L, num_segments), dtype=contrib.dtype,
-                          device=contrib.device)
-    return out.index_add_(1, seg, contrib)
+        return torch.zeros((L, num_segments), dtype=acc,
+                           device=contrib.device).index_add_(
+            1, seg, contrib).to(vals.dtype)
+    if out.dtype == acc:
+        return out.index_add_(1, seg, contrib)
+    return out.copy_(out.to(acc).index_add_(1, seg, contrib))
 
 
 def _check(vals, V, idx, seg, num_segments, out):
@@ -149,10 +175,11 @@ def _check(vals, V, idx, seg, num_segments, out):
     if V is not None and V.dtype != vals.dtype:
         raise TypeError(f"V and vals differ in dtype: {V.dtype}, "
                         f"{vals.dtype}")
-    if out is not None and (out.shape != (L, num_segments)
-                            or out.dtype != vals.dtype):
-        raise ValueError(f"out must be ({L}, {num_segments}) {vals.dtype}; "
-                         f"got {tuple(out.shape)} {out.dtype}")
+    if out is not None and (out.shape != (L, num_segments) or out.dtype
+                            not in (vals.dtype, accumulate_dtype(vals.dtype))):
+        raise ValueError(f"out must be ({L}, {num_segments}) {vals.dtype} "
+                         f"or {accumulate_dtype(vals.dtype)}; got "
+                         f"{tuple(out.shape)} {out.dtype}")
     return L
 
 
@@ -173,9 +200,9 @@ def segment_sum_gather(vals: torch.Tensor, V: torch.Tensor | None,
                                             out=out, square_from=sf)
     if seg.device.type != "cuda":
         raise ValueError(f"unsupported device {seg.device}")
-    if vals.dtype not in _FN_NAMES:
-        raise TypeError(f"the kernel takes float32 or float64; got "
-                        f"{vals.dtype}")
+    if (vals.dtype, vals.dtype) not in _FN_NAMES:
+        raise TypeError(f"the kernel takes float32, float64 or bfloat16; "
+                        f"got {vals.dtype}")
     if out is not None and not out.is_contiguous():
         raise ValueError("out must be contiguous (it is updated in place)")
     if not _build.check_current_device(seg):
@@ -199,12 +226,12 @@ def segment_sum_gather(vals: torch.Tensor, V: torch.Tensor | None,
         return out
     fns = _load()
     ws_bytes = fns["workspace"](T, L, vals.element_size(),
-                                int(V is not None))
+                                out.element_size(), int(V is not None))
     if ws_bytes < 0:
         raise RuntimeError("segment_sum: the kernel's occupancy query failed")
     ws = (torch.empty(ws_bytes, dtype=torch.uint8, device=vals.device)
           if ws_bytes else None)
-    err = fns[vals.dtype](
+    err = fns[vals.dtype, out.dtype](
         vals.data_ptr(), vals.stride(0) if V is None else 0,
         None if V is None else V.data_ptr(), v_lane, v_id,
         None if idx is None else idx.data_ptr(), seg.data_ptr(),
@@ -240,13 +267,16 @@ segment_sum_sorted.device_launches = None    # set by ops/device_loop.py
 
 
 def min_bytes(L: int, T: int, S: int, itemsize: int, *,
-              m_hit: int | None = None, S_hit: int | None = None) -> int:
+              m_hit: int | None = None, S_hit: int | None = None,
+              out_itemsize: int | None = None) -> int:
     """Bytes one call must move, each input read once and each output
-    written once (the bandwidth bound's numerator). Contrib form (m_hit
-    None): (L*T + L*S) * itemsize + 4*T. Gather form into an accumulator:
-    the stream (vals, idx, seg), the m_hit distinct V columns it touches per
-    lane, and the S_hit distinct outputs read and written."""
+    written once (the bandwidth bound's numerator); out's entries take
+    out_itemsize bytes (default itemsize). Contrib form (m_hit None):
+    L*T*itemsize + L*S*out_itemsize + 4*T. Gather form into an
+    accumulator: the stream (vals, idx, seg), the m_hit distinct V columns
+    it touches per lane, and the S_hit distinct outputs read and written."""
+    o = itemsize if out_itemsize is None else out_itemsize
     if m_hit is None:
-        return (L * T + L * S) * itemsize + 4 * T
+        return L * T * itemsize + L * S * o + 4 * T
     return (T * itemsize + 8 * T + L * min(T, m_hit) * itemsize
-            + 2 * L * S_hit * itemsize)
+            + 2 * L * S_hit * o)

@@ -181,7 +181,7 @@ def tron(prob: obj.LRProblem, w0: torch.Tensor, eps,
                                   torch.minimum(asn, SIGMA3 * delta_s)),
                     torch.maximum(delta_s,
                                   torch.minimum(asn, SIGMA3 * delta_s)))))
-        delta = torch.where(lanes, delta_new, delta)
+        delta = torch.where(lanes, delta_new.to(delta.dtype), delta)
 
         accept = lanes & (actred > ETA0 * prered)
         acc2 = accept[:, None]

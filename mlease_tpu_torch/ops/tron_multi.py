@@ -43,6 +43,17 @@ and of every dot, norm and prior term, where the JAX package psums them
 (collectives.py). Every (L,) or (L, B) trust-region scalar is then the
 same bits on every rank, so the ranks' lock-step loops take the
 same trips. group=None is the single-shard solve, unchanged.
+
+A bfloat16 solve keeps the data and the solver's vectors (W, G, D, the CG
+directions) in bfloat16, as the JAX solver carries them, and sums in
+float32 (`ops.segment_sum.accumulate_dtype`): the margins, the row losses,
+the prior term and F stay float32 (a bfloat16 F moves in steps of 0.5 at
+|F| about 100 and stalls the trust region), every sum over the data is
+float32, and a vector the solver keeps rounds to bfloat16 once, after its
+sum. An operand that a bfloat16 kernel reads is rounded first: K1's V
+(the gradient's coefficients, D * Xs) and the dense head's GEMM, which
+cuBLAS accumulates in float32 and rounds once. ops/objective.py (the
+lanes solve, the item solvers) follows the same rule.
 """
 
 from __future__ import annotations
@@ -53,7 +64,8 @@ import numpy as np
 import torch
 
 from mlease_tpu_torch.ops.gram import gram_batched
-from mlease_tpu_torch.ops.segment_sum import segment_sum_gather
+from mlease_tpu_torch.ops.segment_sum import (accumulate_dtype,
+                                              segment_sum_gather)
 from mlease_tpu_torch.collectives import all_reduce
 
 # Trust-region update constants (Tron.java:31-35), as in mlease_tpu/ops/tron.py
@@ -204,15 +216,20 @@ def _psum(x: torch.Tensor, group) -> torch.Tensor:
 
 def _xv_lm(prob: MultiProblem, V: torch.Tensor,
            group=None) -> torch.Tensor:
-    """(L, n) -> (L, R) scores; under feature sharding each rank computes
-    its columns' partial scores and the all_reduce assembles full rows (the
-    only collective of the matvec pair: X'v is column-local)."""
+    """(L, n) -> (L, R) scores in the accumulate type (float32 for a
+    bfloat16 V: the margins stay float32, products of the data as stored
+    and the widened V, the head's GEMM accumulated in float32 by cuBLAS and
+    rounded once, the tail's K1 sums added into float32 scores); under
+    feature sharding each rank computes its columns' partial scores and the
+    all_reduce assembles full rows (the only collective of the matvec
+    pair: X'v is column-local)."""
     R = prob.y.shape[0]
     L = V.shape[0]
+    acc = accumulate_dtype(V.dtype)
     if prob.indices.shape[-1] > 0:
-        out = (prob.values[None] * V[:, prob.indices]).sum(-1)
+        out = (prob.values[None] * V.to(acc)[:, prob.indices]).sum(-1)
     else:
-        out = torch.zeros((L, R), dtype=V.dtype, device=V.device)
+        out = torch.zeros((L, R), dtype=acc, device=V.device)
     if prob.head_x is not None:
         hx = prob.head_x
         hw = V[:, prob.head_ids]                    # (L, H) | (L, B*H)
@@ -235,41 +252,47 @@ def _xv_lm(prob: MultiProblem, V: torch.Tensor,
 
 
 def _xtv_lm(prob: MultiProblem, D: torch.Tensor) -> torch.Tensor:
-    """(L, R) -> (L, n) accumulation."""
+    """(L, R) -> (L, n) accumulation, in the accumulate type (for a
+    bfloat16 D every sum in float32, K1's tail added into the float32 sums;
+    the caller rounds once)."""
     n = prob.prior_mean.shape[-1]
     L = D.shape[0]
-    out = torch.zeros((L, n), dtype=D.dtype, device=D.device)
+    acc = accumulate_dtype(D.dtype)
+    out = torch.zeros((L, n), dtype=acc, device=D.device)
     if prob.indices.shape[-1] > 0:
         out.index_add_(1, prob.indices.reshape(-1),
-                       (prob.values[None] * D[:, :, None]).reshape(L, -1))
+                       (prob.values[None] * D.to(acc)[:, :, None])
+                       .reshape(L, -1))
     if prob.head_x is not None:
-        out.index_add_(1, prob.head_ids, _head_t(prob.head_x, D))
+        out.index_add_(1, prob.head_ids, _head_t(prob.head_x, D).to(acc))
     if prob.tail_c_cols is not None:
         segment_sum_gather(prob.tail_c_vals, D, prob.tail_c_rows,
                            prob.tail_c_cols, n, out=out)
     elif prob.tail_cols is not None:
         out = out + torch.zeros_like(out).index_add_(
-            1, prob.tail_cols, prob.tail_vals[None, :] * D[:, prob.tail_rows])
+            1, prob.tail_cols,
+            prob.tail_vals[None, :] * D.to(acc)[:, prob.tail_rows])
     return out
 
 
 def _xtv_and_sqdiag_lm(prob: MultiProblem, C: torch.Tensor,
                        Dm: torch.Tensor):
     """(X'C, (X∘X)'Dm) with the 2L lanes stacked, so every nonzero's id and
-    value are read once for both."""
+    value are read once for both; in the accumulate type, as `_xtv_lm`."""
     n = prob.prior_mean.shape[-1]
     L = C.shape[0]
-    out = torch.zeros((2 * L, n), dtype=C.dtype, device=C.device)
+    acc = accumulate_dtype(C.dtype)
+    out = torch.zeros((2 * L, n), dtype=acc, device=C.device)
     if prob.indices.shape[-1] > 0:
         v = prob.values[None]
         contrib = torch.cat([v * C[:, :, None], (v * v) * Dm[:, :, None]])
         out.index_add_(1, prob.indices.reshape(-1),
-                       contrib.reshape(2 * L, -1))
+                       contrib.reshape(2 * L, -1).to(acc))
     if prob.head_x is not None:
         hx = prob.head_x
         out.index_add_(1, prob.head_ids,
                        torch.cat([_head_t(hx, C),
-                                  _head_t(hx, Dm, square=True)]))
+                                  _head_t(hx, Dm, square=True)]).to(acc))
     CD = torch.cat([C, Dm])
     if prob.tail_c_cols is not None:
         segment_sum_gather(prob.tail_c_vals, CD, prob.tail_c_rows,
@@ -279,7 +302,7 @@ def _xtv_and_sqdiag_lm(prob: MultiProblem, C: torch.Tensor,
         rows = CD[:, prob.tail_rows]
         contrib = torch.cat([tv * rows[:L], (tv * tv) * rows[L:]])
         out = out + torch.zeros_like(out).index_add_(1, prob.tail_cols,
-                                                     contrib)
+                                                     contrib.to(acc))
     return out[:L], out[L:]
 
 
@@ -299,9 +322,13 @@ def _fun_grad_curvature_lm(prob: MultiProblem, W: torch.Tensor,
     """Objective + gradient + curvature (+ Jacobi diagonal) sharing ONE
     scores pass. F is (L,), or (L, B) per block with `blocks=B` (the rows
     and columns of a stacked problem in B equal segments). Under feature
-    sharding the prior term of F is summed over the shards."""
+    sharding the prior term of F is summed over the shards. For a bfloat16
+    W (the module docstring's rule) the margins, the losses, the prior
+    term and F are float32; the gradient's coefficients and the curvature,
+    which K1 and the head's GEMM read, round to W's type first, and G and
+    the diagonal round once after their float32 sums."""
     yz = prob.y[None, :] * (_xv_lm(prob, W, group) + prob.offset[None, :])
-    dw = W - prob.prior_mean
+    dw = W.to(yz.dtype) - prob.prior_mean
     loss = prob.weight[None, :] * _softplus_neg(yz)
     quad = dw * dw * prob.prior_var_inv
     if blocks is None:
@@ -310,23 +337,25 @@ def _fun_grad_curvature_lm(prob: MultiProblem, W: torch.Tensor,
         F = _seg(loss, blocks).sum(-1) + 0.5 * _psum(
             _seg(quad, blocks).sum(-1), group)
     p = torch.sigmoid(yz)
-    coeff = prob.weight[None, :] * (p - 1.0) * prob.y[None, :]
-    Dm = prob.weight[None, :] * p * (1.0 - p)
+    coeff = (prob.weight[None, :] * (p - 1.0) * prob.y[None, :]).to(W.dtype)
+    Dm = (prob.weight[None, :] * p * (1.0 - p)).to(W.dtype)
     if with_diag:
         Gd, Hd = _xtv_and_sqdiag_lm(prob, coeff, Dm)
-        return (F, Gd + dw * prob.prior_var_inv, Dm,
-                Hd + prob.prior_var_inv)
-    G = _xtv_lm(prob, coeff) + dw * prob.prior_var_inv
+        return (F, (Gd + dw * prob.prior_var_inv).to(W.dtype), Dm,
+                (Hd + prob.prior_var_inv).to(W.dtype))
+    G = (_xtv_lm(prob, coeff) + dw * prob.prior_var_inv).to(W.dtype)
     return F, G, Dm
 
 
 def _grad_at_zero_lm(prob: MultiProblem, n_rhs: int) -> torch.Tensor:
     """The gradient at W=0 per lane in one X'v pass (Xv(0) == 0 exactly)."""
+    dtype = prob.prior_mean.dtype
     yz = prob.y[None, :] * prob.offset[None, :].expand(
-        n_rhs, prob.y.shape[0]).to(prob.prior_mean.dtype)
+        n_rhs, prob.y.shape[0]).to(accumulate_dtype(dtype))
     p = torch.sigmoid(yz)
-    coeff = prob.weight[None, :] * (p - 1.0) * prob.y[None, :]
-    return _xtv_lm(prob, coeff) - prob.prior_mean * prob.prior_var_inv
+    coeff = (prob.weight[None, :] * (p - 1.0) * prob.y[None, :]).to(dtype)
+    return (_xtv_lm(prob, coeff)
+            - prob.prior_mean * prob.prior_var_inv).to(dtype)
 
 
 def _grad_norm_at_zero_lm(prob: MultiProblem, n_rhs: int,
@@ -337,8 +366,8 @@ def _grad_norm_at_zero_lm(prob: MultiProblem, n_rhs: int,
 
 def _hv_lm(prob: MultiProblem, Dm: torch.Tensor,
            S: torch.Tensor, group=None) -> torch.Tensor:
-    return (_xtv_lm(prob, Dm * _xv_lm(prob, S, group))
-            + S * prob.prior_var_inv)
+    return (_xtv_lm(prob, (Dm * _xv_lm(prob, S, group)).to(S.dtype))
+            + S * prob.prior_var_inv).to(S.dtype)
 
 
 def _dot_lm(a, b, group=None):
@@ -427,12 +456,15 @@ def _head_solve(pc: HeadBlockPrecond, r: torch.Tensor) -> torch.Tensor:
     the head coordinates, a divide on the tail. Not cholesky_solve: on the
     card torch gives a batched cholesky_solve to MAGMA, which allocates
     inside the call and so cannot run inside AdmmTrainer.run_fused's CUDA
-    graphs; the triangular solves are cuBLAS's trsm."""
-    rh = r[:, pc.head_ids].view(*pc.chol.shape[:-1], 1)
-    y = torch.linalg.solve_triangular(pc.chol, rh, upper=False)
-    sol = torch.linalg.solve_triangular(pc.chol.mT, y, upper=True)
+    graphs; the triangular solves are cuBLAS's trsm. A bfloat16 solve
+    widens the factor to float32 and rounds the result: torch has no
+    bfloat16 triangular solve on the CPU or the card."""
+    chol = pc.chol.to(accumulate_dtype(pc.chol.dtype))
+    rh = r[:, pc.head_ids].view(*chol.shape[:-1], 1).to(chol.dtype)
+    y = torch.linalg.solve_triangular(chol, rh, upper=False)
+    sol = torch.linalg.solve_triangular(chol.mT, y, upper=True)
     out = r / pc.diag
-    out[:, pc.head_ids] = sol.reshape(r.shape[0], -1)
+    out[:, pc.head_ids] = sol.reshape(r.shape[0], -1).to(r.dtype)
     return out
 
 
@@ -740,7 +772,7 @@ class MultiSolver:
                     torch.maximum(delta,
                                   torch.minimum(asn, SIGMA3 * delta)))))
         live = active & running
-        delta = torch.where(live, delta_new, delta)
+        delta = torch.where(live, delta_new.to(delta.dtype), delta)
 
         accept = live & (actred > ETA0 * prered)
         acc3 = accept[..., None]

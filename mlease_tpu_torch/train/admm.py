@@ -37,8 +37,14 @@ to (L, B, n), the trips the maxima over the ranks).
 device (`_FusedRun`: five branches over a static state, looped on the card
 by ops/device_loop.py), for the flat and per-block solves.
 
+`dtype=torch.bfloat16` runs every solve mode and run_fused as the JAX
+package runs it: data, z, u and the solver state in bfloat16, K1's bf16
+entry, the objective and every scatter-add summed in float32, and the
+scalar inner tolerance rounded to bfloat16 before it scales eps_scale, as
+the JAX package's weakly typed product rounds it.
+
 Not ported yet (NotImplementedError, see ROADMAP.md): `run_fused` of the
-lanes solve or under a mesh (A1b) and a bfloat16 compute dtype (A15).
+lanes solve or under a mesh (A1b).
 """
 
 from __future__ import annotations
@@ -403,11 +409,6 @@ class AdmmTrainer:
         self.config = config
         self.nblocks = data.nblocks      # real block count (the divisor)
         dtype = config.dtype
-        if dtype not in (torch.float32, torch.float64):
-            raise NotImplementedError(
-                f"compute dtype {dtype} is not ported (ROADMAP.md item "
-                f"A15); the solvers and their kernels run float32 or "
-                f"float64")
 
         if config.head_size > 0 and data.head is None:
             data = to_hybrid(data, config.head_size)
@@ -489,7 +490,8 @@ class AdmmTrainer:
 
     # ------------------------------------------------------------------
     def sample_loglik(self, z: torch.Tensor) -> np.ndarray:
-        return sample_loglik_lanes(*self.test_arrays, z).cpu().numpy()
+        return sample_loglik_lanes(*self.test_arrays, z).to(
+            torch.float64).cpu().numpy()
 
     def run_fused(self, z0: np.ndarray | None = None, *,
                   checkpoint_every: int | None = None,
@@ -676,7 +678,9 @@ class AdmmTrainer:
                                            if z0 is not None else 0.0),
                     rho_adapt_coefficient=cfg.rho_adapt_coefficient)
                 for r in self.rhos], dtype=dtype, device=dev)
-            eps = inner_eps * self.eps_scale
+            # the scalar rounded to the compute dtype first (as run_fused)
+            eps = torch.as_tensor(inner_eps, dtype=dtype,
+                                  device=dev) * self.eps_scale
 
             z, u, diffs, stats = self.step(self.prob, self.present, z, u,
                                            self.lam_vec, rho_eff, rho_base,

@@ -186,7 +186,8 @@ class FeatureShardedAdmmTrainer:
     def sample_loglik(self, z_host: np.ndarray) -> np.ndarray:
         z_full = torch.as_tensor(z_host, dtype=self.config.dtype,
                                  device=self.device)
-        return sample_loglik_lanes(*self.test_arrays, z_full).cpu().numpy()
+        return sample_loglik_lanes(*self.test_arrays, z_full).to(
+            torch.float64).cpu().numpy()
 
     # ------------------------------------------------------------------
     def run(self, z0: np.ndarray | None = None) -> AdmmResult:
@@ -247,7 +248,8 @@ class FeatureShardedAdmmTrainer:
                                            if z0 is not None else 0.0),
                     rho_adapt_coefficient=cfg.rho_adapt_coefficient)
                 for r in self.rhos], dtype=dtype, device=dev)
-            eps = inner_eps * self.eps_scale
+            eps = torch.as_tensor(inner_eps, dtype=dtype,
+                                  device=dev) * self.eps_scale
 
             z, u, diffs, trips = self.step(z, u, rho_eff, rho_base, eps)
             diffs_np = diffs.to(torch.float64).cpu().numpy()

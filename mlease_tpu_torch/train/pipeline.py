@@ -193,7 +193,7 @@ def _log_streaming_floor(trainer, result, n_lambdas: int) -> None:
         sf = streaming_floor(
             trainer.groups, trainer.trip_log, trainer.stream_wire_bytes(),
             steady, measure_put_bandwidth(device=trainer.device), n_lambdas,
-            device=trainer.device)
+            device=trainer.device, dtype=trainer.config.dtype)
         logger.info("streaming pass-floor decomposition: %s", json.dumps(sf))
     except Exception as e:  # noqa: BLE001 - accounting never fails the job
         logger.info("pass-floor decomposition unavailable: %r", e)
@@ -375,18 +375,28 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
             shutil.rmtree(os.path.join(out_base, f"iter-{iteration - 2}"),
                           ignore_errors=True)
 
+    # the arrays a checkpoint holds, as the JAX package writes them: the
+    # in-memory trainers' state in the compute dtype (bfloat16 as its
+    # bits), the streaming trainer's widened to float64 on the host
+    if streaming_groups > 1:
+        def host(t):
+            return t.cpu().to(torch.float64).numpy()
+    else:
+        host = ckpt.host_array
+
     def on_iteration(iteration, z, u, diffs, inner_eps, logliks=None):
         if not main:              # the trainer gathered u on every rank
             return
-        z_np, u_np = z.cpu().numpy(), u.cpu().numpy()
-        ckpt.save_checkpoint(ckpt_dir, iteration, z_np, u_np,
-                             inner_eps=inner_eps, mindiff=float(diffs.min()),
+        ckpt.save_checkpoint(ckpt_dir, iteration, host(z), host(u),
+                             inner_eps=inner_eps,
+                             mindiff=float(diffs.min()),
                              best_loglik=-9999999.0)
         if not keep_all:
             ckpt.prune_checkpoints(ckpt_dir, keep=keep_n)
         if write_train_output:
-            _dump_train_output(iteration, np.asarray(z_np, np.float64),
-                               np.asarray(u_np, np.float64))
+            _dump_train_output(iteration,
+                               z.to(torch.float64).cpu().numpy(),
+                               u.to(torch.float64).cpu().numpy())
         if logliks:
             avro.write_records(
                 os.path.join(out_base, "sample-test-loglik",
@@ -397,6 +407,12 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
     run_kwargs: dict[str, Any] = {"z0": z0}
     if config.get_boolean("resume", False):
         state = ckpt.load_latest(ckpt_dir)
+        if state is not None and ckpt.is_bf16_bits(state["z"]):
+            raise ValueError(
+                f"resume=true: {ckpt_dir} holds a bfloat16 run's checkpoint "
+                f"(its bits), which the JAX package cannot resume either "
+                f"(ROADMAP.md section C, known trait 8); "
+                f"mlease_tpu_torch.convert.state_from_checkpoint reads it")
         if state is not None:
             logger.info("resuming from checkpoint iter %d", state["iteration"])
             run_kwargs = dict(
@@ -486,8 +502,9 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
             _warn_fused_footprint(config, cfg, data)
 
             def on_chunk(iteration, z, u, diffs, inner_eps, logliks=None):
-                ckpt.save_checkpoint(ckpt_dir, iteration, z.cpu().numpy(),
-                                     u.cpu().numpy(), inner_eps=inner_eps,
+                ckpt.save_checkpoint(ckpt_dir, iteration,
+                                     ckpt.host_array(z),
+                                     ckpt.host_array(u), inner_eps=inner_eps,
                                      mindiff=float(np.min(diffs)),
                                      best_loglik=-9999999.0)
                 if not keep_all:

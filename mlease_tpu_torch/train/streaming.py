@@ -61,8 +61,10 @@ them and keep zero duals. Never the flat solve, and never the compact wire
 (compact_wire=True raises, "auto" stays dense), as in the JAX package. Every
 rank returns the same result (u gathered over the ranks).
 
-Not ported (NotImplementedError naming ROADMAP.md): a bfloat16 compute
-dtype (A15). dual_layout raises, as in the JAX package.
+**bfloat16** (`dtype=torch.bfloat16`, as the JAX package runs it): the host
+values, the dense head, u, x and z are bfloat16, the host arrays pinned
+`torch.bfloat16` tensors (numpy has no bfloat16); the solves take K1's
+bfloat16 entry. dual_layout raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -98,6 +100,9 @@ _STREAM_FIELDS = ("indices", "values", "y", "weight", "offset", "present",
                   "tail_rows", "tail_cols", "tail_vals",
                   "tail_c_rows", "tail_c_cols", "tail_c_vals")
 _CTAIL = ("tail_c_rows", "tail_c_cols", "tail_c_vals")
+# the arrays held in the compute dtype (the head has its own storage dtype)
+_VALUE_FIELDS = ("values", "y", "weight", "offset", "tail_vals",
+                 "tail_c_vals")
 
 
 def _nbytes(a) -> int:
@@ -295,14 +300,12 @@ class StreamingAdmmTrainer:
         self.solver = build_group_solver(
             config.max_newton_iter, config.max_cg_iter, mode=self.mode,
             pcg=config.pcg, relaxation=config.relaxation)
-        if config.dtype not in (torch.float32, torch.float64):
-            raise NotImplementedError(
-                f"compute dtype {config.dtype} is not ported (ROADMAP.md "
-                f"item A15); the solvers and their kernels run float32 or "
-                f"float64")
         self.device = dev = resolve_device(device)
         on_card = dev.type == "cuda"
-        dt = _numpy_dtype(config.dtype)
+        # numpy has no bfloat16: a bfloat16 run normalises its host arrays
+        # to float32 here and rounds them once, group by group, into host
+        # torch.bfloat16 tensors (_host_group), as the head already is
+        dt = _numpy_dtype(config.dtype) or np.dtype(np.float32)
         hdt = config.head_dtype or config.dtype
 
         # ---- one-time host normalization, group by group, in place -----
@@ -312,8 +315,7 @@ class StreamingAdmmTrainer:
                 g = to_hybrid(g, config.head_size, column_sorted=True,
                               head_dtype=hdt)
             conv = {f: np.asarray(getattr(g, f), dt)
-                    for f in ("values", "y", "weight", "offset",
-                              "tail_vals", "tail_c_vals")
+                    for f in _VALUE_FIELDS
                     if getattr(g, f) is not None
                     and getattr(g, f).dtype != dt}
             if g.head is not None:
@@ -375,7 +377,6 @@ class StreamingAdmmTrainer:
         self.use_head = groups[0].head is not None
         self.eps_scales = [class_balance_eps_scale(g.y, g.nrows)
                            for g in groups]
-        self._compute_np_dtype = dt
 
         # ---- compact-wire host encodings need the unstacked tails -------
         want_compact = (self.use_head and mesh is None
@@ -554,6 +555,8 @@ class StreamingAdmmTrainer:
                 continue
             t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
                 np.ascontiguousarray(a))
+            if f in _VALUE_FIELDS:
+                t = t.to(self.config.dtype)
             out[f] = self._pin(t.contiguous())
         return g._replace(**out)
 
@@ -661,7 +664,8 @@ class StreamingAdmmTrainer:
         return total
 
     def sample_loglik(self, z: torch.Tensor) -> np.ndarray:
-        return sample_loglik_lanes(*self.test_arrays, z).cpu().numpy()
+        return sample_loglik_lanes(*self.test_arrays, z).to(
+            torch.float64).cpu().numpy()
 
     # ------------------------------------------------------------------
     def _put_group(self, gi: int, u_host: torch.Tensor | None = None):
@@ -762,9 +766,9 @@ class StreamingAdmmTrainer:
             if ready is not None:
                 torch.cuda.current_stream(dev).wait_event(ready)
             u_g = u_groups[gi] if dev_consensus else u_dev
-            eps = torch.as_tensor(np.asarray(inner_eps * scale,
-                                             self._compute_np_dtype),
-                                  device=dev)
+            # the product in float64, rounded once to the compute dtype
+            eps = torch.as_tensor(np.asarray(inner_eps * scale),
+                                  dtype=dtype, device=dev)
             x, nt, cg = self.solver(prob, present, z, u_g, rho_eff, eps)
             trip_mat[gi] = (nt, cg)
             pad = self.pad_idx[gi]

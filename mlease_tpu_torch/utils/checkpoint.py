@@ -17,6 +17,33 @@ from typing import Any
 
 import numpy as np
 
+# numpy has no bfloat16 without ml_dtypes: a bfloat16 array is kept as its
+# bits in a 2-byte void dtype, which is what np.save writes for the JAX
+# package's (ml_dtypes) bfloat16 arrays and what np.load gives back for them
+BF16_BITS = np.dtype("V2")
+
+
+def host_array(t) -> np.ndarray:
+    """A tensor's values as the numpy array a checkpoint holds: bfloat16 as
+    its bits (BF16_BITS, the array a JAX run of the same dtype writes), any
+    other dtype as it is."""
+    import torch
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().view(BF16_BITS)
+    return t.numpy()
+
+
+def bf16_bits_to_float(a: np.ndarray) -> np.ndarray:
+    """bfloat16 bits (BF16_BITS or uint16) -> the same values as float32,
+    exactly (a bfloat16 is the upper half of a float32)."""
+    bits = np.ascontiguousarray(a).view(np.uint16).astype(np.uint32) << 16
+    return bits.view(np.float32)
+
+
+def is_bf16_bits(a: np.ndarray) -> bool:
+    return a.dtype in (BF16_BITS, np.dtype(np.uint16))
+
 
 def save_checkpoint(ckpt_dir: str, iteration: int, z: np.ndarray,
                     u: np.ndarray, *, inner_eps: float, mindiff: float,

@@ -47,8 +47,18 @@ def device_identity(device: str | torch.device = "cuda"):
     return dev.type, None
 
 
-def _refusal(tab: dict, plat: str, chip: str | None) -> str | None:
-    """Why a table does not apply to this device, or None when it does."""
+def _refusal(tab: dict, plat: str, chip: str | None,
+             dtype: torch.dtype | None = None) -> str | None:
+    """Why a table does not apply to this device and compute dtype, or None
+    when it does. A bfloat16 run takes only a table measured in bfloat16
+    ("dtype": "bfloat16", tools/torch_pass_microbench.py --dtype bfloat16),
+    and a float32 or float64 run only one measured without it: the passes
+    move half the bytes in bfloat16."""
+    tab_bf16 = tab.get("dtype") == "bfloat16"
+    if dtype is not None and tab_bf16 != (dtype == torch.bfloat16):
+        return (f"pass_floors table measured in "
+                f"{tab.get('dtype', 'float32')} compute, running in "
+                f"{str(dtype).removeprefix('torch.')}")
     if tab.get("platform") != plat:
         return (f"pass_floors table measured on {tab.get('platform')}, "
                 f"running on {plat}")
@@ -59,10 +69,12 @@ def _refusal(tab: dict, plat: str, chip: str | None) -> str | None:
 
 
 def load_floor_table(path: str | None = None, target_elems: int | None = None,
-                     *, device: str | torch.device = "cuda"):
+                     *, device: str | torch.device = "cuda",
+                     dtype: torch.dtype | None = None):
     """The measured per-pass table, or (None, reason). Platform-checked:
-    floors measured on another backend (or, on the card, another card) are
-    not comparable.
+    floors measured on another backend (or, on the card, another card, or
+    in the other of bfloat16 and wider compute, `dtype`) are not
+    comparable.
 
     With no explicit path (nor BENCH_FLOORS), every torch_pass_floors*.json
     of tools/ is considered and the table with
@@ -81,7 +93,7 @@ def load_floor_table(path: str | None = None, target_elems: int | None = None,
             return None, ("no pass_floors table — run "
                           "tools/torch_pass_microbench.py --floors on the "
                           "card")
-        why = _refusal(tab, plat, chip)
+        why = _refusal(tab, plat, chip, dtype)
         return (None, why) if why else (tab, None)
     best, best_key, seen = None, None, []
     for p in sorted(glob.glob(os.path.join(TOOLS_DIR, TABLE_GLOB))):
@@ -90,7 +102,7 @@ def load_floor_table(path: str | None = None, target_elems: int | None = None,
                 tab = json.load(f)
         except (OSError, ValueError):
             continue
-        why = _refusal(tab, plat, chip)
+        why = _refusal(tab, plat, chip, dtype)
         if why:
             seen.append(f"{os.path.basename(p)}: {why}")
             continue
@@ -137,7 +149,8 @@ def table_elems(tab: dict) -> int:
 def streaming_floor(groups, trip_log, wire_bytes: int, steady_iter_s: float,
                     bw_bytes_per_s: float | None, n_lambdas: int,
                     floors_path: str | None = None, *,
-                    device: str | torch.device = "cuda") -> dict:
+                    device: str | torch.device = "cuda",
+                    dtype: torch.dtype | None = None) -> dict:
     """Compose the streaming iteration floor from the probe table.
 
     groups:    the trainer's (padded) group list
@@ -148,11 +161,13 @@ def streaming_floor(groups, trip_log, wire_bytes: int, steady_iter_s: float,
     bw_bytes_per_s: measured host->device bandwidth (None -> wire term
                reported as unknown, util computed from compute alone)
     device:    the device the run took (picks the table)
+    dtype:     the run's compute dtype (a bfloat16 run takes a bfloat16
+               table or none; None: not checked)
     """
     mean_g_elems = (int(np.mean([group_elems(g, n_lambdas)
                                  for g in groups])) if groups else None)
     tab, err = load_floor_table(floors_path, target_elems=mean_g_elems,
-                                device=device)
+                                device=device, dtype=dtype)
     if tab is None:
         return {"floor_iter_s": None, "util": None, "source": err}
     if not trip_log:
@@ -193,7 +208,9 @@ def streaming_floor(groups, trip_log, wire_bytes: int, steady_iter_s: float,
         "bw_gbps": (round(bw_bytes_per_s / 1e9, 3)
                     if bw_bytes_per_s else None),
         "source": (f"composed from probe table @ {tab.get('chip')} "
-                   f"(features={tab.get('shape', {}).get('features')}); "
+                   + ("(bfloat16 compute, " if tab.get("dtype") == "bfloat16"
+                      else "(")
+                   + f"features={tab.get('shape', {}).get('features')}); "
                    "element-scaled per group; util>1 means the in-situ "
                    "solver beats the isolated-pass probe"),
         "per_group": per_group[:32],

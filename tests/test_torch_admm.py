@@ -183,13 +183,27 @@ def test_unported_paths_raise(kw):
     per-iteration trip counts (the per-block maxima for flat_blocks=False
     and head_block, the per-lane maxima of accepted Newton and CG
     iterations for multi_rhs=False and dual_layout). A bfloat16 compute
-    dtype (A15) still raises, and so does run_fused of the lanes solve
+    dtype (A15, once refused here) runs the default flat solve against the
+    JAX trainer in bfloat16 under tests/test_torch_bf16.py's rule: z within
+    2 * max(e_j, 2^-8 * max|z_j64|) of JAX's bfloat16 and float64 z, e_j
+    JAX's own bfloat16 error. run_fused of the lanes solve still raises
     (A1b; tests/test_torch_fused.py holds the modes it runs)."""
     data, vocab, test_rows = problem(seed=23, n_rows=240)
     if "dtype" in kw:
-        with pytest.raises(NotImplementedError, match="A15"):
-            AdmmTrainer(data, vocab, AdmmConfig(lambdas=[1.0], **kw),
-                        device="cpu")
+        base = dict(lambdas=[1.0], num_iters=4)
+        want64, wantbf = (JaxTrainer(data, vocab, JaxConfig(dtype=dt,
+                                                            **base)).run()
+                          for dt in (jnp.float64, jnp.bfloat16))
+        trainer = AdmmTrainer(data, vocab, AdmmConfig(**base, **kw),
+                              device="cpu")
+        assert trainer.mode == "flat"
+        got = trainer.run()
+        assert got.iterations == wantbf.iterations == 4
+        bound = 2 * max(np.abs(np.asarray(wantbf.z, np.float64)
+                               - want64.z).max(),
+                        2.0 ** -8 * np.abs(want64.z).max())
+        assert np.abs(got.z - np.asarray(wantbf.z, np.float64)).max() <= bound
+        assert np.abs(got.z - want64.z).max() <= bound
         trainer = AdmmTrainer(data, vocab, AdmmConfig(
             dtype=torch.float64, multi_rhs=False), device="cpu")
         with pytest.raises(NotImplementedError, match="A1b"):

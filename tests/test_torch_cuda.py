@@ -9,9 +9,11 @@ neither JAX nor the JAX package, so it also runs where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Tolerances: per segment |kernel - ref64| <= 1e-5 * (|out0| + sum|contrib|)
-in float32 (a float32 sum of k terms in another order differs by a few
-k*eps relative to the sum of magnitudes; out0 is the accumulator's value
-before the call) and 1e-12 in float64; segments the stream does not touch
+in float32 and for bfloat16 inputs into a float32 accumulator, plus
+2^-8 * |ref64| (one rounding) into a bfloat16 one (a float32 sum of k
+terms in another order differs by a few k*eps relative to the sum of
+magnitudes; out0 is the accumulator's value before the call) and 1e-12 in
+float64; segments the stream does not touch
 keep their bits; the trainer's float64 z to
 1e-8, as the CPU port is held to the JAX trainer. The Gram kernel likewise:
 per entry |G - G64| <= 1e-5 * sum_r |d x_i x_j| for float32 and bfloat16
@@ -104,16 +106,18 @@ def test_empty_segments_exact_zero_and_one_giant_segment(cuda):
 @pytest.mark.cuda
 def test_segment_sum_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     seg = torch.zeros(8, dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError, match="float32 or float64"):
+    with pytest.raises(TypeError, match="float32, float64 or bfloat16"):
         segment_sum_sorted(torch.ones((2, 8), dtype=torch.float16,
                                       device=cuda), seg, 4)
     with pytest.raises(ValueError, match="one device"):
         segment_sum_sorted(torch.ones((2, 8)), seg, 4)
 
 
-def check_gather(vals, V, idx, seg, S, tol, out0=None, square_from=None):
+def check_gather(vals, V, idx, seg, S, tol, out0=None, square_from=None,
+                 rel=0.0):
     """The fused call against the float64 plain version, accumulator
-    included; returns the result."""
+    included: per segment |got - ref64| <= tol * scale + rel * |ref64|
+    (rel: the one rounding of a bfloat16 result); returns the result."""
     got = segment_sum_gather(
         vals, V, idx, seg, S, square_from=square_from,
         out=None if out0 is None else out0.clone())
@@ -129,9 +133,11 @@ def check_gather(vals, V, idx, seg, S, tol, out0=None, square_from=None):
                                          square_from=square_from)
     torch.cuda.synchronize()
     L = (V if V is not None else vals).shape[0]
-    assert got.dtype == vals.dtype and got.shape == (L, S)
+    assert got.dtype == (vals.dtype if out0 is None else out0.dtype)
+    assert got.shape == (L, S)
     err = (got.double() - ref).abs()
-    assert bool((err <= tol * scale).all()), float(err.max())
+    assert bool((err <= tol * scale + rel * ref.abs()).all()), \
+        float(err.max())
     if out0 is not None:                  # untouched segments keep their bits
         hit = torch.zeros(S, dtype=torch.bool, device=seg.device)
         hit[seg.long()] = True
@@ -173,6 +179,103 @@ def test_segment_gather_zipf_stream_into_accumulator(cuda, dtype, L, tol,
                                60_000, out=out0.clone(),
                                square_from=L - L // 2)
     assert torch.equal(got, other)
+
+
+# bfloat16 (K1's bf16 entry): float32 products, sums and carries, one
+# rounding into out; per segment |got - ref64| <= 2^-8 |ref64| + 1e-5 *
+# (|out0| + sum |contrib|), ref64 the float64 sum of the bf16 inputs
+BF16_REL = 2.0 ** -8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["gather", "contrib"])
+@pytest.mark.parametrize("L", [1, 3, 6])
+def test_segment_sum_bf16_against_f64_and_plain(cuda, form, L):
+    """K1's bf16 entry, both forms, into a non-zero accumulator with the
+    last L // 2 lanes squared (the gather form) and into zeros (the contrib
+    form), and the plain version on the card (float32 index_add_, one
+    rounding), each against the float64 sum of the same bf16 inputs;
+    untouched segments keep their bits; one launch per call."""
+    rng = np.random.default_rng(300 + L)
+    vals, V, idx, seg, out0 = gather_inputs(rng, 300_000, 60_000, 40_000, L,
+                                            torch.bfloat16, cuda)
+    before = segment_sum_sorted.launches
+    if form == "gather":
+        sf = L - L // 2
+        got = check_gather(vals, V, idx, seg, 60_000, 1e-5, out0=out0,
+                           square_from=sf, rel=BF16_REL)
+        plain = segment_sum_gather_reference(vals, V, idx, seg, 60_000,
+                                             out=out0.clone(), square_from=sf)
+    else:
+        contrib = torch.as_tensor(rng.normal(size=(L, seg.numel())),
+                                  dtype=torch.bfloat16, device=cuda)
+        got = check_gather(contrib, None, None, seg, 60_000, 1e-5,
+                           rel=BF16_REL)
+        assert torch.equal(got, segment_sum_sorted(contrib, seg, 60_000))
+        plain = segment_sum_sorted_reference(contrib, seg, 60_000)
+    assert segment_sum_sorted.launches == before + 1 + (form == "contrib")
+    assert plain.dtype == got.dtype == torch.bfloat16
+    # the plain version is held to the same rule against the same ref64
+    f64 = (lambda t: None if t is None else t.double())       # noqa: E731
+    if form == "gather":
+        ref = segment_sum_gather_reference(
+            f64(vals), f64(V), idx, seg, 60_000, out=f64(out0).clone(),
+            square_from=sf)
+        scale = segment_sum_gather_reference(
+            f64(vals).abs(), f64(V).abs(), idx, seg, 60_000,
+            out=f64(out0).abs(), square_from=sf)
+    else:
+        ref = segment_sum_sorted_reference(f64(contrib), seg, 60_000)
+        scale = segment_sum_sorted_reference(f64(contrib).abs(), seg, 60_000)
+    err = (plain.double() - ref).abs()
+    assert bool((err <= 1e-5 * scale + BF16_REL * ref.abs()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 3, 6])
+def test_segment_sum_bf16_into_float32(cuda, L):
+    """K1's bf16 gather form into a float32 accumulator, as a bfloat16
+    solve calls it (its scores and X'v sums stay float32): no rounding
+    into out, so per segment within 1e-5 * scale of the float64 sum of the
+    same bf16 inputs, the last L // 2 lanes squared; the plain version on
+    the card to the same bound; untouched segments keep their bits."""
+    rng = np.random.default_rng(400 + L)
+    vals, V, idx, seg, _ = gather_inputs(rng, 300_000, 60_000, 40_000, L,
+                                         torch.bfloat16, cuda)
+    out0 = torch.as_tensor(rng.normal(size=(L, 60_000)),
+                           dtype=torch.float32, device=cuda)
+    sf = L - L // 2
+    before = segment_sum_sorted.launches
+    got = check_gather(vals, V, idx, seg, 60_000, 1e-5, out0=out0,
+                       square_from=sf)
+    assert segment_sum_sorted.launches == before + 1
+    plain = segment_sum_gather_reference(vals, V, idx, seg, 60_000,
+                                         out=out0.clone(), square_from=sf)
+    assert plain.dtype == got.dtype == torch.float32
+    assert float((plain - got).abs().max()) <= \
+        1e-5 * float(plain.abs().max() + 1)
+    T = 3 * CHUNK + 7                     # a stream of a few steps
+    check_gather(vals[:T], V, idx[:T], seg[:T], 60_000, 1e-5, out0=out0,
+                 square_from=sf)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 31, CHUNK - 1, CHUNK, CHUNK + 1,
+                               3 * CHUNK + 7, 1_000 * CHUNK + 1])
+def test_segment_sum_bf16_chunk_edges(cuda, T):
+    """bf16 streams ending inside, at and just past a step, and one of many
+    steps whose carries take two levels, both forms."""
+    rng = np.random.default_rng(T + 1)
+    S = max(T // 40, 1) + 5
+    vals, V, idx, seg, out0 = gather_inputs(rng, T, S - 5, 500, 3,
+                                            torch.bfloat16, cuda, zipf=False)
+    out0 = torch.as_tensor(rng.normal(size=(3, S)), dtype=torch.bfloat16,
+                           device=cuda)
+    check_gather(vals, V, idx, seg, S, 1e-5, out0=out0, square_from=2,
+                 rel=BF16_REL)
+    contrib = torch.as_tensor(rng.normal(size=(3, T)), dtype=torch.bfloat16,
+                              device=cuda)
+    check_gather(contrib, None, None, seg, S, 1e-5, rel=BF16_REL)
 
 
 @pytest.mark.cuda

@@ -312,7 +312,11 @@ def test_mesh_dual_layout_and_dtype_raise(tmp_path):
     """Under a mesh the compact wire is refused (compact_wire=True raises,
     as the JAX package's does; "auto" stays dense: the JAX test
     test_compact_wire_requires_single_device, here on a one-rank mesh);
-    the dual layout and a bfloat16 compute dtype raise."""
+    the dual layout raises. A bfloat16 compute dtype (A15, once refused
+    here) runs against the JAX trainer in bfloat16 under
+    tests/test_torch_bf16.py's rule: z within 2 * max(e_j, 2^-8 *
+    max|z_j64|) of JAX's bfloat16 and float64 z, e_j JAX's own bfloat16
+    error."""
     import torch.distributed as dist
 
     from mlease_tpu_torch.parallel import distributed, make_mesh
@@ -334,10 +338,17 @@ def test_mesh_dual_layout_and_dtype_raise(tmp_path):
     _j, tcfg = configs(dual_layout=True)
     with pytest.raises(NotImplementedError, match="dual layout"):
         port(groups, vocab, tcfg)
-    _j, tcfg = configs()
-    tcfg.dtype = torch.bfloat16
-    with pytest.raises(NotImplementedError, match="compute dtype"):
-        port(groups, vocab, tcfg)
+    jcfg, tcfg = configs(num_iters=4)
+    want64 = JTrainer(groups, vocab, jcfg).run()
+    jcfg.dtype, tcfg.dtype = jnp.bfloat16, torch.bfloat16
+    wantbf = JTrainer(groups, vocab, jcfg).run()
+    got = port(groups, vocab, tcfg).run()
+    assert got.iterations == wantbf.iterations == 4
+    bound = 2 * max(np.abs(np.asarray(wantbf.z, np.float64)
+                           - want64.z).max(),
+                    2.0 ** -8 * np.abs(want64.z).max())
+    assert np.abs(got.z - np.asarray(wantbf.z, np.float64)).max() <= bound
+    assert np.abs(got.z - want64.z).max() <= bound
 
 
 MESH_CASES = {

@@ -3,6 +3,7 @@
 mlease_tpu_torch/utils/floor.py composes a streamed iteration's floor from.
 
     python3 tools/torch_pass_microbench.py --floors [--shape bench|12m|both]
+                                           [--dtype float32|bfloat16]
                                            [--out-dir tools] [--seed 0]
 
 On one CUDA card. Each pass (ops/tron_multi.py: `_xv_lm` "xv", `_xtv_lm`
@@ -13,8 +14,8 @@ the time of a graph that holds one tiny kernel ("null_loop_ms"): the
 pass's device time without the host's launch cost, as the JAX package's
 tools/pass_microbench.py --floors measures its passes inside one jitted
 loop. The problem is the flat-blocks stack of AdmmTrainer (`trainer.prob`)
-on synthetic data (chip_smoke.py's generator, from --seed), float32, 3
-lambdas, random lanes-major vectors:
+on synthetic data (chip_smoke.py's generator, from --seed), in the compute
+dtype --dtype (float32 by default), 3 lambdas, random lanes-major vectors:
 
   bench  bench.py's default step: 4 blocks x 16,384 rows, 50,000 features,
          15 nnz a row, head 512 -> tools/torch_pass_floors.json
@@ -24,7 +25,10 @@ lambdas, random lanes-major vectors:
 
 Each table holds the JAX tables' keys (chip, platform, layout, shape,
 floors_ms, null_loop_ms, loop_trips) with "platform": "cuda", "chip" and
-"power_limit" from nvidia-smi, and the head's storage dtype.
+"power_limit" from nvidia-smi, and the head's storage dtype. --dtype
+bfloat16 (the head stored as bfloat16 too) writes the same tables with
+"dtype": "bfloat16" under names ending in _bf16, the only tables a
+bfloat16 run's floor takes (utils/floor.py).
 """
 
 from __future__ import annotations
@@ -78,7 +82,7 @@ def graph_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def measure(tag: str, seed: int, reps: int) -> dict:
+def measure(tag: str, seed: int, reps: int, dtype: str = "float32") -> dict:
     import numpy as np
     import torch
 
@@ -88,10 +92,12 @@ def measure(tag: str, seed: int, reps: int) -> dict:
     from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
 
     s = SHAPES[tag]
-    head_dtype = getattr(torch, s["head_dtype"])
+    bf16 = dtype == "bfloat16"
+    head_name = "bfloat16" if bf16 else s["head_dtype"]
+    dt = getattr(torch, dtype)
     cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], head_size=s["head"],
-                     head_dtype=head_dtype, pcg=True, flat_blocks=True,
-                     dtype=torch.float32)
+                     head_dtype=getattr(torch, head_name), pcg=True,
+                     flat_blocks=True, dtype=dt)
     data = synth_blocked_data(s["features"], s["blocks"], s["rows"],
                               s["nnz"], seed)
     trainer = AdmmTrainer(data, make_vocab(s["features"]), cfg)
@@ -102,9 +108,9 @@ def measure(tag: str, seed: int, reps: int) -> dict:
         torch.ones(L, device=dev)))
     R = prob.y.shape[0]
     gen = torch.Generator(device=dev).manual_seed(seed)
-    W = torch.randn((L, B * n), generator=gen, device=dev) * 0.1
-    C = torch.randn((L, R), generator=gen, device=dev)
-    Dm = torch.rand((L, R), generator=gen, device=dev) * 0.25
+    W = (torch.randn((L, B * n), generator=gen, device=dev) * 0.1).to(dt)
+    C = torch.randn((L, R), generator=gen, device=dev).to(dt)
+    Dm = (torch.rand((L, R), generator=gen, device=dev) * 0.25).to(dt)
     tiny = torch.zeros((), device=dev)
     null = graph_ms(lambda: tiny.add_(1e-30), reps)
     passes = {
@@ -121,7 +127,8 @@ def measure(tag: str, seed: int, reps: int) -> dict:
     ell_k = int(trainer.data.indices.shape[2])
     return {
         "chip": name, "power_limit": power, "platform": "cuda",
-        "layout": "flat-blocks", "head_dtype": s["head_dtype"],
+        "layout": "flat-blocks", "head_dtype": head_name,
+        **({"dtype": dtype} if bf16 else {}),
         "shape": {"features": s["features"], "blocks": B, "rows": s["rows"],
                   "nnz": s["nnz"], "lambdas": L, "head": s["head"],
                   "tail_nnz_per_block": int(
@@ -141,6 +148,8 @@ def main(argv=None) -> int:
     ap.add_argument("--shape", choices=("bench", "12m", "both"),
                     default="both")
     ap.add_argument("--out-dir", default=os.path.join(REPO, "tools"))
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32", help="the compute dtype")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args(argv)
@@ -151,8 +160,11 @@ def main(argv=None) -> int:
         print("torch_pass_microbench: needs a CUDA card", file=sys.stderr)
         return 1
     for tag in (("bench", "12m") if args.shape == "both" else (args.shape,)):
-        tab = measure(tag, args.seed, args.reps)
-        path = os.path.join(args.out_dir, SHAPES[tag]["out"])
+        tab = measure(tag, args.seed, args.reps, args.dtype)
+        out = SHAPES[tag]["out"]
+        if args.dtype == "bfloat16":
+            out = out.replace(".json", "_bf16.json")
+        path = os.path.join(args.out_dir, out)
         with open(path, "w") as f:
             json.dump(tab, f, indent=1)
             f.write("\n")

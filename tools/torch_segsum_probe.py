@@ -145,7 +145,7 @@ def main() -> int:
             fn.argtypes = [vp, ll, vp, ll, ll, vp, vp, vp, ll, ll, ll, ll,
                            ctypes.c_int, vp, ll, vp]
             fn.restype = ctypes.c_int
-            lib.segment_sum_workspace_bytes.argtypes = [ll, ll, ll,
+            lib.segment_sum_workspace_bytes.argtypes = [ll, ll, ll, ll,
                                                         ctypes.c_int]
             lib.segment_sum_workspace_bytes.restype = ll
             out = {"variant": name, "flags": flags,
@@ -153,7 +153,7 @@ def main() -> int:
                    "max_spill_bytes": max(spills) if spills else None}
             for case, (v, V, idx, seg, S, acc) in cases.items():
                 ws = torch.empty(max(lib.segment_sum_workspace_bytes(
-                    T, L, 4, int(V is not None)), 1), dtype=torch.uint8,
+                    T, L, 4, 4, int(V is not None)), 1), dtype=torch.uint8,
                     device=dev)
                 dst = torch.zeros((L, S), device=dev) if acc is None else acc
 
