@@ -210,6 +210,34 @@ Phases, each of which fails the run when it fails:
      cuda` on phase 5's job with dtype = bfloat16: phase 5's layout,
      models within 5% of max|w| of phase 5's, checkpoints of the bf16
      bits (|V2).
+ 19. run_fused in the modes slice 8 added, and the int32 bound (ROADMAP.md
+     A1b, A16), run right after phase 17: (a) at bench.py's shape without
+     a head (phase 14's lanes data), the lanes solves multi_rhs=False and
+     dual_layout, 5 iterations: run_fused against run() bit for bit, s an
+     iteration, capture seconds and the synchronizing calls of each run,
+     K1 (the lanes objective's sorted sums on the card) executed in the
+     loop as often as run() launches it, and those sums held against their
+     float64 scatter on the same inputs (random out0 and vectors, per entry
+     <= 1e-5 * (|out0| + sum|contrib|)): the column-sorted stream of both
+     solves, of the lanes problem also in sub-stacks of 2 blocks and on a
+     bfloat16 stream, and the full trainer's tails (row- and column-sorted)
+     on the ids a streamed lanes group unstacks to (held equal to
+     blocked_problem's), as built and in sub-stacks of 2; (b) the full
+     trainer's data on a one-rank NCCL mesh, per-block Jacobi and
+     head-block, --iters iterations: run_fused bit for bit with the mesh
+     trainer's run() and with phase 14's no-mesh run, equal trips, and the
+     K1, K2 and all_reduce executions counted on the card (the captured
+     branches' adds) equal to run()'s launches and calls (two all_reduces
+     an iteration; the branches holding one captured "thread_local", the
+     node types of the captured iteration end printed); (c) the same
+     per-block Jacobi solve with ops/tron_multi.py's STACK_ID_BOUND lowered
+     in this process so that the 8 blocks solve as 4 sub-stacks of 2: z
+     within 1e-6 * max|z| of phase 14's run with its trips, K1 launched
+     by every sub-stack's solve; (d) phase 5's job through the CLI with
+     fused.loop = true under use.mesh (a one-rank NCCL group) and with
+     multi.rhs = false (the lanes solve), each against the same job
+     run eagerly (the four processes started together): final models
+     within 1e-10.
 
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
@@ -222,7 +250,8 @@ alone (for work on the scale path); --modes-only builds them, sets up the
 two trainers and runs phases 14, 13 and 15 alone; --mesh-only builds
 them, sets up the two trainers and runs phase 16 alone (with its own
 no-mesh runs for (a)); --fused-only builds them, sets up the two trainers
-and runs phase 17 alone (with its own eager CLI run for (c)); --bf16-only
+and runs phases 17 and 19 alone (with its own eager CLI run for 17 (c) and
+no-mesh runs for 19 (b)-(c)); --bf16-only
 builds them, sets up the two trainers, makes the float32 runs phase 18
 compares with (phase 5, phase 6, phase 8's first run, phase 11's (a) once)
 and runs phase 18 alone.
@@ -2196,6 +2225,314 @@ def fused_phase(trainers, args):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: run_fused on the lanes solve and under a mesh (A1b), and the
+# per-block solve in sub-stacks past the int32 bound (A16)
+# ---------------------------------------------------------------------------
+
+FUSED_LANES_ITERS = 5       # (a)'s iterations at bench
+
+
+def _cli_together(runs):
+    """cli_phase for each (tag, extra_props), the CLI processes started
+    together; returns {tag: row}."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(runs)) as ex:
+        futs = {tag: ex.submit(cli_phase, extra_props=props, tag=tag)
+                for tag, props in runs}
+        return {tag: f.result() for tag, f in futs.items()}
+
+
+def _max_model_diff(ref, got):
+    return max([abs(got[k][0] - ref[k][0]) for k in ref]
+               + [abs(got[k][1][f] - ref[k][1][f]) for k in ref
+                  for f in ref[k][1]])
+
+
+def lanes_sorted_sum_check(name, prob, n, gen, L=3):
+    """The lanes objective's sorted sums on the card (ops/objective.py::
+    _sorted_sum: K1 over prob.k1's ids, one call per block range), for
+    every sorted stream prob carries, against the float64 scatter of the
+    same inputs (random out0 and V3): per entry |got - ref64| <= 1e-5 *
+    (|out0| + sum|contrib|), K1's float32 bound (k1_tolerances). Returns
+    one row per stream."""
+    import torch
+    from mlease_tpu_torch.ops import objective
+
+    B, R = prob.y.shape
+    tol = k1_tolerances()[torch.float32][0]
+    rows = []
+    for stream, (W, m) in (("csc", (n, R)), ("tail", (R, n)),
+                           ("tail_c", (n, R))):
+        if getattr(prob.k1, stream) is None:
+            continue
+        seg, idx, vals = (getattr(prob, f)
+                          for f in objective._STREAMS[stream])
+        V3 = torch.randn((L, B, m), generator=gen, device="cuda")
+        out0 = torch.randn((L, B, W), generator=gen, device="cuda")
+        got = objective._sorted_sum(prob, stream, out0.clone(), V3)
+        torch.cuda.synchronize()
+
+        def scatter64(o, v, V):
+            return o.double().scatter_add_(
+                2, seg[None].expand(L, -1, -1), v.double() * V.double()
+                .gather(2, idx[None].expand(L, -1, -1)))
+        err = (got.double() - scatter64(out0, vals, V3)).abs_()
+        scale = scatter64(out0.abs(), vals.abs(), V3.abs())
+        row = {"check": name, "stream": stream, "blocks": B,
+               "entries": int(seg.numel()), "values": str(vals.dtype),
+               "ranges": [list(r) for r in prob.k1.ranges],
+               "max_abs_err": float(err.max()),
+               "max_rel_err": float((err / scale.clamp_min(1e-300)).max()),
+               "ok": bool((err <= tol * scale + 1e-300).all())}
+        print("fused-more k1 " + json.dumps(row), flush=True)
+        rows.append(row)
+        del got, err, scale
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fused_more_phase(trainers, args):
+    """Phase 19: (a) at bench's shape without a head, the lanes solves
+    (multi_rhs=False, dual_layout) through run_fused against run(), and
+    their sorted sums (K1) and the full trainer's tails against a float64
+    scatter (lanes_sorted_sum_check); (b) at
+    full width on a one-rank NCCL mesh, per-block Jacobi and head-block,
+    run_fused against the mesh trainer's run() and phase 14's no-mesh run,
+    with K1, K2 and all_reduce executions counted on the card against
+    run()'s launches and calls; (c) the full per-block Jacobi solve with
+    the int32 bound lowered so that its 8 blocks solve as 4 sub-stacks of
+    2, against phase 14's run; (d) phase 5's job through the CLI with
+    fused.loop = true under use.mesh and with multi.rhs = false, each
+    against the same job run eagerly."""
+    import numpy as np
+    import torch
+    import mlease_tpu_torch.ops.tron_multi as tm
+    import mlease_tpu_torch.train.admm as admm_mod
+    from mlease_tpu_torch.collectives import all_reduce
+    from mlease_tpu_torch.ops import gram
+    from mlease_tpu_torch.ops.objective import k1_streams
+    from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+    from mlease_tpu_torch.parallel import distributed, make_mesh
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+
+    out, bad, k1_rows = {}, [], []
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    # (a) the lanes solves at bench's shape, as phase 14 runs them
+    bench = synth_blocked_data(50_000, 4, 16_384, 15, args.seed)
+    bvocab = make_vocab(50_000)
+    bcfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0],
+                      num_iters=FUSED_LANES_ITERS, pcg=True,
+                      flat_blocks=True, dtype=torch.float32)
+    for name, kw in (("lanes", dict(multi_rhs=False)),
+                     ("dual_layout", dict(dual_layout=True))):
+        tr = AdmmTrainer(bench, bvocab, dataclasses.replace(bcfg, **kw))
+        row, _run, _fused = fused_compare(f"bench_{name}", tr,
+                                          FUSED_LANES_ITERS, profile=False)
+        _, row["syncs_run"] = _count_syncs(tr.run)
+        _, row["syncs_fused"] = _count_syncs(tr.run_fused)
+        print(f"fused-more (a) {name} " + json.dumps(
+            {k: row[k] for k in ("bit_for_bit", "run_iter_s",
+                                 "run_mean_iter_s", "fused_iter_s",
+                                 "compile_s", "syncs_run", "syncs_fused",
+                                 "trips_run", "k1_run_launches")}),
+            flush=True)
+        if not row["bit_for_bit"]:
+            bad.append(f"(a) {name}: run_fused not bit for bit")
+        out[f"bench_{name}"] = row
+        # the sorted sums this solve ran, held against their plain float64
+        # version: as built, and for the lanes problem also in sub-stacks
+        # of 2 blocks (the bound lowered) and on a bfloat16 stream
+        probs = {name: tr.prob}
+        if name == "lanes":
+            n, R = tr.dim, tr.prob.y.shape[1]
+            with mock.patch.object(tm, "STACK_ID_BOUND", 2 * max(n, R) + 1):
+                probs["lanes substacks"] = tr.prob._replace(
+                    k1=k1_streams(tr.prob, n, tm.substack_ranges(
+                        tr.prob.y.shape[0], n, R)))
+            probs["lanes bfloat16"] = tr.prob._replace(
+                csc_vals=tr.prob.csc_vals.to(torch.bfloat16))
+        for label, prob in probs.items():
+            k1_rows += lanes_sorted_sum_check(f"bench {label}", prob, tr.dim,
+                                              gen)
+        del tr, probs
+    del bench
+    # the tails' streams at full width: the full trainer's stacked problem
+    # unstacked as the streamed lanes solve unstacks a group (its stacked
+    # int32 ids are K1's), its ids held equal to those blocked_problem makes
+    # from the per-block ids, then in sub-stacks of 2 blocks
+    full = trainers["full"]
+    if not isinstance(full.prob, tm.SubStacks):
+        B, n = full.data.nblocks, full.dim
+        lanes = admm_mod.unstack_problem(full.prob, B, n, torch.float32)
+        R = lanes.y.shape[1]
+        blocked = k1_streams(lanes, n, [(0, B)])
+        same = all(
+            (a is None) == (b is None) and all(
+                bool(torch.equal(x, y)) for x, y in zip(a or (), b or ()))
+            for a, b in zip(lanes.k1[1:], blocked[1:]))
+        out["full_k1_ids_equal"] = same
+        if not same:
+            bad.append("(a) the stacked K1 ids differ from blocked_problem's")
+        del blocked
+        k1_rows += lanes_sorted_sum_check("full", lanes, n, gen)
+        with mock.patch.object(tm, "STACK_ID_BOUND", 2 * max(n, R) + 1):
+            lanes = lanes._replace(k1=k1_streams(
+                lanes, n, tm.substack_ranges(B, n, R)))
+        k1_rows += lanes_sorted_sum_check("full substacks", lanes, n, gen)
+        del lanes
+        torch.cuda.empty_cache()
+    out["k1_sorted_sums"] = k1_rows
+    bad += [f"(a) K1 sorted sum {r['check']} {r['stream']}: max rel err "
+            f"{r['max_rel_err']}" for r in k1_rows if not r["ok"]]
+    if not {"csc", "tail", "tail_c"} <= {r["stream"] for r in k1_rows}:
+        bad.append("(a) a sorted stream went unchecked")
+
+    # (b) a one-rank NCCL mesh at full width
+    full = trainers["full"]
+    data, vocab = full.data, full.vocab
+    base = dataclasses.replace(full.config, num_iters=args.iters)
+    for name, cfg in _mesh_modes(base).items():
+        if name not in MESH_REFS:              # --fused-only
+            tr = AdmmTrainer(data, vocab, cfg, device="cuda")
+            MESH_REFS[name] = tr.run()
+            del tr
+    distributed.initialize_single("cuda")
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("a cuda mesh must run NCCL")
+        mesh = make_mesh(1, "cuda")
+        for name, cfg in _mesh_modes(base).items():
+            tr = AdmmTrainer(data, vocab, cfg, mesh=mesh)
+            torch.cuda.synchronize()
+            segment_sum_sorted.launches = gram.gram_batched.launches = 0
+            all_reduce.launches = 0
+            run = tr.run()
+            torch.cuda.synchronize()
+            k_run = {"segment_sum_gather": segment_sum_sorted.launches,
+                     "gram_batched": gram.gram_batched.launches,
+                     "all_reduce": all_reduce.launches}
+            t0 = time.monotonic()
+            fused = tr.run_fused()
+            torch.cuda.synchronize()
+            ref = MESH_REFS[name]
+            counts = fused.loop_counts
+            row = {"mode": tr.mode, "iterations": [run.iterations,
+                                                   fused.iterations],
+                   "bit_for_bit_run": bool(
+                       np.array_equal(run.z, fused.z)
+                       and np.array_equal(run.u, fused.u)
+                       and run.diff_history == fused.diff_history),
+                   "bit_for_bit_no_mesh": bool(
+                       np.array_equal(ref.z, fused.z)
+                       and np.array_equal(ref.u, fused.u)),
+                   "trips_run": _fused_totals(run.solver_stats),
+                   "trips_fused": fused.solver_stats[0],
+                   "run_launches": k_run,
+                   "fused_executions": counts["kernel_executions"],
+                   "capture_modes": counts["capture_modes"],
+                   "node_types_iteration_end":
+                       counts["node_types"]["iteration_end"],
+                   "run_iter_s": steady_s(run.iter_times),
+                   "run_mean_iter_s": sum(run.iter_times)
+                   / len(run.iter_times),
+                   "fused_iter_s": fused.iter_times[0],
+                   "compile_s": fused.compile_time,
+                   "fused_call_s": time.monotonic() - t0}
+            out[f"mesh_{name}"] = row
+            print(f"fused-more (b) {name} " + json.dumps(row), flush=True)
+            if not (row["bit_for_bit_run"] and row["bit_for_bit_no_mesh"]):
+                bad.append(f"(b) {name}: not bit for bit")
+            if row["trips_run"] != row["trips_fused"]:
+                bad.append(f"(b) {name}: trips differ")
+            if row["fused_executions"] != k_run or k_run[
+                    "segment_sum_gather"] == 0 or k_run["all_reduce"] \
+                    != 2 * run.iterations:
+                bad.append(f"(b) {name}: executions on the card "
+                           f"{row['fused_executions']} against run()'s "
+                           f"{k_run}")
+            if (k_run["gram_batched"] > 0) != (name == "head_block"):
+                bad.append(f"(b) {name}: K2 launches {k_run}")
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+
+    # (c) the per-block solve in 4 sub-stacks of 2 blocks (the bound
+    # lowered in this process only)
+    n, R = data.dim, data.padded_rows
+    cfg = _mesh_modes(base)["per_block_jacobi"]
+    per_call = []
+    solve_one = admm_mod.tron_multi
+
+    def counted(*a, **kw):
+        before = segment_sum_sorted.launches
+        r = solve_one(*a, **kw)
+        per_call.append(segment_sum_sorted.launches - before)
+        return r
+    with mock.patch.object(tm, "STACK_ID_BOUND", 2 * max(n, R) + 1), \
+            mock.patch.object(admm_mod, "tron_multi", counted):
+        t0 = time.monotonic()
+        tr = AdmmTrainer(data, vocab, cfg)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        ranges = list(tr.prob.ranges) if isinstance(
+            tr.prob, tm.SubStacks) else None
+        segment_sum_sorted.launches = 0
+        res = tr.run()
+        torch.cuda.synchronize()
+    ref = MESH_REFS["per_block_jacobi"]
+    zmax = float(np.abs(ref.z).max())
+    row = {"ranges": ranges, "build_s": build_s,
+           "iter_s": res.iter_times, "steady_iter_s": steady_s(res.iter_times),
+           "no_split_steady_iter_s": steady_s(ref.iter_times),
+           "k1_launches": segment_sum_sorted.launches,
+           "k1_launches_per_substack_call": per_call,
+           "solver_stats": res.solver_stats,
+           "trips_equal": res.solver_stats == ref.solver_stats,
+           "z_max_abs_diff": float(np.abs(res.z - ref.z).max()),
+           "z_max_abs": zmax, "z_bitwise": bool(np.array_equal(res.z,
+                                                               ref.z))}
+    out["substacks"] = row
+    print("fused-more (c) " + json.dumps(row), flush=True)
+    if ranges != [(0, 2), (2, 4), (4, 6), (6, 8)]:
+        bad.append(f"(c) sub-stacks {ranges}")
+    if not (row["trips_equal"] and row["z_max_abs_diff"] <= 1e-6 * zmax):
+        bad.append("(c) not within 1e-6 of phase 14's run with its trips")
+    if len(per_call) != 4 * res.iterations or min(per_call) <= 0:
+        bad.append(f"(c) K1 not launched by every sub-stack: {per_call}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # (d) the CLI: fused.loop under use.mesh and on the lanes solve, each
+    # against the same job run eagerly (4 processes started together)
+    cases = {"use.mesh": {"use.mesh": "true"},
+             "multi.rhs=false": {"multi.rhs": "false"}}
+    rows = _cli_together(
+        [(f"{k} {how}", dict(v, **({"fused.loop": "true"}
+                                   if how == "fused" else {})))
+         for k, v in cases.items() for how in ("eager", "fused")])
+    for k in cases:
+        ref, got = CLI_MODELS[f"{k} eager"], CLI_MODELS[f"{k} fused"]
+        diff = _max_model_diff(ref, got)
+        row = {"iterations": [rows[f"{k} eager"]["iterations"],
+                              rows[f"{k} fused"]["iterations"]],
+               "max_abs_diff_fused_vs_eager": diff,
+               "wall_s": [rows[f"{k} eager"]["wall_s"],
+                          rows[f"{k} fused"]["wall_s"]]}
+        if "eager" in CLI_MODELS:
+            row["max_abs_diff_vs_phase_5"] = _max_model_diff(
+                CLI_MODELS["eager"], got)
+        out[f"cli {k}"] = row
+        print(f"fused-more (d) {k} " + json.dumps(row), flush=True)
+        if sorted(got) != sorted(ref) or not diff <= 1e-10:
+            bad.append(f"(d) {k}: {row}")
+    if bad:
+        raise AssertionError(f"fused-more: {bad}")
+    return out
+
+
 MESH_REFS: dict = {}        # phase 14's no-mesh runs, phase 16 (a)'s reference
 MESH_WORLD = 2              # gloo ranks on the one card in (b)-(e)
 MESH_FS_ROWS = 125_000      # (d)'s rows per block (cut from 1,562,500)
@@ -2751,7 +3088,8 @@ def bf16_bench_phase(trainer, args):
                                  f"from run() by {row['max_abs_diff']}")
         if mode == "head_block" and row["k2_run_launches"] == 0:
             raise AssertionError("bf16 head-block: K2 never launched")
-    # the lanes solve (multi_rhs=False; ops/objective.py, no kernel) in
+    # the lanes solve (multi_rhs=False; ops/objective.py, K1 on its sorted
+    # streams) in
     # bfloat16 and float32 on the same data: s an iteration and trips, z
     # within (b)'s 5% of max|z_f32| after the last iteration
     lanes = {}
@@ -3044,7 +3382,7 @@ def main(argv=None) -> int:
                          "(16) alone and stop")
     ap.add_argument("--fused-only", action="store_true",
                     help="build, set up the trainers, run the fused-loop "
-                         "phase (17) alone and stop")
+                         "phases (17, 19) alone and stop")
     ap.add_argument("--bf16-only", action="store_true",
                     help="build, set up the trainers, make the float32 "
                          "runs phase 18 compares with, run phase 18 (the "
@@ -3171,6 +3509,7 @@ def main(argv=None) -> int:
             phase("kernel", kernel_phase, trainers, args)
         elif trainers is not None and args.fused_only:
             phase("fused", fused_phase, trainers, args)
+            phase("fused_more", fused_more_phase, trainers, args)
         elif trainers is not None and args.mesh_only:
             phase("mesh_one_rank", mesh_one_rank_phase, trainers, args)
             del trainers
@@ -3196,6 +3535,7 @@ def main(argv=None) -> int:
               speed["full"]["steady_iter_s"] if speed else None)
         phase("mesh_one_rank", mesh_one_rank_phase, trainers, args)
         phase("fused", fused_phase, trainers, args)
+        phase("fused_more", fused_more_phase, trainers, args)
         # phase 18, the bfloat16 compute dtype: (a)-(c) on the trainers'
         # data, (d)-(f) right after the float32 phases they compare with
         bf16_kernels = phase("bf16_kernel", bf16_kernel_phase,

@@ -20,18 +20,34 @@ import torch.distributed as dist
 # calls made and host seconds spent inside them (a gloo call on a CUDA
 # tensor includes its device<->host copies; an NCCL call only its
 # enqueue), for the per-iteration collective time chip_smoke.py reports;
-# reset freely
+# reset freely. A call made while a CUDA graph captures counts once, as a
+# capture: the graph's executions are counted on the card (all_reduce's
+# device_launches)
 COLLECTIVE_STATS = {"calls": 0, "seconds": 0.0}
 
 
 def all_reduce(t: torch.Tensor, op: str = "sum", group=None) -> torch.Tensor:
-    """In-place all_reduce of `t` over `group` ("sum" or "max"); returns t."""
+    """In-place all_reduce of `t` over `group` ("sum" or "max"); returns t.
+    Counted as a kernel wrapper is (ops/device_loop.py): `launches` per
+    call, and one added on the stream to `device_launches` (when a device
+    loop sets it) right after the collective, so that inside a captured
+    graph the add runs on the card each time the collective has run."""
     t0 = time.perf_counter()
     rop = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
     dist.all_reduce(t, op=rop, group=group)
     COLLECTIVE_STATS["calls"] += 1
     COLLECTIVE_STATS["seconds"] += time.perf_counter() - t0
+    all_reduce.launches += 1
+    if all_reduce.device_launches is not None:
+        all_reduce.device_launches.add_(1)
     return t
+
+
+all_reduce.launches = 0
+all_reduce.device_launches = None     # set by ops/device_loop.py
+# a device loop captures a branch that calls it in "thread_local" mode
+# (ops/device_loop.py): NCCL's watchdog thread queries events meanwhile
+all_reduce.collective = True
 
 
 def all_gather(t: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:

@@ -16,6 +16,13 @@
 // nodes need CUDA 12.4 or later (12.3 for IF/WHILE with their handles set
 // from a kernel).
 //
+// A conditional node's body may hold only kernel, memcpy, memset, empty,
+// child-graph and conditional nodes. A branch that holds a collective is
+// NCCL's capture, which may leave other nodes (a host node for a proxy, an
+// event record); device_loop_build then fails without building and names
+// the branch and the node type it found, and device_loop_node_types counts
+// a captured graph's node types (child graphs included) for the record.
+//
 // No counterpart among the TPU kernels: the JAX package runs the same loop
 // as one lax.while_loop (mlease_tpu/train/admm.py::run_fused). What bounds
 // it on the card is the branches' own work; the loop adds two one-thread
@@ -24,6 +31,8 @@
 // Plain C interface, each entry returning a cudaError_t.
 
 #include <cuda_runtime.h>
+
+#include <vector>
 
 namespace {
 
@@ -34,6 +43,38 @@ __global__ void set_if(cudaGraphConditionalHandle h, const int* phase,
 
 __global__ void set_while(cudaGraphConditionalHandle h, const int* phase) {
   cudaGraphSetConditional(h, *phase != 0 ? 1u : 0u);
+}
+
+bool allowed_in_body(cudaGraphNodeType t) {
+  return t == cudaGraphNodeTypeKernel || t == cudaGraphNodeTypeMemcpy ||
+         t == cudaGraphNodeTypeMemset || t == cudaGraphNodeTypeEmpty ||
+         t == cudaGraphNodeTypeGraph || t == cudaGraphNodeTypeConditional;
+}
+
+// Visits every node of g and of its child graphs: counts[type] += 1 (when
+// counts is set, types past n - 1 in counts[n - 1]) and *bad = the first
+// type a conditional body may not hold (when bad is set and still -1).
+cudaError_t scan(cudaGraph_t g, int* counts, int n, int* bad) {
+  size_t num = 0;
+  cudaError_t err = cudaGraphGetNodes(g, nullptr, &num);
+  if (err != cudaSuccess || num == 0) return err;
+  std::vector<cudaGraphNode_t> nodes(num);
+  err = cudaGraphGetNodes(g, nodes.data(), &num);
+  if (err != cudaSuccess) return err;
+  for (size_t i = 0; i < num; ++i) {
+    cudaGraphNodeType t;
+    err = cudaGraphNodeGetType(nodes[i], &t);
+    if (err != cudaSuccess) return err;
+    if (counts) counts[(int)t < n ? (int)t : n - 1] += 1;
+    if (bad && *bad < 0 && !allowed_in_body(t)) *bad = (int)t;
+    if (t == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      err = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (err == cudaSuccess) err = scan(child, counts, n, bad);
+      if (err != cudaSuccess) return err;
+    }
+  }
+  return cudaSuccess;
 }
 
 cudaError_t add_setter(cudaGraph_t g, cudaGraphNode_t* prev, void* fn,
@@ -56,9 +97,22 @@ extern "C" {
 
 // branches: nb raw cudaGraph_t handles; wants: the phase value that runs
 // each; phase: the device int32 the branches write. On success *graph_out
-// and *exec_out hold the loop (free both with device_loop_destroy).
+// and *exec_out hold the loop (free both with device_loop_destroy). A
+// branch holding a node a conditional body may not hold fails the build
+// with cudaErrorNotSupported before anything is made: bad[0] is then the
+// branch, bad[1] the node type (bad[0] = -1 otherwise).
 int device_loop_build(void** branches, const int* wants, int nb,
-                      int* phase, void** graph_out, void** exec_out) {
+                      int* phase, void** graph_out, void** exec_out,
+                      int* bad) {
+  bad[0] = bad[1] = -1;
+  for (int k = 0; k < nb; ++k) {
+    cudaError_t e = scan((cudaGraph_t)branches[k], nullptr, 0, &bad[1]);
+    if (e != cudaSuccess) return e;
+    if (bad[1] >= 0) {
+      bad[0] = k;
+      return cudaErrorNotSupported;
+    }
+  }
   cudaGraph_t top = nullptr;
   cudaGraphExec_t exec = nullptr;
   cudaError_t err = cudaGraphCreate(&top, 0);
@@ -115,6 +169,12 @@ out:
   *graph_out = top;
   *exec_out = exec;
   return cudaSuccess;
+}
+
+// counts[t] += the nodes of type t in graph and its child graphs, for the
+// n entries of counts (types past n - 1 counted in counts[n - 1]).
+int device_loop_node_types(void* graph, int* counts, int n) {
+  return scan((cudaGraph_t)graph, counts, n, nullptr);
 }
 
 int device_loop_launch(void* exec, void* stream) {

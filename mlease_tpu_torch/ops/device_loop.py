@@ -15,11 +15,19 @@ after it, the end of the iteration and the next one's start:
             if phase == want: fn()
 
 On a CUDA device `prepare` runs every branch once eagerly (which builds the
-kernels' libraries and the libraries' handles), puts the state back,
-captures each branch as a torch CUDA graph (one memory pool for all) and
-builds the loop around them by hand (csrc/device_loop.cu: a conditional
-WHILE node over one IF node per branch, each IF's condition set from the
-phase word by a one-thread kernel). `run` is then one graph launch on the
+kernels' libraries and the libraries' handles, and an NCCL communicator at
+its first collective), puts the state back, captures each branch as a
+torch CUDA graph (one memory pool for all) and builds the loop around them
+by hand (csrc/device_loop.cu: a conditional WHILE node over one IF node per
+branch, each IF's condition set from the phase word by a one-thread
+kernel). A branch whose warm-up called a collective (a counted function
+marked `collective`, collectives.all_reduce) is captured in
+"thread_local" mode: in the default "global" mode NCCL's watchdog thread,
+which queries events meanwhile, would break the capture. A conditional
+body may hold only kernel, memcpy, memset, empty, child-graph and
+conditional nodes: if a capture leaves another node in a branch, the build
+fails and `prepare` raises, naming the branch and the node type; nothing
+falls back to running the branches eagerly. `run` is then one graph launch on the
 current stream: no host read, no host wait, until the caller synchronises.
 torch exposes no conditional nodes on the card's torch (2.11), hence the
 hand-built graph. On the CPU `run` takes the same passes eagerly and reads
@@ -49,6 +57,13 @@ SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "device_loop.cu"
 
 _lib = None
 
+# cudaGraphNodeType by value (driver_types.h, CUDA 12.4; 12 is the driver
+# API's batch-mem-op node); the last entry also counts any type past it
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semaphore_signal",
+              "ext_semaphore_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional", "other")
+
 
 def _load():
     """The loop's library, built at first use."""
@@ -56,13 +71,15 @@ def _load():
     if _lib is None:
         lib = _build.load(SOURCE)
         vp = ctypes.c_void_p
+        ip = ctypes.POINTER(ctypes.c_int)
         lib.device_loop_build.argtypes = [
-            ctypes.POINTER(vp), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-            vp, ctypes.POINTER(vp), ctypes.POINTER(vp)]
+            ctypes.POINTER(vp), ip, ctypes.c_int, vp, ctypes.POINTER(vp),
+            ctypes.POINTER(vp), ip]
+        lib.device_loop_node_types.argtypes = [vp, ip, ctypes.c_int]
         lib.device_loop_launch.argtypes = [vp, vp]
         lib.device_loop_destroy.argtypes = [vp, vp]
-        for fn in (lib.device_loop_build, lib.device_loop_launch,
-                   lib.device_loop_destroy):
+        for fn in (lib.device_loop_build, lib.device_loop_node_types,
+                   lib.device_loop_launch, lib.device_loop_destroy):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -71,9 +88,10 @@ def _load():
 class DeviceLoop:
     """branches: (phase number, name, function) in pass order; phase: the
     0-d int32 phase word; state: every tensor the branches write (put back
-    after the warm-up); kernels: name -> kernel wrapper, a function with a
-    `launches` count and a `device_launches` slot (None, or a 0-d int64
-    tensor on the card that the wrapper adds one to after each launch)."""
+    after the warm-up); kernels: name -> kernel wrapper or collective, a
+    function with a `launches` count and a `device_launches` slot (None,
+    or a 0-d int64 tensor on the card that the wrapper adds one to after
+    each launch)."""
 
     def __init__(self, branches: Sequence[tuple[int, str, Callable[[], None]]],
                  phase: torch.Tensor, state: Sequence[torch.Tensor],
@@ -95,6 +113,8 @@ class DeviceLoop:
         self.runs = torch.zeros(len(branches) + len(self.kernels),
                                 dtype=torch.int64, device=self.device)
         self.captured: dict[str, dict[str, int]] = {}
+        self.capture_modes: dict[str, str] = {}
+        self.node_types: dict[str, dict[str, int]] = {}
         self._graphs: list = []
         self._handles = None
 
@@ -112,8 +132,14 @@ class DeviceLoop:
             return
         lib = _load()
         saved = [t.clone() for t in (*self.state, self.phase)]
+        collective = set()
         for k in range(len(self.branches)):
+            before = {c: fn.launches for c, fn in self.kernels.items()}
             self._body(k)
+            if any(getattr(fn, "collective", False)
+                   and fn.launches != before[c]
+                   for c, fn in self.kernels.items()):
+                collective.add(k)
         for t, c in zip((*self.state, self.phase), saved):
             t.copy_(c)
         self.runs.zero_()
@@ -126,11 +152,13 @@ class DeviceLoop:
                 fn.device_launches = self.runs[first + i]
             for k, name in enumerate(self.names):
                 before = {c: fn.launches for c, fn in self.kernels.items()}
+                mode = "thread_local" if k in collective else "global"
                 g = torch.cuda.CUDAGraph(keep_graph=True)
-                with torch.cuda.graph(g, pool=pool):
+                with torch.cuda.graph(g, pool=pool, capture_error_mode=mode):
                     self._body(k)
                 self.captured[name] = {c: fn.launches - before[c]
                                        for c, fn in self.kernels.items()}
+                self.capture_modes[name] = mode
                 self._graphs.append(g)
         finally:
             for fn in self.kernels.values():
@@ -138,12 +166,29 @@ class DeviceLoop:
         vp = ctypes.c_void_p
         raw = (vp * len(self._graphs))(
             *[vp(g.raw_cuda_graph()) for g in self._graphs])
+        for name, h in zip(self.names, raw):
+            counts = (ctypes.c_int * len(NODE_TYPES))()
+            err = lib.device_loop_node_types(h, counts, len(NODE_TYPES))
+            if err != 0:
+                raise RuntimeError(f"device_loop_node_types failed: CUDA "
+                                   f"error {err}")
+            self.node_types[name] = {t: c for t, c in zip(NODE_TYPES, counts)
+                                     if c}
         wants = (ctypes.c_int * len(self.branches))(
             *[w for w, _, _ in self.branches])
         graph, exec_ = vp(), vp()
+        bad = (ctypes.c_int * 2)()
         err = lib.device_loop_build(raw, wants, len(self.branches),
                                     vp(self.phase.data_ptr()),
-                                    ctypes.byref(graph), ctypes.byref(exec_))
+                                    ctypes.byref(graph), ctypes.byref(exec_),
+                                    bad)
+        if bad[0] >= 0:
+            kind = (NODE_TYPES[bad[1]] if bad[1] < len(NODE_TYPES)
+                    else f"type {bad[1]}")
+            raise RuntimeError(
+                f"device loop: the captured branch {self.names[bad[0]]!r} "
+                f"holds a {kind} node, which a conditional body cannot "
+                f"hold (its nodes: {self.node_types[self.names[bad[0]]]})")
         if err != 0:
             raise RuntimeError(f"device_loop_build failed: CUDA error {err}")
         self._handles = (graph, exec_)
@@ -175,6 +220,8 @@ class DeviceLoop:
         out = {"branch_executions": dict(zip(self.names, n))}
         if self.on_card:
             out["captured_launches"] = self.captured
+            out["capture_modes"] = self.capture_modes
+            out["node_types"] = self.node_types
             out["kernel_executions"] = dict(zip(self.kernels,
                                                 n[len(self.names):]))
         return out

@@ -21,9 +21,19 @@ above these functions). The data may also be shared by several lanes:
 with data blocks (B, ...) and lane vectors (P, n), P = L*B, lane l*B + b
 solves on block b, and the ids are stride-0 views, never L copies (the
 JAX package's vmap over lambdas with the data's in_axes None). Index
-arrays are int64, as torch's gather and scatter want them. The ELL scatter-add becomes one batched `scatter_add_`;
-the dense Hessian of `dense_hessian` is the hand-written kernel of
-ops/gram.py on the card.
+arrays are int64, as torch's gather and scatter want them. The ELL
+scatter-add becomes one batched `scatter_add_`; the dense Hessian of
+`dense_hessian` is the hand-written kernel of ops/gram.py on the card.
+
+On the card the sums over sorted streams (the column-sorted copy of the
+ELL nonzeros, the row-sorted and column-sorted tails) are K1
+(`_sorted_sum`), whose sums run in one fixed order: scatter_add_'s atomics
+sum in another order on every run, and the lanes solve's run() and
+run_fused could then not give the same bits. The ADMM lanes problems carry
+a column-sorted copy on the card for this, and every sorted stream's ids
+as K1 reads them (`K1Streams`), made once with the problem (train/admm.py::
+blocked_problem); an ELL problem without a column-sorted copy (the item
+solvers) keeps the scatter-add.
 """
 
 from __future__ import annotations
@@ -35,7 +45,21 @@ import torch
 
 from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops.gram import gram_batched
-from mlease_tpu_torch.ops.segment_sum import accumulate_dtype
+from mlease_tpu_torch.ops.segment_sum import (accumulate_dtype,
+                                              segment_sum_gather)
+
+
+class K1Streams(NamedTuple):
+    """An LRProblem's sorted streams as K1 reads them on the card: each a
+    (seg, idx) pair of (B, T) int32 ids, offset by a block's place in its
+    range of `ranges` (seg by the sums' width, idx by the gathered
+    vector's), so that each range is one K1 call over its blocks stacked
+    and its ids stay inside int32."""
+
+    ranges: tuple                # ((b0, b1), ...) consecutive, covering B
+    csc: tuple | None = None     # (csc_cols + b*n, csc_rows + b*R)
+    tail: tuple | None = None    # (tail_rows + b*R, tail_cols + b*n)
+    tail_c: tuple | None = None  # (tail_c_cols + b*n, tail_c_rows + b*R)
 
 
 class LRProblem(NamedTuple):
@@ -68,6 +92,7 @@ class LRProblem(NamedTuple):
     tail_c_rows: torch.Tensor | None = None  # (B, T) int64
     tail_c_cols: torch.Tensor | None = None  # (B, T) int64 sorted ascending
     tail_c_vals: torch.Tensor | None = None  # (B, T)
+    k1: K1Streams | None = None  # the sorted streams' ids on the card
 
     @property
     def dim(self) -> int:
@@ -124,6 +149,86 @@ def _zeros3(prob: LRProblem, L: int, width: int) -> torch.Tensor:
                        device=prob.values.device)
 
 
+def column_sorted(indices: torch.Tensor, values: torch.Tensor):
+    """The column-sorted copy of every block's ELL nonzeros (the dual
+    layout, core/dataset.py::csc_arrays, made on the device): (cols, rows,
+    vals), each (B, R*K), stably sorted by column id per block; int64
+    ids."""
+    B, R, K = indices.shape
+    cols = indices.reshape(B, -1).long()
+    order = torch.sort(cols, dim=1, stable=True).indices
+    return (cols.gather(1, order), order // K,
+            values.reshape(B, -1).gather(1, order))
+
+
+def k1_streams(prob: LRProblem, n: int, ranges) -> K1Streams:
+    """prob's sorted streams (per-block ids, n columns) as K1Streams over
+    the block ranges `ranges`, each of which the caller keeps inside int32
+    (ops/tron_multi.py::substack_ranges)."""
+    B, R = prob.y.shape
+    first = torch.zeros(B, dtype=torch.long)
+    for b0, b1 in ranges:
+        first[b0:b1] = b0
+    local = (torch.arange(B) - first).to(prob.y.device)[:, None]
+
+    def pair(seg, seg_w, idx, idx_w):
+        if seg is None:
+            return None
+        return ((seg + local * seg_w).to(torch.int32),
+                (idx + local * idx_w).to(torch.int32))
+    return K1Streams(tuple(ranges),
+                     csc=pair(prob.csc_cols, n, prob.csc_rows, R),
+                     tail=pair(prob.tail_rows, R, prob.tail_cols, n),
+                     tail_c=pair(prob.tail_c_cols, n, prob.tail_c_rows, R))
+
+
+# each sorted stream's segment ids, gather ids and values
+_STREAMS = {"csc": ("csc_cols", "csc_rows", "csc_vals"),
+            "tail": ("tail_rows", "tail_cols", "tail_vals"),
+            "tail_c": ("tail_c_cols", "tail_c_rows", "tail_c_vals")}
+
+
+def _sorted_sum(prob: LRProblem, stream: str, out3: torch.Tensor,
+                V3: torch.Tensor) -> torch.Tensor:
+    """out3[l, b, seg[b, t]] += vals[b, t] * V3[l, b, idx[b, t]], in place,
+    over one of prob's sorted streams (_STREAMS), for out3 (L, B, W) and
+    V3 (L, B, m) in the accumulate type. The CPU runs the batched
+    scatter_add_; the card runs K1 over prob.k1's ids, one call per block
+    range."""
+    seg, idx, vals = (getattr(prob, f) for f in _STREAMS[stream])
+    if not out3.is_cuda:
+        return out3.scatter_add_(2, _ids(seg, out3.shape[0]),
+                                 vals * V3.gather(2, _ids(idx, V3.shape[0])))
+    if prob.k1 is None:
+        raise ValueError(f"the sorted stream {stream!r} on the card needs "
+                         f"its K1 ids (LRProblem.k1)")
+    return _k1_sorted_sum(out3, getattr(prob.k1, stream), vals, V3,
+                          prob.k1.ranges)
+
+
+def _k1_sorted_sum(out3, ids, vals, V3, ranges):
+    """_sorted_sum through K1's wrapper (its plain version on a CPU
+    tensor), ids a K1Streams pair: a bfloat16 stream is widened to V3's
+    float32 (the same products and float32 sums)."""
+    seg, idx = ids
+    L, B, W = out3.shape
+    if seg.shape[1] == 0:
+        return out3
+    m = V3.shape[2]
+    vals = vals.to(V3.dtype)
+    for b0, b1 in ranges:
+        nb = b1 - b0
+        o = out3[:, b0:b1]
+        flat = (o if o.is_contiguous() else o.contiguous()).view(L, nb * W)
+        segment_sum_gather(vals[b0:b1].reshape(-1),
+                           V3[:, b0:b1].reshape(L, nb * m),
+                           idx[b0:b1].reshape(-1), seg[b0:b1].reshape(-1),
+                           nb * W, out=flat)
+        if flat.data_ptr() != o.data_ptr():
+            o.copy_(flat.view(L, nb, W))
+    return out3
+
+
 # ---------------------------------------------------------------------------
 # Sparse matvecs (reference Xv/XTv, LogisticRegressionL2.java:115-150)
 # ---------------------------------------------------------------------------
@@ -148,9 +253,7 @@ def _xv3(prob: LRProblem, v3: torch.Tensor) -> torch.Tensor:
         out = out + torch.bmm(prob.head_x,
                               hv_.permute(1, 2, 0)).permute(2, 0, 1)
     if prob.tail_cols is not None:
-        out = out + _zeros3(prob, L, R).scatter_add_(
-            2, _ids(prob.tail_rows, L),
-            prob.tail_vals * va.gather(2, _ids(prob.tail_cols, L)))
+        out = out + _sorted_sum(prob, "tail", _zeros3(prob, L, R), va)
     return out
 
 
@@ -171,8 +274,7 @@ def xtv(prob: LRProblem, d: torch.Tensor) -> torch.Tensor:
     K = prob.indices.shape[-1]
     out = _zeros3(prob, L, prob.dim)
     if prob.csc_cols is not None:
-        out.scatter_add_(2, _ids(prob.csc_cols, L), prob.csc_vals
-                         * d3.gather(2, _ids(prob.csc_rows, L)))
+        _sorted_sum(prob, "csc", out, d3)
     elif K > 0:
         out.scatter_add_(2, _ids(prob.indices, L),
                          (prob.values * d3[..., None]).flatten(2))
@@ -182,8 +284,7 @@ def xtv(prob: LRProblem, d: torch.Tensor) -> torch.Tensor:
         out.scatter_add_(2, _ids(prob.head_ids, L),
                          head.permute(2, 0, 1).to(out.dtype))
     if prob.tail_c_cols is not None:
-        out.scatter_add_(2, _ids(prob.tail_c_cols, L), prob.tail_c_vals
-                         * d3.gather(2, _ids(prob.tail_c_rows, L)))
+        _sorted_sum(prob, "tail_c", out, d3)
     elif prob.tail_cols is not None:
         out.scatter_add_(2, _ids(prob.tail_cols, L), prob.tail_vals
                          * d3.gather(2, _ids(prob.tail_rows, L)))

@@ -11,8 +11,10 @@ freezes a lane's whole state once its own condition is false. The port is
 that masked lock-step solver written out over the problem axis P: every
 state tensor carries P, each loop runs while any lane's condition holds,
 and a lane whose condition is false keeps its state, so per-lane results
-and iteration counts equal the JAX solver's. Each loop trip reads
-`any(lane condition)` back to the host once.
+and iteration counts equal the JAX solver's. The loops are split into
+functions of a state (`LaneSolver`); `tron` runs them in host loops that
+read `any(lane condition)` back once per trip, and AdmmTrainer.run_fused
+runs the same functions inside a CUDA graph that loops on the card.
 
 Stopping mirrors the reference: ||g|| <= eps * ||grad(0)||, plus the guard
 breaks at Tron.java:108-121 (f < -1e32, non-positive reductions, reductions
@@ -60,27 +62,96 @@ def _safe_div(num, den, ok):
                        torch.zeros_like(num))
 
 
-def _trcg(prob: obj.LRProblem, D, g, delta, max_cg_iter: int, lanes):
-    """Truncated CG per lane: approximately solve H s = -g within
-    ||s|| <= delta (Tron.java:126-179). `lanes` (P,) marks the lanes whose
-    outer loop is still running; the others do not hold the loop open.
-    Returns (s, r, cg_iters (P,), trips)."""
-    P = g.shape[0]
-    cgtol = 0.1 * _norm(g)
-    s = torch.zeros_like(g)
-    r = -g
-    d = -g
-    rTr = _dot(g, g)
-    cg_iter = torch.zeros(P, dtype=torch.int32, device=g.device)
-    done = ~lanes
-    trips = 0
-    while True:
-        live = ~done & (cg_iter < max_cg_iter)
-        if not bool(live.any()):
-            break
-        small = _norm(r) <= cgtol
+class LaneState(NamedTuple):
+    """The Newton loop's carried state, every field (P, ...) on the device:
+    w, g, D (P, n); f, gnorm, gnorm1, eps, delta (P,); it (P,) int32
+    (accepted Newton iterations + 1), cg_total (P,) int32, active (P,)."""
 
-        Hd = obj.hv(prob, D, d)
+    w: torch.Tensor
+    f: torch.Tensor
+    g: torch.Tensor
+    D: torch.Tensor
+    gnorm: torch.Tensor
+    gnorm1: torch.Tensor
+    eps: torch.Tensor
+    delta: torch.Tensor
+    it: torch.Tensor
+    cg_total: torch.Tensor
+    active: torch.Tensor
+
+
+class LaneCgState(NamedTuple):
+    """One Newton trip's truncated-CG state (Tron.java:126-179): s, r, d
+    (P, n); rTr, cgtol (P,); cg_iter (P,) int32; done (P,); lanes (P,) the
+    lanes whose Newton loop runs this trip (the others start done and hold
+    nothing open)."""
+
+    s: torch.Tensor
+    r: torch.Tensor
+    d: torch.Tensor
+    rTr: torch.Tensor
+    cgtol: torch.Tensor
+    cg_iter: torch.Tensor
+    done: torch.Tensor
+    lanes: torch.Tensor
+
+
+class LaneSolver:
+    """`tron`'s two loops as functions of a state, as ops/tron_multi.py's
+    MultiSolver splits tron_multi, so that the eager solve and the device
+    loop of AdmmTrainer.run_fused run the same ops: `init`, `running`,
+    `cg_init`, `cg_open`, `cg_trip` (one trip of the CG loop) and
+    `epilogue` (the Newton step and the stop guards of Tron.java:79-121).
+    None of them reads the device from the host."""
+
+    def __init__(self, prob: obj.LRProblem, max_iter: int = 1000,
+                 max_cg_iter: int = 500):
+        self.prob = prob
+        self.max_iter, self.max_cg_iter = max_iter, max_cg_iter
+
+    def init(self, w0: torch.Tensor, eps) -> LaneState:
+        prob, dtype, P = self.prob, w0.dtype, w0.shape[0]
+        eps = torch.as_tensor(eps, dtype=dtype, device=w0.device).expand(P)
+        # relative-gradient reference point: ||grad at 0|| (Tron.java:47-56)
+        gnorm1 = _norm(obj.grad(prob, torch.zeros_like(w0)))
+        f = obj.fun(prob, w0)
+        g, D = obj.grad_and_curvature(prob, w0)
+        gnorm = _norm(g)
+        return LaneState(
+            w=w0, f=f, g=g, D=D, gnorm=gnorm, gnorm1=gnorm1, eps=eps,
+            delta=gnorm,
+            it=torch.ones(P, dtype=torch.int32, device=w0.device),
+            cg_total=torch.zeros(P, dtype=torch.int32, device=w0.device),
+            active=~(gnorm <= eps * gnorm1))
+
+    def running(self, st: LaneState) -> torch.Tensor:
+        """(P,): the lanes whose Newton loop takes another trip."""
+        return st.active & (st.it <= self.max_iter)
+
+    # -- the CG loop ------------------------------------------------------
+    def cg_init(self, st: LaneState, lanes: torch.Tensor) -> LaneCgState:
+        g = st.g
+        return LaneCgState(
+            s=torch.zeros_like(g), r=-g, d=-g, rTr=_dot(g, g),
+            cgtol=0.1 * _norm(g),
+            cg_iter=torch.zeros(g.shape[0], dtype=torch.int32,
+                                device=g.device),
+            done=~lanes, lanes=lanes)
+
+    def _live(self, cs: LaneCgState) -> torch.Tensor:
+        return ~cs.done & (cs.cg_iter < self.max_cg_iter)
+
+    def cg_open(self, cs: LaneCgState) -> torch.Tensor:
+        """0-d bool: the CG loop takes another trip."""
+        return self._live(cs).any()
+
+    def cg_trip(self, st: LaneState, cs: LaneCgState) -> LaneCgState:
+        s, r, d, rTr = cs.s, cs.r, cs.d, cs.rTr
+        delta = st.delta
+        live = self._live(cs)
+        small = _norm(r) <= cs.cgtol
+
+        Hd = obj.hv(self.prob, st.D, d)
         dHd = _dot(d, Hd)
         alpha = _safe_div(rTr, dHd, dHd > 0)
         s_try = s + alpha[:, None] * d
@@ -110,45 +181,19 @@ def _trcg(prob: obj.LRProblem, D, g, delta, max_cg_iter: int, lanes):
         take_bnd = step & boundary
         take_int = step & ~boundary
         bnd2, int2 = take_bnd[:, None], take_int[:, None]
-        s = torch.where(bnd2, s_bnd, torch.where(int2, s_try, s))
-        r = torch.where(bnd2, r_bnd, torch.where(int2, r_int, r))
-        d = torch.where(int2, d_int, d)
-        rTr = torch.where(take_int, rTr_new, rTr)
-        cg_iter = cg_iter + step.to(torch.int32)
-        done = done | (live & (small | take_bnd))
-        trips += 1
-    return s, r, cg_iter, trips
+        return cs._replace(
+            s=torch.where(bnd2, s_bnd, torch.where(int2, s_try, s)),
+            r=torch.where(bnd2, r_bnd, torch.where(int2, r_int, r)),
+            d=torch.where(int2, d_int, d),
+            rTr=torch.where(take_int, rTr_new, rTr),
+            cg_iter=cs.cg_iter + step.to(torch.int32),
+            done=cs.done | (live & (small | take_bnd)))
 
-
-def tron(prob: obj.LRProblem, w0: torch.Tensor, eps,
-         max_iter: int = 1000, max_cg_iter: int = 500) -> TronResult:
-    """Minimize the P LR-with-prior objectives from warm starts w0 (P, n).
-
-    eps, a scalar or (P,), is the already class-balance-scaled tolerance
-    (the caller applies eps * min(pos,neg)/l, LibLinear.java:309-313)."""
-    dtype = w0.dtype
-    P = w0.shape[0]
-    eps = torch.as_tensor(eps, dtype=dtype, device=w0.device).expand(P)
-    # relative-gradient reference point: ||grad at 0|| (Tron.java:47-56)
-    gnorm1 = _norm(obj.grad(prob, torch.zeros_like(w0)))
-
-    w = w0
-    f = obj.fun(prob, w)
-    g, D = obj.grad_and_curvature(prob, w)
-    gnorm = _norm(g)
-    delta = gnorm
-    # 1e-12 in the reference's float64 (Tron.java:117-120); 1e-5 in float32
-    stall_rtol = 1e-12 if dtype == torch.float64 else 1e-5
-
-    it = torch.ones(P, dtype=torch.int32, device=w.device)
-    cg_total = torch.zeros(P, dtype=torch.int32, device=w.device)
-    active = ~(gnorm <= eps * gnorm1)
-    trips = cg_trips = 0
-    while True:
-        lanes = active & (it <= max_iter)
-        if not bool(lanes.any()):
-            break
-        s, r, cg_iter, cg_t = _trcg(prob, D, g, delta, max_cg_iter, lanes)
+    # -- the Newton step after the CG loop --------------------------------
+    def epilogue(self, st: LaneState, cs: LaneCgState) -> LaneState:
+        prob, lanes = self.prob, cs.lanes
+        w, f, g, D, delta, it = st.w, st.f, st.g, st.D, st.delta, st.it
+        s, r, cg_iter = cs.s, cs.r, cs.cg_iter
         w_new = w + s
         gs = _dot(g, s)
         prered = -0.5 * (gs - _dot(s, r))
@@ -190,24 +235,53 @@ def tron(prob: obj.LRProblem, w0: torch.Tensor, eps,
         f = torch.where(accept, fnew, f)
         g = torch.where(acc2, g_new, g)
         D = torch.where(acc2, D_new, D)
-        gnorm = torch.where(accept, _norm(g_new), gnorm)
+        gnorm = torch.where(accept, _norm(g_new), st.gnorm)
         it = it + accept.to(torch.int32)
-        cg_total = cg_total + torch.where(lanes, cg_iter,
-                                          torch.zeros_like(cg_iter))
+        cg_total = st.cg_total + torch.where(lanes, cg_iter,
+                                             torch.zeros_like(cg_iter))
 
-        # stop conditions (Tron.java:103-121)
-        done = accept & (gnorm <= eps * gnorm1)
+        # stop conditions (Tron.java:103-121); 1e-12 in the reference's
+        # float64 (Tron.java:117-120), 1e-5 in float32
+        stall_rtol = 1e-12 if w.dtype == torch.float64 else 1e-5
+        done = accept & (gnorm <= st.eps * st.gnorm1)
         done = done | (f < -1.0e32)
         done = done | ((torch.abs(actred) <= 0) & (prered <= 0))
         done = done | ((torch.abs(actred) <= stall_rtol * torch.abs(f))
                        & (torch.abs(prered) <= stall_rtol * torch.abs(f)))
-        active = active & ~(done & lanes)
+        return st._replace(w=w, f=f, g=g, D=D, gnorm=gnorm, delta=delta,
+                           it=it, cg_total=cg_total,
+                           active=st.active & ~(done & lanes))
+
+    def result(self, st: LaneState, newton_trips: int = 0,
+               cg_trips: int = 0) -> TronResult:
+        return TronResult(w=st.w, f=st.f, gnorm=st.gnorm,
+                          iterations=st.it - 1, cg_iterations=st.cg_total,
+                          converged=st.gnorm <= st.eps * st.gnorm1,
+                          newton_trips=newton_trips, cg_trips=cg_trips)
+
+
+def tron(prob: obj.LRProblem, w0: torch.Tensor, eps,
+         max_iter: int = 1000, max_cg_iter: int = 500) -> TronResult:
+    """Minimize the P LR-with-prior objectives from warm starts w0 (P, n).
+
+    eps, a scalar or (P,), is the already class-balance-scaled tolerance
+    (the caller applies eps * min(pos,neg)/l, LibLinear.java:309-313).
+    The loops run on the host over LaneSolver's functions: one read of
+    "any lane open" per CG trip and per Newton trip."""
+    solver = LaneSolver(prob, max_iter, max_cg_iter)
+    st = solver.init(w0, eps)
+    trips = cg_trips = 0
+    while True:
+        lanes = solver.running(st)
+        if not bool(lanes.any()):
+            break
+        cs = solver.cg_init(st, lanes)
+        while bool(solver.cg_open(cs)):
+            cs = solver.cg_trip(st, cs)
+            cg_trips += 1
+        st = solver.epilogue(st, cs)
         trips += 1
-        cg_trips += cg_t
-    return TronResult(w=w, f=f, gnorm=gnorm, iterations=it - 1,
-                      cg_iterations=cg_total,
-                      converged=gnorm <= eps * gnorm1,
-                      newton_trips=trips, cg_trips=cg_trips)
+    return solver.result(st, trips, cg_trips)
 
 
 # the JAX package's name for the vmapped solver; here every call is batched

@@ -132,6 +132,90 @@ def with_prior(prob: MultiProblem, prior_mean: torch.Tensor,
                                  device=prior_mean.device) * rho_eff[None, :])
 
 
+# Stacked row and column ids are int32 (K1 reads int32 segment ids): B
+# blocks of R rows and n columns fold into one problem only while B*n and
+# B*R stay below this bound. Past it the flat solve is left (solver_mode)
+# and a per-block solve runs its blocks in consecutive sub-stacks.
+STACK_ID_BOUND = 2**31
+
+
+def stack_fits(nblocks: int, n: int, rows: int) -> bool:
+    """B blocks of `rows` rows and n columns stack inside the bound (the
+    JAX package's `_use_flat` int32 terms)."""
+    return nblocks * n < STACK_ID_BOUND and nblocks * rows < STACK_ID_BOUND
+
+
+def substack_ranges(nblocks: int, n: int, rows: int) -> list[tuple[int, int]]:
+    """Consecutive block ranges [b0, b1) covering the B blocks, each of as
+    many blocks as keep its stacked ids inside the bound (one range when
+    all B fit)."""
+    per = min((STACK_ID_BOUND - 1) // max(n, 1),
+              (STACK_ID_BOUND - 1) // max(rows, 1))
+    if per < 1:
+        raise ValueError(f"one block of {rows} rows and {n} columns has ids "
+                         f"past int32")
+    return [(b, min(b + per, nblocks)) for b in range(0, nblocks, per)]
+
+
+class SubStacks(NamedTuple):
+    """A per-block solve's blocks as consecutive sub-stacks: `probs[k]` the
+    stacked problem of blocks ranges[k] = [b0, b1), its ids offset from its
+    own first block. The blocks share nothing in a per-block solve, so
+    solving the sub-stacks one after another is the solve of all B."""
+
+    probs: tuple
+    ranges: tuple
+
+
+def stack_substacks(indices, values, y, weight, offset, head, prior_mean,
+                    rho_eff):
+    """stack_blocks of the B blocks when their ids fit int32, else a
+    SubStacks of one stack_blocks per substack_ranges range (every (B, ...)
+    argument cut to its blocks; head_ids, shared, kept)."""
+    B, R, _ = indices.shape
+    ranges = substack_ranges(B, prior_mean.shape[2], R)
+    if len(ranges) == 1:
+        return stack_blocks(indices, values, y, weight, offset, head,
+                            prior_mean, rho_eff)
+
+    def cut(a, b0, b1):
+        return None if a is None else a[b0:b1]
+    return SubStacks(tuple(
+        stack_blocks(indices[b0:b1], values[b0:b1], y[b0:b1],
+                     weight[b0:b1], offset[b0:b1],
+                     tuple(a if i == 1 else cut(a, b0, b1)
+                           for i, a in enumerate(head)),
+                     prior_mean[:, b0:b1], rho_eff)
+        for b0, b1 in ranges), tuple(ranges))
+
+
+def substacks_of(prob, nblocks: int) -> list:
+    """[(problem, (b0, b1))] of each sub-stack of a SubStacks, or of the
+    one stacked problem of all `nblocks` blocks."""
+    if isinstance(prob, SubStacks):
+        return list(zip(prob.probs, prob.ranges))
+    return [(prob, (0, nblocks))]
+
+
+def join_block_results(results) -> "MultiTronResult":
+    """The per-block results of consecutive sub-stacks as one: w and the
+    per-block fields joined in block order, block_trips joined, the
+    lock-step trip counts the maxima over the sub-stacks."""
+    results = list(results)
+    if len(results) == 1:
+        return results[0]
+    L = results[0].w.shape[1]
+
+    def cat(f):
+        return torch.cat([getattr(r, f).reshape(L, -1) for r in results], 1)
+    return MultiTronResult(
+        w=torch.cat([r.w for r in results]), f=cat("f"), gnorm=cat("gnorm"),
+        iterations=cat("iterations"), converged=cat("converged"),
+        newton_trips=max(r.newton_trips for r in results),
+        cg_trips=max(r.cg_trips for r in results),
+        block_trips=np.concatenate([r.block_trips for r in results]))
+
+
 def stack_blocks(indices, values, y, weight, offset, head,
                  prior_mean, rho_eff) -> MultiProblem:
     """Fold B batched blocks into ONE flat MultiProblem (flat-blocks form).
@@ -145,7 +229,7 @@ def stack_blocks(indices, values, y, weight, offset, head,
      tc_rows, tc_cols, tc_vals) = head
     B, R, K = indices.shape
     n = prior_mean.shape[2]
-    if B * n >= 2**31 or B * R >= 2**31:
+    if not stack_fits(B, n, R):
         raise ValueError("stacked row and column ids must fit int32")
     dev = indices.device
     boffs_n = torch.arange(B, dtype=torch.int32, device=dev)[:, None] * n

@@ -12,16 +12,23 @@ The x-update takes one of the JAX package's three solves (`solver_mode`):
   flat       the default: the multi-RHS lambda path (ops/tron_multi.py)
              over the B blocks folded into one stacked problem, one joint
              trust region per lambda, the strictest block's tolerance;
-  per_block  flat_blocks=False, or pcg="head_block": the same stacked data
-             solved as B independent problems (tron_multi(blocks=B), the
-             JAX vmap over blocks), each block with its own tolerance; with
-             "head_block" each block's head Gram is built by K2;
+  per_block  flat_blocks=False, or pcg="head_block", or a B*n or B*R past
+             int32: the same stacked data solved as B independent problems
+             (tron_multi(blocks=B), the JAX vmap over blocks), each block
+             with its own tolerance; with "head_block" each block's head
+             Gram is built by K2. Where the stacked ids of all B blocks
+             would pass int32, the blocks are stacked and solved in
+             consecutive sub-stacks (ops/tron_multi.py::SubStacks), one
+             tron_multi(blocks=b) each: the blocks share nothing, so this
+             is the same solve, and K1's ids stay int32;
   lanes      multi_rhs=False, or dual_layout: the batched reference TRON
              (ops/tron.py) over L*B lanes whose data is shared by the L
              lambdas (stride-0 views, never copied), the JAX
-             vmap(vmap(tron)); dual_layout adds the column-sorted copy.
+             vmap(vmap(tron)); dual_layout adds the column-sorted copy. Its
+             problem is built from the blocked arrays, each block with its
+             own int64 ids: nothing is stacked.
 
-The data problem is stacked once when the trainer is built (the JAX step
+The data problem is built once when the trainer is built (the JAX step
 restacks it inside its jitted program); each step only sets the prior.
 
 `mesh=` (parallel/mesh.py::make_mesh) runs the trainer on every rank of a
@@ -34,17 +41,15 @@ masked out. z is replicated; every rank returns the same result (u gathered
 to (L, B, n), the trips the maxima over the ranks).
 
 `run_fused` runs the same iteration with the whole driver loop on the
-device (`_FusedRun`: five branches over a static state, looped on the card
-by ops/device_loop.py), for the flat and per-block solves.
+device (`_FusedRun`: branches over a static state, looped on the card by
+ops/device_loop.py), in every solve mode and under a mesh, where its two
+collectives are NCCL calls captured into the loop's graphs.
 
 `dtype=torch.bfloat16` runs every solve mode and run_fused as the JAX
 package runs it: data, z, u and the solver state in bfloat16, K1's bf16
 entry, the objective and every scatter-add summed in float32, and the
 scalar inner tolerance rounded to bfloat16 before it scales eps_scale, as
 the JAX package's weakly typed product rounds it.
-
-Not ported yet (NotImplementedError, see ROADMAP.md): `run_fused` of the
-lanes solve or under a mesh (A1b).
 """
 
 from __future__ import annotations
@@ -63,13 +68,17 @@ from mlease_tpu_torch.core.dataset import (BlockedData, csc_arrays, pack_rows,
 from mlease_tpu_torch.core.linear_model import LinearModel
 from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
-from mlease_tpu_torch.ops.objective import LRProblem, class_balance_eps_scale
-from mlease_tpu_torch.ops.tron import tron
+from mlease_tpu_torch.ops.objective import (K1Streams, LRProblem,
+                                            class_balance_eps_scale,
+                                            column_sorted, k1_streams)
+from mlease_tpu_torch.ops.tron import LaneSolver, tron
 from mlease_tpu_torch.ops.device_loop import DeviceLoop
 from mlease_tpu_torch.ops.gram import gram_batched
 from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, MultiSolver,
-                                             lanes_major, stack_blocks,
+                                             SubStacks, lanes_major,
+                                             stack_fits, stack_substacks,
+                                             substack_ranges, substacks_of,
                                              tron_multi, with_prior)
 from mlease_tpu_torch.collectives import all_gather, all_reduce, max_over
 from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, axis_size,
@@ -177,30 +186,85 @@ def _lambda_key(lam: float) -> str:
 
 
 def solver_mode(multi_rhs: bool, flat_blocks: bool, dual_layout: bool,
-                pcg: Any, mesh=None) -> str:
+                pcg: Any, mesh=None, fits: bool = True) -> str:
     """Which x-update solve a configuration takes, as the JAX trainers
     decide it (AdmmTrainer._use_flat, build_admm_step): "lanes" for
     multi_rhs=False or dual_layout, "flat" when the blocks may fold into
     one problem (never under a mesh: the blocks keep their own problems
-    there), "per_block" otherwise ("head_block" needs a per-block head).
-    Every mode solves on the stacked ids, so they must fit int32
-    (stack_blocks raises otherwise; the JAX package then leaves the flat
-    form)."""
+    there; never when `fits` is false, the stacked ids past int32:
+    ops/tron_multi.py::stack_fits), "per_block" otherwise ("head_block"
+    needs a per-block head)."""
     if not multi_rhs or dual_layout:
         return "lanes"
-    if flat_blocks and pcg != "head_block" and mesh is None:
+    if flat_blocks and pcg != "head_block" and mesh is None and fits:
         return "flat"
     return "per_block"
 
 
+def blocked_problem(indices, values, y, weight, offset, head, dtype, n,
+                    csc=None, k1=None) -> LRProblem:
+    """The LRProblem the batched `tron` solves, straight from the blocked
+    arrays ((B, ...) each, as stack_blocks takes them; `head` its 8-tuple
+    with head_ids (H,) shared; n columns): every block keeps its own ids,
+    int64, so nothing is stacked and no id nears int32; the priors left
+    unset; a narrow head widened to the compute dtype (the JAX package's
+    solve promotes it the same way); `csc` the (cols, rows, vals) dual
+    layout, each (B, R*K), made on the card when not given. On the card the
+    sorted streams' K1 ids (`k1`, objective.K1Streams) are made here when
+    not given, once, over the sub-stacks that keep them inside int32."""
+    (head_x, head_ids, t_rows, t_cols, t_vals,
+     tc_rows, tc_cols, tc_vals) = head
+    B, R = y.shape
+
+    def ids(a):
+        return None if a is None else a.long()
+
+    kw = {}
+    if head_x is not None:
+        kw = dict(head_x=head_x.to(dtype),
+                  head_ids=head_ids.long()[None].repeat(B, 1),
+                  tail_rows=ids(t_rows), tail_cols=ids(t_cols),
+                  tail_vals=t_vals, tail_c_rows=ids(tc_rows),
+                  tail_c_cols=ids(tc_cols), tail_c_vals=tc_vals)
+    if csc is None and indices.is_cuda and indices.shape[-1] > 0:
+        # on the card X'v sums over the column-sorted copy with K1, in one
+        # order every run (ops/objective.py::_sorted_sum)
+        csc = column_sorted(indices, values)
+    if csc is not None:
+        cols, rows, vals = csc
+        kw.update(csc_cols=cols.long(), csc_rows=rows.long(), csc_vals=vals)
+    prob = LRProblem(indices=indices.long(), values=values, y=y,
+                     weight=weight, offset=offset, prior_mean=None,
+                     prior_var_inv=None, **kw)
+    if indices.is_cuda:
+        prob = prob._replace(k1=k1 if k1 is not None else k1_streams(
+            prob, n, substack_ranges(B, n, R)))
+    return prob
+
+
+def stacked_k1(prob: MultiProblem, B: int, csc=None) -> K1Streams:
+    """The K1 ids of a stacked problem's B blocks, one range: its stacked
+    ids as they are (stack_blocks offsets rows by R and columns by n, as
+    K1Streams does), with `csc` the stacked (cols, rows, vals) copy."""
+    def pair(seg, idx):
+        return None if seg is None else (
+            seg.reshape(B, -1).to(torch.int32),
+            idx.reshape(B, -1).to(torch.int32))
+    return K1Streams(((0, B),), csc=None if csc is None else pair(*csc[:2]),
+                     tail=pair(prob.tail_rows, prob.tail_cols),
+                     tail_c=pair(prob.tail_c_cols, prob.tail_c_rows))
+
+
 def unstack_problem(prob: MultiProblem, B: int, n: int, dtype,
-                    csc=None) -> LRProblem:
+                    csc_perm=None) -> LRProblem:
     """A stacked problem (stack_blocks: B blocks of R rows and n columns,
-    ids offset) back to its blocks, as the LRProblem the batched `tron`
-    solves: ids un-offset and int64, the priors left unset, a narrow head
-    widened to the compute dtype (the JAX package's solve promotes it the
-    same way), `csc` the (cols, rows, vals) dual layout, each (B, R*K)."""
+    ids offset) back to its blocks, as blocked_problem builds them: ids
+    un-offset. On the card the stacked int32 ids are already K1's
+    (K1Streams over the one range of all B); `csc_perm`, the column order
+    of the stacked ELL entries (train/streaming.py::_column_order), gives
+    the column-sorted copy."""
     R = prob.y.shape[0] // B
+    K = prob.indices.shape[-1]
     boff = torch.arange(B, device=prob.y.device)[:, None]
 
     def ids(a, size):
@@ -209,25 +273,26 @@ def unstack_problem(prob: MultiProblem, B: int, n: int, dtype,
     def per_block(a):
         return None if a is None else a.reshape(B, -1)
 
-    kw = {}
+    head = (None,) * 8
     if prob.head_x is not None:
         hx = prob.head_x if prob.head_x.dim() == 3 else prob.head_x[None]
-        kw = dict(head_x=hx.to(dtype), head_ids=ids(prob.head_ids, n),
-                  tail_rows=ids(prob.tail_rows, R),
-                  tail_cols=ids(prob.tail_cols, n),
-                  tail_vals=per_block(prob.tail_vals),
-                  tail_c_rows=ids(prob.tail_c_rows, R),
-                  tail_c_cols=ids(prob.tail_c_cols, n),
-                  tail_c_vals=per_block(prob.tail_c_vals))
+        head = (hx, ids(prob.head_ids, n)[0], ids(prob.tail_rows, R),
+                ids(prob.tail_cols, n), per_block(prob.tail_vals),
+                ids(prob.tail_c_rows, R), ids(prob.tail_c_cols, n),
+                per_block(prob.tail_c_vals))
+    csc = None
+    if csc_perm is not None:
+        csc = (prob.indices.reshape(-1).index_select(0, csc_perm),
+               csc_perm // K,
+               prob.values.reshape(-1).index_select(0, csc_perm))
+    k1 = stacked_k1(prob, B, csc) if prob.y.is_cuda else None
     if csc is not None:
-        cols, rows, vals = csc
-        kw.update(csc_cols=cols.long(), csc_rows=rows.long(), csc_vals=vals)
-    K = prob.indices.shape[-1]
-    return LRProblem(
-        indices=prob.indices.reshape(B, R, K).long() - boff[..., None] * n,
-        values=prob.values.reshape(B, R, K), y=prob.y.reshape(B, R),
-        weight=prob.weight.reshape(B, R), offset=prob.offset.reshape(B, R),
-        prior_mean=None, prior_var_inv=None, **kw)
+        csc = (ids(csc[0], n), ids(csc[1], R), per_block(csc[2]))
+    return blocked_problem(
+        prob.indices.reshape(B, R, K).long() - boff[..., None] * n,
+        prob.values.reshape(B, R, K), prob.y.reshape(B, R),
+        prob.weight.reshape(B, R), prob.offset.reshape(B, R), head, dtype, n,
+        csc, k1)
 
 
 def x_prior(z: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -257,14 +322,22 @@ def build_x_update(mode: str, max_newton_iter: int, max_cg_iter: int,
     eps (B,) the blocks' tolerances; x is masked to the prior mean z - u_b
     where a feature is absent from block b and over-relaxed. `prob` is the
     blocks' stacked MultiProblem ("flat", "per_block") or their LRProblem
-    ("lanes"). trips is a (k, 2) array of (Newton, CG) counts: one row for
-    "flat", one per block for "per_block" (each block's own loops), one per
-    (lambda, block) lane for "lanes" (accepted Newton iterations and CG
-    iterations), as the JAX solves report them."""
+    ("lanes"), or a SubStacks of either ("per_block", "lanes"): each
+    sub-stack solved in turn on its blocks. trips is a (k, 2) array of
+    (Newton, CG) counts: one row for "flat", one per block for "per_block"
+    (each block's own loops), one per (lambda, block) lane for "lanes"
+    (accepted Newton iterations and CG iterations), as the JAX solves
+    report them."""
     if mode not in ("flat", "per_block", "lanes"):
         raise ValueError(f"unknown solver mode {mode!r}")
 
     def solve(prob, present, z, u, rho_eff, eps):
+        if isinstance(prob, SubStacks):
+            parts = [solve(p, present[b0:b1], z, u[:, b0:b1], rho_eff,
+                           eps[b0:b1])
+                     for p, (b0, b1) in zip(prob.probs, prob.ranges)]
+            return (torch.cat([x for x, _ in parts], 1),
+                    np.concatenate([t for _, t in parts]))
         L, n = z.shape
         B = u.shape[1]
         prior_mean = x_prior(z, u)                            # (L, B, n)
@@ -446,20 +519,26 @@ class AdmmTrainer:
                     t(data.tail_vals, dtype), t(data.tail_c_rows),
                     t(data.tail_c_cols), t(data.tail_c_vals, dtype))
         L = len(self.lambdas)
-        self.mode = solver_mode(config.multi_rhs, config.flat_blocks,
-                                config.dual_layout, config.pcg, mesh)
-        self.prob = stack_blocks(
-            t(data.indices), t(data.values, dtype), y, weight,
-            t(data.offset, dtype), head,
-            torch.zeros((L, data.nblocks, self.dim), dtype=dtype, device=dev),
-            torch.ones(L, dtype=dtype, device=dev))
+        self.mode = solver_mode(
+            config.multi_rhs, config.flat_blocks, config.dual_layout,
+            config.pcg, mesh,
+            fits=stack_fits(data.nblocks, self.dim, data.padded_rows))
+        arrays = (t(data.indices), t(data.values, dtype), y, weight,
+                  t(data.offset, dtype), head)
         if self.mode == "lanes":
             csc = None
             if config.dual_layout:
                 csc = tuple(t(a) for a in csc_arrays(data))
                 csc = (csc[0], csc[1], csc[2].to(dtype))
-            self.prob = unstack_problem(self.prob, data.nblocks, self.dim,
-                                        dtype, csc)
+            self.prob = blocked_problem(*arrays, dtype, self.dim, csc)
+        else:
+            # "flat" only while all B fit int32; "per_block" past it solves
+            # consecutive sub-stacks (a SubStacks)
+            self.prob = stack_substacks(
+                *arrays,
+                torch.zeros((L, data.nblocks, self.dim), dtype=dtype,
+                            device=dev),
+                torch.ones(L, dtype=dtype, device=dev))
 
         lam_vecs = np.stack([
             admm_math.per_feature_lambda(l, self.dim, config.lambda_map,
@@ -510,28 +589,32 @@ class AdmmTrainer:
         checkpoint_every=None runs the whole training as one chunk;
         checkpoint_every=C pauses every C iterations to call
         callback(iteration=, z=, u=, diffs=, inner_eps=, logliks=) with the
-        latest state (z and u copies on the device, each loglik entry
-        delivered once). compile_time holds the warm-up and capture
-        seconds, which wall_time leaves out; iter_times is wall / iterations
-        per iteration and solver_stats one entry of the trip totals (the
-        sums of the per-iteration maxima); loop_counts what the loop ran
-        (DeviceLoop.counts: branch executions, and on the card the K1 and
-        K2 executions counted on the card). The loop's graphs and state
-        are freed before run_fused returns.
+        latest state (z and u copies on the device, u gathered over a
+        mesh's ranks as run() gives it, each loglik entry delivered once).
+        compile_time holds the warm-up and capture seconds, which wall_time
+        leaves out; iter_times is wall / iterations per iteration and
+        solver_stats one entry of the trip totals (the sums of the
+        per-iteration maxima); loop_counts what the loop ran
+        (DeviceLoop.counts: branch executions, and on the card the K1, K2
+        and all_reduce executions counted on the card). The loop's graphs
+        and state are freed before run_fused returns.
 
-        Not ported (NotImplementedError, ROADMAP.md A1b): the lanes solve
-        (multi_rhs=False, dual_layout) and a mesh (NCCL inside a graph)."""
+        Every solve mode runs (flat, per-block and its sub-stacks,
+        head-block, the lanes solve with or without the dual layout), and
+        under a mesh every rank runs the loop over its own blocks: its two
+        collectives a step are NCCL calls captured into the graphs on the
+        card (a gloo group there cannot be captured: ValueError), eager
+        gloo calls on the CPU. The stop rule reads only all-reduced values,
+        so the ranks stop together; one all_reduce after the run checks
+        that they did."""
         cfg = self.config
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "run_fused under a mesh is not ported (ROADMAP.md item A1b: "
-                "its collectives would be NCCL calls inside the CUDA graph, "
-                "and gloo cannot be captured); use run()")
-        if self.mode == "lanes":
-            raise NotImplementedError(
-                "run_fused of the lanes solve (multi_rhs=False or "
-                "dual_layout, ops/tron.py's own loops) is not ported "
-                "(ROADMAP.md item A1b); use run()")
+        if self.mesh is not None and self.device.type == "cuda":
+            backend = torch.distributed.get_backend(self._group)
+            if backend != "nccl":
+                raise ValueError(
+                    f"run_fused on a CUDA device captures the mesh's "
+                    f"collectives into CUDA graphs, which needs NCCL; this "
+                    f"mesh's group runs {backend!r}: use run()")
         L, max_it = len(self.lambdas), cfg.num_iters
         track_ll = self.test_arrays is not None and cfg.test_loglik_per_iter
 
@@ -565,7 +648,7 @@ class AdmmTrainer:
                         for lam, ll in zip(self.lambdas, ll_chunk[i])]
                     seen_ll = it_now - 1
                 callback(iteration=it_now - 1, z=st.z.clone(),
-                         u=st.u[:, :self.nblocks].clone(),
+                         u=self._global_u(st.u).clone(),
                          diffs=diffs_row.cpu().numpy(),
                          inner_eps=float(st.inner_eps), logliks=logliks)
             diffs_np = st.diffs_h.to(torch.float64).cpu().numpy()
@@ -574,6 +657,15 @@ class AdmmTrainer:
         finally:
             loop.close()
         iterations = it_now - 1
+        if self._group is not None:
+            # the ranks stopped together: the same iteration on every rank
+            its = torch.tensor([it_now, -it_now], dtype=torch.int64,
+                               device=self.device)
+            lo_hi = all_reduce(its, "max", self._group).tolist()
+            if lo_hi[0] != -lo_hi[1]:
+                raise RuntimeError(
+                    f"run_fused: the mesh's ranks stopped at iterations "
+                    f"{-lo_hi[1] - 1} to {lo_hi[0] - 1}")
 
         ll_np = st.ll_h.to(torch.float64).cpu().numpy()
         loglik_history: list[dict] = []
@@ -609,7 +701,8 @@ class AdmmTrainer:
             iter_times=[wall / max(iterations, 1)] * iterations,
             solver_stats=[{"newton_trips": int(st.nt_tot),
                            "cg_trips": int(st.cg_tot)}],
-            z=z_np, u=st.u[:, :self.nblocks].to(torch.float64).cpu().numpy(),
+            z=z_np,
+            u=self._global_u(st.u).to(torch.float64).cpu().numpy(),
             converged=done, wall_time=wall, compile_time=compile_time,
             loop_counts=loop_counts)
 
@@ -743,29 +836,119 @@ class AdmmTrainer:
         return u[:, :self.nblocks]
 
 
+class _Part:
+    """One solve of the x-update inside the device loop, over the blocks
+    [b0, b1): the multi-RHS solve of a stacked problem (flat, per-block,
+    or one sub-stack of a SubStacks) through MultiSolver, or the lanes
+    solve through ops/tron.py's LaneSolver. Its priors, Newton state,
+    running mask and CG state are static tensors, which `set_priors`,
+    `init` and the loop's branches write in place with run()'s ops."""
+
+    def __init__(self, fr: "_FusedRun", prob, b0: int, b1: int):
+        tr, cfg = fr.tr, fr.tr.config
+        self.L, self.n = len(tr.lambdas), tr.dim
+        self.b0, self.b1 = b0, b1
+        self.lanes = tr.mode == "lanes"
+        B = b1 - b0
+        if self.lanes:
+            self.prob = prob
+            self.blocks = B
+        else:
+            self.blocks = B if tr.mode == "per_block" else 1
+            self.prob = multi_problem(prob, tr.mode, B)
+        pm, pvi = self._priors(fr.z, fr.u, fr.rho_tab[1])
+        self.pm, self.pvi = _materialize(pm), _materialize(pvi)
+        if self.lanes:
+            self.solver = LaneSolver(
+                prob._replace(prior_mean=self.pm, prior_var_inv=self.pvi),
+                cfg.max_newton_iter, cfg.max_cg_iter)
+        else:
+            self.solver = MultiSolver(
+                self.prob._replace(prior_mean=self.pm,
+                                   prior_var_inv=self.pvi),
+                self.L, cfg.pcg, self.blocks, cfg.max_newton_iter,
+                cfg.max_cg_iter)
+        self.ns = _materialize(self._init_state(fr.z, fr.eps()))
+        self.running = _materialize(self.solver.running(self.ns))
+        self.cs = _materialize(self.solver.cg_init(self.ns, self.running))
+
+    def _priors(self, z, u, rho_eff):
+        """(prior mean, prior precision) as run()'s solve sets them."""
+        u = u[:, self.b0:self.b1]
+        if self.lanes:
+            L, B, n = u.shape
+            return (x_prior(z, u).reshape(L * B, n),
+                    rho_eff[:, None, None].expand(L, B, n).reshape(L * B, n))
+        pl = lanes_major(with_prior(self.prob, x_prior(z, u), rho_eff))
+        return pl.prior_mean, pl.prior_var_inv
+
+    def _init_state(self, z, eps):
+        eps = eps[self.b0:self.b1]
+        if self.lanes:
+            L, n, B = self.L, self.n, self.blocks
+            return self.solver.init(
+                z[:, None, :].expand(L, B, n).reshape(L * B, n),
+                eps.repeat(L))
+        return self.solver.init(z.T.repeat(self.b1 - self.b0, 1),
+                                eps if self.blocks > 1 else eps.min())
+
+    def set_priors(self, z, u, rho_eff) -> None:
+        pm, pvi = self._priors(z, u, rho_eff)
+        self.pm.copy_(pm)
+        self.pvi.copy_(pvi)
+
+    def init(self, z, eps) -> None:
+        _assign(self.ns, self._init_state(z, eps))
+        self.running.copy_(self.solver.running(self.ns))
+
+    def x(self) -> torch.Tensor:
+        """The solve's x, (L, b1 - b0, n), before masking."""
+        if self.lanes:
+            return self.ns.w.view(self.L, -1, self.n)
+        return w_to_x(self.ns.W.reshape(self.L, -1).T, self.b1 - self.b0,
+                      self.n)
+
+    def trips(self) -> torch.Tensor:
+        """(k, 2) (Newton, CG) counts, as run()'s solve reports them."""
+        if self.lanes:
+            return torch.stack([self.ns.it - 1, self.ns.cg_total], 1)
+        return self.solver.block_trips(self.ns)
+
+
 class _FusedRun:
-    """run_fused's static state and the five branches of its device loop.
+    """run_fused's static state and the branches of its device loop.
 
     Every tensor here is made before the loop; each branch reads and
-    writes only these (MultiSolver's states copied in place) and sets the
-    next phase. A pass of the loop takes the branches in the order
-    CG, EPILOGUE, ITER_END, ITER_START, CG_START, so one pass can run a CG
-    trip, the Newton step after it, the end of the ADMM iteration and the
-    next one's start. Each branch does what run() does at that point, with
-    the same ops in the same order:
+    writes only these (the solvers' states copied in place) and sets the
+    next phase. The x-update is one or more parts (`_Part`: the one
+    multi-RHS or lanes solve, or one per sub-stack of a SubStacks, solved
+    in turn), each with its own three branches. A pass of the loop takes
+    the branches in the order CG and EPILOGUE of each part, ITER_END,
+    ITER_START, CG_START of each part, so one pass can run a CG trip, the
+    Newton step after it, the end of the ADMM iteration and the next one's
+    start. Each branch does what run() does at that point, with the same
+    ops in the same order:
 
-      ITER_START  the inner-eps ladder, the rho row, eps, the priors z - u,
-                  the Newton init (MultiSolver.init) and its running mask;
-      CG_START    MultiSolver.cg_init;
-      CG          one MultiSolver.cg_trip;
-      EPILOGUE    MultiSolver.epilogue and the next running mask;
+      ITER_START  the inner-eps ladder, the rho row, eps, every part's
+                  priors z - u, Newton init and running mask;
+      CG_START    the part's cg_init;
+      CG          one cg_trip of the part;
+      EPILOGUE    the part's Newton epilogue and its next running mask;
       ITER_END    the mask and relaxation of the x-update, the consensus,
-                  z- and u-updates and diffs (step.consensus), the trip
-                  maxima, the sample loglik and best-model tracking and
-                  the stop rule (maxdiff in float64 against epsilon, as
-                  run() compares), then the next iteration or a stop."""
+                  z- and u-updates and diffs (step.consensus: under a mesh
+                  its all_reduce(SUM)), the trip maxima (under a mesh an
+                  all_reduce(MAX) of a device tensor), the sample loglik
+                  and best-model tracking and the stop rule (maxdiff in
+                  float64 against epsilon, as run() compares), then the
+                  next iteration or a stop.
 
-    CG, EPILOGUE, ITER_END, ITER_START, CG_START = 1, 2, 3, 4, 5
+    After ITER_START and each EPILOGUE the phase goes to the CG_START of
+    the first part, from that one on, whose Newton loop still runs, else to
+    ITER_END. Under a mesh every rank runs its own phases over its own
+    blocks and passes ITER_END once an iteration, so the collectives pair
+    up across the ranks in order."""
+
+    ITER_END, ITER_START = 1, 2
 
     def __init__(self, trainer: AdmmTrainer, z0, track_ll: bool):
         self.tr = tr = trainer
@@ -809,49 +992,70 @@ class _FusedRun:
             dtype=dtype, device=dev)
         self.rho_base = torch.as_tensor(tr.rhos, dtype=dtype, device=dev)
 
-        # the solve, over the stacked problem with its priors in place
-        self.blocks = B if tr.mode == "per_block" else 1
+        # the solve, over the problem with its priors in place
         self.solve = tr.step.solve
-        prob = multi_problem(tr.prob, tr.mode, B)
-        self.prob = prob
-        pl = self._priors(self.rho_tab[1])
-        self.pm = _materialize(pl.prior_mean)
-        self.pvi = _materialize(pl.prior_var_inv)
-        self.solver = MultiSolver(
-            pl._replace(prior_mean=self.pm, prior_var_inv=self.pvi), L,
-            cfg.pcg, self.blocks, cfg.max_newton_iter, cfg.max_cg_iter)
-        ns = self.solver.init(self.z.T.repeat(B, 1), self._eps())
-        self.ns = _materialize(ns)
-        self.running = _materialize(self.solver.running(self.ns))
-        self.cs = _materialize(self.solver.cg_init(self.ns, self.running))
+        self.parts = [_Part(self, p, b0, b1)
+                      for p, (b0, b1) in substacks_of(tr.prob, B)]
 
         state = [self.z, self.u, self.inner_eps, self.mindiff, self.it,
                  self.done, self.diffs_h, self.ll_h, self.best_ll,
                  self.best_z, self.best_lam, self.best_it, self.nt_tot,
-                 self.cg_tot, self.pm, self.pvi, self.running,
-                 *_leaves(self.ns), *_leaves(self.cs)]
+                 self.cg_tot]
+        for part in self.parts:
+            state += [part.pm, part.pvi, part.running, *_leaves(part.ns),
+                      *_leaves(part.cs)]
+        many = len(self.parts) > 1
+
+        def name(base, k):
+            return f"{base}.{k}" if many else base
+
+        branches = []
+        for k, part in enumerate(self.parts):
+            branches += [(self._cg(k), name("cg_trip", k),
+                          self._branch(self.cg_trip, k)),
+                         (self._epi(k), name("newton_epilogue", k),
+                          self._branch(self.epilogue, k))]
+        branches += [(self.ITER_END, "iteration_end", self.iteration_end),
+                     (self.ITER_START, "iteration_start",
+                      self.iteration_start)]
+        branches += [(self._cgs(k), name("cg_init", k),
+                      self._branch(self.cg_init, k))
+                     for k in range(len(self.parts))]
         self.loop = DeviceLoop(
-            [(self.CG, "cg_trip", self.cg_trip),
-             (self.EPILOGUE, "newton_epilogue", self.epilogue),
-             (self.ITER_END, "iteration_end", self.iteration_end),
-             (self.ITER_START, "iteration_start", self.iteration_start),
-             (self.CG_START, "cg_init", self.cg_init)],
-            self.phase, state,
+            branches, self.phase, state,
             kernels={"segment_sum_gather": segment_sum_sorted,
-                     "gram_batched": gram_batched})
+                     "gram_batched": gram_batched,
+                     "all_reduce": all_reduce})
 
-    def _priors(self, rho_eff):
-        return lanes_major(with_prior(self.prob, x_prior(self.z, self.u),
-                                      rho_eff))
+    # part k's phases: CG, EPILOGUE, CG_START
+    def _cg(self, k):
+        return 3 + 3 * k
 
-    def _eps(self):
+    def _epi(self, k):
+        return 4 + 3 * k
+
+    def _cgs(self, k):
+        return 5 + 3 * k
+
+    @staticmethod
+    def _branch(fn, k):
+        return lambda: fn(k)
+
+    def eps(self):
         # run() computes inner_eps * eps_scale from a Python float: the
         # scalar is rounded to the compute dtype, as here
-        eps = self.inner_eps.to(self.tr.config.dtype) * self.tr.eps_scale
-        return eps if self.blocks > 1 else eps.min()
+        return self.inner_eps.to(self.tr.config.dtype) * self.tr.eps_scale
 
     def _next(self, cond, yes, no):
         self.phase.copy_(torch.where(cond, yes, no))
+
+    def _next_part(self, k):
+        """The CG_START of the first part from k on whose Newton loop runs,
+        else ITER_END."""
+        nxt = self.ITER_END
+        for j in reversed(range(k, len(self.parts))):
+            nxt = torch.where(self.parts[j].running.any(), self._cgs(j), nxt)
+        self.phase.copy_(nxt)
 
     def start_chunk(self, last_iteration: int) -> None:
         """Run iterations up to `last_iteration` (no host read)."""
@@ -868,37 +1072,43 @@ class _FusedRun:
             ie_new = torch.where((it > 1) & (self.mindiff < 0.001),
                                  ie / 10.0, ie)
         ie.copy_(ie_new)
-        pl = self._priors(self.rho_tab.index_select(0, it.view(1))[0])
-        self.pm.copy_(pl.prior_mean)
-        self.pvi.copy_(pl.prior_var_inv)
-        _assign(self.ns, self.solver.init(self.z.T.repeat(self.B, 1),
-                                          self._eps()))
-        self.running.copy_(self.solver.running(self.ns))
-        self._next(self.running.any(), self.CG_START, self.ITER_END)
+        rho = self.rho_tab.index_select(0, it.view(1))[0]
+        eps = self.eps()
+        for part in self.parts:
+            part.set_priors(self.z, self.u, rho)
+            part.init(self.z, eps)
+        self._next_part(0)
 
-    def cg_init(self):
-        _assign(self.cs, self.solver.cg_init(self.ns, self.running))
-        self._next(self.solver.cg_open(self.cs), self.CG, self.EPILOGUE)
+    def cg_init(self, k):
+        part = self.parts[k]
+        _assign(part.cs, part.solver.cg_init(part.ns, part.running))
+        self._next(part.solver.cg_open(part.cs), self._cg(k), self._epi(k))
 
-    def cg_trip(self):
-        _assign(self.cs, self.solver.cg_trip(self.ns, self.cs))
-        self._next(self.solver.cg_open(self.cs), self.CG, self.EPILOGUE)
+    def cg_trip(self, k):
+        part = self.parts[k]
+        _assign(part.cs, part.solver.cg_trip(part.ns, part.cs))
+        self._next(part.solver.cg_open(part.cs), self._cg(k), self._epi(k))
 
-    def epilogue(self):
-        _assign(self.ns, self.solver.epilogue(self.ns, self.cs))
-        self.running.copy_(self.solver.running(self.ns))
-        self._next(self.running.any(), self.CG_START, self.ITER_END)
+    def epilogue(self, k):
+        part = self.parts[k]
+        _assign(part.ns, part.solver.epilogue(part.ns, part.cs))
+        part.running.copy_(part.solver.running(part.ns))
+        self._next_part(k)
 
     def iteration_end(self):
         tr, cfg, it = self.tr, self.tr.config, self.it
         prior_mean = x_prior(self.z, self.u)
-        x = self.solve.finish(
-            w_to_x(self.ns.W.reshape(len(tr.lambdas), -1).T, self.B, self.n),
-            tr.present, prior_mean, self.z)
+        x = torch.cat([p.x() for p in self.parts], 1) \
+            if len(self.parts) > 1 else self.parts[0].x()
+        x = self.solve.finish(x, tr.present, prior_mean, self.z)
         z_new, u_new, diffs = tr.step.consensus(x, self.z, self.u,
-                                                tr.lam_vec, self.rho_base)
+                                                tr.lam_vec, self.rho_base,
+                                                tr.block_valid)
         self.diffs_h.index_copy_(0, it.view(1), diffs[None])
-        trip_max = self.solver.block_trips(self.ns).amax(0)
+        trip_max = torch.cat([p.trips() for p in self.parts]).amax(0).to(
+            torch.int64)
+        if tr._group is not None:
+            all_reduce(trip_max, "max", tr._group)
         self.nt_tot += trip_max[0]
         self.cg_tot += trip_max[1]
         d64 = diffs.to(torch.float64)

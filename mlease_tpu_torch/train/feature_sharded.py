@@ -11,7 +11,10 @@ replicated per rank). Here the coefficient axis is sharded over the mesh's
     shard-local ids) of the blocks of block row b, and the (L, n_local)
     slices of z, u, lambda and the intercept mask;
   * the x-update is the per-block tron_multi(blocks=B_local,
-    group=feat group): one all_reduce over `feat` per Xv assembles full
+    group=feat group), in consecutive sub-stacks where the stacked ids of
+    the B_local blocks would pass int32 (ops/tron_multi.py::SubStacks,
+    every shard of a block row cutting the same ranges): one all_reduce
+    over `feat` per Xv assembles full
     score rows, every dot and norm is all_reduced, so the (L, B) trust-
     region scalars are the same bits on every shard and the lock-step
     loops take the same trips; X'v, the Jacobi diagonal and the z-update
@@ -44,8 +47,9 @@ from mlease_tpu_torch.core.linear_model import LinearModel
 from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
-from mlease_tpu_torch.ops.tron_multi import (stack_blocks, tron_multi,
-                                             with_prior)
+from mlease_tpu_torch.ops.tron_multi import (join_block_results,
+                                             stack_substacks, substacks_of,
+                                             tron_multi, with_prior)
 from mlease_tpu_torch.collectives import (all_gather, all_reduce,
                                           broadcast_object)
 from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, FEAT_AXIS,
@@ -106,7 +110,9 @@ class FeatureShardedAdmmTrainer:
             weight = torch.where(y == 1, config.positive_weight * weight,
                                  weight)
         L = len(self.lambdas)
-        self.prob = stack_blocks(
+        # one stacked problem while per*nl and per*R fit int32, else
+        # consecutive sub-stacks (a SubStacks), solved in turn
+        self.prob = stack_substacks(
             t(fs.indices[s, lo:hi]), t(fs.values[s, lo:hi], dtype), y,
             weight, t(fs.offset[lo:hi], dtype), (None,) * 8,
             torch.zeros((L, per, nl), dtype=dtype, device=dev),
@@ -146,10 +152,13 @@ class FeatureShardedAdmmTrainer:
         L, nl = z.shape
         B = u.shape[1]
         prior_mean = z[:, None, :] - u                       # (L, B, nl)
-        r = tron_multi(with_prior(self.prob, prior_mean, rho_eff),
-                       z.T.repeat(B, 1), eps, max_iter=cfg.max_newton_iter,
+        r = join_block_results(
+            tron_multi(with_prior(p, prior_mean[:, b0:b1], rho_eff),
+                       z.T.repeat(b1 - b0, 1), eps[b0:b1],
+                       max_iter=cfg.max_newton_iter,
                        max_cg_iter=cfg.max_cg_iter, precondition=cfg.pcg,
-                       blocks=B, group=self._feat_group)
+                       blocks=b1 - b0, group=self._feat_group)
+            for p, (b0, b1) in substacks_of(self.prob, B))
         x = r.w.reshape(B, nl, L).permute(2, 0, 1)
         x = torch.where(self.present[None], x, prior_mean)
         if cfg.relaxation != 1.0:

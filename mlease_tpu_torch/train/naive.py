@@ -23,11 +23,14 @@ The solve takes the JAX package's three branches on the same conditions:
 the multi-RHS lambda path over the keys folded into one stacked problem
 (the default: one joint trust region per lambda, the strictest key's
 tolerance), the same stacked data with one trust region per (lambda, key)
-(flat_blocks=False, tron_multi(blocks=K)), and the batched reference TRON
-over (lambda x key) lanes with the data shared by the lambdas
-(multi_rhs=False). The keys are packed as the JAX package packs them, in
-the ELL layout alone (no dense head, so no sorted tail): neither
-hand-written kernel runs in a naive solve. Under a mesh (`mesh=`, a 1-D
+(flat_blocks=False, or K*n or K*R past int32: tron_multi(blocks=K), in
+consecutive sub-stacks of keys past int32, ops/tron_multi.py::SubStacks),
+and the batched reference TRON over (lambda x key) lanes with the data
+shared by the lambdas (multi_rhs=False; each key keeps its own int64
+ids). The keys are packed as the JAX package packs them, in the ELL layout
+alone (no dense head, so no sorted tail): neither hand-written kernel runs
+in a multi-RHS naive solve; on the card the lanes solve sums X'v over a
+column-sorted copy with K1 (ops/objective.py). Under a mesh (`mesh=`, a 1-D
 block mesh of parallel/mesh.py, every rank calling with the whole rows)
 the keys are padded to a multiple of the ranks and split over them, each
 rank solves its own keys one problem per key (never the joint flat solve,
@@ -51,11 +54,14 @@ from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
 from mlease_tpu_torch.ops.tron import tron
-from mlease_tpu_torch.ops.tron_multi import stack_blocks, tron_multi
+from mlease_tpu_torch.ops.tron_multi import (join_block_results,
+                                             stack_blocks, stack_fits,
+                                             stack_substacks, substacks_of,
+                                             tron_multi)
 from mlease_tpu_torch.collectives import all_gather, max_over
 from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, local_blocks,
                                             mesh_device)
-from mlease_tpu_torch.train.admm import _lambda_key, unstack_problem
+from mlease_tpu_torch.train.admm import _lambda_key, blocked_problem
 
 
 @dataclass
@@ -153,30 +159,36 @@ def train_naive(keyed_rows: Mapping[str, Sequence[Mapping]],
             dtype)                                                # (K,)
     pvi_t = t(pvi, dtype)                                         # (L, n)
     t1 = time.monotonic()
-    prob = stack_blocks(t(pad_data.indices), t(pad_data.values, dtype), y,
-                        weight, t(pad_data.offset, dtype), (None,) * 8,
-                        torch.zeros((L, K, n), dtype=dtype, device=dev),
-                        torch.ones(L, dtype=dtype, device=dev))
+    arrays = (t(pad_data.indices), t(pad_data.values, dtype), y, weight,
+              t(pad_data.offset, dtype), (None,) * 8)
     common = dict(max_iter=cfg.max_newton_iter, max_cg_iter=cfg.max_cg_iter)
     if cfg.multi_rhs:
-        prob = prob._replace(
-            prior_mean=torch.full((K * n, L), cfg.prior_mean, dtype=dtype,
-                                  device=dev),
-            prior_var_inv=pvi_t.T.repeat(K, 1))
-        W0 = torch.zeros((K * n, L), dtype=dtype, device=dev)
+        def solve(prob, k, key_eps, **kw):
+            """The multi-RHS solve of k keys stacked in `prob`."""
+            return tron_multi(prob._replace(
+                prior_mean=torch.full((k * n, L), cfg.prior_mean,
+                                      dtype=dtype, device=dev),
+                prior_var_inv=pvi_t.T.repeat(k, 1)),
+                torch.zeros((k * n, L), dtype=dtype, device=dev), key_eps,
+                precondition=cfg.pcg, **common, **kw)
+
+        zeros_prior = (torch.zeros((L, K, n), dtype=dtype, device=dev),
+                       torch.ones(L, dtype=dtype, device=dev))
         # the keys fold into the coefficient axis (one joint trust region
         # per lambda, the strictest key's tolerance) while the stacked ids
-        # fit int32 (the JAX branch's condition), else one per key
-        if (cfg.flat_blocks and mesh is None and K * n < 2**31
-                and K * data.padded_rows < 2**31):
-            res = tron_multi(prob, W0, eps.min(), precondition=cfg.pcg,
-                             **common)
+        # fit int32 (the JAX branch's condition, decided before anything
+        # is stacked), else one per key, in sub-stacks past int32
+        if (cfg.flat_blocks and mesh is None
+                and stack_fits(K, n, pad_data.padded_rows)):
+            res = solve(stack_blocks(*arrays, *zeros_prior), K, eps.min())
         else:
-            res = tron_multi(prob, W0, eps, precondition=cfg.pcg, blocks=K,
-                             **common)
+            res = join_block_results(
+                solve(p, b1 - b0, eps[b0:b1], blocks=b1 - b0)
+                for p, (b0, b1) in substacks_of(
+                    stack_substacks(*arrays, *zeros_prior), K))
         x = res.w.reshape(K, n, L).permute(2, 0, 1)               # (L, K, n)
     else:
-        lanes = unstack_problem(prob, K, n, dtype)._replace(
+        lanes = blocked_problem(*arrays, dtype, n)._replace(
             prior_mean=torch.full((L * K, n), cfg.prior_mean, dtype=dtype,
                                   device=dev),
             prior_var_inv=pvi_t[:, None, :].expand(L, K, n).reshape(L * K, n))

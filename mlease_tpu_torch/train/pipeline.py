@@ -40,11 +40,9 @@ not when resuming from a checkpoint, not with write.train.output, not for
 a streaming or feature-sharded job (which ignore it); `checkpoint.every =
 C` writes a checkpoint and the chunk's sample-test-loglik files every C
 iterations, and `fused.device.budget.gb` (10) warns when the estimated
-footprint passes it. After a streaming run with no mesh the pipeline logs
-the pass-floor decomposition (utils/floor.py).
-A job key of a path not ported yet raises NotImplementedError instead of
-running something else: fused.loop on the lanes solve or under use.mesh
-(ROADMAP.md A1b).
+footprint passes it. It runs in every solve mode and under use.mesh,
+where rank 0 writes the chunks' checkpoints. After a streaming run with no
+mesh the pipeline logs the pass-floor decomposition (utils/floor.py).
 """
 
 from __future__ import annotations
@@ -76,7 +74,7 @@ from mlease_tpu_torch.io.records import (feature_key, normalize_row,
 from mlease_tpu_torch.parallel import distributed
 from mlease_tpu_torch.parallel.mesh import make_mesh, make_mesh_2d
 from mlease_tpu_torch.train.admm import (AdmmConfig, AdmmResult, AdmmTrainer,
-                                         _lambda_key, solver_mode)
+                                         _lambda_key)
 from mlease_tpu_torch.train.feature_sharded import FeatureShardedAdmmTrainer
 from mlease_tpu_torch.train.naive import NaiveConfig, train_naive
 from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
@@ -139,23 +137,6 @@ def admm_config_from_job(config: JobConfig, dtype=None) -> AdmmConfig:
         dtype=(dtype if dtype is not None
                else DTYPES[config.get_string("dtype", "float32")]),
     )
-
-
-def _reject_unported(config: JobConfig, cfg: AdmmConfig) -> None:
-    """Job keys whose paths are not ported raise here, before any work:
-    fused.loop on an in-memory job whose solve is the lanes solve or which
-    runs under use.mesh (run_fused's A1b)."""
-    in_memory = (config.get_int("streaming.groups", 0) <= 1
-                 and config.get_int("mesh.feature.shards", 0) <= 1)
-    if config.get_boolean("fused.loop", False) and in_memory and (
-            config.get_boolean("use.mesh", False)
-            or solver_mode(cfg.multi_rhs, cfg.flat_blocks, cfg.dual_layout,
-                           cfg.pcg) == "lanes"):
-        raise NotImplementedError(
-            "job key 'fused.loop' with use.mesh, multi.rhs=false or "
-            "dual.layout needs AdmmTrainer.run_fused on the lanes solve or "
-            "a mesh, which is not ported to mlease_tpu_torch yet (ROADMAP.md "
-            "item A1b)")
 
 
 def _warn_fused_footprint(config: JobConfig, cfg: AdmmConfig, data) -> None:
@@ -222,7 +203,6 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
     """The whole train job on `device`; with `mesh` (or the use.mesh job
     key) on every rank of a block mesh, each rank calling it."""
     cfg = admm_config_from_job(config, dtype=dtype)
-    _reject_unported(config, cfg)
     if mesh is None:
         mesh = _job_mesh(config, device)
     main = distributed.is_main()
@@ -502,6 +482,8 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
             _warn_fused_footprint(config, cfg, data)
 
             def on_chunk(iteration, z, u, diffs, inner_eps, logliks=None):
+                if not main:      # run_fused gathered u on every rank
+                    return
                 ckpt.save_checkpoint(ckpt_dir, iteration,
                                      ckpt.host_array(z),
                                      ckpt.host_array(u), inner_eps=inner_eps,

@@ -5,11 +5,13 @@ build_group_solver). Each group's x-update is one of the in-memory
 trainer's solves (train/admm.py): by default the flat multi-RHS TRON solve
 of ops/tron_multi.py (the group's blocks folded into one stacked problem,
 every λ lane at once, Jacobi PCG), so K1's three fused tail reduces run
-inside every group solve; flat_blocks=False or pcg="head_block" solves the
-group's blocks as independent problems on the same stacked data (K1 as
-well; with "head_block" each block's head Gram is one K2 call, on a
-bfloat16 head its bf16-in route); multi_rhs=False runs the batched
-reference TRON over the (λ, block) lanes. Blocks live in host RAM as
+inside every group solve; flat_blocks=False or pcg="head_block" (or a
+group whose stacked ids would pass int32, as the JAX gate decides:
+`groups_fit`) solves the group's blocks as independent problems on the
+same stacked data (K1 as well; with "head_block" each block's head Gram
+is one K2 call, on a bfloat16 head its bf16-in route), past int32 in
+consecutive sub-stacks; multi_rhs=False runs the batched reference TRON
+over the (λ, block) lanes. Blocks live in host RAM as
 packed groups, and each ADMM iteration runs
 
   phase 1: for each group g: the next group's host->device copies are
@@ -84,7 +86,9 @@ from mlease_tpu_torch.core.linear_model import LinearModel
 from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
-from mlease_tpu_torch.ops.tron_multi import MultiProblem
+from mlease_tpu_torch.ops.tron_multi import (MultiProblem, SubStacks,
+                                             stack_fits, substack_ranges,
+                                             substacks_of)
 from mlease_tpu_torch.collectives import all_gather, all_reduce
 from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, axis_size,
                                             block_sharding, local_blocks,
@@ -190,6 +194,36 @@ def _pad_head_coo_shared(wire: dict) -> None:
             torch.cat([a, torch.zeros(pad, dtype=a.dtype)]) for a in coo)
 
 
+def _split_substacks(prob: MultiProblem, ranges) -> SubStacks:
+    """A shipped group whose ids are offset per sub-stack (_host_group) as
+    the SubStacks of its consecutive block ranges: views, nothing copied.
+    Rows, ELL entries and the head's ids are block-major; every tail
+    stream holds T entries a block."""
+    B = ranges[-1][1]
+    probs = []
+    for b0, b1 in ranges:
+        def cut(a):
+            if a is None or a.dim() == 3:       # the (B, Rb, H) head
+                return None if a is None else a[b0:b1]
+            per = a.shape[0] // B
+            return a[b0 * per:b1 * per]
+        probs.append(MultiProblem(*(cut(a) for a in prob)))
+    return SubStacks(tuple(probs), tuple(ranges))
+
+
+def _column_order(indices: np.ndarray, ranges) -> torch.Tensor:
+    """The column-sorted order of a group's ELL entries, (B*R*K,) int32:
+    for each sub-stack of `ranges`, the stable order of its flat entries
+    by their stacked column ids (indices (B, R, K), offset per sub-stack
+    as _host_group offsets them), as positions in that sub-stack. The
+    offsets keep blocks apart, so one sort orders every block's entries
+    at once: train/admm.py::unstack_problem makes the column-sorted copy
+    from it."""
+    return torch.from_numpy(np.concatenate([
+        np.argsort(indices[b0:b1].reshape(-1), kind="stable")
+        .astype(np.int32) for b0, b1 in ranges]))
+
+
 def _gather_row_sorted(tc_rows, tc_cols, tc_vals, inv):
     """Row-sorted tail from the column-sorted one (flat, stacked)."""
     return tc_rows[inv], tc_cols[inv], tc_vals[inv]
@@ -228,6 +262,13 @@ def _check_sorted_ids(a: np.ndarray, bound: int, name: str,
         raise ValueError(f"{name} holds ids outside [0, {bound})")
 
 
+def groups_fit(groups) -> bool:
+    """The JAX streaming gate's int32 terms (max over the groups of B*n and
+    of B*R below 2^31, ops/tron_multi.py::stack_fits): the flat solve
+    only then; past them a group's blocks solve in sub-stacks."""
+    return all(stack_fits(g.nblocks, g.dim, g.padded_rows) for g in groups)
+
+
 def build_group_solver(max_newton_iter: int, max_cg_iter: int,
                        mode: str = "flat", pcg=True,
                        relaxation: float = 1.0) -> Callable:
@@ -239,19 +280,28 @@ def build_group_solver(max_newton_iter: int, max_cg_iter: int,
     JAX vmap of tron_multi) or "lanes" (the batched reference TRON over
     the (λ, block) lanes, the JAX vmap(vmap(tron))).
 
-    solver(prob, present, z, u, rho_eff, eps) takes the group's stacked
-    MultiProblem without its prior (ids offset into the group's (B*R rows,
-    B*n columns) space, every array but the head flat), present (B, n)
-    bool, z (L, n), the group's u (L, B, n), rho_eff (L,) and eps (B,) the
-    blocks' tolerances; it returns (x (L, B, n), newton_trips, cg_trips),
-    the trips summed over the solve's counters as the JAX group solve sums
-    them."""
+    solver(prob, present, z, u, rho_eff, eps, csc_perm=None) takes the
+    group's stacked MultiProblem without its prior (ids offset into the
+    group's (B*R rows, B*n columns) space, every array but the head flat),
+    present (B, n) bool, z (L, n), the group's u (L, B, n), rho_eff (L,),
+    eps (B,) the blocks' tolerances, and for a lanes solve on the card the
+    column order of the group's ELL entries (_column_order); it returns
+    (x (L, B, n), newton_trips, cg_trips), the trips summed over the
+    solve's counters as the JAX group solve sums them."""
     solve = build_x_update(mode, max_newton_iter, max_cg_iter, pcg,
                            relaxation)
 
-    def run(prob: MultiProblem, present, z, u, rho_eff, eps):
+    def run(prob: MultiProblem, present, z, u, rho_eff, eps, csc_perm=None):
         if mode == "lanes":
-            prob = unstack_problem(prob, u.shape[1], z.shape[1], z.dtype)
+            parts, off = [], 0
+            for p, (b0, b1) in substacks_of(prob, u.shape[1]):
+                e = p.indices.numel()
+                parts.append(unstack_problem(
+                    p, b1 - b0, z.shape[1], z.dtype,
+                    None if csc_perm is None else csc_perm[off:off + e]))
+                off += e
+            prob = (SubStacks(tuple(parts), prob.ranges)
+                    if isinstance(prob, SubStacks) else parts[0])
         x, trips = solve(prob, present, z, u, rho_eff, eps)
         nt, cg = trips.sum(0)
         return x, int(nt), int(cg)
@@ -296,7 +346,8 @@ class StreamingAdmmTrainer:
         if mesh is not None:
             device = mesh_device(mesh)
         self.mode = solver_mode(config.multi_rhs, config.flat_blocks,
-                                False, config.pcg, mesh)
+                                False, config.pcg, mesh,
+                                fits=groups_fit(groups))
         self.solver = build_group_solver(
             config.max_newton_iter, config.max_cg_iter, mode=self.mode,
             pcg=config.pcg, relaxation=config.relaxation)
@@ -386,7 +437,13 @@ class StreamingAdmmTrainer:
 
         # ---- stack once on the host, check once, pin ------------------
         self._pinned = on_card and pin_host
+        # a lanes solve on the card sums X'd over the column-sorted order
+        # of each group's ELL entries (K1, ops/objective.py::_sorted_sum):
+        # that order is made here, once, and ships with the group
+        self._csc_order = on_card and self.mode == "lanes"
         self.groups = []
+        self.ranges: list[list[tuple[int, int]]] = []
+        self.csc_perms: list[torch.Tensor | None] = []
         for i in range(len(groups)):
             self.groups.append(self._host_group(groups[i]))
             groups[i] = None                   # let the originals go
@@ -431,10 +488,11 @@ class StreamingAdmmTrainer:
             for gi, g in enumerate(self.groups):
                 if gi not in self._resident_heads:
                     continue
-                gb = _group_stream_bytes(g)
+                gb = _group_stream_bytes(g) + _nbytes(self.csc_perms[gi])
                 if gb > budget:
                     break
-                self._resident_groups[gi] = self._put_group(gi)[:2]
+                put = self._put_group(gi)
+                self._resident_groups[gi] = (put[0], put[1], put[4])
                 budget -= gb
                 pinned += gb
             for gi, g in enumerate(self.groups):
@@ -516,12 +574,20 @@ class StreamingAdmmTrainer:
     def _host_group(self, g: BlockedData) -> BlockedData:
         """g with every array a host tensor, pinned on the card's machine,
         ids offset into the group's stacked space, and the stacked id
-        streams checked once."""
+        streams checked once. Where the group's stacked ids would pass
+        int32, each block's ids are offset from the first block of its
+        sub-stack instead (substack_ranges, kept in self.ranges), so every
+        sub-stack is the problem stack_blocks would build of its blocks,
+        and each is checked on its own. A lanes solve on the card gets the
+        column-sorted order of each sub-stack's ELL entries (kept in
+        self.csc_perms: int32 positions in the sub-stack's flat entries)."""
         B, R, n = g.nblocks, g.padded_rows, g.dim
-        if B * n >= 2**31 or B * R >= 2**31:
-            raise ValueError("stacked row and column ids must fit int32")
-        offs = {"rows": np.arange(B, dtype=np.int64)[:, None] * R,
-                "cols": np.arange(B, dtype=np.int64)[:, None] * n}
+        ranges = substack_ranges(B, n, R)
+        self.ranges.append(ranges)
+        first = np.concatenate([np.full(b1 - b0, b0, np.int64)
+                                for b0, b1 in ranges])
+        local = (np.arange(B, dtype=np.int64) - first)[:, None]
+        offs = {"rows": local * R, "cols": local * n}
 
         def stacked(a, off):
             return None if a is None else (a + off).astype(np.int32)
@@ -534,16 +600,21 @@ class StreamingAdmmTrainer:
         if g.head_ids is not None:
             ids["head_ids"] = stacked(np.broadcast_to(g.head_ids, (B, len(
                 g.head_ids))), offs["cols"]).reshape(-1)
-        if g.tail_rows is not None:
-            _check_sorted_ids(ids["tail_rows"].reshape(-1), B * R,
-                              "tail_rows", True)
-            _check_sorted_ids(ids["tail_cols"].reshape(-1), B * n,
-                              "tail_cols", False)
-        if g.tail_c_cols is not None:
-            _check_sorted_ids(ids["tail_c_cols"].reshape(-1), B * n,
-                              "tail_c_cols", True)
-            _check_sorted_ids(ids["tail_c_rows"].reshape(-1), B * R,
-                              "tail_c_rows", False)
+        self.csc_perms.append(
+            self._pin(_column_order(ids["indices"], ranges))
+            if self._csc_order and g.indices.shape[2] > 0 else None)
+        for b0, b1 in ranges:
+            nb = b1 - b0
+            if g.tail_rows is not None:
+                _check_sorted_ids(ids["tail_rows"][b0:b1].reshape(-1),
+                                  nb * R, "tail_rows", True)
+                _check_sorted_ids(ids["tail_cols"][b0:b1].reshape(-1),
+                                  nb * n, "tail_cols", False)
+            if g.tail_c_cols is not None:
+                _check_sorted_ids(ids["tail_c_cols"][b0:b1].reshape(-1),
+                                  nb * n, "tail_c_cols", True)
+                _check_sorted_ids(ids["tail_c_rows"][b0:b1].reshape(-1),
+                                  nb * R, "tail_c_rows", False)
         out = {}
         for f in ("indices", "values", "y", "weight", "offset", "present",
                   "head", "head_ids", *("tail_" + k for k in (
@@ -627,6 +698,7 @@ class StreamingAdmmTrainer:
             total += sum(_nbytes(getattr(g, f)) for f in (
                 "indices", "values", "y", "weight", "offset", "present",
                 "tail_rows", "tail_cols", "tail_vals"))
+            total += _nbytes(self.csc_perms[gi])
             if gi not in self._resident_ctails:
                 total += _ctail_bytes(g)
             if self.use_head and gi not in self._resident_heads:
@@ -647,6 +719,7 @@ class StreamingAdmmTrainer:
             w = self._wire.get(gi, {})
             total += sum(_nbytes(getattr(g, f)) for f in (
                 "indices", "values", "y", "weight", "offset", "present"))
+            total += _nbytes(self.csc_perms[gi])
             if "tail_inv" in w:
                 total += _nbytes(w["tail_inv"])
             else:
@@ -673,9 +746,11 @@ class StreamingAdmmTrainer:
         rebuilds) on the copy stream; return (the group's MultiProblem
         without its prior, present, u on the device or None, the event the
         compute stream waits on before using them, or None when nothing was
-        copied). Pinned tiers hand back their device arrays as they are."""
+        copied, the column order of a lanes solve on the card or None).
+        Pinned tiers hand back their device arrays as they are."""
         if gi in self._resident_groups and u_host is None:
-            return (*self._resident_groups[gi], None, None)
+            prob, present, perm = self._resident_groups[gi]
+            return prob, present, None, None, perm
         cs = self._copy_stream
         compute = torch.cuda.current_stream(self.device) if cs else None
         made: list[torch.Tensor] = []
@@ -692,7 +767,7 @@ class StreamingAdmmTrainer:
         with ctx:
             u_dev = put(u_host)
             if gi in self._resident_groups:
-                prob, present = self._resident_groups[gi]
+                prob, present, perm = self._resident_groups[gi]
             else:
                 g = self.groups[gi]
                 w = self._wire.get(gi, {})
@@ -731,13 +806,14 @@ class StreamingAdmmTrainer:
                     offset=put(g.offset.view(-1)), prior_mean=None,
                     prior_var_inv=None, **head)
                 present = put(g.present)
+                perm = put(self.csc_perms[gi])
         if cs is None:
-            return prob, present, u_dev, None
+            return prob, present, u_dev, None, perm
         for d in made:
             d.record_stream(compute)
         ev = torch.cuda.Event()
         ev.record(cs)
-        return prob, present, u_dev, ev
+        return prob, present, u_dev, ev, perm
 
     def _iterate(self, z, u_groups, rho_eff, rho_base, inner_eps: float,
                  track_ll: bool):
@@ -757,7 +833,7 @@ class StreamingAdmmTrainer:
         ship_u = [None] * G if dev_consensus else u_groups
         pending = self._put_group(0, ship_u[0])
         for gi, scale in enumerate(self.eps_scales):
-            prob, present, u_dev, ready = pending
+            prob, present, u_dev, ready, perm = pending
             # the next group's copies go out BEFORE this group's solve: the
             # solve is a host loop that syncs once per trip, so a copy
             # issued after it would start only when it had ended
@@ -766,10 +842,12 @@ class StreamingAdmmTrainer:
             if ready is not None:
                 torch.cuda.current_stream(dev).wait_event(ready)
             u_g = u_groups[gi] if dev_consensus else u_dev
+            if len(self.ranges[gi]) > 1:
+                prob = _split_substacks(prob, self.ranges[gi])
             # the product in float64, rounded once to the compute dtype
             eps = torch.as_tensor(np.asarray(inner_eps * scale),
                                   dtype=dtype, device=dev)
-            x, nt, cg = self.solver(prob, present, z, u_g, rho_eff, eps)
+            x, nt, cg = self.solver(prob, present, z, u_g, rho_eff, eps, perm)
             trip_mat[gi] = (nt, cg)
             pad = self.pad_idx[gi]
             if pad is not None:         # mesh padding: out of the sums
@@ -782,7 +860,7 @@ class StreamingAdmmTrainer:
             else:
                 xh = self._pin(torch.empty(x.shape, dtype=dtype))
                 x_keep.append(xh.copy_(x, non_blocking=True))
-            del prob, present, u_dev, x, u_g
+            del prob, present, u_dev, x, u_g, perm
         if self._group_comm is not None:
             # the mesh's one collective of the iteration: every rank's
             # partial sums, then the same z on every rank

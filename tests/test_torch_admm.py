@@ -186,8 +186,10 @@ def test_unported_paths_raise(kw):
     dtype (A15, once refused here) runs the default flat solve against the
     JAX trainer in bfloat16 under tests/test_torch_bf16.py's rule: z within
     2 * max(e_j, 2^-8 * max|z_j64|) of JAX's bfloat16 and float64 z, e_j
-    JAX's own bfloat16 error. run_fused of the lanes solve still raises
-    (A1b; tests/test_torch_fused.py holds the modes it runs)."""
+    JAX's own bfloat16 error. run_fused of the lanes solve (A1b, once
+    refused here) runs against JAX's run_fused, z and u to 1e-8 with equal
+    trip totals, and gives the port's run() bit for bit
+    (tests/test_torch_fused.py holds every mode it runs)."""
     data, vocab, test_rows = problem(seed=23, n_rows=240)
     if "dtype" in kw:
         base = dict(lambdas=[1.0], num_iters=4)
@@ -204,10 +206,19 @@ def test_unported_paths_raise(kw):
                         2.0 ** -8 * np.abs(want64.z).max())
         assert np.abs(got.z - np.asarray(wantbf.z, np.float64)).max() <= bound
         assert np.abs(got.z - want64.z).max() <= bound
-        trainer = AdmmTrainer(data, vocab, AdmmConfig(
-            dtype=torch.float64, multi_rhs=False), device="cpu")
-        with pytest.raises(NotImplementedError, match="A1b"):
-            trainer.run_fused()
+        # run_fused of the lanes solve (A1b, once refused here): JAX's
+        # run_fused to 1e-8 with equal trips, run()'s bits
+        jcfg, tcfg = configs(num_iters=4, multi_rhs=False)
+        want = JaxTrainer(data, vocab, jcfg).run_fused()
+        got = AdmmTrainer(data, vocab, tcfg, device="cpu").run_fused()
+        run = AdmmTrainer(data, vocab, tcfg, device="cpu").run()
+        assert got.iterations == want.iterations == run.iterations == 4
+        np.testing.assert_allclose(got.z, want.z, rtol=0, atol=1e-8)
+        np.testing.assert_allclose(got.u, want.u, rtol=0, atol=1e-8)
+        assert got.solver_stats == [{k: int(v) for k, v in s.items()}
+                                    for s in want.solver_stats]
+        np.testing.assert_array_equal(got.z, run.z)
+        np.testing.assert_array_equal(got.u, run.u)
         return
     jcfg, tcfg = configs(num_iters=4, **kw)
     want = JaxTrainer(data, vocab, jcfg, test_rows=test_rows).run()

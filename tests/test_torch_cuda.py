@@ -685,13 +685,13 @@ def test_head_block_solve_on_card_matches_cpu(cuda):
                          ids=["per_block", "head_block", "lanes"])
 def test_solver_modes_on_card_match_cpu(cuda, kw):
     """AdmmTrainer's per-block, head-block and lanes solves on the card
-    against the same float64 runs on the CPU: z to 1e-8. K1 launches in the
-    per-block solves (the lanes solve has no sorted tail reduce); with
+    against the same float64 runs on the CPU: z to 1e-8. K1 launches in
+    every solve (the lanes solve's sorted sums are K1 on the card); with
     head_block K2 builds each block's head Gram, B calls per build, one
     build per Newton trip plus one per solve. The per-block solves reduce
     in a fixed order on both (the head product, K1), so their trip counts
-    are equal too. The lanes solve reduces its tail with scatter_add_,
-    whose float atomics add in a varying order on the card, so a CG stop
+    are equal too. The lanes solve sums its sorted streams with K1 on the
+    card and with scatter_add_ on the CPU, in another order, so a CG stop
     decision within rounding of its threshold can go either way: it solves
     to liblinear.epsilon 1e-10 here, where both reach the same minimizer."""
     from mlease_tpu_torch.core.vocab import FeatureVocab
@@ -709,7 +709,7 @@ def test_solver_modes_on_card_match_cpu(cuda, kw):
     k1, k2 = segment_sum_sorted.launches - k1, gram_batched.launches - k2
     np.testing.assert_allclose(got.z, want.z, rtol=0, atol=1e-8)
     assert lanes or got.solver_stats == want.solver_stats
-    assert (k1 > 0) == ("multi_rhs" not in kw)
+    assert k1 > 0
     builds = sum(s["newton_trips"] + 1 for s in got.solver_stats)
     assert k2 == (3 * builds if kw.get("pcg") == "head_block" else 0)
 
@@ -827,3 +827,172 @@ def test_run_fused_on_card_equals_run(cuda, kw):
         DeviceLoop.run = launch
     np.testing.assert_array_equal(chunked.z, run.z)
     assert [c["iteration"] for c in calls] == [2, 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(multi_rhs=False),
+                                dict(dual_layout=True, head_size=0)],
+                         ids=["multi_rhs=False", "dual_layout"])
+def test_lanes_run_fused_on_card_equals_run(cuda, kw):
+    """run_fused of the lanes solve (ops/tron.py's LaneSolver in the loop's
+    graphs) gives run()'s z, u, diffs and trip totals bit for bit on the
+    card, and a chunk runs clean under set_sync_debug_mode("error")."""
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.ops.device_loop import DeviceLoop
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+
+    data = blocked_data(17, B=3, R=1500)
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    cfg = AdmmConfig(**dict(dict(lambdas=[1.0, 10.0], num_iters=3,
+                                 head_size=64, dtype=torch.float32), **kw))
+    trainer = AdmmTrainer(data, vocab, cfg, device=cuda)
+    assert trainer.mode == "lanes"
+    run = trainer.run()
+    launch = DeviceLoop.run
+
+    def checked(self):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            launch(self)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    DeviceLoop.run = checked
+    try:
+        got = trainer.run_fused()
+    finally:
+        DeviceLoop.run = launch
+    np.testing.assert_array_equal(got.z, run.z)
+    np.testing.assert_array_equal(got.u, run.u)
+    assert got.diff_history == run.diff_history
+    assert got.solver_stats == [{k: sum(s[k] for s in run.solver_stats)
+                                 for k in ("newton_trips", "cg_trips")}]
+
+
+@pytest.fixture
+def one_rank(cuda, tmp_path, request):
+    """A one-rank process group on the card, of the backend asked for."""
+    import torch.distributed as dist
+    from mlease_tpu_torch.parallel import distributed
+    distributed.initialize(cuda, init_method=f"file://{tmp_path}/pg",
+                           world_size=1, rank=0, backend=request.param)
+    yield request.param
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_rank", ["nccl"], indirect=True)
+@pytest.mark.parametrize("kw", [dict(flat_blocks=False),
+                                dict(pcg="head_block")],
+                         ids=["per_block", "head_block"])
+def test_one_rank_nccl_mesh_run_fused_equals_run(one_rank, kw):
+    """run_fused on a one-rank NCCL mesh: its all_reduces captured into the
+    loop's graphs ("thread_local" capture), run()'s bits, and the
+    collectives executed on the card as many as run()'s step calls (two an
+    iteration), beside K1 (and K2 with head_block)."""
+    import torch.distributed as dist
+    from mlease_tpu_torch import collectives
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.parallel import make_mesh
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+
+    assert dist.get_backend() == "nccl"
+    mesh = make_mesh(1, "cuda")
+    data = blocked_data(19, B=3, R=1500)
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    cfg = AdmmConfig(lambdas=[1.0, 10.0], num_iters=3, head_size=64,
+                     dtype=torch.float32, **kw)
+    trainer = AdmmTrainer(data, vocab, cfg, mesh=mesh)
+    run = trainer.run()
+    got = trainer.run_fused()
+    np.testing.assert_array_equal(got.z, run.z)
+    np.testing.assert_array_equal(got.u, run.u)
+    assert got.solver_stats == [{k: sum(s[k] for s in run.solver_stats)
+                                 for k in ("newton_trips", "cg_trips")}]
+    counts = got.loop_counts
+    ke = counts["kernel_executions"]
+    assert ke["all_reduce"] == 2 * run.iterations
+    assert counts["capture_modes"]["iteration_end"] == "thread_local"
+    assert counts["capture_modes"]["cg_trip"] == "global"
+    assert ke["segment_sum_gather"] > 0
+    assert (ke["gram_batched"] > 0) == (kw.get("pcg") == "head_block")
+    assert collectives.all_reduce.device_launches is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_rank", ["gloo"], indirect=True)
+def test_run_fused_under_gloo_on_the_card_raises(one_rank):
+    """A gloo group cannot be captured: run_fused on a CUDA device under
+    one raises ValueError naming the backend (run() runs)."""
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.parallel.mesh import make_mesh
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+
+    mesh = make_mesh(1, "cuda")
+    data = blocked_data(19, B=2, R=500)
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    trainer = AdmmTrainer(data, vocab, AdmmConfig(
+        num_iters=1, flat_blocks=False, dtype=torch.float32), mesh=mesh)
+    with pytest.raises(ValueError, match="gloo"):
+        trainer.run_fused()
+    assert np.isfinite(trainer.run().z).all()
+
+
+@pytest.mark.cuda
+def test_device_loop_refuses_a_node_a_conditional_body_cannot_hold(cuda):
+    """A branch whose capture leaves a node that a conditional body cannot
+    hold (an external event's record: an event_record node) makes
+    DeviceLoop.prepare raise, naming the branch and the node type; nothing
+    runs in the loop's stead (the warm-up's writes are put back, and run
+    refuses)."""
+    from mlease_tpu_torch.ops.device_loop import DeviceLoop
+
+    phase = torch.ones((), dtype=torch.int32, device=cuda)
+    x = torch.zeros(4, device=cuda)
+    ev = torch.cuda.Event(external=True)
+
+    def step():
+        x.add_(1.0)
+        ev.record()
+        phase.fill_(0)
+
+    loop = DeviceLoop([(1, "recorder", step)], phase, [x])
+    with pytest.raises(RuntimeError, match=r"'recorder' holds a "
+                       r"event_record node"):
+        loop.prepare()
+    assert loop.node_types["recorder"].get("event_record", 0) >= 1
+    with pytest.raises(RuntimeError, match="before prepare"):
+        loop.run()
+    torch.cuda.synchronize(cuda)
+    assert float(x.sum()) == 0.0 and int(phase) == 1
+    loop.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [dict(pcg=True), dict(pcg="head_block")],
+                         ids=["per_block", "head_block"])
+def test_substacked_run_fused_on_card_equals_run(cuda, monkeypatch, kw):
+    """Past the int32 bound (lowered here so that 3 blocks solve as
+    sub-stacks of 2 and 1) run_fused loops over each sub-stack's branches
+    in turn and gives run()'s bits; K1 runs inside the graphs."""
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.ops import tron_multi
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+
+    data = blocked_data(23, B=3, R=1500)
+    monkeypatch.setattr(tron_multi, "STACK_ID_BOUND",
+                        2 * max(data.dim, 1500) + 1)
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    cfg = AdmmConfig(lambdas=[1.0, 10.0], num_iters=3, head_size=64,
+                     dtype=torch.float32, **kw)
+    trainer = AdmmTrainer(data, vocab, cfg, device=cuda)
+    assert trainer.mode == "per_block"
+    assert trainer.prob.ranges == ((0, 2), (2, 3))
+    run = trainer.run()
+    got = trainer.run_fused()
+    np.testing.assert_array_equal(got.z, run.z)
+    np.testing.assert_array_equal(got.u, run.u)
+    assert got.solver_stats == [{k: sum(s[k] for s in run.solver_stats)
+                                 for k in ("newton_trips", "cg_trips")}]
+    assert got.loop_counts["kernel_executions"]["segment_sum_gather"] > 0
+    assert got.loop_counts["branch_executions"]["cg_trip.1"] > 0

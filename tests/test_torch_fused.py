@@ -6,7 +6,9 @@ tests/test_admm.py's fused tests.
 Tolerances: z and u to 1e-8 with equal iterations and trip totals against
 JAX (each iteration's solve agrees to ~1e-12, tests/test_torch_admm.py);
 against the port's own run() bit for bit: the same ops on the same values
-in the same order.
+in the same order. Under a mesh of 2 gloo ranks (tests/torch_mesh_worker.py)
+against JAX's run_fused on a 2-device mesh to 1e-8 * max|z|, every rank the
+same bits.
 """
 
 import jax.numpy as jnp
@@ -16,6 +18,8 @@ import torch
 import torch.distributed as dist
 
 from mlease_tpu.core import build_vocab, pack_blocks
+from mlease_tpu.parallel import cpu_devices
+from mlease_tpu.parallel import make_mesh as jax_make_mesh
 from mlease_tpu.train.admm import AdmmConfig as JaxConfig
 from mlease_tpu.train.admm import AdmmTrainer as JaxTrainer
 from mlease_tpu_torch.parallel import distributed
@@ -23,6 +27,7 @@ from mlease_tpu_torch.parallel.mesh import make_mesh
 from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
 
 from test_admm import synth_rows
+from torch_mesh_worker import launch
 
 torch.set_num_threads(1)
 
@@ -125,9 +130,10 @@ def test_each_mode_matches_jax(kw):
 
 def test_warm_start_boost_and_stop():
     """z0 with a boosted first rho and the early stop, on a multi-RHS
-    config (JAX's own test uses multi_rhs=False, the lanes solve, which the
-    port's run_fused leaves to A1b); epsilon 1e-3 so that the stop rule
-    ends the run (at 1e-4 this problem's multi-RHS path runs all 60)."""
+    config (JAX's own test uses multi_rhs=False, the lanes solve, which
+    test_lanes_and_mesh_raise_a1b runs); epsilon 1e-3 so that the stop
+    rule ends the run (at 1e-4 this problem's multi-RHS path runs all
+    60)."""
     data, vocab, _, rng = problem(12, n_rows=300, nblocks=2, n_test=0)
     z0 = rng.normal(size=vocab.size) * 0.05
     jcfg, tcfg = configs(lambdas=[5.0], num_iters=60, epsilon=1e-3,
@@ -189,25 +195,144 @@ def test_rho_schedule(kw):
     assert_same_run(got, run, 0)
 
 
-@pytest.mark.parametrize("kw", [dict(multi_rhs=False),
-                                dict(dual_layout=True), dict(mesh=True)],
-                         ids=["multi_rhs=False", "dual_layout", "mesh"])
+@pytest.mark.parametrize("kw", [
+    dict(multi_rhs=False), dict(dual_layout=True), dict(mesh=True),
+    dict(multi_rhs=False, dtype=torch.bfloat16)],
+    ids=["multi_rhs=False", "dual_layout", "mesh", "lanes-bfloat16"])
 def test_lanes_and_mesh_raise_a1b(kw):
-    """The lanes solve (ops/tron.py's own loops) and a mesh (NCCL inside a
-    graph) are not ported to run_fused: ROADMAP.md A1b."""
-    data, vocab, _, _ = problem(19, n_rows=120, n_test=0)
-    mesh = None
+    """The lanes solve (ops/tron.py's LaneSolver) and a mesh (its
+    collectives inside the loop), which once raised here (ROADMAP.md A1b),
+    run as JAX's run_fused runs them: multi_rhs=False and dual_layout, and
+    a one-rank in-process mesh (the per-block Jacobi solve) against JAX's
+    run_fused on a one-device mesh, z and u to 1e-8 with equal iterations
+    and trip totals, and against the port's run() bit for bit; the lanes
+    solve in bfloat16 (A15) against run() bit for bit."""
+    data, vocab, test_rows, _ = problem(19, n_rows=160, nblocks=4)
+    dtype = kw.pop("dtype", None)
+    mesh = jax_mesh = None
     if kw.pop("mesh", False):
         distributed.initialize_single("cpu")
         mesh = make_mesh(1, "cpu")
+        jax_mesh = jax_make_mesh(cpu_devices(), n=1)
+    jcfg, tcfg = configs(test_loglik_per_iter=True, head_size=4, **kw)
+    if dtype is not None:
+        tcfg = AdmmConfig(**dict(tcfg.__dict__, dtype=dtype))
     try:
-        trainer = AdmmTrainer(data, vocab, configs(**kw)[1], device="cpu",
-                              mesh=mesh)
-        with pytest.raises(NotImplementedError, match="A1b"):
-            trainer.run_fused()
+        def port():
+            return AdmmTrainer(data, vocab, tcfg, test_rows=test_rows,
+                               device="cpu", mesh=mesh)
+        trainer = port()
+        assert trainer.mode == ("per_block" if mesh is not None
+                                else "lanes")
+        got = trainer.run_fused()
+        run = port().run()
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+    assert_same_run(got, run, 0)
+    assert got.solver_stats == [totals(run.solver_stats)]
+    if dtype is not None:
+        return
+    want = JaxTrainer(data, vocab, jcfg, test_rows=test_rows,
+                      mesh=jax_mesh).run_fused()
+    assert_same_run(got, want, 1e-8)
+    assert got.solver_stats == [{k: int(v) for k, v in s.items()}
+                                for s in want.solver_stats]
+
+
+MESH_MODES = {"per_block-jacobi": dict(flat_blocks=False, pcg=True),
+              "head_block": dict(pcg="head_block", head_size=4),
+              "lanes": dict(multi_rhs=False, head_size=4)}
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """Every 2-rank case in one launch: each mode's run_fused and run(),
+    and per-block Jacobi with checkpoint_every=2."""
+    rng = np.random.default_rng(27)
+    rows, test_rows = synth_rows(rng, 320), synth_rows(rng, 60)
+    base = dict(lambdas=[1.0, 10.0], num_iters=5, test_loglik_per_iter=True,
+                dtype="float64")
+    cases = [(f"{name}-{how}", "admm", dict(
+        rows=rows, nblocks=5, mesh=2, test_rows=test_rows, fused=how,
+        config=dict(base, **kw)))
+        for name, kw in MESH_MODES.items() for how in ("fused", "run")]
+    cases.append(("chunked", "admm", dict(
+        rows=rows, nblocks=5, mesh=2, test_rows=test_rows, fused="fused",
+        checkpoint_every=2,
+        config=dict(base, **MESH_MODES["per_block-jacobi"]))))
+    runs = launch(cases, 2, tmp_path_factory.mktemp("fused-mesh"),
+                  timeout=150)
+    return runs, rows, test_rows, base
+
+
+@pytest.mark.parametrize("name", list(MESH_MODES))
+def test_two_rank_mesh_matches_jax_fused(mesh_runs, name):
+    """run_fused on 2 gloo ranks (5 blocks, padded to 6): every rank the
+    same z and u, bit for bit the ranks' run(), and JAX's run_fused on a
+    2-device mesh to 1e-8 * max|z| with equal iterations and trip totals
+    (per-block Jacobi, head-block with a head of 4, the lanes solve)."""
+    runs, rows, test_rows, base = mesh_runs
+    fused, run = runs[f"{name}-fused"], runs[f"{name}-run"]
+    for r in range(2):
+        np.testing.assert_array_equal(fused[r]["z"], fused[0]["z"])
+        np.testing.assert_array_equal(fused[r]["u"], fused[0]["u"])
+        np.testing.assert_array_equal(fused[r]["z"], run[r]["z"])
+        np.testing.assert_array_equal(fused[r]["u"], run[r]["u"])
+        assert fused[r]["iterations"] == run[r]["iterations"]
+        assert fused[r]["diff_history"] == run[r]["diff_history"]
+        assert fused[r]["solver_stats"] == [totals(run[r]["solver_stats"])]
+    vocab = build_vocab(rows)
+    data = pack_blocks([rows[i::5] for i in range(5)], vocab)
+    cfg = {k: v for k, v in base.items() if k != "dtype"}
+    want = JaxTrainer(data, vocab, JaxConfig(dtype=jnp.float64, **cfg,
+                                             **MESH_MODES[name]),
+                      test_rows=test_rows,
+                      mesh=jax_make_mesh(cpu_devices(), n=2)).run_fused()
+    got = fused[0]
+    assert got["iterations"] == want.iterations
+    atol = 1e-8 * float(np.abs(want.z).max())
+    np.testing.assert_allclose(got["z"], want.z, rtol=0, atol=atol)
+    np.testing.assert_allclose(got["u"], want.u, rtol=0, atol=atol)
+    assert got["solver_stats"] == [{k: int(v) for k, v in s.items()}
+                                   for s in want.solver_stats]
+    assert got["best_lambda"] == want.best_lambda
+
+
+def test_two_rank_mesh_chunks_match_jax(mesh_runs):
+    """checkpoint_every=2 on 2 gloo ranks: the one-chunk run's bits, every
+    rank's callback the same, and the callback's chunk ends, loglik entries
+    and gathered u as JAX's run_fused on a 2-device mesh gives them (u to
+    1e-8 * max|z|)."""
+    runs, rows, test_rows, base = mesh_runs
+    got, one = runs["chunked"], runs["per_block-jacobi-fused"]
+    for r in range(2):
+        np.testing.assert_array_equal(got[r]["z"], one[r]["z"])
+        np.testing.assert_array_equal(got[r]["u"], one[r]["u"])
+        assert got[r]["calls"] == got[0]["calls"]
+        for u_r, u_0 in zip(got[r]["chunk_u"], got[0]["chunk_u"]):
+            np.testing.assert_array_equal(u_r, u_0)
+    vocab = build_vocab(rows)
+    data = pack_blocks([rows[i::5] for i in range(5)], vocab)
+    cfg = {k: v for k, v in base.items() if k != "dtype"}
+    calls = []
+
+    def cb(iteration, z, u, diffs, inner_eps, logliks=None):
+        calls.append((iteration, len(logliks or []), np.asarray(u)))
+    JaxTrainer(data, vocab, JaxConfig(dtype=jnp.float64, **cfg,
+                                      **MESH_MODES["per_block-jacobi"]),
+               test_rows=test_rows,
+               mesh=jax_make_mesh(cpu_devices(), n=2)).run_fused(
+        checkpoint_every=2, callback=cb)
+    assert got[0]["calls"] == [c[:2] for c in calls] \
+        == [(2, 4), (4, 4), (5, 2)]
+    atol = 1e-8 * float(np.abs(one[0]["z"]).max())
+    for u_t, (_i, _n, u_j) in zip(got[0]["chunk_u"], calls):
+        # JAX hands its callback the padded (L, 6, n) u, whose padded
+        # block is 0; the port the (L, 5, n) u, as run()'s callback
+        assert u_t.shape == (2, 5, vocab.size) and u_j.shape[1] == 6
+        assert not u_j[:, 5:].any()
+        np.testing.assert_allclose(u_t, u_j[:, :5], rtol=0, atol=atol)
 
 
 @pytest.mark.parametrize("kw", [MODES["flat-jacobi"],

@@ -153,38 +153,41 @@ def _same_models(out_t, out_j, sub, atol):
         assert abs(mt[key].intercept - mj[key].intercept) <= atol
 
 
-def _ids(v):
-    return ("-".join(f"{k}={x}" for k, x in v.items()) if isinstance(v, dict)
-            else str(v))
-
-
-@pytest.mark.parametrize("extra,item", [
-    ({"use.mesh": "true"}, None), ({"mesh.feature.shards": "2"}, None),
-    pytest.param({"fused.loop": "true"}, None, id="fused.loop=true-A1"),
-    ({"fused.loop": "true", "checkpoint.every": "2"}, None),
-    ({"fused.loop": "true", "multi.rhs": "false"}, "A1b"),
-    ({"fused.loop": "true", "use.mesh": "true"}, "A1b"),
-    ({"pcg": "head_block"}, None),
-    ({"streaming.groups": "2", "pcg": "head_block"}, None),
-    ({"streaming.groups": "2", "flat.blocks": "false"}, None),
-    ({"streaming.groups": "2", "multi.rhs": "false"}, None)], ids=_ids)
-def test_unported_job_keys_raise(tmp_path, extra, item):
-    """A path not ported raises, naming its ROADMAP.md item: fused.loop on
-    the lanes solve or under use.mesh (A1b). The keys that once raised
-    here now run as the JAX pipeline runs them, to the same final models
-    to 1e-8 after 3 iterations: the solver modes (A1) in memory and
-    streamed, the mesh (A8): use.mesh on a one-rank mesh that the pipeline
-    starts itself (the JAX pipeline: its 8 virtual devices),
-    mesh.feature.shards=2 on 2 gloo ranks (tests/torch_mesh_worker.py;
-    JAX: a 4 x 2 mesh), and fused.loop (A1's run_fused) against the JAX
-    pipeline's fused run, the trip totals equal; with checkpoint.every=2
-    both write a checkpoint at each chunk end (iterations 2 and 3) and
-    every sample-test-loglik file, the same entries to 1e-8."""
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            torch_pipeline(JobConfig(job(str(tmp_path / "out"), **extra)),
-                           device="cpu")
-        return
+# the ids name the ROADMAP.md item a key once raised for (None: none)
+@pytest.mark.parametrize("extra", [
+    pytest.param({"use.mesh": "true"},
+                 id="use.mesh=true-None"),
+    pytest.param({"mesh.feature.shards": "2"},
+                 id="mesh.feature.shards=2-None"),
+    pytest.param({"fused.loop": "true"},
+                 id="fused.loop=true-A1"),
+    pytest.param({"fused.loop": "true", "checkpoint.every": "2"},
+                 id="fused.loop=true-checkpoint.every=2-None"),
+    pytest.param({"fused.loop": "true", "multi.rhs": "false"},
+                 id="fused.loop=true-multi.rhs=false-A1b"),
+    pytest.param({"fused.loop": "true", "use.mesh": "true"},
+                 id="fused.loop=true-use.mesh=true-A1b"),
+    pytest.param({"pcg": "head_block"},
+                 id="pcg=head_block-None"),
+    pytest.param({"streaming.groups": "2", "pcg": "head_block"},
+                 id="streaming.groups=2-pcg=head_block-None"),
+    pytest.param({"streaming.groups": "2", "flat.blocks": "false"},
+                 id="streaming.groups=2-flat.blocks=false-None"),
+    pytest.param({"streaming.groups": "2", "multi.rhs": "false"},
+                 id="streaming.groups=2-multi.rhs=false-None")])
+def test_unported_job_keys_raise(tmp_path, extra):
+    """The keys that once raised here, naming their ROADMAP.md item, now
+    run as the JAX pipeline runs them, to the same final models to 1e-8
+    after 3 iterations: the solver modes (A1) in memory and streamed, the
+    mesh (A8): use.mesh on a one-rank mesh that the pipeline starts itself
+    (the JAX pipeline: its 8 virtual devices), mesh.feature.shards=2 on 2
+    gloo ranks (tests/torch_mesh_worker.py; JAX: a 4 x 2 mesh), and
+    fused.loop (A1's run_fused) against the JAX pipeline's fused run, the
+    trip totals equal, also on the lanes solve (multi.rhs=false) and under
+    use.mesh (A1b); with checkpoint.every=2 both write a checkpoint at
+    each chunk end (iterations 2 and 3) and every sample-test-loglik file,
+    the same entries to 1e-8. The ids keep the ROADMAP.md items that once
+    raised."""
     extra = dict(extra, **{"num.iters": "3"})
     out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "torch")
     res_j = jax_pipeline(JobConfig(job(out_j, **extra)))

@@ -115,7 +115,9 @@ def _result(res):
 def case_admm(p):
     """One mesh run; with "resume_at": k, stopped after iteration k (the
     callback's gathered state, as the pipeline checkpoints it) and resumed
-    by a new trainer from that state."""
+    by a new trainer from that state; with "fused": "fused", run_fused
+    (with "checkpoint_every": C, its callback's chunk ends, loglik counts
+    and gathered u kept)."""
     from mlease_tpu_torch.parallel import make_mesh
     from mlease_tpu_torch.train.admm import AdmmTrainer
     _b, vocab, data = _packed(p)
@@ -123,6 +125,17 @@ def case_admm(p):
     cfg = _admm_config(p["config"])
     tr = AdmmTrainer(data, vocab, cfg, test_rows=p.get("test_rows"),
                      mesh=mesh)
+    if p.get("fused") == "fused":
+        calls, chunk_u = [], []
+
+        def chunk(iteration, z, u, diffs, inner_eps, logliks=None):
+            calls.append((iteration, len(logliks or [])))
+            chunk_u.append(u.numpy().copy())
+        out = _result(tr.run_fused(
+            checkpoint_every=p.get("checkpoint_every"),
+            callback=chunk if p.get("checkpoint_every") else None))
+        out.update(mode=tr.mode, calls=calls, chunk_u=chunk_u)
+        return out
     k = p.get("resume_at")
     if k is None:
         out = _result(tr.run())
