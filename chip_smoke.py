@@ -238,14 +238,32 @@ Phases, each of which fails the run when it fails:
      multi.rhs = false (the lanes solve), each against the same job
      run eagerly (the four processes started together): final models
      within 1e-10.
+ 20. lanes-minor phase (ROADMAP.md A17), run right after phase 19 on the
+     full trainer's stacked problem (ctr-12m widths, 8 x --rows-per-block
+     rows, head 128 float32 as (B, Rb, H), both sorted tails) with a
+     random prior mean and rho_eff and random W, S, C, Dm from --seed: the
+     ten public pass functions of ops/tron_multi.py (xv, xtv, scores,
+     fun, grad_and_curvature, xtv_and_sqdiag, fun_grad_curvature, also
+     with_diag, grad_norm_at_zero, hv, hessian_diagonal), each (a) against
+     its lanes-major form on contiguous operands (bit for bit or within
+     1e-6 * max|out|, the difference printed), (b) against itself with K1
+     patched to its plain version (1e-5 * max|plain|, F to 1e-5
+     relative), (c) with K1's launches counted around it (15 in all), (d)
+     the JAX identities fun_grad_curvature(with_diag) = (fun,
+     grad_and_curvature, hessian_diagonal) and grad_norm_at_zero =
+     ||grad_and_curvature(0)[0]|| (bit for bit or within 1e-6 relative,
+     printed; also whether K1's L and 2L sites sum the diagonal alike),
+     (e) each function's time beside its lanes-major form's, K1 alone on
+     the lanes-minor V of the xv and xtv sites (kernel, plain, library,
+     bound) and the phase's peak device memory; at most 60 s.
 
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result. --gram-only builds the kernels, runs phase 4
 alone and stops there, without the closing lines (for work on K2);
---segsum-only builds them, sets up the two trainers and runs phase 3 alone
-(for work on K1); --streaming-only builds them and runs phases 11 and 12
+--segsum-only builds them, sets up the two trainers and runs phases 3 and
+20 alone (for work on K1); --streaming-only builds them and runs phases 11 and 12
 alone (for work on the scale path); --modes-only builds them, sets up the
 two trainers and runs phases 14, 13 and 15 alone; --mesh-only builds
 them, sets up the two trainers and runs phase 16 alone (with its own
@@ -3357,6 +3375,247 @@ def bf16_baselines(trainers, args):
             "stream_steady_iter_s": steady_s(res.iter_times)}
 
 
+# phase 20: the public lanes-minor passes and what each launches of K1 on a
+# hybrid problem with both sorted tails (ops/tron_multi.py)
+LANES_MINOR_K1 = {"xv": 1, "xtv": 1, "scores": 1, "fun": 1,
+                  "grad_and_curvature": 2, "xtv_and_sqdiag": 1,
+                  "fun_grad_curvature": 2, "fun_grad_curvature_diag": 2,
+                  "grad_norm_at_zero": 1, "hv": 2, "hessian_diagonal": 1}
+
+
+def _near(got, want, rel):
+    """(differences, bounds, bits equal) of two tuples of tensors, output
+    by output: max|got - want| against rel * max|want|, and for an (L,)
+    output (F, a norm) max|got - want| / |want| against rel."""
+    import torch
+    diffs, bounds, same = [], [], True
+    for g, w in zip(got, want):
+        same = same and g.shape == w.shape and g.dtype == w.dtype \
+            and bool(torch.equal(g, w))
+        d = (g.double() - w.double()).abs()
+        if w.dim() == 1:
+            diffs.append(float((d / w.double().abs()).max()))
+            bounds.append(rel)
+        else:
+            diffs.append(float(d.max()))
+            bounds.append(rel * float(w.double().abs().max()))
+    return diffs, bounds, same
+
+
+def lanes_strided_site(name, vals, idx, seg, S, V, gen):
+    """K1 on a lanes-minor view V (L, m) (V.T of an (m, L) operand, as the
+    public passes hand it on) into a random accumulator, against the
+    float64 sum of the same inputs (per segment <= 1e-5 * (|out0| +
+    sum|contrib|)); kernel, plain and library times, and the bound from
+    min_bytes."""
+    import torch
+    from mlease_tpu_torch.ops.segment_sum import (
+        min_bytes, segment_sum_gather, segment_sum_gather_reference)
+    L, T = V.shape[0], seg.numel()
+    out0 = torch.randn((L, S), generator=gen, device="cuda")
+    got = segment_sum_gather(vals, V, idx, seg, S, out=out0.clone())
+    ref64 = segment_sum_gather_reference(vals.double(), V.double(), idx, seg,
+                                         S, out=out0.double())
+    scale = segment_sum_gather_reference(
+        vals.double().abs(), V.double().abs(), idx, seg, S,
+        out=out0.double().abs())
+    err = (got.double() - ref64).abs()
+    tol = k1_tolerances()[torch.float32][0]
+    ok = bool((err <= tol * scale).all())
+    m_hit = int(torch.unique(idx).numel())
+    S_hit = int((seg[1:] != seg[:-1]).sum()) + 1 if T else 0
+    bytes_ms = min_bytes(L, T, S, V.element_size(), m_hit=m_hit,
+                         S_hit=S_hit) / HBM_BYTES_PER_S
+    ops_ms = 2 * L * T / PEAK_OPS["float32"]
+    acc = out0.clone()
+    row = {"site": name, "L": L, "V_strides": list(V.stride()), "T": T,
+           "S": S, "m_hit": m_hit, "S_hit": S_hit,
+           "max_abs_err": float(err.max()),
+           "max_rel_err": float((err / scale.clamp_min(1e-300)).max()),
+           "ok": ok,
+           "kernel_ms": cuda_ms(lambda: segment_sum_gather(
+               vals, V, idx, seg, S, out=acc)),
+           "kernel_ms_lanes_major": cuda_ms(
+               lambda Vc=V.contiguous(): segment_sum_gather(
+                   vals, Vc, idx, seg, S, out=acc)),
+           "plain_ms": cuda_ms(lambda: segment_sum_gather_reference(
+               vals, V, idx, seg, S, out=acc)),
+           "library_ms": cuda_ms(lambda: acc.index_add_(
+               1, seg, vals[None, :] * V[:, idx])),
+           "bound_ms": max(bytes_ms, ops_ms) * 1e3,
+           "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    print("lanes-minor k1 " + json.dumps(row), flush=True)
+    return row
+
+
+def lanes_minor_phase(trainer, args):
+    """Phase 20: the ten public lanes-minor pass functions of
+    ops/tron_multi.py at full width, on the full trainer's stacked problem
+    (8 blocks, head 128 float32 as (B, Rb, H), both sorted tails) with a
+    random prior mean and rho_eff and random W, S, C, Dm from --seed:
+    (a) each against its lanes-major form on contiguous operands,
+    transposed (bit for bit or within 1e-6 * max|out|, the difference
+    printed); (b) each with K1 patched to its plain version (per output
+    <= 1e-5 * max|plain|, F to 1e-5 relative); (c) K1's launches around
+    each call, LANES_MINOR_K1's 15 in all; (d) the JAX identities
+    fun_grad_curvature(with_diag) = (fun, grad_and_curvature,
+    hessian_diagonal) and grad_norm_at_zero = ||grad_and_curvature(0)[0]||
+    (bit for bit or within 1e-6 relative, printed); (e) each function's
+    time beside its lanes-major form's, K1 alone on the lanes-minor V at
+    the xv and xtv sites (kernel, plain, library, bound), and the phase's
+    peak device memory."""
+    import torch
+    from mlease_tpu_torch.ops import tron_multi as tm
+    from mlease_tpu_torch.ops.segment_sum import (
+        segment_sum_gather_reference, segment_sum_sorted)
+
+    t_start = time.monotonic()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 20)
+    base = trainer.prob
+    L = 3
+    B = base.head_x.shape[0]
+    N, R = base.prior_mean.shape[0], base.y.shape[0]
+
+    def rand(*shape, scale=1.0, uniform=False):
+        f = torch.rand if uniform else torch.randn
+        return f(shape, generator=gen, device="cuda") * scale
+    rho = torch.tensor([1.0, 10.0, 100.0], device="cuda") * (
+        0.5 + rand(L, uniform=True))
+    prob = tm.with_prior(base, rand(L, B, N // B, scale=0.05), rho)
+    x = {"W": rand(N, L, scale=0.1), "S": rand(N, L), "C": rand(R, L),
+         "Dm": rand(R, L, uniform=True) * 0.25}
+    lm = tm.lanes_major(prob)
+    xl = {k: v.T.contiguous() for k, v in x.items()}
+    W, S, C, Dm = (x[k] for k in ("W", "S", "C", "Dm"))
+    Wl, Sl, Cl, Dml = (xl[k] for k in ("W", "S", "C", "Dm"))
+
+    def fgc_t(diag):
+        out = tm._fun_grad_curvature_lm(lm, Wl, diag)
+        return (out[0],) + tuple(t.T for t in out[1:])
+    # name -> (the public call, its lanes-major form transposed)
+    calls = {
+        "xv": (lambda: tm.xv(prob, W), lambda: tm._xv_lm(lm, Wl).T),
+        "xtv": (lambda: tm.xtv(prob, Dm), lambda: tm._xtv_lm(lm, Dml).T),
+        "scores": (lambda: tm.scores(prob, W),
+                   lambda: (tm._xv_lm(lm, Wl) + lm.offset[None, :]).T),
+        "fun": (lambda: tm.fun(prob, W), lambda: fgc_t(False)[0]),
+        "grad_and_curvature": (lambda: tm.grad_and_curvature(prob, W),
+                               lambda: fgc_t(False)[1:]),
+        "xtv_and_sqdiag": (
+            lambda: tm.xtv_and_sqdiag(prob, C, Dm),
+            lambda: tuple(t.T for t in tm._xtv_and_sqdiag_lm(lm, Cl, Dml))),
+        "fun_grad_curvature": (lambda: tm.fun_grad_curvature(prob, W),
+                               lambda: fgc_t(False)),
+        "fun_grad_curvature_diag": (
+            lambda: tm.fun_grad_curvature(prob, W, with_diag=True),
+            lambda: fgc_t(True)),
+        "grad_norm_at_zero": (lambda: tm.grad_norm_at_zero(prob, L),
+                              lambda: tm._grad_norm_at_zero_lm(lm, L)),
+        "hv": (lambda: tm.hv(prob, Dm, S), lambda: tm._hv_lm(lm, Dml, Sl).T),
+        "hessian_diagonal": (
+            lambda: tm.hessian_diagonal(prob, Dm),
+            lambda: tm._hessian_diagonal_lm(lm, Dml).T),
+    }
+
+    def tup(o):
+        return o if isinstance(o, tuple) else (o,)
+    rows, bad, got = {}, [], {}
+    segment_sum_sorted.launches = 0          # this path: count from here
+    for name, (pub, _lm) in calls.items():
+        before = segment_sum_sorted.launches
+        got[name] = tup(pub())
+        rows[name] = {"k1_launches": segment_sum_sorted.launches - before}
+    launches = segment_sum_sorted.launches   # ... to here
+    torch.cuda.synchronize()
+    for name, (pub, lm_form) in calls.items():
+        row = rows[name]
+        if row["k1_launches"] != LANES_MINOR_K1[name]:
+            bad.append(f"(c) {name}: {row['k1_launches']} K1 launches")
+        out = got[name]
+        if not all(bool(torch.isfinite(t).all()) for t in out):
+            bad.append(f"{name}: not finite")
+        # (a) the lanes-major form on contiguous operands
+        d, b, same = _near(out, tup(lm_form()), 1e-6)
+        row.update(lm_bitwise=same, lm_max_abs_diff=d, lm_bound=b,
+                   dtypes=[str(t.dtype) for t in out],
+                   shapes=[list(t.shape) for t in out])
+        if not same and any(x > y for x, y in zip(d, b)):
+            bad.append(f"(a) {name}: {d} > {b}")
+        # (b) K1 patched to its plain version
+        with mock.patch.object(tm, "segment_sum_gather",
+                               segment_sum_gather_reference):
+            plain = tup(pub())
+        d, b, _same = _near(out, plain, 1e-5)
+        row.update(plain_max_abs_diff=d, plain_bound=b)
+        if any(x > y for x, y in zip(d, b)):
+            bad.append(f"(b) {name}: {d} > {b}")
+        del plain
+    # (d) the JAX identities
+    F, G, Dm_f, Hd = got["fun_grad_curvature_diag"]
+    G0 = tm.grad_and_curvature(prob, torch.zeros_like(W))[0].T
+    ident = {}
+    for what, a, b in (
+            ("fun", (F,), got["fun"]),
+            ("grad_and_curvature", (G, Dm_f), got["grad_and_curvature"]),
+            ("hessian_diagonal", (Hd,),
+             (tm.hessian_diagonal(prob, Dm_f),)),
+            ("grad_norm_at_zero", got["grad_norm_at_zero"],
+             (torch.sqrt((G0 * G0).sum(-1)),))):
+        d, bnd, same = _near(a, b, 1e-6)
+        ident[what] = {"bitwise": same, "max_abs_diff": d, "bound": bnd}
+        if not same and any(x > y for x, y in zip(d, bnd)):
+            bad.append(f"(d) {what}: {d} > {bnd}")
+    # the L site (square_from=0) and the 2L site (square_from=L) on the
+    # same stream: the diagonal's tail sums alone
+    Hd_l = tm.hessian_diagonal(prob, Dm)
+    Hd_2l = tm.xtv_and_sqdiag(prob, C, Dm)[1]
+    pvi = torch.broadcast_to(prob.prior_var_inv, Hd_l.shape)
+    d, bnd, same = _near(((Hd_2l + pvi),), (Hd_l,), 1e-6)
+    ident["diag_L_site_vs_2L_site"] = {"bitwise": same, "max_abs_diff": d,
+                                       "bound": bnd}
+    print("lanes-minor identities " + json.dumps(ident), flush=True)
+    del got, F, G, Dm_f, Hd, G0, Hd_l, Hd_2l
+    torch.cuda.empty_cache()
+    # (e) times
+    for name, (pub, lm_form) in calls.items():
+        rows[name]["ms"] = cuda_ms(pub)
+        rows[name]["lanes_major_ms"] = cuda_ms(lm_form)
+        print(f"lanes-minor {name} " + json.dumps(rows[name]), flush=True)
+    k1_rows = [
+        lanes_strided_site("xv (W.T)", prob.tail_vals, prob.tail_cols,
+                           prob.tail_rows, R, W.T, gen),
+        lanes_strided_site("xtv (Dm.T)", prob.tail_c_vals, prob.tail_c_rows,
+                           prob.tail_c_cols, N, Dm.T, gen)]
+    for r in k1_rows:
+        if not r["ok"]:
+            bad.append(f"K1 at {r['site']}: max err {r['max_abs_err']}")
+    torch.cuda.synchronize()
+    out = {"rows": R, "columns": N, "blocks": B, "lanes": L,
+           "head": list(prob.head_x.shape),
+           "tail_entries": int(prob.tail_vals.numel()),
+           "k1_launches": launches, "k1_launches_expected":
+               sum(LANES_MINOR_K1.values()),
+           "functions": rows, "identities": ident, "k1_sites": k1_rows,
+           "phase_start_allocated_bytes": int(mem0),
+           "max_memory_allocated_bytes": int(torch.cuda.max_memory_allocated()),
+           "phase_s": time.monotonic() - t_start}
+    print("lanes-minor " + json.dumps({k: v for k, v in out.items()
+                                       if k not in ("functions",
+                                                    "identities",
+                                                    "k1_sites")}), flush=True)
+    if launches != sum(LANES_MINOR_K1.values()):
+        bad.append(f"(c) {launches} K1 launches in all")
+    if out["phase_s"] > 60:
+        bad.append(f"the phase took {out['phase_s']:.1f} s (> 60)")
+    if bad:
+        raise AssertionError(f"lanes-minor: {bad}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3370,7 +3629,8 @@ def main(argv=None) -> int:
                     help="build, run the K2 kernel phase alone and stop")
     ap.add_argument("--segsum-only", action="store_true",
                     help="build, set up the trainers, run the K1 kernel "
-                         "phase alone and stop")
+                         "phase and the lanes-minor phase (3, 20) and "
+                         "stop")
     ap.add_argument("--streaming-only", action="store_true",
                     help="build, run the streaming and scale CLI phases "
                          "(11, 12) alone and stop")
@@ -3507,6 +3767,7 @@ def main(argv=None) -> int:
             phase("bf16_cli", bf16_cli_phase, args)
         elif trainers is not None and args.segsum_only:
             phase("kernel", kernel_phase, trainers, args)
+            phase("lanes_minor", lanes_minor_phase, trainers["full"], args)
         elif trainers is not None and args.fused_only:
             phase("fused", fused_phase, trainers, args)
             phase("fused_more", fused_more_phase, trainers, args)
@@ -3536,6 +3797,7 @@ def main(argv=None) -> int:
         phase("mesh_one_rank", mesh_one_rank_phase, trainers, args)
         phase("fused", fused_phase, trainers, args)
         phase("fused_more", fused_more_phase, trainers, args)
+        phase("lanes_minor", lanes_minor_phase, trainers["full"], args)
         # phase 18, the bfloat16 compute dtype: (a)-(c) on the trainers'
         # data, (d)-(f) right after the float32 phases they compare with
         bf16_kernels = phase("bf16_kernel", bf16_kernel_phase,

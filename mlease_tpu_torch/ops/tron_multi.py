@@ -32,8 +32,17 @@ sum over one block's rows, and a block whose own loop has ended keeps its
 whole state, as a lane of `jax.vmap` over `lax.while_loop` does. B = 1 is
 the flat-blocks solve: one joint trust region per lambda. With a dense head
 and "head_block", each block's (L, H, H) head Gram is one K2 call on that
-block's head (B calls per build). Not ported: the lanes-minor pass
-functions.
+block's head (B calls per build).
+
+The public pass functions (`xv`, `xtv`, `scores`, `fun`,
+`grad_and_curvature`, `xtv_and_sqdiag`, `fun_grad_curvature`,
+`grad_norm_at_zero`, `hv`, `hessian_diagonal`) take and return the JAX
+package's lanes-minor layout, (n, L) and (R, L), around the lanes-major pass
+the solver runs, and return the transpose of its result. A coefficient
+operand (n, L) goes in as its transposed view (K1 gathers a lanes-minor V
+in place); a row operand (R, L) goes in as a lanes-major copy, since the
+dense head's X'v product on a transposed D takes another cuBLAS algorithm
+and other bits (PERF.md). So each gives its solver pass's bits.
 
 `group=` (a torch.distributed process group) is feature model
 parallelism, the JAX package's `axis_name`: the coefficient axis is
@@ -454,6 +463,33 @@ def _hv_lm(prob: MultiProblem, Dm: torch.Tensor,
             + S * prob.prior_var_inv).to(S.dtype)
 
 
+def _hessian_diagonal_lm(prob: MultiProblem, Dm: torch.Tensor
+                         ) -> torch.Tensor:
+    """diag(H) per lane, (L, R) -> (L, n) in the accumulate type: (X∘X)'Dm,
+    summed as the second half of `_xtv_and_sqdiag_lm` sums it (the tail one
+    K1 call with every lane's weight squared), plus the prior precision,
+    added last as `_fun_grad_curvature_lm` adds it to its diagonal."""
+    n = prob.prior_mean.shape[-1]
+    L = Dm.shape[0]
+    acc = accumulate_dtype(Dm.dtype)
+    out = torch.zeros((L, n), dtype=acc, device=Dm.device)
+    if prob.indices.shape[-1] > 0:
+        v = prob.values[None]
+        out.index_add_(1, prob.indices.reshape(-1),
+                       ((v * v) * Dm[:, :, None]).reshape(L, -1).to(acc))
+    if prob.head_x is not None:
+        out.index_add_(1, prob.head_ids,
+                       _head_t(prob.head_x, Dm, square=True).to(acc))
+    if prob.tail_c_cols is not None:
+        segment_sum_gather(prob.tail_c_vals, Dm, prob.tail_c_rows,
+                           prob.tail_c_cols, n, out=out, square_from=0)
+    elif prob.tail_cols is not None:
+        tv = prob.tail_vals[None, :]
+        out = out + torch.zeros_like(out).index_add_(
+            1, prob.tail_cols, ((tv * tv) * Dm[:, prob.tail_rows]).to(acc))
+    return out + prob.prior_var_inv
+
+
 def _dot_lm(a, b, group=None):
     """Per-lane dot over the last axis: (L, n) -> (L,), (L, B, n) -> (L, B);
     summed over the feature shards of `group`."""
@@ -632,6 +668,97 @@ def lanes_major(prob: MultiProblem) -> MultiProblem:
         prior_mean=prob.prior_mean.T.contiguous(),
         prior_var_inv=torch.broadcast_to(
             prob.prior_var_inv, prob.prior_mean.shape).T.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# The public passes, lanes-minor as in the JAX package: V / W / S / G (n, L),
+# C / Dm / scores (R, L), prob's priors (n, L) or broadcastable to it
+# ---------------------------------------------------------------------------
+#
+# Each takes `group` where the JAX function takes `axis_name`. Vectors come
+# back in their input's dtype, rounded once after the float32 sums of a
+# bfloat16 call; F stays in the accumulate type (float32 for bfloat16), as
+# the solver keeps it. Coefficient operands go in as transposed views, row
+# operands as lanes-major copies (`_rows`; the module docstring says why).
+
+def _rows(D: torch.Tensor) -> torch.Tensor:
+    """An (R, L) row operand as the (L, R) lanes-major tensor the solver's
+    passes take."""
+    return D.T.contiguous()
+
+
+def xv(prob: MultiProblem, V: torch.Tensor, group=None) -> torch.Tensor:
+    """(n, L) -> (R, L) scores of every lane in one data pass; under feature
+    sharding the partial scores summed over the shards of `group`."""
+    return _xv_lm(lanes_major(prob), V.T, group).T.to(V.dtype)
+
+
+def xtv(prob: MultiProblem, Dm: torch.Tensor) -> torch.Tensor:
+    """(R, L) -> (n, L) accumulation of every lane in one pass."""
+    return _xtv_lm(lanes_major(prob), _rows(Dm)).T.to(Dm.dtype)
+
+
+def scores(prob: MultiProblem, W: torch.Tensor, group=None) -> torch.Tensor:
+    """xv(prob, W) + offset, (R, L), rounded once."""
+    return (_xv_lm(lanes_major(prob), W.T, group)
+            + prob.offset[None, :]).T.to(W.dtype)
+
+
+def fun(prob: MultiProblem, W: torch.Tensor, group=None) -> torch.Tensor:
+    """(L,) objective values from one scores pass (float32 for a bfloat16
+    W); under feature sharding the prior term is summed over the shards.
+    The same operations as the F of `fun_grad_curvature`."""
+    lm = lanes_major(prob)
+    Wl = W.T
+    yz = lm.y[None, :] * (_xv_lm(lm, Wl, group) + lm.offset[None, :])
+    dw = Wl.to(yz.dtype) - lm.prior_mean
+    return ((lm.weight[None, :] * _softplus_neg(yz)).sum(1)
+            + 0.5 * _psum((dw * dw * lm.prior_var_inv).sum(1), group))
+
+
+def grad_and_curvature(prob: MultiProblem, W: torch.Tensor, group=None):
+    """(G, Dm), both (·, L) in W's dtype: the gradient (n, L) and the
+    curvature weights (R, L)."""
+    _F, G, Dm = _fun_grad_curvature_lm(lanes_major(prob), W.T, group=group)
+    return G.T, Dm.T
+
+
+def xtv_and_sqdiag(prob: MultiProblem, C: torch.Tensor, Dm: torch.Tensor):
+    """(X'C, (X∘X)'Dm), each (n, L), with the 2L lanes in one pass (one K1
+    call on a column-sorted tail)."""
+    Gd, Hd = _xtv_and_sqdiag_lm(lanes_major(prob), _rows(C), _rows(Dm))
+    return Gd.T.to(C.dtype), Hd.T.to(Dm.dtype)
+
+
+def fun_grad_curvature(prob: MultiProblem, W: torch.Tensor,
+                       with_diag: bool = False, group=None):
+    """(F, G, Dm), or (F, G, Dm, Hd) with the Jacobi diagonal `with_diag`,
+    sharing one scores pass: equal to (fun, *grad_and_curvature) and, with
+    the diagonal, hessian_diagonal(prob, Dm). F is (L,) in the accumulate
+    type, the others (·, L) in W's dtype."""
+    out = _fun_grad_curvature_lm(lanes_major(prob), W.T, with_diag,
+                                 group=group)
+    return (out[0],) + tuple(t.T for t in out[1:])
+
+
+def grad_norm_at_zero(prob: MultiProblem, n_rhs: int,
+                      group=None) -> torch.Tensor:
+    """(L,) ||grad at W=0|| over the feature axis (the reference stop rule's
+    gnorm1) in one X'v pass: Xv(0) == 0 exactly."""
+    return _grad_norm_at_zero_lm(lanes_major(prob), n_rhs, group)
+
+
+def hv(prob: MultiProblem, Dm: torch.Tensor, S: torch.Tensor,
+       group=None) -> torch.Tensor:
+    """(n, L) Hessian-vector products of every lane, in S's dtype."""
+    return _hv_lm(lanes_major(prob), _rows(Dm), S.T, group).T
+
+
+def hessian_diagonal(prob: MultiProblem, Dm: torch.Tensor) -> torch.Tensor:
+    """(n, L) diag(H) per lane: prior_var_inv + sum_i Dm_i x_i^2, the Jacobi
+    preconditioner, in Dm's dtype."""
+    return _hessian_diagonal_lm(lanes_major(prob), _rows(Dm)).T.to(
+        Dm.dtype)
 
 
 class MultiSolver:

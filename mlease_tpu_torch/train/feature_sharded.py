@@ -192,7 +192,14 @@ class FeatureShardedAdmmTrainer:
         return unshard_feature_vector(
             z_fs.to(torch.float64).cpu().numpy(), self.dim)
 
-    def sample_loglik(self, z_host: np.ndarray) -> np.ndarray:
+    def sample_loglik(self, z: torch.Tensor,
+                      z_host: np.ndarray | None = None) -> np.ndarray:
+        """(L,) test logliks of this rank's (L, n_local) shard z, gathered
+        over the feature shards (a collective: every rank of the shard's
+        group calls it); z_host, a pre-gathered (L, n) copy, saves that
+        gather."""
+        if z_host is None:
+            z_host = self._gather_z(z)
         z_full = torch.as_tensor(z_host, dtype=self.config.dtype,
                                  device=self.device)
         return sample_loglik_lanes(*self.test_arrays, z_full).to(
@@ -239,8 +246,7 @@ class FeatureShardedAdmmTrainer:
         t_start = time.monotonic()
 
         if z0 is not None and track_ll:
-            for lam, ll in zip(self.lambdas,
-                               self.sample_loglik(self._gather_z(z))):
+            for lam, ll in zip(self.lambdas, self.sample_loglik(z)):
                 loglik_history.append({"lambda": _lambda_key(lam), "iter": 0,
                                        "testLoglik": float(ll)})
 
@@ -275,7 +281,7 @@ class FeatureShardedAdmmTrainer:
 
             if track_ll:
                 z_host = self._gather_z(z)
-                lls = self.sample_loglik(z_host)
+                lls = self.sample_loglik(z, z_host)
                 for li, (lam, ll) in enumerate(zip(self.lambdas, lls)):
                     ll = float(ll)
                     loglik_history.append({"lambda": _lambda_key(lam),

@@ -98,6 +98,13 @@ def read_lambda_map(path: str) -> dict[str, float]:
     return out
 
 
+def read_lambda_rho(path: str) -> dict[float, float]:
+    """{lambda -> rho} from a LambdaRhoMap Avro file, the one the pipeline
+    writes to <out>/lambda-rho/ (reference: ReadLambdaRhoConsumer)."""
+    return {float(rec["lambda"]): float(rec["rho"])
+            for rec in avro.read_records(path)}
+
+
 def _parse_pcg(raw: str):
     """\"pcg\" job key: true|false|jacobi|head_block (AdmmConfig.pcg)."""
     val = {"true": True, "false": False}.get(raw.lower(), raw.lower())

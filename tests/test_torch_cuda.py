@@ -763,6 +763,56 @@ def test_per_block_head_gram_matches_reference(cuda, monkeypatch,
     assert float((got.w.cpu() - want.w).abs().max()) <= 1e-4 * scale
 
 
+@pytest.mark.cuda
+def test_lanes_minor_passes_on_card_match_cpu(cuda):
+    """The public lanes-minor passes of ops/tron_multi.py on the card (K1
+    on lanes-minor views of V and D) against the same float64 calls on the
+    CPU, on a stacked problem with a (B, Rb, H) head and both sorted tails:
+    every output to 1e-12 * max|out|, and K1 launched as often as each
+    function reduces a sorted tail."""
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.core.dataset import to_hybrid
+
+    data = to_hybrid(blocked_data(14, B=3, R=1000), 32)
+    B, n, L = data.nblocks, data.dim, 3
+    rng = np.random.default_rng(14)
+    pm = rng.normal(size=(L, B, n)) * 0.05
+    W, S = rng.normal(size=(B * n, L)) * 0.3, rng.normal(size=(B * n, L))
+    C, Dm = rng.normal(size=(B * 1000, L)), rng.random(size=(B * 1000, L))
+
+    def problem(dev):
+        t = lambda a, dt=torch.float64: torch.as_tensor(  # noqa: E731
+            np.asarray(a), device=dev, dtype=dt)
+        ids = [t(getattr(data, k), None) for k in (
+            "head_ids", "tail_rows", "tail_cols")]
+        head = (t(data.head), *ids, t(data.tail_vals),
+                t(data.tail_c_rows, None), t(data.tail_c_cols, None),
+                t(data.tail_c_vals))
+        return tm.stack_blocks(
+            t(data.indices, None), t(data.values), t(data.y), t(data.weight),
+            t(data.offset), head, t(pm), t([0.5, 2.0, 8.0])), t
+
+    calls = {"xv": (1, "W"), "xtv": (1, "Dm"), "scores": (1, "W"),
+             "fun": (1, "W"), "grad_and_curvature": (2, "W"),
+             "xtv_and_sqdiag": (1, "C", "Dm"),
+             "fun_grad_curvature": (2, "W"), "grad_norm_at_zero": (1,),
+             "hv": (2, "Dm", "S"), "hessian_diagonal": (1, "Dm")}
+    x = {"W": W, "S": S, "C": C, "Dm": Dm}
+    (cpu, tc), (dev, td) = problem("cpu"), problem(cuda)
+    for name, (k1, *args) in calls.items():
+        extra = (L,) if name == "grad_norm_at_zero" else ()
+        want = getattr(tm, name)(cpu, *[tc(x[a]) for a in args], *extra)
+        before = segment_sum_sorted.launches
+        got = getattr(tm, name)(dev, *[td(x[a]) for a in args], *extra)
+        assert segment_sum_sorted.launches - before == k1, name
+        if not isinstance(want, tuple):
+            want, got = (want,), (got,)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and g.shape == w.shape
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), rtol=0,
+                                       atol=1e-12 * float(w.abs().max()))
+
+
 # ---------------------------------------------------------------------------
 # run_fused: the driver loop as a CUDA graph that loops on the card
 # ---------------------------------------------------------------------------

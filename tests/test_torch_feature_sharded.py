@@ -191,3 +191,58 @@ def test_pipeline_feature_shards_key(tmp_path):
         assert mt[k].intercept == pytest.approx(mj[k].intercept, abs=atol)
         for f, w in mj[k].coefficients.items():
             assert mt[k].coefficients[f] == pytest.approx(w, abs=atol)
+
+
+def test_sample_loglik_of_shard_and_sharded_passes(tmp_path):
+    """On 2 ranks (1 x 2 feature shards): sample_loglik(z) of a rank's z
+    shard alone gathers it and equals sample_loglik(z, z_host) and the JAX
+    trainer's; xv, fun and hv with group= on the shards equal the JAX
+    functions on the unsharded stacked problem within 1e-12."""
+    import mlease_tpu.ops.tron_multi as jtm
+    from mlease_tpu.ops.tron_multi import stack_blocks
+
+    rows = rows_of(4, 260)
+    rows, test_rows = rows[:200], rows[200:]
+    blocks = [rows[:100], rows[100:]]
+    vocab = build_vocab(rows)
+    data = pack_blocks(blocks, vocab)
+    cfg = dict(BASE, lambdas=[1.0, 100.0])
+    B, n, L = data.nblocks, data.dim, 2
+    rng = np.random.default_rng(5)
+    R = B * data.padded_rows
+    p = dict(blocks=blocks, grid=(1, 2), test_rows=test_rows,
+             config=dict(cfg, dtype="float64"),
+             z=rng.normal(size=(L, n)) * 0.3,
+             prior_mean=rng.normal(size=(L, B * n)) * 0.05,
+             rho=np.array([0.5, 4.0]),
+             W=rng.normal(size=(B * n, L)) * 0.3,
+             S=rng.normal(size=(B * n, L)), Dm=rng.random(size=(R, L)))
+    got = launch([("api", "fs_api", p)], 2, tmp_path, timeout=120)["api"]
+
+    mesh = make_mesh_2d(cpu_devices(), block=1, feat=2)
+    want_ll = JFS(data, vocab, JConfig(dtype=jnp.float64, **cfg),
+                  test_rows=test_rows, mesh=mesh).sample_loglik(None, p["z"])
+    f64 = {k: jnp.asarray(np.asarray(getattr(data, k), np.float64))
+           for k in ("values", "y", "weight", "offset")}
+    jp = stack_blocks(jnp.asarray(data.indices), f64["values"], f64["y"],
+                      f64["weight"], f64["offset"], (None,) * 8,
+                      jnp.asarray(p["prior_mean"].reshape(L, B, n)),
+                      jnp.asarray(p["rho"]))
+    want_xv = np.asarray(jtm.xv(jp, jnp.asarray(p["W"])))
+    want_fun = np.asarray(jtm.fun(jp, jnp.asarray(p["W"])))
+    want_hv = np.asarray(jtm.hv(jp, jnp.asarray(p["Dm"]),
+                                jnp.asarray(p["S"])))
+
+    def close(a, b):
+        np.testing.assert_allclose(a, b, rtol=1e-12,
+                                   atol=1e-12 * float(np.abs(b).max()))
+    for r in got:
+        np.testing.assert_array_equal(r["ll_z"], r["ll_host"])
+        np.testing.assert_allclose(r["ll_z"], want_ll, rtol=0, atol=1e-9)
+        close(r["xv"], want_xv)
+        close(r["fun"], want_fun)
+    nl = got[0]["n_local"]
+    hv_fs = np.stack([r["hv"].reshape(B, nl, L).transpose(2, 0, 1)
+                      for r in sorted(got, key=lambda r: r["shard"])])
+    close(tfs.unshard_feature_vector(hv_fs, n),
+          want_hv.reshape(B, n, L).transpose(2, 0, 1))

@@ -229,6 +229,43 @@ def case_fs(p):
     return _result(tr.run())
 
 
+def case_fs_api(p):
+    """The feature-sharded trainer's sample_loglik on this rank's z shard
+    alone and with the gathered z_host; xv, fun and hv with group= on this
+    rank's shard of the stacked problem (W, S, the prior mean: the full
+    (B*n, L) or (L, B, n) arrays of p, sharded here; Dm (R, L))."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.core.feature_shard import shard_feature_vector
+    from mlease_tpu_torch.ops import tron_multi as tm
+    from mlease_tpu_torch.parallel.mesh import make_mesh_2d
+    from mlease_tpu_torch.train.feature_sharded import \
+        FeatureShardedAdmmTrainer
+    _b, vocab, data = _packed(p)
+    mesh = make_mesh_2d(*p["grid"], "cpu")
+    tr = FeatureShardedAdmmTrainer(data, vocab, _admm_config(p["config"]),
+                                   test_rows=p["test_rows"], mesh=mesh)
+    S, nl, s = tr.fs.n_shards, tr.fs.n_local, tr._shard
+    B = data.nblocks
+
+    def shard(v):             # (..., B*n) stacked -> this rank's (..., B*nl)
+        v = v.reshape(*v.shape[:-1], B, data.dim)
+        return torch.as_tensor(shard_feature_vector(v, S, nl)[s].reshape(
+            *v.shape[:-2], B * nl))
+    z = torch.as_tensor(shard_feature_vector(p["z"], S, nl)[s])
+    prob = tm.with_prior(tr.prob, shard(p["prior_mean"]).reshape(-1, B, nl),
+                         torch.as_tensor(p["rho"]))
+    W, S_ = shard(p["W"].T).T, shard(p["S"].T).T
+    Dm = torch.as_tensor(p["Dm"])
+    group = tr._feat_group
+    return {"ll_z": tr.sample_loglik(z),
+            "ll_host": tr.sample_loglik(z, p["z"]),
+            "xv": tm.xv(prob, W, group=group).numpy(),
+            "fun": tm.fun(prob, W, group=group).numpy(),
+            "hv": tm.hv(prob, Dm, S_, group=group).numpy(),
+            "shard": s, "n_local": nl}
+
+
 def case_naive(p):
     from mlease_tpu_torch.core import build_vocab
     from mlease_tpu_torch.parallel import make_mesh
@@ -275,7 +312,8 @@ def case_pipeline(p):
 
 
 CASES = {"admm": case_admm, "multiproc": case_multiproc,
-         "streaming": case_streaming, "fs": case_fs, "naive": case_naive,
+         "streaming": case_streaming, "fs": case_fs,
+         "fs_api": case_fs_api, "naive": case_naive,
          "item": case_item, "pipeline": case_pipeline}
 
 
