@@ -5,7 +5,7 @@
                           [--out FILE.json]
                           [--gram-only | --segsum-only | --streaming-only
                            | --modes-only | --mesh-only | --fused-only
-                           | --bf16-only]
+                           | --bf16-only | --loops-only]
 
 Phases, each of which fails the run when it fails:
 
@@ -83,10 +83,10 @@ Phases, each of which fails the run when it fails:
      generator, --seed), split as the job splits it (8 blocks in 4 groups),
      head 128 stored as bfloat16, float32, lambda 1/10/100, Jacobi PCG,
      --iters iterations, in three residency settings: (a) the job's 8 GB
-     budget (twice), (b) a budget that pins group 0's head and streams the
+     budget, (b) a budget that pins group 0's head and streams the
      others, (c) resident_head=False with the compact wire, and (c) again
      from pageable host memory. z and u of (b) and (c) must equal (a)'s bit
-     for bit (or, if two runs of (a) differ, within their difference), K1
+     for bit, K1
      must launch in every run (counts read around each), and (c)'s first
      iteration with K1 patched to its plain version must be within
      1e-4 * max|z|. Recorded: s/iteration, wire bytes per iteration, the
@@ -232,8 +232,9 @@ Phases, each of which fails the run when it fails:
      node types of the captured iteration end printed); (c) the same
      per-block Jacobi solve with ops/tron_multi.py's STACK_ID_BOUND lowered
      in this process so that the 8 blocks solve as 4 sub-stacks of 2: z
-     within 1e-6 * max|z| of phase 14's run with its trips, K1 launched
-     by every sub-stack's solve; (d) phase 5's job through the CLI with
+     within 1e-6 * max|z| of phase 14's run with its trips, K1 executed
+     in every sub-stack's branches of run()'s device loop every iteration
+     (counted on the card); (d) phase 5's job through the CLI with
      fused.loop = true under use.mesh (a one-rank NCCL group) and with
      multi.rhs = false (the lanes solve), each against the same job
      run eagerly (the four processes started together): final models
@@ -256,6 +257,34 @@ Phases, each of which fails the run when it fails:
      (e) each function's time beside its lanes-major form's, K1 alone on
      the lanes-minor V of the xv and xtv sites (kernel, plain, library,
      bound) and the phase's peak device memory; at most 60 s.
+ 21. solve-loop phase (train/admm.py::_SolveLoop: each x-update one
+     program on the card, a CUDA graph that loops until its solves stop,
+     in AdmmTrainer.run() and in the streaming trainer's group solves),
+     in two parts: right after phase 20 on the two trainers, (a) one
+     x-update from random z and u through build_x_update (the host-driven
+     solve) and through a _SolveLoop, x and trips bit for bit and K1 / K2
+     launched alike: at bench and full width flat, per-block and
+     head-block, at bench the lanes solves (multi_rhs=False, dual_layout)
+     and 4 sub-stacks at bench (of 1 block) and full width (of 2; the int32
+     bound lowered, as phase 19 does); then at bench flat and lanes and
+     full flat, run() against the host-driven path (`host_run`: run()'s
+     schedules over build_admm_step's solve, one host read a trip), 3
+     iterations: z and u bit for bit with equal trips, (c) the
+     synchronizing calls of each iteration (one; the others of the run
+     named by file:line), (d) K1 and K2 launched as often as the host path
+     launches them (the executions inside the loops counted on the card),
+     (e) s an iteration of each, the capture seconds (once a trainer), the
+     peak memory of each (after a garbage collection) and, at bench flat
+     and full flat, the card's idle share of an iteration (the admm_iteration
+     span; the loop's derived from the host path's device time); after
+     phase 11, on its data, (b) stream (a), (b) and (c) in float32 and (a)
+     in bfloat16: group 0's first solve through the trainer's loop against
+     build_group_solver on the same inputs while they are in the group's
+     slot (bit for bit, equal trips), the tiers' first iterations bit for
+     bit with each other; (c) the syncs of a run at (c); and at (a) and (a)
+     in bfloat16 the run against the host path (the group solves through
+     build_group_solver), 3 iterations, with (c)-(e) as above, the
+     stream_iteration span's idle share at (a).
 
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
@@ -269,7 +298,9 @@ two trainers and runs phases 14, 13 and 15 alone; --mesh-only builds
 them, sets up the two trainers and runs phase 16 alone (with its own
 no-mesh runs for (a)); --fused-only builds them, sets up the two trainers
 and runs phases 17 and 19 alone (with its own eager CLI run for 17 (c) and
-no-mesh runs for 19 (b)-(c)); --bf16-only
+no-mesh runs for 19 (b)-(c)); --loops-only builds them, sets up the two
+trainers and runs phase 21 alone (its streamed part on data made as phase
+11 makes it); --bf16-only
 builds them, sets up the two trainers, makes the float32 runs phase 18
 compares with (phase 5, phase 6, phase 8's first run, phase 11's (a) once)
 and runs phase 18 alone.
@@ -1133,9 +1164,11 @@ def full_width_phase(trainer, args):
     # the first iteration again, every sorted-tail reduce on the plain version
     trainer.config = dataclasses.replace(trainer.config, num_iters=1)
     before = segment_sum_sorted.launches
+    fresh_loops(trainer)
     with mock.patch.object(tm, "segment_sum_gather",
                            segment_sum_gather_reference):
         plain = trainer.run()
+    fresh_loops(trainer)
     if segment_sum_sorted.launches != before:
         raise AssertionError("the plain run launched the kernel")
     zk = z_first["z"].double().cpu().numpy()
@@ -1345,7 +1378,6 @@ def streaming_phase(args, in_memory_iter_s=None):
     head0 = int(groups[0].head.nbytes + groups[0].head_ids.nbytes)
     settings = {
         "a_job_budget": dict(resident_head_budget_gb=8.0),
-        "a_again": dict(resident_head_budget_gb=8.0),
         # pins group 0's head and streams the other groups' heads
         "b_one_head": dict(resident_head_budget_gb=1.2 * head0 / 2**30),
         "c_streamed_compact": dict(resident_head=False, compact_wire=True),
@@ -1400,6 +1432,7 @@ def streaming_phase(args, in_memory_iter_s=None):
             # the first iteration again, every sorted-tail reduce plain
             tr.config = dataclasses.replace(cfg, num_iters=1)
             before = segment_sum_sorted.launches
+            fresh_loops(tr)
             with mock.patch.object(tm, "segment_sum_gather",
                                    segment_sum_gather_reference):
                 plain = tr.run()
@@ -1423,9 +1456,7 @@ def streaming_phase(args, in_memory_iter_s=None):
         "solver_stats": rows["a_job_budget"]["solver_stats"],
         "profiled_iterations": rows["a_job_budget"].get(
             "profiled_iterations")}
-    a, a2 = results["a_job_budget"], results["a_again"]
-    rerun = max(float(np.abs(a.z - a2.z).max()),
-                float(np.abs(a.u - a2.u).max()))
+    a = results["a_job_budget"]
     same = {}
     for name in ("b_one_head", "c_streamed_compact", "c_pageable"):
         r = results[name]
@@ -1438,7 +1469,7 @@ def streaming_phase(args, in_memory_iter_s=None):
         "steady_iter_s"])
     summary = {
         "setup_s": setup_s, "rows": 8 * args.rows_per_block,
-        "rerun_of_a_max_abs_diff": rerun, "vs_a": same,
+        "vs_a": same,
         "copy_hidden_share": (1.0 - min(1.0, exposed / c["puts_alone_s"])
                               if c.get("puts_alone_s") else None),
         # the larger of the in-memory iteration on the same data (the
@@ -1450,13 +1481,9 @@ def streaming_phase(args, in_memory_iter_s=None):
     print("streaming-summary " + json.dumps(summary), flush=True)
     rows["summary"] = summary
     for name, s in same.items():
-        if rerun == 0.0 and not (s["z_equal"] and s["u_equal"]):
+        if not (s["z_equal"] and s["u_equal"]):
             raise AssertionError(f"{name} differs from the job budget's run "
                                  f"by {s['max_abs_diff']}")
-        if s["max_abs_diff"] > rerun:
-            raise AssertionError(f"{name} differs from (a) by "
-                                 f"{s['max_abs_diff']}, more than two runs "
-                                 f"of (a) do ({rerun})")
     if not c["z_kernel_vs_plain_max_abs"] <= 1e-4 * c["z_max_abs"]:
         raise AssertionError(f"kernel and plain first iterations differ: "
                              f"{c['z_kernel_vs_plain_max_abs']} vs max|z| "
@@ -1851,8 +1878,10 @@ def solver_modes_phase(trainers, args, flat_iter_s=None):
     # the first iteration again, every head Gram on K2's plain version
     hb.config = dataclasses.replace(base, pcg="head_block", num_iters=1)
     before = gram.gram_batched.launches
+    fresh_loops(hb)
     with mock.patch.object(tm, "gram_batched", gram.gram_batched_reference):
         plain = hb.run()
+    fresh_loops(hb)
     plain_launched = gram.gram_batched.launches != before
     zk = z_first["head_block"][1]
     row["z_kernel_vs_plain_max_abs"] = float(np.abs(zk - plain.z).max())
@@ -2045,6 +2074,16 @@ def _count_syncs(fn):
         finally:
             torch.cuda.set_sync_debug_mode(0)
     return out, sum("synchroniz" in str(w.message) for w in seen)
+
+
+def fresh_loops(trainer):
+    """Free a trainer's device loops (train/admm.py::_SolveLoop), so that
+    its next run makes and captures them anew: a captured graph replays
+    the kernels it was captured with, so a run with a kernel's wrapper
+    patched to its plain version needs new loops, and so does the run
+    after the patch is undone."""
+    from mlease_tpu_torch.train.admm import _close_loops
+    _close_loops(trainer._loops)
 
 
 def fused_compare(name, tr, iters, profile=True):
@@ -2481,16 +2520,21 @@ def fused_more_phase(trainers, args):
     # lowered in this process only)
     n, R = data.dim, data.padded_rows
     cfg = _mesh_modes(base)["per_block_jacobi"]
-    per_call = []
-    solve_one = admm_mod.tron_multi
+    # K1's executions in each sub-stack's branches of the run's device
+    # loop (captured launches x branch executions, counted on the card),
+    # per iteration
+    per_call, seen = [], {}
 
-    def counted(*a, **kw):
-        before = segment_sum_sorted.launches
-        r = solve_one(*a, **kw)
-        per_call.append(segment_sum_sorted.launches - before)
-        return r
-    with mock.patch.object(tm, "STACK_ID_BOUND", 2 * max(n, R) + 1), \
-            mock.patch.object(admm_mod, "tron_multi", counted):
+    def counted(**_kw):
+        c = tr._loops["x"].loop.counts()
+        for k in range(len(ranges)):
+            got = sum(c["captured_launches"][b]["segment_sum_gather"]
+                      * c["branch_executions"][b]
+                      for b in c["captured_launches"]
+                      if b.endswith(f".{k}"))
+            per_call.append(got - seen.get(k, 0))
+            seen[k] = got
+    with mock.patch.object(tm, "STACK_ID_BOUND", 2 * max(n, R) + 1):
         t0 = time.monotonic()
         tr = AdmmTrainer(data, vocab, cfg)
         torch.cuda.synchronize()
@@ -2498,7 +2542,7 @@ def fused_more_phase(trainers, args):
         ranges = list(tr.prob.ranges) if isinstance(
             tr.prob, tm.SubStacks) else None
         segment_sum_sorted.launches = 0
-        res = tr.run()
+        res = tr.run(callback=counted)
         torch.cuda.synchronize()
     ref = MESH_REFS["per_block_jacobi"]
     zmax = float(np.abs(ref.z).max())
@@ -3616,6 +3660,467 @@ def lanes_minor_phase(trainer, args):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: every x-update as one program on the card (train/admm.py::
+# _SolveLoop) in run() and in the streaming trainer, against the host-driven
+# solves they replaced
+# ---------------------------------------------------------------------------
+
+LOOPS_ITERS = 3             # (c)-(e)'s iterations a run
+
+
+@contextlib.contextmanager
+def timed_prepare():
+    """Sum the seconds (synchronised) of every device loop's first prepare
+    (warm-up, captures, build) made inside; yields {"s", "loops"}."""
+    import torch
+    from mlease_tpu_torch.ops.device_loop import DeviceLoop
+    box = {"s": 0.0, "loops": 0}
+    prepare = DeviceLoop.prepare
+
+    def timed(self):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        prepare(self)
+        torch.cuda.synchronize()
+        box["s"] += time.monotonic() - t0
+        box["loops"] += 1
+    DeviceLoop.prepare = timed
+    try:
+        yield box
+    finally:
+        DeviceLoop.prepare = prepare
+
+
+def _syncs_by_iteration(run):
+    """run(callback) under torch.cuda.set_sync_debug_mode("warn"): its
+    result, and the synchronizing calls of each iteration (between one
+    callback and the next; the first iteration's count includes the run's
+    set-up), the run's total, and where those outside the steady
+    iterations were made (file:line of the calling Python frame)."""
+    import warnings
+    import torch
+    marks = []
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run(lambda **_kw: marks.append(len(seen)))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # torch's own notice that the mode is a prototype is not a sync
+    sync = [i for i, w in enumerate(seen)
+            if "called a synchronizing" in str(w.message)]
+    bounds = [0] + marks + [len(seen)]
+    per = [sum(lo <= i < hi for i in sync)
+           for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+    def where(lo, hi):
+        return sorted({f"{os.path.basename(seen[i].filename)}:"
+                       f"{seen[i].lineno}" for i in sync if lo <= i < hi})
+    return out, {"per_iteration": per[1:-1], "first": per[0],
+                 "after_last": per[-1], "total": len(sync),
+                 "first_iteration_and_setup_at": where(0, bounds[1]),
+                 "after_last_at": where(bounds[-2], len(seen))}
+
+
+def host_run(tr, iters):
+    """run()'s driver loop from z = u = 0 with the host-driven step
+    (build_admm_step: build_x_update's solve, which reads the host once a
+    Newton and a CG trip, and a blocking copy of rho_eff and eps), the
+    reference run()'s device loop is held to. Returns z, u, solver_stats
+    and iter_times."""
+    import torch
+    from mlease_tpu_torch.ops import admm_math
+    cfg, dev = tr.config, tr.device
+    L, n, B, dt = len(tr.lambdas), tr.dim, tr.data.nblocks, cfg.dtype
+    z = torch.zeros((L, n), dtype=dt, device=dev)
+    u = torch.zeros((L, B, n), dtype=dt, device=dev)
+    rho_base = torch.as_tensor(tr.rhos, dtype=dt, device=dev)
+    inner, mindiff, stats, times = cfg.liblinear_epsilon, 99999999.0, [], []
+    for it in range(1, iters + 1):
+        t0 = time.monotonic()
+        inner = admm_math.inner_eps_schedule(
+            inner, it, mindiff,
+            aggressive=cfg.aggressive_liblinear_epsilon_decay)
+        with torch.profiler.record_function("admm_iteration"):
+            rho = torch.as_tensor([admm_math.rho_effective(
+                r, it, initialize_boost_rate=0.0,
+                rho_adapt_coefficient=cfg.rho_adapt_coefficient)
+                for r in tr.rhos], dtype=dt, device=dev)
+            eps = torch.as_tensor(inner, dtype=dt, device=dev) \
+                * tr.eps_scale
+            z, u, diffs, st = tr.step(tr.prob, tr.present, z, u,
+                                      tr.lam_vec, rho, rho_base, eps,
+                                      tr.block_valid)
+            d = diffs.to(torch.float64).cpu().numpy()
+        times.append(time.monotonic() - t0)
+        stats.append(st)
+        mindiff = float(d.min())
+        if admm_math.should_stop(float(d.max()), inner, cfg.epsilon,
+                                 cfg.inner_eps_floor):
+            break
+    return (z.double().cpu().numpy(), u.double().cpu().numpy(), stats,
+            times)
+
+
+def host_group_solve(tr):
+    """A StreamingAdmmTrainer._solve_group that solves through the host
+    reference, build_group_solver (one host read a Newton and a CG
+    trip)."""
+    import torch
+    from mlease_tpu_torch.train.streaming import (_split_substacks,
+                                                  build_group_solver)
+    cfg = tr.config
+    solver = build_group_solver(cfg.max_newton_iter, cfg.max_cg_iter,
+                                mode=tr.mode, pcg=cfg.pcg,
+                                relaxation=cfg.relaxation)
+
+    def solve(gi, prob, present, z, u, rho_eff, eps, perm):
+        if len(tr.ranges[gi]) > 1:
+            prob = _split_substacks(prob, tr.ranges[gi])
+        x, nt, cg = solver(prob, present, z, u, rho_eff, eps, perm)
+        return x, torch.tensor([nt, cg], device=z.device)
+    return solve
+
+
+def _counted(fn):
+    """fn() with K1's and K2's launch counts (the wrappers' `launches`:
+    eager launches, and the executions counted on the card inside device
+    loops, added when a loop's counts are read) read around it,
+    synchronised, with its seconds, the device memory allocated at its
+    start (after a garbage collection) and its peak: (result, {"k1",
+    "k2", "s", "base_bytes", "peak_bytes"})."""
+    import gc
+    import torch
+    from mlease_tpu_torch.ops import gram
+    from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    segment_sum_sorted.launches = gram.gram_batched.launches = 0
+    t0 = time.monotonic()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"k1": segment_sum_sorted.launches,
+                 "k2": gram.gram_batched.launches,
+                 "s": time.monotonic() - t0, "base_bytes": int(base),
+                 "peak_bytes": int(torch.cuda.max_memory_allocated())}
+
+
+def _card_executions(loops):
+    """K1 and K2 executions counted on the card so far in these loops."""
+    from mlease_tpu_torch.ops.device_loop import read_counts
+    tot = {"segment_sum_gather": 0, "gram_batched": 0}
+    for c in read_counts(loops):
+        for k in tot:
+            tot[k] += c["kernel_executions"][k]
+    return tot
+
+
+def one_x_update_check(name, tr, mode, pcg, gen):
+    """(a): one x-update of trainer tr's problem from random z and u
+    through build_x_update (the host-driven solve) and through a
+    _SolveLoop (captured, looped on the card), bit for bit with equal
+    trips; each solve's seconds and the loop's capture seconds."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.train.admm import (_SolveLoop, build_x_update,
+                                             _graph_pool, substacks_of,
+                                             x_prior)
+    cfg = tr.config
+    L, n, B, dt = len(tr.lambdas), tr.dim, tr.data.nblocks, cfg.dtype
+    z = (0.01 * torch.randn((L, n), generator=gen, device="cuda")).to(dt)
+    u = (0.01 * torch.randn((L, B, n), generator=gen, device="cuda")).to(dt)
+    rho = torch.as_tensor(tr.rhos, dtype=dt, device="cuda")
+    eps = cfg.liblinear_epsilon * tr.eps_scale
+    solve = build_x_update(mode, cfg.max_newton_iter, cfg.max_cg_iter, pcg,
+                           cfg.relaxation)
+    (xh, th), ch = _counted(lambda: solve(tr.prob, tr.present, z, u, rho,
+                                          eps))
+    t0 = time.monotonic()
+    lp = _SolveLoop(mode, substacks_of(tr.prob, B), L, n, pcg,
+                    cfg.max_newton_iter, cfg.max_cg_iter, z, u, rho, eps)
+    lp.own_loop(_graph_pool(tr.device)).prepare()
+    torch.cuda.synchronize()
+    capture_s = time.monotonic() - t0
+    try:
+        (_, counts), cl = _counted(lambda: (lp.solve(z, u, rho, eps),
+                                            lp.loop.counts()))
+        xl = solve.finish(lp.x(), tr.present, x_prior(z, u), z)
+        tl = lp.trips().cpu().numpy()
+        execs = counts["kernel_executions"]
+    finally:
+        lp.loop.close()
+    row = {"mode": mode, "pcg": pcg,
+           "parts": len(substacks_of(tr.prob, B)),
+           "x_bit_for_bit": bool(torch.equal(xh, xl)),
+           "x_max_abs_diff": float((xh.double() - xl.double()).abs().max()),
+           "trips_equal": bool(np.array_equal(th, tl)),
+           "trips_max": [int(v) for v in tl.max(0)],
+           "host_s": ch["s"], "loop_s": cl["s"], "capture_s": capture_s,
+           "k1_host": ch["k1"], "k1_loop": cl["k1"],
+           "k2_host": ch["k2"], "k2_loop": cl["k2"],
+           "card_executions": execs}
+    print(f"loops (a) {name} " + json.dumps(row), flush=True)
+    bad = []
+    if not (row["x_bit_for_bit"] and row["trips_equal"]):
+        bad.append(f"(a) {name}: x or trips differ ({row})")
+    if (cl["k1"], cl["k2"]) != (ch["k1"], ch["k2"]) or ch["k1"] == 0:
+        bad.append(f"(a) {name}: K1/K2 {cl} against the host's {ch}")
+    return row, bad
+
+
+def _idle_share(prof, iter_s):
+    """The card's idle share of each steady iteration of a device-loop
+    run: 1 - the host path's device busy time in the same iteration (the
+    same kernels on the same values; the profiler's records inside a
+    conditional graph's bodies are not reliable, PERF.md) over the loop
+    iteration's wall time."""
+    if not prof:
+        return None
+    return [1.0 - busy / 1e3 / s
+            for busy, s in zip(prof["device_busy_ms"][1:], iter_s[1:])]
+
+
+def _run_against_host(name, tr, run_host, loops, span, profile=True):
+    """(c)-(e) on one warm trainer whose loops exist: its run() (the
+    device loops) against the host path run_host(iterations), each with
+    K1 / K2 counted and its peak memory, the loops' card-counted
+    executions, the synchronizing calls of each iteration, and (profile)
+    the host path's profile of `span` for the idle shares."""
+    import numpy as np
+    t = [time.monotonic()]
+    before = _card_executions(loops())
+    (res, syncs), cl = _counted(lambda: _syncs_by_iteration(
+        lambda cb: tr.run(callback=cb)))
+    after = _card_executions(loops())
+    hres, ch = _counted(lambda: run_host(LOOPS_ITERS))
+    t.append(time.monotonic())
+    prof = span_profile(lambda: run_host(2), span) if profile else None
+    t.append(time.monotonic())
+    row = {
+        "bit_for_bit_with_host_path": bool(
+            np.array_equal(res.z, hres.z) and np.array_equal(res.u, hres.u)),
+        "trips_equal": res.solver_stats == hres.solver_stats,
+        "solver_stats": res.solver_stats,
+        "loop_iter_s": res.iter_times, "host_iter_s": hres.iter_times,
+        "loop_steady_iter_s": steady_s(res.iter_times),
+        "host_steady_iter_s": steady_s(hres.iter_times),
+        "k1_loop": cl["k1"], "k1_host": ch["k1"],
+        "k2_loop": cl["k2"], "k2_host": ch["k2"],
+        "card_executions": {k: after[k] - before[k] for k in after},
+        "base_bytes": cl["base_bytes"],
+        "peak_bytes_loop": cl["peak_bytes"],
+        "peak_bytes_host": ch["peak_bytes"], "syncs": syncs,
+        "idle_share_host": prof and prof["device_idle_share_steady"],
+        "idle_share_loop": _idle_share(prof, res.iter_times),
+        "runs_and_profile_s": [b - a for a, b in zip(t, t[1:])]}
+    bad = []
+    if not (row["bit_for_bit_with_host_path"] and row["trips_equal"]):
+        bad.append(f"{name}: the run differs from the host path")
+    if (cl["k1"], cl["k2"]) != (ch["k1"], ch["k2"]) or ch["k1"] == 0:
+        bad.append(f"(d) {name}: K1/K2 {cl} against the host's {ch}")
+    if not row["card_executions"]["segment_sum_gather"] > 0:
+        bad.append(f"(d) {name}: no K1 execution counted on the card")
+    if any(k != 1 for k in syncs["per_iteration"]):
+        bad.append(f"(c) {name}: syncs per iteration "
+                   f"{syncs['per_iteration']}")
+    return row, bad
+
+
+class _HostRun:
+    """host_run's result as run()'s (z, u, solver_stats, iter_times)."""
+
+    def __init__(self, z, u, solver_stats, iter_times):
+        self.z, self.u = z, u
+        self.solver_stats, self.iter_times = solver_stats, iter_times
+
+
+def loops_phase(trainers, args):
+    """Phase 21 (a), (c)-(e) in memory: see the module docstring."""
+    import torch
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+
+    t_phase = time.monotonic()
+    out, bad = {}, []
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 21)
+    bench, full = trainers["bench"], trainers["full"]
+    bdata = synth_blocked_data(50_000, 4, 16_384, 15, args.seed)
+    bvocab = make_vocab(50_000)
+    bcfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=LOOPS_ITERS,
+                      pcg=True, flat_blocks=True, dtype=torch.float32)
+    # (a) one x-update, host against loop
+    for tag, tr in (("bench", bench), ("full", full)):
+        for mode, pcg in (("flat", True), ("per_block", True),
+                          ("per_block", "head_block")):
+            name = f"{tag} {mode} {pcg}"
+            out[f"a {name}"], b = one_x_update_check(name, tr, mode, pcg, gen)
+            bad += b
+    lanes = None
+    for name, kw in (("bench dual_layout", dict(dual_layout=True)),
+                     ("bench lanes", dict(multi_rhs=False))):
+        lanes = AdmmTrainer(bdata, bvocab, dataclasses.replace(bcfg, **kw))
+        out[f"a {name}"], b = one_x_update_check(name, lanes, "lanes", True,
+                                                 gen)
+        bad += b
+    # sub-stacks of the head trainers' data (the head's sorted tails are
+    # K1's; the ELL part of a problem without one is index_add_'s scatter,
+    # whose atomics give other bits every run)
+    out["a_s"] = time.monotonic() - t_phase
+    for tag, tr, per in (("bench", bench, 1), ("full", full, 2)):
+        t0 = time.monotonic()
+        n, R = tr.data.dim, tr.data.padded_rows
+        with mock.patch.object(tm, "STACK_ID_BOUND", per * max(n, R) + 1):
+            sub = AdmmTrainer(tr.data, tr.vocab, dataclasses.replace(
+                tr.config, flat_blocks=False))
+        out[f"a {tag} 4 substacks build_s"] = time.monotonic() - t0
+        if not (isinstance(sub.prob, tm.SubStacks)
+                and len(sub.prob.ranges) == 4):
+            bad.append(f"(a) {tag}: not 4 sub-stacks")
+        name = f"{tag} 4 substacks"
+        out[f"a {name}"], b = one_x_update_check(name, sub, "per_block",
+                                                 True, gen)
+        bad += b
+        del sub
+        torch.cuda.empty_cache()
+
+    # (c)-(e) run() against the host-driven path: bench flat and lanes,
+    # full flat
+    for name, tr in (("bench flat", bench), ("bench lanes", lanes),
+                     ("full flat", full)):
+        kept = tr.config
+        tr.config = dataclasses.replace(kept, num_iters=LOOPS_ITERS)
+        fresh_loops(tr)
+        with timed_prepare() as cap:
+            first = tr.run()                   # makes and captures the loop
+        row, b = _run_against_host(
+            name, tr, lambda k, tr=tr: _HostRun(*host_run(tr, k)),
+            lambda tr=tr: [tr._loops["x"].loop], "admm_iteration",
+            profile=name != "bench lanes")
+        tr.config = kept
+        row.update(mode=tr.mode, first_run_iter_s=first.iter_times,
+                   capture_s=cap["s"], loops_captured=cap["loops"])
+        out[f"run {name}"] = row
+        print(f"loops run {name} " + json.dumps(row), flush=True)
+        bad += b
+    del lanes
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"loops: {bad}")
+    return out
+
+
+def loops_stream_phase(args):
+    """Phase 21 (b)-(e) streamed: see the module docstring."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.core.dataset import split_blocks, to_hybrid
+    from mlease_tpu_torch.train.admm import AdmmConfig
+    from mlease_tpu_torch.train.streaming import (StreamingAdmmTrainer,
+                                                  build_group_solver)
+
+    if "stream" in F32_BASE:
+        groups = F32_BASE["stream"]["groups"]
+    else:
+        groups = split_blocks(synth_blocked_data(
+            1_000_000, 8, args.rows_per_block, 12, args.seed), STREAM_GROUPS)
+        for i, g in enumerate(groups):
+            groups[i] = to_hybrid(g, 128, column_sorted=True,
+                                  head_dtype=torch.bfloat16)
+    vocab = make_vocab(1_000_000)
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=LOOPS_ITERS,
+                     head_size=128, head_dtype=torch.bfloat16, pcg=True,
+                     flat_blocks=True, dtype=torch.float32)
+    head0 = int(groups[0].head.nbytes + groups[0].head_ids.nbytes)
+    # (a) f32 and bf16: against the host path; (c): the syncs of a run
+    # whose groups stream into the slots; (b): every cell
+    cells = {
+        "a": (cfg, dict(resident_head_budget_gb=8.0)),
+        "b": (cfg, dict(resident_head_budget_gb=1.2 * head0 / 2**30)),
+        "c": (cfg, dict(resident_head=False, compact_wire=True)),
+        "a bf16": (dataclasses.replace(cfg, dtype=torch.bfloat16),
+                   dict(resident_head_budget_gb=8.0)),
+    }
+    out, bad, z1 = {}, [], {}
+    for name, (c, kw) in cells.items():
+        t_cell = t0 = time.monotonic()
+        tr = StreamingAdmmTrainer(groups, vocab, c, **kw)
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        # (b) group 0's first solve: the trainer's loop against
+        # build_group_solver on the same inputs, while they are in its slot
+        host = build_group_solver(c.max_newton_iter, c.max_cg_iter,
+                                  mode=tr.mode, pcg=c.pcg,
+                                  relaxation=c.relaxation)
+        solve_group, seen = tr._solve_group, {}
+
+        def check(gi, prob, present, z, u, rho_eff, eps, perm):
+            x, trips = solve_group(gi, prob, present, z, u, rho_eff, eps,
+                                   perm)
+            if gi == 0 and not seen:
+                xh, nt, cg = host(prob, present, z, u, rho_eff, eps, perm)
+                seen.update(x=bool(torch.equal(x, xh)),
+                            trips=[int(v) for v in trips.tolist()],
+                            host_trips=[nt, cg])
+            return x, trips
+        tr._solve_group = check
+        tr.config = dataclasses.replace(c, num_iters=1)
+        try:
+            with timed_prepare() as cap:
+                first = tr.run()
+        finally:
+            del tr._solve_group
+        tr.config = dataclasses.replace(c, num_iters=LOOPS_ITERS)
+        z1[name] = first.z
+        row = {"residency": tr.residency_report(), "build_s": build_s,
+               "group0_x_bit_for_bit": seen.get("x"),
+               "group0_trips": seen.get("trips"),
+               "group0_host_trips": seen.get("host_trips"),
+               "capture_s": cap["s"], "loops_captured": cap["loops"],
+               "loop_bytes": tr._loop_bytes()}
+        if not (seen.get("x") and seen["trips"] == seen["host_trips"]):
+            bad.append(f"(b) {name}: group 0's solve differs: {seen}")
+        if name == "c":
+            row["syncs"] = _syncs_by_iteration(
+                lambda cb: tr.run(callback=cb))[1]
+            if any(k != 1 for k in row["syncs"]["per_iteration"]):
+                bad.append(f"(c) {name}: syncs per iteration "
+                           f"{row['syncs']['per_iteration']}")
+        elif name != "b":
+            def run_host(k, tr=tr):
+                tr._solve_group = host_group_solve(tr)
+                tr.config = dataclasses.replace(tr.config, num_iters=k)
+                try:
+                    return tr.run()
+                finally:
+                    del tr._solve_group
+                    tr.config = dataclasses.replace(tr.config,
+                                                    num_iters=LOOPS_ITERS)
+            more, b = _run_against_host(
+                name, tr, run_host,
+                lambda tr=tr: [lp.loop for lp in tr._loops.values()],
+                "stream_iteration", profile=name == "a")
+            row.update(more)
+            bad += b
+        row["cell_s"] = time.monotonic() - t_cell
+        out[name] = row
+        print(f"loops stream {name} " + json.dumps(row), flush=True)
+        del tr
+        torch.cuda.empty_cache()
+    same = {k: bool(np.array_equal(z1[k], z1["a"])) for k in ("b", "c")}
+    out["tiers_bit_for_bit"] = same
+    print("loops stream tiers " + json.dumps(same), flush=True)
+    if not all(same.values()):
+        bad.append(f"(b) the tiers' first iterations differ: {same}")
+    if bad:
+        raise AssertionError(f"loops stream: {bad}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3643,6 +4148,9 @@ def main(argv=None) -> int:
     ap.add_argument("--fused-only", action="store_true",
                     help="build, set up the trainers, run the fused-loop "
                          "phases (17, 19) alone and stop")
+    ap.add_argument("--loops-only", action="store_true",
+                    help="build, set up the trainers, run the solve-loop "
+                         "phase (21) alone and stop")
     ap.add_argument("--bf16-only", action="store_true",
                     help="build, set up the trainers, make the float32 "
                          "runs phase 18 compares with, run phase 18 (the "
@@ -3754,8 +4262,13 @@ def main(argv=None) -> int:
     if not report["failed"]:
         trainers = phase("setup", setup)
     if args.segsum_only or args.modes_only or args.mesh_only \
-            or args.fused_only or args.bf16_only:
-        if trainers is not None and args.bf16_only:
+            or args.fused_only or args.bf16_only or args.loops_only:
+        if trainers is not None and args.loops_only:
+            phase("loops", loops_phase, trainers, args)
+            del trainers
+            torch.cuda.empty_cache()
+            phase("loops_stream", loops_stream_phase, args)
+        elif trainers is not None and args.bf16_only:
             phase("bf16_baselines", bf16_baselines, trainers, args)
             phase("bf16_kernel", bf16_kernel_phase, trainers["full"], args)
             phase("bf16_full", bf16_full_phase, trainers["full"], args)
@@ -3798,6 +4311,7 @@ def main(argv=None) -> int:
         phase("fused", fused_phase, trainers, args)
         phase("fused_more", fused_more_phase, trainers, args)
         phase("lanes_minor", lanes_minor_phase, trainers["full"], args)
+        phase("loops", loops_phase, trainers, args)
         # phase 18, the bfloat16 compute dtype: (a)-(c) on the trainers'
         # data, (d)-(f) right after the float32 phases they compare with
         bf16_kernels = phase("bf16_kernel", bf16_kernel_phase,
@@ -3813,6 +4327,7 @@ def main(argv=None) -> int:
         phase("head_block", head_block_phase, args)
         phase("streaming", streaming_phase, args,
               speed["full"]["steady_iter_s"] if speed else None)
+        phase("loops_stream", loops_stream_phase, args)
         phase("bf16_stream", bf16_stream_phase, args)
         phase("scale_cli", scale_cli_phase, args)
         phase("naive", naive_phase, args)

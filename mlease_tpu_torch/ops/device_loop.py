@@ -1,9 +1,10 @@
 """A state machine of tensor branches that loops on the card, without the host.
 
 The counterpart of a `lax.while_loop` whose body picks one of a few
-branches: AdmmTrainer.run_fused's driver loop (one CG trip, the Newton
-epilogue, the end of an ADMM iteration, the next x-update's start, the CG
-start). Each branch is a function that reads and writes only tensors made
+branches: an x-update's TRON loops (train/admm.py::_SolveLoop: one CG
+trip, the Newton epilogue, the CG start, for each solve) in run() and the
+streaming trainer, and AdmmTrainer.run_fused's driver loop (those, the
+end of an ADMM iteration and the next x-update's start). Each branch is a function that reads and writes only tensors made
 before the loop (its static state) and ends by writing the next phase into
 `phase`, a 0-d int32 tensor; phase 0 stops the loop. One pass of the loop
 runs the branches in the order given, each when the phase equals its own
@@ -33,6 +34,11 @@ torch exposes no conditional nodes on the card's torch (2.11), hence the
 hand-built graph. On the CPU `run` takes the same passes eagerly and reads
 the phase on the host after every branch.
 
+Loops may share one graph memory pool (`pool=`): every tensor a branch
+allocates is freed before its capture ends, so no graph keeps memory that
+another writes, and loops that run one after another on one stream may
+reuse each other's temporaries (one trainer's loops share one pool).
+
 Counting: a kernel wrapper's launch counter counts Python calls, so inside
 a graph it counts captures. While it captures, the loop gives each kernel
 wrapper a slot of a device counter (the wrapper's `device_launches`); the
@@ -41,10 +47,16 @@ captured add runs on the card each time the kernel has run, and
 `counts()` reads the kernels' executions from the card. The loop also
 records each branch's captured launches and counts each branch's
 executions on the device, which gives the same numbers a second way.
+A wrapper's `launches` counts the kernel's executions wherever they ran:
+`prepare` puts back what its warm-up and captures added (the warm-up's
+writes are put back too), and each read of the counts (`counts`,
+`read_counts`) adds the executions counted on the card since the last
+read to the wrappers' `launches`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from pathlib import Path
 from typing import Callable, Mapping, Sequence
@@ -85,17 +97,48 @@ def _load():
     return _lib
 
 
+@contextlib.contextmanager
+def uncounted(kernels):
+    """Put back the `launches` of each kernel wrapper on exit: for set-up
+    work (a loop's first state, its warm-up and captures) whose launches
+    are not the solves'."""
+    before = [(fn, fn.launches) for fn in kernels]
+    try:
+        yield
+    finally:
+        for fn, n in before:
+            fn.launches = n
+
+
+def read_counts(loops: Sequence["DeviceLoop"]) -> list[dict]:
+    """Each loop's `counts()` from one host read of all their counters;
+    on the card each kernel's executions since the last read are added to
+    its wrapper's `launches`."""
+    loops = list(loops)
+    if not loops:
+        return []
+    flat = torch.cat([lp.runs for lp in loops]).cpu().tolist()
+    out, off = [], 0
+    for lp in loops:
+        n = flat[off:off + lp.runs.numel()]
+        off += lp.runs.numel()
+        out.append(lp._counts(n))
+    return out
+
+
 class DeviceLoop:
     """branches: (phase number, name, function) in pass order; phase: the
     0-d int32 phase word; state: every tensor the branches write (put back
     after the warm-up); kernels: name -> kernel wrapper or collective, a
     function with a `launches` count and a `device_launches` slot (None,
     or a 0-d int64 tensor on the card that the wrapper adds one to after
-    each launch)."""
+    each launch); pool: the graph memory pool to capture into (a
+    `torch.cuda.graph_pool_handle()` shared with loops that run on the
+    same stream, never at once), or None for one of its own."""
 
     def __init__(self, branches: Sequence[tuple[int, str, Callable[[], None]]],
                  phase: torch.Tensor, state: Sequence[torch.Tensor],
-                 kernels: Mapping[str, Callable] | None = None):
+                 kernels: Mapping[str, Callable] | None = None, pool=None):
         if phase.dtype != torch.int32 or phase.dim() != 0:
             raise ValueError("phase must be a 0-d int32 tensor")
         wants = [w for w, _, _ in branches]
@@ -115,8 +158,10 @@ class DeviceLoop:
         self.captured: dict[str, dict[str, int]] = {}
         self.capture_modes: dict[str, str] = {}
         self.node_types: dict[str, dict[str, int]] = {}
+        self.pool = pool
         self._graphs: list = []
         self._handles = None
+        self._added = [0] * len(self.kernels)   # executions in `launches`
 
     @property
     def on_card(self) -> bool:
@@ -130,6 +175,10 @@ class DeviceLoop:
         """Warm up, capture and build (CUDA); nothing on the CPU."""
         if not self.on_card or self._handles is not None:
             return
+        with uncounted(self.kernels.values()):
+            self._prepare()
+
+    def _prepare(self) -> None:
         lib = _load()
         saved = [t.clone() for t in (*self.state, self.phase)]
         collective = set()
@@ -145,7 +194,8 @@ class DeviceLoop:
         self.runs.zero_()
         del saved
         torch.cuda.synchronize(self.device)
-        pool = torch.cuda.graph_pool_handle()
+        pool = (self.pool if self.pool is not None
+                else torch.cuda.graph_pool_handle())
         first = len(self.branches)
         try:
             for i, fn in enumerate(self.kernels.values()):
@@ -215,15 +265,21 @@ class DeviceLoop:
     def counts(self) -> dict:
         """What the loop ran so far, from one host read: each branch's
         executions; on the card also each kernel's launches captured per
-        branch, and its executions as counted on the card."""
-        n = self.runs.cpu().tolist()
+        branch, and its executions as counted on the card (added to the
+        wrappers' `launches` as they are read)."""
+        return read_counts([self])[0]
+
+    def _counts(self, n: list[int]) -> dict:
         out = {"branch_executions": dict(zip(self.names, n))}
         if self.on_card:
+            execs = n[len(self.names):]
+            for i, fn in enumerate(self.kernels.values()):
+                fn.launches += execs[i] - self._added[i]
+                self._added[i] = execs[i]
             out["captured_launches"] = self.captured
             out["capture_modes"] = self.capture_modes
             out["node_types"] = self.node_types
-            out["kernel_executions"] = dict(zip(self.kernels,
-                                                n[len(self.names):]))
+            out["kernel_executions"] = dict(zip(self.kernels, execs))
         return out
 
     def close(self) -> None:

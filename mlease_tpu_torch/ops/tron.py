@@ -13,8 +13,9 @@ state tensor carries P, each loop runs while any lane's condition holds,
 and a lane whose condition is false keeps its state, so per-lane results
 and iteration counts equal the JAX solver's. The loops are split into
 functions of a state (`LaneSolver`); `tron` runs them in host loops that
-read `any(lane condition)` back once per trip, and AdmmTrainer.run_fused
-runs the same functions inside a CUDA graph that loops on the card.
+read `any(lane condition)` back once per trip, and the trainers' device
+loops (train/admm.py::_SolveLoop) run the same functions inside a CUDA
+graph that loops on the card.
 
 Stopping mirrors the reference: ||g|| <= eps * ||grad(0)||, plus the guard
 breaks at Tron.java:108-121 (f < -1e32, non-positive reductions, reductions

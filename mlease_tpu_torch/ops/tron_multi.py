@@ -8,8 +8,9 @@ accept/reject) are (L,) tensors. The JAX package's `lax.while_loop`s are
 split into functions of a state (`MultiSolver`: the Newton init, one CG
 trip, the Newton epilogue) whose counters stay on the device; `tron_multi`
 runs them in host loops whose condition (`any(active)`) is read back once
-per trip, and AdmmTrainer.run_fused runs the same functions inside a CUDA
-graph that loops on the card (ops/device_loop.py).
+per trip, and the trainers' device loops (train/admm.py::_SolveLoop, in
+run(), the streaming trainer and run_fused) run the same functions inside
+a CUDA graph that loops on the card (ops/device_loop.py).
 
 Internally the state is lanes-major, (L, n) and (L, R); the public contract
 is the JAX one, (n, L) in and (n, L) out. Each sorted sparse-tail reduce is

@@ -40,10 +40,16 @@ all_reduce(SUM) of the (2, L, n) partial sums per iteration, padded blocks
 masked out. z is replicated; every rank returns the same result (u gathered
 to (L, B, n), the trips the maxima over the ranks).
 
-`run_fused` runs the same iteration with the whole driver loop on the
-device (`_FusedRun`: branches over a static state, looped on the card by
-ops/device_loop.py), in every solve mode and under a mesh, where its two
-collectives are NCCL calls captured into the loop's graphs.
+`run()` takes each x-update as the JAX step's jitted program takes it,
+on the device without the host: `_SolveLoop`, the solve's branches over a
+static state, looped on the card by ops/device_loop.py (a CUDA graph
+captured at the trainer's first iteration and kept), one host read an
+iteration. `run_fused` runs the whole driver loop on the device
+(`_FusedRun`: the same solve branches beside the iteration's), in every
+solve mode and under a mesh, where its two collectives are NCCL calls
+captured into the loop's graphs. `build_x_update` and `build_admm_step`
+are the host-driven forms (one host read a Newton and a CG trip), which
+the loops are held to.
 
 `dtype=torch.bfloat16` runs every solve mode and run_fused as the JAX
 package runs it: data, z, u and the solver state in bfloat16, K1's bf16
@@ -56,6 +62,7 @@ from __future__ import annotations
 
 import logging
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Mapping, Sequence
 
@@ -72,7 +79,8 @@ from mlease_tpu_torch.ops.objective import (K1Streams, LRProblem,
                                             class_balance_eps_scale,
                                             column_sorted, k1_streams)
 from mlease_tpu_torch.ops.tron import LaneSolver, tron
-from mlease_tpu_torch.ops.device_loop import DeviceLoop
+from mlease_tpu_torch.ops.device_loop import (DeviceLoop, read_counts,
+                                              uncounted)
 from mlease_tpu_torch.ops.gram import gram_batched
 from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, MultiSolver,
@@ -314,6 +322,43 @@ def w_to_x(w: torch.Tensor, B: int, n: int) -> torch.Tensor:
     return w.reshape(B, n, w.shape[1]).permute(2, 0, 1)
 
 
+def _to_device(a, dtype, device) -> torch.Tensor:
+    """A host number, list or array as a tensor of `dtype` on `device`,
+    rounded on the host; on the card staged through page-locked memory and
+    copied without a blocking copy (the copy is ordered on the current
+    stream)."""
+    t = torch.as_tensor(a, dtype=dtype)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def _rho_table(rhos, last: int, config: AdmmConfig, boosted: bool,
+               device) -> torch.Tensor:
+    """rho_eff of iterations 0..last, (last + 1, L) on the device (row i
+    from admm_math.rho_effective at max(i, 1)), without a blocking
+    copy."""
+    boost = config.initialize_boost_rate if boosted else 0.0
+    return _to_device([
+        [admm_math.rho_effective(
+            r, max(i, 1), initialize_boost_rate=boost,
+            rho_adapt_coefficient=config.rho_adapt_coefficient)
+         for r in rhos] for i in range(last + 1)], config.dtype, device)
+
+
+def _graph_pool(device):
+    """A CUDA graph memory pool for one trainer's device loops (None off
+    the card)."""
+    return torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+
+
+def _close_loops(loops: dict) -> None:
+    """Free the graphs of a trainer's _SolveLoops (they run no more)."""
+    for lp in loops.values():
+        lp.close()
+    loops.clear()
+
+
 def build_x_update(mode: str, max_newton_iter: int, max_cg_iter: int,
                    pcg: Any = True, relaxation: float = 1.0) -> Callable:
     """The (lambda x block) x-update of one set of blocks, without the
@@ -546,6 +591,11 @@ class AdmmTrainer:
             for l in self.lambdas])
         self.lam_vec = t(lam_vecs, dtype)
 
+        # the solve's settings as `step` takes them, for its device loop
+        self._solve_args = (config.pcg, config.max_newton_iter,
+                            config.max_cg_iter)
+        self._loops: dict[str, _SolveLoop] = {}   # freed with the trainer
+        weakref.finalize(self, _close_loops, self._loops).atexit = False
         self.step = build_admm_step(
             nblocks=self.nblocks,
             regularizer=config.regularizer,
@@ -656,6 +706,7 @@ class AdmmTrainer:
             loop_counts = loop.counts()
         finally:
             loop.close()
+            st.x_update.close()
         iterations = it_now - 1
         if self._group is not None:
             # the ranks stopped together: the same iteration on every rank
@@ -707,12 +758,42 @@ class AdmmTrainer:
             loop_counts=loop_counts)
 
     # ------------------------------------------------------------------
+    def _solve_loop(self, z, u, rho_eff, eps, **kw) -> "_SolveLoop":
+        """This trainer's x-update as a _SolveLoop, its first state made
+        from these inputs."""
+        pcg, max_newton_iter, max_cg_iter = self._solve_args
+        return _SolveLoop(self.mode, substacks_of(self.prob,
+                                                  self.data.nblocks),
+                          len(self.lambdas), self.dim, pcg, max_newton_iter,
+                          max_cg_iter, z, u, rho_eff, eps, **kw)
+
+    def _x_loop(self, z, u, rho_eff, eps) -> "_SolveLoop":
+        """run()'s x-update loop: made, and on the card captured, at the
+        trainer's first iteration, then kept for every later one."""
+        loop = self._loops.get("x")
+        if loop is None:
+            with uncounted(_SOLVE_KERNELS.values()):
+                loop = self._solve_loop(z, u, rho_eff, eps)
+                loop.own_loop(_graph_pool(self.device)).prepare()
+            self._loops["x"] = loop
+        return loop
+
     def run(self, z0: np.ndarray | None = None,
             u0: np.ndarray | None = None, *, start_iteration: int = 1,
             inner_eps0: float | None = None, mindiff0: float = 99999999.0,
             best_loglik0: float = -9999999.0,
             callback: Callable | None = None) -> AdmmResult:
         """Run the driver loop.
+
+        Each iteration is the JAX step's program on the device: the
+        x-update through the trainer's _SolveLoop (on the card one launch
+        of a CUDA graph that loops until every solve has stopped; captured
+        at the trainer's first iteration and kept), then the consensus,
+        z- and u-updates. The host reads the device once an iteration:
+        the diffs, the trip maxima and the tracked sample logliks, in one
+        copy (the JAX run()'s one sync at the diffs). rho_eff and eps
+        reach the device without a blocking copy. Bit for bit what
+        `step` (the host-driven solve) gives.
 
         z0/u0/start_iteration/inner_eps0/mindiff0/best_loglik0 resume from a
         checkpoint (utils/checkpoint, or a JAX run's state through
@@ -741,7 +822,7 @@ class AdmmTrainer:
                      else float(inner_eps0))
         mindiff = mindiff0
         best_loglik = best_loglik0
-        best_model: LinearModel | None = None
+        best_z: torch.Tensor | None = None
         best_lambda: str | None = None
         loglik_history: list[dict] = []
         diff_history: list[dict[str, float]] = []
@@ -758,29 +839,40 @@ class AdmmTrainer:
                                        "testLoglik": float(ll)})
 
         rho_base = torch.as_tensor(self.rhos, dtype=dtype, device=dev)
+        rho_tab = _rho_table(self.rhos, cfg.num_iters, cfg, z0 is not None,
+                             dev)
+        finish, consensus = self.step.solve.finish, self.step.consensus
         iteration = start_iteration - 1
         for iteration in range(start_iteration, cfg.num_iters + 1):
             t_iter = time.monotonic()
             inner_eps = admm_math.inner_eps_schedule(
                 inner_eps, iteration, mindiff,
                 aggressive=cfg.aggressive_liblinear_epsilon_decay)
-            rho_eff = torch.as_tensor([
-                admm_math.rho_effective(
-                    r, iteration,
-                    initialize_boost_rate=(cfg.initialize_boost_rate
-                                           if z0 is not None else 0.0),
-                    rho_adapt_coefficient=cfg.rho_adapt_coefficient)
-                for r in self.rhos], dtype=dtype, device=dev)
+            rho_eff = rho_tab[iteration]
             # the scalar rounded to the compute dtype first (as run_fused)
-            eps = torch.as_tensor(inner_eps, dtype=dtype,
-                                  device=dev) * self.eps_scale
+            eps = _to_device(inner_eps, dtype, dev) * self.eps_scale
 
-            z, u, diffs, stats = self.step(self.prob, self.present, z, u,
-                                           self.lam_vec, rho_eff, rho_base,
-                                           eps, self.block_valid)
-            diffs_np = diffs.to(torch.float64).cpu().numpy()  # host sync
+            # the span the device idle share of an iteration is read over
+            # (chip_smoke.py phase 21); nearly free when no profiler runs
+            with torch.profiler.record_function("admm_iteration"):
+                loop = self._x_loop(z, u, rho_eff, eps)
+                loop.solve(z, u, rho_eff, eps)
+                x = finish(loop.x(), self.present, x_prior(z, u), z)
+                z, u, diffs = consensus(x, z, u, self.lam_vec, rho_base,
+                                        self.block_valid)
+                trip_max = loop.trips().amax(0).to(torch.int64)
+                if self._group is not None:
+                    all_reduce(trip_max, "max", self._group)
+                read = [diffs, trip_max]
+                if track_ll:
+                    read.append(sample_loglik_lanes(*self.test_arrays, z))
+                # the iteration's one host sync
+                host = torch.cat([t.to(torch.float64) for t in read]).cpu()
+            diffs_np = host[:L].numpy()
+            lls = host[L + 2:].numpy()
             iter_times.append(time.monotonic() - t_iter)
-            solver_stats.append(dict(stats))
+            solver_stats.append({"newton_trips": int(host[L]),
+                                 "cg_trips": int(host[L + 1])})
             mindiff = float(diffs_np.min())
             maxdiff = float(diffs_np.max())
             diff_history.append({_lambda_key(l): float(d)
@@ -792,8 +884,7 @@ class AdmmTrainer:
             iter_logliks = None
             if track_ll:
                 iter_logliks = []
-                for li, (lam, ll) in enumerate(zip(self.lambdas,
-                                                   self.sample_loglik(z))):
+                for li, (lam, ll) in enumerate(zip(self.lambdas, lls)):
                     ll = float(ll)
                     entry = {"lambda": _lambda_key(lam), "iter": iteration,
                              "testLoglik": ll}
@@ -803,8 +894,7 @@ class AdmmTrainer:
                     if ll > best_loglik:
                         best_loglik = ll
                         best_lambda = _lambda_key(lam)
-                        best_model = LinearModel.from_dense(
-                            z[li].to(torch.float64).cpu().numpy(), self.vocab)
+                        best_z = z[li].clone()
 
             if callback is not None:
                 callback(iteration=iteration, z=z, u=self._global_u(u),
@@ -816,10 +906,14 @@ class AdmmTrainer:
                 converged = True
                 break
 
+        if dev.type == "cuda":
+            read_counts([lp.loop for lp in self._loops.values()])
         z_np = z.to(torch.float64).cpu().numpy()
         models = {
             _lambda_key(lam): LinearModel.from_dense(z_np[i], self.vocab)
             for i, lam in enumerate(self.lambdas)}
+        best_model = (None if best_z is None else LinearModel.from_dense(
+            best_z.to(torch.float64).cpu().numpy(), self.vocab))
         return AdmmResult(
             models=models, best_model=best_model, best_lambda=best_lambda,
             best_loglik=best_loglik, iterations=iteration,
@@ -837,38 +931,39 @@ class AdmmTrainer:
 
 
 class _Part:
-    """One solve of the x-update inside the device loop, over the blocks
+    """One solve of an x-update inside a device loop, over the blocks
     [b0, b1): the multi-RHS solve of a stacked problem (flat, per-block,
     or one sub-stack of a SubStacks) through MultiSolver, or the lanes
     solve through ops/tron.py's LaneSolver. Its priors, Newton state,
-    running mask and CG state are static tensors, which `set_priors`,
-    `init` and the loop's branches write in place with run()'s ops."""
+    running mask and CG state are static tensors, made here from the
+    first inputs (z, u, rho_eff, eps), which `set_priors`, `init` and the
+    loop's branches write in place with run()'s ops."""
 
-    def __init__(self, fr: "_FusedRun", prob, b0: int, b1: int):
-        tr, cfg = fr.tr, fr.tr.config
-        self.L, self.n = len(tr.lambdas), tr.dim
+    def __init__(self, mode: str, prob, b0: int, b1: int, L: int, n: int,
+                 pcg, max_newton_iter: int, max_cg_iter: int,
+                 z, u, rho_eff, eps):
+        self.L, self.n = L, n
         self.b0, self.b1 = b0, b1
-        self.lanes = tr.mode == "lanes"
+        self.lanes = mode == "lanes"
         B = b1 - b0
         if self.lanes:
             self.prob = prob
             self.blocks = B
         else:
-            self.blocks = B if tr.mode == "per_block" else 1
-            self.prob = multi_problem(prob, tr.mode, B)
-        pm, pvi = self._priors(fr.z, fr.u, fr.rho_tab[1])
+            self.blocks = B if mode == "per_block" else 1
+            self.prob = multi_problem(prob, mode, B)
+        pm, pvi = self._priors(z, u, rho_eff)
         self.pm, self.pvi = _materialize(pm), _materialize(pvi)
         if self.lanes:
             self.solver = LaneSolver(
                 prob._replace(prior_mean=self.pm, prior_var_inv=self.pvi),
-                cfg.max_newton_iter, cfg.max_cg_iter)
+                max_newton_iter, max_cg_iter)
         else:
             self.solver = MultiSolver(
                 self.prob._replace(prior_mean=self.pm,
                                    prior_var_inv=self.pvi),
-                self.L, cfg.pcg, self.blocks, cfg.max_newton_iter,
-                cfg.max_cg_iter)
-        self.ns = _materialize(self._init_state(fr.z, fr.eps()))
+                L, pcg, self.blocks, max_newton_iter, max_cg_iter)
+        self.ns = _materialize(self._init_state(z, eps))
         self.running = _materialize(self.solver.running(self.ns))
         self.cs = _materialize(self.solver.cg_init(self.ns, self.running))
 
@@ -891,6 +986,30 @@ class _Part:
                 eps.repeat(L))
         return self.solver.init(z.T.repeat(self.b1 - self.b0, 1),
                                 eps if self.blocks > 1 else eps.min())
+
+    def state(self) -> list[torch.Tensor]:
+        return [self.pm, self.pvi, self.running, *_leaves(self.ns),
+                *_leaves(self.cs)]
+
+    def shares_shapes(self, other: "_Part") -> bool:
+        """The same state layout: every tensor of one shape and dtype."""
+        mine, theirs = self._tree(), other._tree()
+        return (mine[1] == theirs[1] and len(mine[0]) == len(theirs[0])
+                and all((a is None) == (b is None) and (
+                    a is None or (a.shape == b.shape and a.dtype == b.dtype))
+                    for a, b in zip(mine[0], theirs[0])))
+
+    def _tree(self):
+        return pytree.tree_flatten((self.pm, self.pvi, self.running,
+                                    self.ns, self.cs))
+
+    def adopt(self, other: "_Part") -> None:
+        """Take over `other`'s state tensors (shares_shapes): two solves
+        run one after another keep one state."""
+        self.pm, self.pvi = other.pm, other.pvi
+        self.running, self.ns, self.cs = other.running, other.ns, other.cs
+        self.solver.prob = self.solver.prob._replace(
+            prior_mean=self.pm, prior_var_inv=self.pvi)
 
     def set_priors(self, z, u, rho_eff) -> None:
         pm, pvi = self._priors(z, u, rho_eff)
@@ -915,22 +1034,173 @@ class _Part:
         return self.solver.block_trips(self.ns)
 
 
+# the kernels a solve launches, counted on the card inside a device loop
+_SOLVE_KERNELS = {"segment_sum_gather": segment_sum_sorted,
+                 "gram_batched": gram_batched}
+
+
+class _SolveLoop:
+    """One x-update, build_x_update's solve without its mask and
+    relaxation, as branches over a static state: the counterpart of the
+    JAX step's jitted solve, whose TRON loops are lax.while_loops.
+
+    It has one part (`_Part`) per solve: the one stacked or lanes
+    solve, or one per sub-stack of a SubStacks (`probs`, the
+    [(problem, (b0, b1))] of substacks_of), solved in turn; each has
+    three branches, CG_START (its cg_init), CG (one cg_trip) and EPILOGUE
+    (the Newton epilogue and its next running mask), at phases first +
+    3k + (2, 0, 1). `set_inputs(z, u, rho_eff, eps)` runs eagerly: every
+    part's priors z - u and Newton init written in place, then the first
+    phase chosen on the device (no host read). After it and after each
+    EPILOGUE the phase goes to the CG_START of the first part, from that
+    one on, whose Newton loop still runs, else to `after`: 0 stops a loop
+    of its own, and AdmmTrainer.run_fused's loop goes on to the end of
+    its iteration. `x()` and `trips()` are device tensors.
+
+    `own_loop(pool)` makes the loop of its own (`loop`, an
+    ops/device_loop.DeviceLoop over the branches CG and EPILOGUE of each
+    part, then CG_START of each; on the card captured once, into `pool`,
+    at `prepare`). `share`: loops of the same trainer; where one's parts
+    keep state of the same layout, this one takes over its state tensors
+    (the two solve one after another, never at once)."""
+
+    def __init__(self, mode: str, probs, L: int, n: int, pcg,
+                 max_newton_iter: int, max_cg_iter: int, z, u, rho_eff,
+                 eps, *, first: int = 1, after: int = 0, phase=None,
+                 share: Sequence["_SolveLoop"] = ()):
+        self.first, self.after = first, after
+        self.phase = (torch.zeros((), dtype=torch.int32, device=z.device)
+                      if phase is None else phase)
+        self.parts = [_Part(mode, p, b0, b1, L, n, pcg, max_newton_iter,
+                            max_cg_iter, z, u, rho_eff, eps)
+                      for p, (b0, b1) in probs]
+        for other in share:
+            if len(other.parts) == len(self.parts) and all(
+                    a.shares_shapes(b) for a, b in zip(self.parts,
+                                                       other.parts)):
+                for a, b in zip(self.parts, other.parts):
+                    a.adopt(b)
+                break
+        self.loop: DeviceLoop | None = None
+        many = len(self.parts) > 1
+
+        def name(base, k):
+            return f"{base}.{k}" if many else base
+
+        self.cg_branches, self.init_branches = [], []
+        for k in range(len(self.parts)):
+            self.cg_branches += [
+                (self._cg(k), name("cg_trip", k), self._branch(self.cg_trip, k)),
+                (self._epi(k), name("newton_epilogue", k),
+                 self._branch(self.epilogue, k))]
+            self.init_branches.append((self._cgs(k), name("cg_init", k),
+                                       self._branch(self.cg_init, k)))
+
+    def state(self) -> list[torch.Tensor]:
+        return [t for part in self.parts for t in part.state()]
+
+    def state_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.state())
+
+    def close(self) -> None:
+        """Free the loop's graphs and drop the branches, which refer back
+        to this object, so that its state and problem go with the last
+        reference to it."""
+        if self.loop is not None:
+            self.loop.close()
+        self.cg_branches, self.init_branches = [], []
+
+    def own_loop(self, pool=None) -> DeviceLoop:
+        self.loop = DeviceLoop(self.cg_branches + self.init_branches,
+                               self.phase, self.state(), _SOLVE_KERNELS,
+                               pool=pool)
+        return self.loop
+
+    # part k's phases: CG, EPILOGUE, CG_START
+    def _cg(self, k):
+        return self.first + 3 * k
+
+    def _epi(self, k):
+        return self.first + 1 + 3 * k
+
+    def _cgs(self, k):
+        return self.first + 2 + 3 * k
+
+    @staticmethod
+    def _branch(fn, k):
+        return lambda: fn(k)
+
+    def _next(self, cond, yes, no):
+        self.phase.copy_(torch.where(cond, yes, no))
+
+    def _next_part(self, k):
+        """The CG_START of the first part from k on whose Newton loop runs,
+        else `after`."""
+        nxt = self.after
+        for j in reversed(range(k, len(self.parts))):
+            nxt = torch.where(self.parts[j].running.any(), self._cgs(j), nxt)
+        self.phase.copy_(nxt)
+
+    def set_inputs(self, z, u, rho_eff, eps) -> None:
+        """The solve's inputs, written in place (eager, no host read)."""
+        for part in self.parts:
+            part.set_priors(z, u, rho_eff)
+            part.init(z, eps)
+        self._next_part(0)
+
+    # -- branches ---------------------------------------------------------
+    def cg_init(self, k):
+        part = self.parts[k]
+        _assign(part.cs, part.solver.cg_init(part.ns, part.running))
+        self._next(part.solver.cg_open(part.cs), self._cg(k), self._epi(k))
+
+    def cg_trip(self, k):
+        part = self.parts[k]
+        _assign(part.cs, part.solver.cg_trip(part.ns, part.cs))
+        self._next(part.solver.cg_open(part.cs), self._cg(k), self._epi(k))
+
+    def epilogue(self, k):
+        part = self.parts[k]
+        _assign(part.ns, part.solver.epilogue(part.ns, part.cs))
+        part.running.copy_(part.solver.running(part.ns))
+        self._next_part(k)
+
+    # -- results ----------------------------------------------------------
+    def x(self) -> torch.Tensor:
+        """The x-update before masking, (L, B, n): views of the state (the
+        next set_inputs overwrites them)."""
+        if len(self.parts) > 1:
+            return torch.cat([p.x() for p in self.parts], 1)
+        return self.parts[0].x()
+
+    def trips(self) -> torch.Tensor:
+        """(k, 2) (Newton, CG) counts, as build_x_update's solve reports
+        them."""
+        return torch.cat([p.trips() for p in self.parts])
+
+    def solve(self, z, u, rho_eff, eps) -> None:
+        """set_inputs, then the loop (one graph launch on the card)."""
+        self.set_inputs(z, u, rho_eff, eps)
+        self.loop.run()
+
+
 class _FusedRun:
     """run_fused's static state and the branches of its device loop.
 
     Every tensor here is made before the loop; each branch reads and
     writes only these (the solvers' states copied in place) and sets the
-    next phase. The x-update is one or more parts (`_Part`: the one
-    multi-RHS or lanes solve, or one per sub-stack of a SubStacks, solved
-    in turn), each with its own three branches. A pass of the loop takes
-    the branches in the order CG and EPILOGUE of each part, ITER_END,
+    next phase. The x-update is a `_SolveLoop` (one part per solve, each
+    with its three branches) whose phases start at 3 and which goes on to
+    ITER_END when no part's Newton loop runs. A pass of the loop takes the
+    branches in the order CG and EPILOGUE of each part, ITER_END,
     ITER_START, CG_START of each part, so one pass can run a CG trip, the
     Newton step after it, the end of the ADMM iteration and the next one's
     start. Each branch does what run() does at that point, with the same
     ops in the same order:
 
-      ITER_START  the inner-eps ladder, the rho row, eps, every part's
-                  priors z - u, Newton init and running mask;
+      ITER_START  the inner-eps ladder, the rho row, eps, and the solve's
+                  set_inputs (every part's priors z - u, Newton init and
+                  running mask, and the first phase);
       CG_START    the part's cg_init;
       CG          one cg_trip of the part;
       EPILOGUE    the part's Newton epilogue and its next running mask;
@@ -942,11 +1212,9 @@ class _FusedRun:
                   float64 against epsilon, as run() compares), then the
                   next iteration or a stop.
 
-    After ITER_START and each EPILOGUE the phase goes to the CG_START of
-    the first part, from that one on, whose Newton loop still runs, else to
-    ITER_END. Under a mesh every rank runs its own phases over its own
-    blocks and passes ITER_END once an iteration, so the collectives pair
-    up across the ranks in order."""
+    Under a mesh every rank runs its own phases over its own blocks and
+    passes ITER_END once an iteration, so the collectives pair up across
+    the ranks in order."""
 
     ITER_END, ITER_START = 1, 2
 
@@ -983,63 +1251,27 @@ class _FusedRun:
         self.phase = full((), 0, torch.int32)
         # rho_eff per iteration, made by run()'s own function (row 0 is
         # iteration 1's, never read)
-        boost = cfg.initialize_boost_rate if z0 is not None else 0.0
-        self.rho_tab = torch.as_tensor([
-            [admm_math.rho_effective(
-                r, max(i, 1), initialize_boost_rate=boost,
-                rho_adapt_coefficient=cfg.rho_adapt_coefficient)
-             for r in tr.rhos] for i in range(max_it + 1)],
-            dtype=dtype, device=dev)
+        self.rho_tab = _rho_table(tr.rhos, max_it, cfg, z0 is not None, dev)
         self.rho_base = torch.as_tensor(tr.rhos, dtype=dtype, device=dev)
 
         # the solve, over the problem with its priors in place
         self.solve = tr.step.solve
-        self.parts = [_Part(self, p, b0, b1)
-                      for p, (b0, b1) in substacks_of(tr.prob, B)]
+        self.x_update = tr._solve_loop(self.z, self.u, self.rho_tab[1],
+                                       self.eps(), first=3,
+                                       after=self.ITER_END, phase=self.phase)
 
         state = [self.z, self.u, self.inner_eps, self.mindiff, self.it,
                  self.done, self.diffs_h, self.ll_h, self.best_ll,
                  self.best_z, self.best_lam, self.best_it, self.nt_tot,
-                 self.cg_tot]
-        for part in self.parts:
-            state += [part.pm, part.pvi, part.running, *_leaves(part.ns),
-                      *_leaves(part.cs)]
-        many = len(self.parts) > 1
-
-        def name(base, k):
-            return f"{base}.{k}" if many else base
-
-        branches = []
-        for k, part in enumerate(self.parts):
-            branches += [(self._cg(k), name("cg_trip", k),
-                          self._branch(self.cg_trip, k)),
-                         (self._epi(k), name("newton_epilogue", k),
-                          self._branch(self.epilogue, k))]
-        branches += [(self.ITER_END, "iteration_end", self.iteration_end),
-                     (self.ITER_START, "iteration_start",
-                      self.iteration_start)]
-        branches += [(self._cgs(k), name("cg_init", k),
-                      self._branch(self.cg_init, k))
-                     for k in range(len(self.parts))]
-        self.loop = DeviceLoop(
-            branches, self.phase, state,
-            kernels={"segment_sum_gather": segment_sum_sorted,
-                     "gram_batched": gram_batched,
-                     "all_reduce": all_reduce})
-
-    # part k's phases: CG, EPILOGUE, CG_START
-    def _cg(self, k):
-        return 3 + 3 * k
-
-    def _epi(self, k):
-        return 4 + 3 * k
-
-    def _cgs(self, k):
-        return 5 + 3 * k
-
-    @staticmethod
-    def _branch(fn, k):
-        return lambda: fn(k)
+                 self.cg_tot, *self.x_update.state()]
+        branches = (self.x_update.cg_branches
+                    + [(self.ITER_END, "iteration_end", self.iteration_end),
+                       (self.ITER_START, "iteration_start",
+                        self.iteration_start)]
+                    + self.x_update.init_branches)
+        self.loop = DeviceLoop(branches, self.phase, state,
+                               kernels=dict(_SOLVE_KERNELS,
+                                            all_reduce=all_reduce))
 
     def eps(self):
         # run() computes inner_eps * eps_scale from a Python float: the
@@ -1048,14 +1280,6 @@ class _FusedRun:
 
     def _next(self, cond, yes, no):
         self.phase.copy_(torch.where(cond, yes, no))
-
-    def _next_part(self, k):
-        """The CG_START of the first part from k on whose Newton loop runs,
-        else ITER_END."""
-        nxt = self.ITER_END
-        for j in reversed(range(k, len(self.parts))):
-            nxt = torch.where(self.parts[j].running.any(), self._cgs(j), nxt)
-        self.phase.copy_(nxt)
 
     def start_chunk(self, last_iteration: int) -> None:
         """Run iterations up to `last_iteration` (no host read)."""
@@ -1073,40 +1297,18 @@ class _FusedRun:
                                  ie / 10.0, ie)
         ie.copy_(ie_new)
         rho = self.rho_tab.index_select(0, it.view(1))[0]
-        eps = self.eps()
-        for part in self.parts:
-            part.set_priors(self.z, self.u, rho)
-            part.init(self.z, eps)
-        self._next_part(0)
-
-    def cg_init(self, k):
-        part = self.parts[k]
-        _assign(part.cs, part.solver.cg_init(part.ns, part.running))
-        self._next(part.solver.cg_open(part.cs), self._cg(k), self._epi(k))
-
-    def cg_trip(self, k):
-        part = self.parts[k]
-        _assign(part.cs, part.solver.cg_trip(part.ns, part.cs))
-        self._next(part.solver.cg_open(part.cs), self._cg(k), self._epi(k))
-
-    def epilogue(self, k):
-        part = self.parts[k]
-        _assign(part.ns, part.solver.epilogue(part.ns, part.cs))
-        part.running.copy_(part.solver.running(part.ns))
-        self._next_part(k)
+        self.x_update.set_inputs(self.z, self.u, rho, self.eps())
 
     def iteration_end(self):
         tr, cfg, it = self.tr, self.tr.config, self.it
         prior_mean = x_prior(self.z, self.u)
-        x = torch.cat([p.x() for p in self.parts], 1) \
-            if len(self.parts) > 1 else self.parts[0].x()
-        x = self.solve.finish(x, tr.present, prior_mean, self.z)
+        x = self.solve.finish(self.x_update.x(), tr.present, prior_mean,
+                              self.z)
         z_new, u_new, diffs = tr.step.consensus(x, self.z, self.u,
                                                 tr.lam_vec, self.rho_base,
                                                 tr.block_valid)
         self.diffs_h.index_copy_(0, it.view(1), diffs[None])
-        trip_max = torch.cat([p.trips() for p in self.parts]).amax(0).to(
-            torch.int64)
+        trip_max = self.x_update.trips().amax(0).to(torch.int64)
         if tr._group is not None:
             all_reduce(trip_max, "max", tr._group)
         self.nt_tot += trip_max[0]

@@ -20,16 +20,31 @@ packed groups, and each ADMM iteration runs
   phase 2: z-update from the accumulated xbar/ubar;
   phase 3: u_g += x_g - z per group.
 
-**Overlap.** The port's `tron_multi` is a host loop that reads back once
-per Newton/CG trip, so a copy issued after the solve call (the JAX order)
-would start only once the solve had ended. Group g+1's copies are therefore
-issued on a dedicated copy stream *before* group g is solved, and the
-compute stream waits on an event before it uses them. Buffers for a
-streamed group are allocated on the copy stream and `record_stream`ed onto
-the compute stream, so the caching allocator never hands them out again
-while a solve still reads them. The compact-wire rebuilds (COO scatter of
-the head, inverse-permutation gather of the row-sorted tail) run on the
-copy stream too, after their copies.
+**One program per group.** Each group's x-update is the in-memory
+trainer's device loop (train/admm.py::_SolveLoop): on the card one launch
+of a CUDA graph that loops until the group's solves stop, captured at the
+group's first solve and kept; on the CPU the same branches run eagerly.
+The iteration reads the host once, as the JAX one does: the diffs, the
+sample logliks and every group's (Newton, CG) trips, in one copy; rho_eff
+and eps reach the device without a blocking copy. `build_group_solver`,
+the host-driven solve, is the reference the loops are held to.
+
+**Slots and overlap.** A captured graph reads fixed addresses, so a
+streamed group lands in one of two persistent slots (`_Slot`), used
+alternately and each sized for the largest group that ships, and its loop
+reads views of that slot; resident groups keep their own device tensors
+and their own loop. Group g+1's copies are issued on a dedicated copy
+stream *before* group g is solved, the compute stream waits on an event
+before it uses them, and the copy into a slot waits on an event that the
+compute stream records after the last solve that read the slot (with an
+odd number of shipping groups the first and the last share a slot from
+one iteration to the next). The compact-wire rebuilds (COO scatter of the
+head, inverse-permutation gather of the row-sorted tail) run on the copy
+stream too, after their copies, into the slot. A group's loop keeps its
+solver state; groups whose state has one layout share it (they are solved
+one after another), and all of a trainer's loops share one graph memory
+pool. The slots and that state are solver state, outside the residency
+budget below (`_cap_budget` reserves the two slots).
 
 **Host arrays.** Each group's arrays are converted once, group by group, to
 the compute dtype (the dense head to head_dtype: a bfloat16 head is a host
@@ -73,8 +88,10 @@ from __future__ import annotations
 
 import contextlib
 import logging
+import math
 import os
 import time
+import weakref
 from typing import Callable, Sequence
 
 import numpy as np
@@ -85,6 +102,7 @@ from mlease_tpu_torch.core.dataset import (BlockedData, _numpy_dtype,
 from mlease_tpu_torch.core.linear_model import LinearModel
 from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
+from mlease_tpu_torch.ops.device_loop import read_counts, uncounted
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, SubStacks,
                                              stack_fits, substack_ranges,
@@ -94,9 +112,13 @@ from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, axis_size,
                                             block_sharding, local_blocks,
                                             mesh_device)
 from mlease_tpu_torch.train.admm import (MAX_NTEST_EVENTS, AdmmConfig,
-                                         AdmmResult, _lambda_key,
+                                         AdmmResult, _close_loops,
+                                         _graph_pool, _lambda_key, _leaves,
+                                         _rho_table, _SOLVE_KERNELS,
+                                         _SolveLoop, _to_device,
                                          build_x_update, sample_loglik_lanes,
-                                         solver_mode, unstack_problem)
+                                         solver_mode, unstack_problem,
+                                         x_prior)
 
 logger = logging.getLogger(__name__)
 
@@ -224,21 +246,74 @@ def _column_order(indices: np.ndarray, ranges) -> torch.Tensor:
         .astype(np.int32) for b0, b1 in ranges]))
 
 
-def _gather_row_sorted(tc_rows, tc_cols, tc_vals, inv):
-    """Row-sorted tail from the column-sorted one (flat, stacked)."""
-    return tc_rows[inv], tc_cols[inv], tc_vals[inv]
+def _gather_row_sorted(tc, inv, out):
+    """Row-sorted tail from the column-sorted one (flat, stacked): each of
+    the three streams `tc` gathered by `inv` into its `out` tensor."""
+    return tuple(torch.index_select(a, 0, inv, out=o)
+                 for a, o in zip(tc, out))
 
 
-def _scatter_head_dense(hrows, hcols, hvals, shape):
-    """The dense (B, R, H) head from its COO triplet. index_add_, not an
-    assignment: the shared-length padding adds (0, 0, 0.0) entries, which
-    add nothing into slot (0, 0), while the real entries are unique
-    nonzeros of a zero base, so add equals set bit for bit."""
-    B, R, H = shape
-    flat = torch.zeros(B * R * H, dtype=hvals.dtype, device=hvals.device)
+def _scatter_head_dense(hrows, hcols, hvals, out):
+    """The dense (B, R, H) head from its COO triplet, into `out`.
+    index_add_ into zeros, not an assignment: the shared-length padding
+    adds (0, 0, 0.0) entries, which add nothing into slot (0, 0), while the
+    real entries are unique nonzeros of a zero base, so add equals set bit
+    for bit."""
+    H = out.shape[2]
+    flat = out.view(-1).zero_()
     lin = hrows.to(torch.int64) * H + hcols.to(torch.int64)
     flat.index_add_(0, lin, hvals)
-    return flat.view(B, R, H)
+    return out
+
+
+class _Slot:
+    """One persistent device buffer per field (name -> (numel, dtype)),
+    sized for the largest group that ships the field; a group's arrays are
+    views of them (`view`). `free` (on the card) is the event the compute
+    stream records after the last solve that read the slot."""
+
+    def __init__(self, sizes: dict, device: torch.device):
+        self.buf = {f: torch.empty(numel, dtype=dt, device=device)
+                    for f, (numel, dt) in sizes.items()}
+        self.free = torch.cuda.Event() if device.type == "cuda" else None
+
+    def view(self, field: str, shape, dtype) -> torch.Tensor:
+        b = self.buf[field]
+        if b.dtype != dtype:
+            raise TypeError(f"slot field {field}: {dtype}, not {b.dtype}")
+        return b[:math.prod(shape)].view(shape)
+
+    def nbytes(self) -> int:
+        return sum(b.numel() * b.element_size() for b in self.buf.values())
+
+
+def _lanes_problem(prob, nblocks: int, n: int, dtype, csc_perm=None):
+    """A group's stacked problem (or SubStacks) as the lanes solve takes
+    it: each sub-stack unstacked (train/admm.py::unstack_problem), with
+    its share of the column order `csc_perm`."""
+    parts, off = [], 0
+    for p, (b0, b1) in substacks_of(prob, nblocks):
+        e = p.indices.numel()
+        parts.append(unstack_problem(
+            p, b1 - b0, n, dtype,
+            None if csc_perm is None else csc_perm[off:off + e]))
+        off += e
+    return (SubStacks(tuple(parts), prob.ranges)
+            if isinstance(prob, SubStacks) else parts[0])
+
+
+def _refresh(parts, probs) -> None:
+    """Write a streamed lanes group's problem, unstacked anew from its
+    slot, into the tensors its loop reads: the views of the slot are
+    those tensors already; what unstacking derives is copied in place."""
+    for part, (prob, _r) in zip(parts, probs, strict=True):
+        for d, s in zip(_tensors(part.prob), _tensors(prob), strict=True):
+            if d.data_ptr() != s.data_ptr():
+                d.copy_(s)
+
+
+def _tensors(tree) -> list[torch.Tensor]:
+    return [t for t in _leaves(tree) if isinstance(t, torch.Tensor)]
 
 
 def _device_hbm_bytes(dev: torch.device) -> int:
@@ -293,15 +368,8 @@ def build_group_solver(max_newton_iter: int, max_cg_iter: int,
 
     def run(prob: MultiProblem, present, z, u, rho_eff, eps, csc_perm=None):
         if mode == "lanes":
-            parts, off = [], 0
-            for p, (b0, b1) in substacks_of(prob, u.shape[1]):
-                e = p.indices.numel()
-                parts.append(unstack_problem(
-                    p, b1 - b0, z.shape[1], z.dtype,
-                    None if csc_perm is None else csc_perm[off:off + e]))
-                off += e
-            prob = (SubStacks(tuple(parts), prob.ranges)
-                    if isinstance(prob, SubStacks) else parts[0])
+            prob = _lanes_problem(prob, u.shape[1], z.shape[1], z.dtype,
+                                  csc_perm)
         x, trips = solve(prob, present, z, u, rho_eff, eps)
         nt, cg = trips.sum(0)
         return x, int(nt), int(cg)
@@ -348,9 +416,12 @@ class StreamingAdmmTrainer:
         self.mode = solver_mode(config.multi_rhs, config.flat_blocks,
                                 False, config.pcg, mesh,
                                 fits=groups_fit(groups))
-        self.solver = build_group_solver(
-            config.max_newton_iter, config.max_cg_iter, mode=self.mode,
-            pcg=config.pcg, relaxation=config.relaxation)
+        # the mask and relaxation of an x-update (build_x_update's finish)
+        self._finish = build_x_update(self.mode, config.max_newton_iter,
+                                      config.max_cg_iter, config.pcg,
+                                      config.relaxation).finish
+        self._solve_args = (config.pcg, config.max_newton_iter,
+                            config.max_cg_iter)
         self.device = dev = resolve_device(device)
         on_card = dev.type == "cuda"
         # numpy has no bfloat16: a bfloat16 run normalises its host arrays
@@ -413,13 +484,14 @@ class StreamingAdmmTrainer:
         # rank's slice of it; pad_idx[gi] the padded local blocks (masked)
         self._group_comm = None
         self.pad_idx: list = [None] * len(groups)
+        self._pad_host: dict = {}
         if mesh is not None:
             self._group_comm = mesh.get_group(BLOCK_AXIS)
             for i, g in enumerate(groups):
                 groups[i], valid = local_blocks(mesh, g)
                 if not valid.all():
-                    self.pad_idx[i] = torch.as_tensor(
-                        np.nonzero(~valid)[0], device=dev)
+                    self._pad_host[i] = torch.as_tensor(np.nonzero(~valid)[0])
+                    self.pad_idx[i] = self._pad_host[i].to(dev)
         self.vocab = vocab
         self.config = config
         self.dim = groups[0].dim
@@ -491,8 +563,9 @@ class StreamingAdmmTrainer:
                 gb = _group_stream_bytes(g) + _nbytes(self.csc_perms[gi])
                 if gb > budget:
                     break
-                put = self._put_group(gi)
-                self._resident_groups[gi] = (put[0], put[1], put[4])
+                self._resident_groups[gi] = self._ship(
+                    gi, lambda f, shape, dt: torch.empty(shape, dtype=dt,
+                                                         device=dev))
                 budget -= gb
                 pinned += gb
             for gi, g in enumerate(self.groups):
@@ -545,6 +618,18 @@ class StreamingAdmmTrainer:
                     self._dense_wire_bytes() / (1 << 30),
                     self.stream_wire_bytes() / (1 << 30))
         del inv_perms
+
+        # ---- the two slots of the groups that ship, and the loops -------
+        # (a group ships its data unless wholly resident, and its u with
+        # host-resident consensus)
+        ship = [gi for gi in range(len(self.groups))
+                if gi not in self._resident_groups
+                or not self._consensus_device]
+        self._slot_of = {gi: k % 2 for k, gi in enumerate(ship)}
+        self._slots: list[_Slot] = []     # made at the first copy
+        self._loops: dict[int, _SolveLoop] = {}   # freed with the trainer
+        weakref.finalize(self, _close_loops, self._loops).atexit = False
+        self._pool = _graph_pool(dev)
 
         self.lam_vec = torch.as_tensor(np.stack([
             admm_math.per_feature_lambda(l, self.dim, config.lambda_map,
@@ -741,134 +826,239 @@ class StreamingAdmmTrainer:
             torch.float64).cpu().numpy()
 
     # ------------------------------------------------------------------
+    def _slot_fields(self, gi: int) -> dict:
+        """field -> (shape, dtype) of what group gi ships into its slot."""
+        g, out = self.groups[gi], {}
+        if not self._consensus_device:
+            out["u"] = ((len(self.lambdas), g.nblocks, self.dim),
+                        self.config.dtype)
+        if gi in self._resident_groups:
+            return out
+        B, R = g.nblocks, g.padded_rows
+        fields = {"indices": g.indices.view(B * R, -1),
+                  "values": g.values.view(B * R, -1), "y": g.y,
+                  "weight": g.weight, "offset": g.offset,
+                  "present": g.present, "perm": self.csc_perms[gi]}
+        if self.use_head:
+            fields.update({f: getattr(g, f) for f in (
+                "tail_rows", "tail_cols", "tail_vals")})
+            if gi not in self._resident_ctails:
+                fields.update({f: getattr(g, f) for f in _CTAIL})
+            if gi not in self._resident_heads:
+                fields.update(head=g.head, head_ids=g.head_ids)
+        for f, a in fields.items():
+            if a is not None:
+                out[f] = (tuple(a.shape), a.dtype)
+        return out
+
+    def _slot_sizes(self, gis) -> dict:
+        """field -> (the largest numel over the groups gis, dtype)."""
+        sizes: dict = {}
+        for gi in gis:
+            for f, (shape, dt) in self._slot_fields(gi).items():
+                numel = max(math.prod(shape), sizes.get(f, (0, dt))[0])
+                sizes[f] = (numel, dt)
+        return sizes
+
+    def _ship(self, gi: int, dst):
+        """Group gi's arrays on the device, copied into dst(field, shape,
+        dtype) tensors on the current stream (non-blocking from page-locked
+        memory), the compact-wire rebuilds into them after their copies:
+        (the group's MultiProblem without its prior, present, the column
+        order of a lanes solve on the card or None). Resident heads and
+        column-sorted tails are used as they are."""
+        g = self.groups[gi]
+        w = self._wire.get(gi, {})
+        dev = self.device
+
+        def put(f, t):
+            if t is None:
+                return None
+            d = dst(f, tuple(t.shape), t.dtype)
+            d.copy_(t, non_blocking=True)
+            return d
+
+        head = {}
+        if self.use_head:
+            if gi in self._resident_ctails:
+                tc = self._resident_ctails[gi]
+            else:
+                tc = tuple(put(f, getattr(g, f).view(-1)) for f in _CTAIL)
+            if "tail_inv" in w:
+                inv = w["tail_inv"].view(-1).to(dev, non_blocking=True)
+                t = _gather_row_sorted(tc, inv, [
+                    dst(f, (inv.numel(),), a.dtype) for f, a in zip(
+                        ("tail_rows", "tail_cols", "tail_vals"), tc)])
+            else:
+                t = tuple(put(f, getattr(g, f).view(-1)) for f in (
+                    "tail_rows", "tail_cols", "tail_vals"))
+            if gi in self._resident_heads:
+                head_x, head_ids = self._resident_heads[gi]
+            elif "head_coo" in w:
+                head_x = _scatter_head_dense(
+                    *(a.to(dev, non_blocking=True) for a in w["head_coo"]),
+                    out=dst("head", tuple(g.head.shape), g.head.dtype))
+                head_ids = put("head_ids", g.head_ids)
+            else:
+                head_x, head_ids = put("head", g.head), put("head_ids",
+                                                            g.head_ids)
+            head = dict(head_x=head_x, head_ids=head_ids,
+                        tail_rows=t[0], tail_cols=t[1],
+                        tail_vals=t[2], tail_c_rows=tc[0],
+                        tail_c_cols=tc[1], tail_c_vals=tc[2])
+        B, R = g.nblocks, g.padded_rows
+        prob = MultiProblem(
+            indices=put("indices", g.indices.view(B * R, -1)),
+            values=put("values", g.values.view(B * R, -1)),
+            y=put("y", g.y.view(-1)), weight=put("weight", g.weight.view(-1)),
+            offset=put("offset", g.offset.view(-1)), prior_mean=None,
+            prior_var_inv=None, **head)
+        return prob, put("present", g.present), put("perm",
+                                                   self.csc_perms[gi])
+
     def _put_group(self, gi: int, u_host: torch.Tensor | None = None):
         """Issue group gi's host->device copies (and its compact-wire
-        rebuilds) on the copy stream; return (the group's MultiProblem
-        without its prior, present, u on the device or None, the event the
-        compute stream waits on before using them, or None when nothing was
-        copied, the column order of a lanes solve on the card or None).
-        Pinned tiers hand back their device arrays as they are."""
+        rebuilds) into its slot on the copy stream, once the compute stream
+        has passed the last solve that read the slot; return (the group's
+        MultiProblem without its prior, present, u on the device or None,
+        the event the compute stream waits on before using them, or None
+        when nothing was copied, the column order of a lanes solve on the
+        card or None). Pinned tiers hand back their device arrays as they
+        are."""
         if gi in self._resident_groups and u_host is None:
             prob, present, perm = self._resident_groups[gi]
             return prob, present, None, None, perm
+        if not self._slots:
+            self._slots = [_Slot(self._slot_sizes(
+                [g for g, k in self._slot_of.items() if k == s]),
+                self.device) for s in range(min(len(self._slot_of), 2))]
+        slot = self._slots[self._slot_of[gi]]
         cs = self._copy_stream
-        compute = torch.cuda.current_stream(self.device) if cs else None
-        made: list[torch.Tensor] = []
-
-        def put(t):
-            if t is None:
-                return None
-            d = t.to(self.device, non_blocking=True)
-            made.append(d)
-            return d
-
         ctx = torch.cuda.stream(cs) if cs is not None else \
             contextlib.nullcontext()
         with ctx:
-            u_dev = put(u_host)
+            if cs is not None:
+                cs.wait_event(slot.free)
+            u_dev = None
+            if u_host is not None:
+                u_dev = slot.view("u", tuple(u_host.shape), u_host.dtype)
+                u_dev.copy_(u_host, non_blocking=True)
             if gi in self._resident_groups:
                 prob, present, perm = self._resident_groups[gi]
             else:
-                g = self.groups[gi]
-                w = self._wire.get(gi, {})
-                head = {}
-                if self.use_head:
-                    if gi in self._resident_ctails:
-                        tc = self._resident_ctails[gi]
-                    else:
-                        tc = tuple(put(getattr(g, f).view(-1))
-                                   for f in _CTAIL)
-                    if "tail_inv" in w:
-                        t = _gather_row_sorted(*tc, put(w["tail_inv"]
-                                                        .view(-1)))
-                        made.extend(t)
-                    else:
-                        t = tuple(put(getattr(g, f).view(-1)) for f in (
-                            "tail_rows", "tail_cols", "tail_vals"))
-                    if gi in self._resident_heads:
-                        head_x, head_ids = self._resident_heads[gi]
-                    elif "head_coo" in w:
-                        head_x = _scatter_head_dense(
-                            *(put(a) for a in w["head_coo"]), g.head.shape)
-                        made.append(head_x)
-                        head_ids = put(g.head_ids)
-                    else:
-                        head_x, head_ids = put(g.head), put(g.head_ids)
-                    head = dict(head_x=head_x, head_ids=head_ids,
-                                tail_rows=t[0], tail_cols=t[1],
-                                tail_vals=t[2], tail_c_rows=tc[0],
-                                tail_c_cols=tc[1], tail_c_vals=tc[2])
-                B, R = g.nblocks, g.padded_rows
-                prob = MultiProblem(
-                    indices=put(g.indices.view(B * R, -1)),
-                    values=put(g.values.view(B * R, -1)),
-                    y=put(g.y.view(-1)), weight=put(g.weight.view(-1)),
-                    offset=put(g.offset.view(-1)), prior_mean=None,
-                    prior_var_inv=None, **head)
-                present = put(g.present)
-                perm = put(self.csc_perms[gi])
+                prob, present, perm = self._ship(gi, slot.view)
         if cs is None:
             return prob, present, u_dev, None, perm
-        for d in made:
-            d.record_stream(compute)
         ev = torch.cuda.Event()
         ev.record(cs)
         return prob, present, u_dev, ev, perm
+
+    def _group_problems(self, gi: int, prob, perm) -> list:
+        """[(problem, (b0, b1))] of group gi's solve: its sub-stacks (views)
+        and, for the lanes solve, each unstacked."""
+        B = self.groups[gi].nblocks
+        if len(self.ranges[gi]) > 1:
+            prob = _split_substacks(prob, self.ranges[gi])
+        if self.mode == "lanes":
+            prob = _lanes_problem(prob, B, self.dim, self.config.dtype, perm)
+        return substacks_of(prob, B)
+
+    def _solve_group(self, gi: int, prob, present, z, u, rho_eff, eps,
+                     perm):
+        """Group gi's x-update through its _SolveLoop, made (and on the
+        card captured, sharing the state of a loop of the same layout) at
+        its first solve: (x (L, B, n), its (Newton, CG) trips summed over
+        the solve's counters, (2,) on the device). A streamed lanes
+        group's problem is unstacked anew into the loop's tensors."""
+        loop = self._loops.get(gi)
+        if loop is None:
+            pcg, max_newton_iter, max_cg_iter = self._solve_args
+            with uncounted(_SOLVE_KERNELS.values()):
+                loop = _SolveLoop(
+                    self.mode, self._group_problems(gi, prob, perm),
+                    len(self.lambdas), self.dim, pcg, max_newton_iter,
+                    max_cg_iter, z, u, rho_eff, eps,
+                    share=list(self._loops.values()))
+                loop.own_loop(self._pool).prepare()
+            self._loops[gi] = loop
+        elif self.mode == "lanes" and gi not in self._resident_groups:
+            _refresh(loop.parts, self._group_problems(gi, prob, perm))
+        loop.solve(z, u, rho_eff, eps)
+        x = self._finish(loop.x(), present, x_prior(z, u), z)
+        return x, loop.trips().sum(0)
+
+    def _loop_bytes(self) -> dict:
+        """Device bytes of the loops' persistent state beside the data:
+        the two slots and the solver state (shared state counted once)."""
+        seen, state = set(), 0
+        for lp in self._loops.values():
+            for t in lp.state():
+                if t.data_ptr() not in seen:
+                    seen.add(t.data_ptr())
+                    state += t.numel() * t.element_size()
+        return {"slots": sum(sl.nbytes() for sl in self._slots),
+                "solver_state": state}
 
     def _iterate(self, z, u_groups, rho_eff, rho_base, inner_eps: float,
                  track_ll: bool):
         """Phases 1-3 of one iteration: every group's solve (the next
         group's copies issued first), the z-update from the partial sums,
         u_g += x_g - z in place. Returns (z_new, diffs, sample logliks or
-        None, the (G, 2) newton/cg trips); the one readback of diffs (and
-        logliks) is its only host sync besides the solves' own."""
+        None, the (G, 2) newton/cg trips); the one readback of diffs,
+        logliks and trips is its only host sync (a gloo mesh's collectives
+        aside)."""
         cfg = self.config
         dtype, dev = cfg.dtype, self.device
         L, N, G = len(self.lambdas), self.nblocks, len(self.groups)
         dev_consensus = self._consensus_device
+        compute = torch.cuda.current_stream(dev) if dev.type == "cuda" \
+            else None
+        # every group's tolerances, the products in float64 rounded once
+        # to the compute dtype, in one copy
+        eps_all = _to_device(np.concatenate(
+            [inner_eps * scale for scale in self.eps_scales]), dtype,
+            dev).split([len(s) for s in self.eps_scales])
         xsum = usum = None
-        trip_mat = np.zeros((G, 2), np.int64)
+        trips = []
         x_keep: list[torch.Tensor] = []
         # host-resident consensus ships each group's u with its data
         ship_u = [None] * G if dev_consensus else u_groups
         pending = self._put_group(0, ship_u[0])
-        for gi, scale in enumerate(self.eps_scales):
+        for gi in range(G):
             prob, present, u_dev, ready, perm = pending
-            # the next group's copies go out BEFORE this group's solve: the
-            # solve is a host loop that syncs once per trip, so a copy
-            # issued after it would start only when it had ended
+            # the next group's copies go out BEFORE this group's solve (into
+            # the other slot): they overlap the solve
             if gi + 1 < G:
                 pending = self._put_group(gi + 1, ship_u[gi + 1])
             if ready is not None:
-                torch.cuda.current_stream(dev).wait_event(ready)
+                compute.wait_event(ready)
             u_g = u_groups[gi] if dev_consensus else u_dev
-            if len(self.ranges[gi]) > 1:
-                prob = _split_substacks(prob, self.ranges[gi])
-            # the product in float64, rounded once to the compute dtype
-            eps = torch.as_tensor(np.asarray(inner_eps * scale),
-                                  dtype=dtype, device=dev)
-            x, nt, cg = self.solver(prob, present, z, u_g, rho_eff, eps, perm)
-            trip_mat[gi] = (nt, cg)
+            x, trip = self._solve_group(gi, prob, present, z, u_g, rho_eff,
+                                        eps_all[gi], perm)
+            trips.append(trip)
             pad = self.pad_idx[gi]
             if pad is not None:         # mesh padding: out of the sums
                 x = x.index_fill(1, pad, 0.0)
             xs, us = x.sum(1), u_g.sum(1)
             xsum = xs if xsum is None else xsum + xs
             usum = us if usum is None else usum + us
+            if compute is not None and gi in self._slot_of:
+                # the slot's last reader is queued: its next copy may follow
+                self._slots[self._slot_of[gi]].free.record(compute)
             if dev_consensus:
                 x_keep.append(x)
             else:
                 xh = self._pin(torch.empty(x.shape, dtype=dtype))
                 x_keep.append(xh.copy_(x, non_blocking=True))
             del prob, present, u_dev, x, u_g, perm
+        trip_dev = torch.stack(trips)
         if self._group_comm is not None:
-            # the mesh's one collective of the iteration: every rank's
-            # partial sums, then the same z on every rank
+            # the mesh's collectives of the iteration: every rank's partial
+            # sums, then the same z on every rank; the trips summed beside
             sums = all_reduce(torch.stack([xsum, usum]), "sum",
                               self._group_comm)
             xsum, usum = sums[0], sums[1]
-            t = torch.as_tensor(trip_mat, device=dev)
-            trip_mat = all_reduce(t, "sum", self._group_comm).cpu().numpy()
+            all_reduce(trip_dev, "sum", self._group_comm)
         # consensus shrinkage uses the BASE rho; adaptation only shapes the
         # x-subproblem (RegressionAdmmTrain.java:368-380 vs :648-658)
         v = (xsum + usum) / N
@@ -883,24 +1073,36 @@ class StreamingAdmmTrainer:
                 cfg.penalize_intercept,
                 reference_compat=cfg.reference_l1_compat)
         diffs_dev = admm_math.max_abs_diff(z_new, z, axis=-1)
+        read = [diffs_dev]
         if track_ll:
-            ll_dev = sample_loglik_lanes(*self.test_arrays, z_new)
-            out = torch.cat([diffs_dev, ll_dev]).to(torch.float64).cpu()
-            diffs, lls = out[:L].numpy(), out[L:].numpy()
-        else:
-            diffs, lls = diffs_dev.to(torch.float64).cpu().numpy(), None
-        # the readback above synced the compute stream, so the host copies
-        # of x (host consensus) have landed. Phase 3, u += x - z
-        # (admm_math.u_update in place, so a host-resident u stays in its
-        # page-locked buffer): the same elementwise (u + x) - z on either
-        # side gives the same bits
-        z_ref = z_new if dev_consensus else z_new.cpu()
+            read.append(sample_loglik_lanes(*self.test_arrays, z_new))
+        read.append(trip_dev.view(-1))
+        z_ref = z_new
+        if not dev_consensus and dev.type == "cuda":
+            z_ref = self._pin(torch.empty(z_new.shape, dtype=dtype))
+            z_ref.copy_(z_new, non_blocking=True)
+        # the iteration's one host sync; the host copies of x and z (host
+        # consensus) landed before it
+        host = torch.cat([t.to(torch.float64) for t in read]).cpu().numpy()
+        diffs = host[:L]
+        lls = host[L:2 * L] if track_ll else None
+        trip_mat = host[-2 * G:].astype(np.int64).reshape(G, 2)
+        # Phase 3, u += x - z (admm_math.u_update in place, so a
+        # host-resident u stays in its page-locked buffer): the same
+        # elementwise (u + x) - z on either side gives the same bits
         for gi in range(G):
             u_groups[gi].add_(x_keep[gi]).sub_(z_ref[:, None, :])
-            pad = self.pad_idx[gi]
+            pad = self._pad_on(gi, u_groups[gi].device)
             if pad is not None:         # padded blocks keep zero duals
-                u_groups[gi].index_fill_(1, pad.to(u_groups[gi].device), 0.0)
+                u_groups[gi].index_fill_(1, pad, 0.0)
         return z_new, diffs, lls, trip_mat
+
+    def _pad_on(self, gi: int, device) -> torch.Tensor | None:
+        """Group gi's padded local blocks as ids on `device` (the host copy
+        for host-resident duals)."""
+        pad = self.pad_idx[gi]
+        return pad if pad is None or pad.device == device \
+            else self._pad_host[gi]
 
     # ------------------------------------------------------------------
     def run(self, z0: np.ndarray | None = None, *,
@@ -949,7 +1151,7 @@ class StreamingAdmmTrainer:
                      else float(inner_eps0))
         mindiff = mindiff0
         best_loglik = best_loglik0
-        best_model: LinearModel | None = None
+        best_z: torch.Tensor | None = None
         best_lambda: str | None = None
         loglik_history: list[dict] = []
         diff_history: list[dict] = []
@@ -969,18 +1171,14 @@ class StreamingAdmmTrainer:
                                        "testLoglik": float(ll)})
 
         rho_base = torch.as_tensor(self.rhos, dtype=dtype, device=dev)
+        rho_tab = _rho_table(self.rhos, cfg.num_iters, cfg, z0 is not None,
+                             dev)
         for iteration in range(start_iteration, cfg.num_iters + 1):
             t_iter = time.monotonic()
             inner_eps = admm_math.inner_eps_schedule(
                 inner_eps, iteration, mindiff,
                 aggressive=cfg.aggressive_liblinear_epsilon_decay)
-            rho_eff = torch.as_tensor([
-                admm_math.rho_effective(
-                    r, iteration,
-                    initialize_boost_rate=(cfg.initialize_boost_rate
-                                           if z0 is not None else 0.0),
-                    rho_adapt_coefficient=cfg.rho_adapt_coefficient)
-                for r in self.rhos], dtype=dtype, device=dev)
+            rho_eff = rho_tab[iteration]
 
             # the span the device idle share of an iteration is read over
             # (chip_smoke.py phase 11); nearly free when no profiler runs
@@ -1016,9 +1214,7 @@ class StreamingAdmmTrainer:
                     if ll > best_loglik:
                         best_loglik = ll
                         best_lambda = _lambda_key(lam)
-                        best_model = LinearModel.from_dense(
-                            z[li].to(torch.float64).cpu().numpy(),
-                            self.vocab)
+                        best_z = z[li].clone()
 
             if callback is not None:
                 callback(iteration=iteration, z=z,
@@ -1030,7 +1226,11 @@ class StreamingAdmmTrainer:
                 converged = True
                 break
 
+        if dev.type == "cuda":
+            read_counts([lp.loop for lp in self._loops.values()])
         z_out = z.to(torch.float64).cpu().numpy()
+        best_model = (None if best_z is None else LinearModel.from_dense(
+            best_z.to(torch.float64).cpu().numpy(), self.vocab))
         u_full = self._global_u(u_groups).to(torch.float64).cpu()
         models = {_lambda_key(l): LinearModel.from_dense(z_out[i], self.vocab)
                   for i, l in enumerate(self.lambdas)}

@@ -1046,3 +1046,102 @@ def test_substacked_run_fused_on_card_equals_run(cuda, monkeypatch, kw):
                                  for k in ("newton_trips", "cg_trips")}]
     assert got.loop_counts["kernel_executions"]["segment_sum_gather"] > 0
     assert got.loop_counts["branch_executions"]["cg_trip.1"] > 0
+
+
+# ---------------------------------------------------------------------------
+# run() and the streaming trainer: each x-update one device loop
+# (train/admm.py::_SolveLoop), one host sync an iteration
+# ---------------------------------------------------------------------------
+
+def syncs_per_iteration(run):
+    """run(callback) under set_sync_debug_mode("warn"): the synchronizing
+    calls between consecutive callbacks (one an iteration, the first
+    iteration's, which holds the run's set-up, left out)."""
+    import warnings
+    marks = []
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run(lambda **_kw: marks.append(len(seen)))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sync = [i for i, w in enumerate(seen) if "synchroniz" in str(w.message)]
+    return [sum(lo <= i < hi for i in sync)
+            for lo, hi in zip(marks[:-1], marks[1:])]
+
+
+@pytest.mark.cuda
+def test_run_and_a_streamed_run_sync_once_an_iteration(cuda):
+    """After the first run has captured the loops, an iteration of run()
+    and of a 2-group streamed run (nothing resident, the compact wire)
+    reads the host once, and K1 executes inside the loops' graphs."""
+    from mlease_tpu_torch.core.dataset import split_blocks
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.ops.device_loop import read_counts
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+
+    data = blocked_data(29, B=4, R=1500)
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    cfg = AdmmConfig(lambdas=[1.0, 10.0], num_iters=4, head_size=64,
+                     dtype=torch.float32, epsilon=0.0)
+    tr = AdmmTrainer(data, vocab, cfg, device=cuda)
+    st = StreamingAdmmTrainer(split_blocks(data, 2), vocab, cfg,
+                              resident_head=False, compact_wire=True,
+                              device=cuda)
+    assert st.residency_report()["compact_wire_groups"] == 2
+    for trainer in (tr, st):
+        first = trainer.run()
+        assert first.iterations == 4
+        assert syncs_per_iteration(
+            lambda cb: trainer.run(callback=cb)) == [1, 1, 1]
+        counts = read_counts([lp.loop for lp in trainer._loops.values()])
+        assert all(c["kernel_executions"]["segment_sum_gather"] > 0
+                   for c in counts)
+
+
+@pytest.mark.cuda
+def test_a_slot_is_not_overwritten_while_a_loop_reads_it(cuda):
+    """Three streamed groups in two slots: the third group's copy goes
+    into the first group's slot while the first group's (large, so slow)
+    solve may still run on the card, and must wait for it. The first
+    group's x and trips equal build_group_solver's on the same inputs and
+    a fresh copy of its data, and the run equals an all-resident one bit
+    for bit."""
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.train.admm import AdmmConfig
+    from mlease_tpu_torch.train.streaming import (StreamingAdmmTrainer,
+                                                  build_group_solver)
+
+    groups = [blocked_data(31, B=2, R=20000), blocked_data(32, B=1, R=500),
+              blocked_data(33, B=1, R=500)]
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    cfg = AdmmConfig(lambdas=[1.0, 10.0], num_iters=3, head_size=64,
+                     dtype=torch.float32)
+    tr = StreamingAdmmTrainer(groups, vocab, cfg, resident_head=False,
+                              device=cuda)
+    assert tr._slot_of == {0: 0, 1: 1, 2: 0}
+    solve, kept = tr._solve_group, []
+
+    def keep(gi, prob, present, z, u, rho_eff, eps, perm):
+        x, trips = solve(gi, prob, present, z, u, rho_eff, eps, perm)
+        if gi == 0:
+            kept.append((x.clone(), trips.clone(), z.clone(), u.clone(),
+                         rho_eff.clone(), eps.clone()))
+        return x, trips
+    tr._solve_group = keep
+    got = tr.run()
+    del tr._solve_group
+    prob, present, perm = tr._ship(
+        0, lambda f, shape, dt: torch.empty(shape, dtype=dt, device=cuda))
+    host = build_group_solver(cfg.max_newton_iter, cfg.max_cg_iter,
+                              mode=tr.mode, pcg=cfg.pcg)
+    for x, trips, z, u, rho_eff, eps in kept:
+        xh, nt, cg = host(prob, present, z, u, rho_eff, eps, perm)
+        assert torch.equal(x, xh)
+        assert trips.tolist() == [nt, cg]
+    want = StreamingAdmmTrainer(groups, vocab, cfg, resident_head=True,
+                                device=cuda).run()
+    np.testing.assert_array_equal(got.z, want.z)
+    np.testing.assert_array_equal(got.u, want.u)

@@ -188,14 +188,14 @@ def test_streaming_substacks_match_jax_per_block(monkeypatch, kw):
         tt.csc_perms = [_column_order(g.indices.numpy(), r)
                         for g, r in zip(tt.groups, tt.ranges)]
         seen = []
-        solver = tt.solver
+        solver = tt._solve_group
 
         def spy(*a):
-            seen.append(a[6] is not None and a[6].numel() == sum(
+            seen.append(a[7] is not None and a[7].numel() == sum(
                 p.indices.numel() for p, _ in
-                tron_multi.substacks_of(a[0], a[3].shape[1])))
+                tron_multi.substacks_of(a[1], a[4].shape[1])))
             return solver(*a)
-        tt.solver = spy
+        tt._solve_group = spy
     tj = JStreaming(groups, vocab, JConfig(dtype=jnp.float64,
                                            flat_blocks=False, **base))
     got, want = tt.run(), tj.run()

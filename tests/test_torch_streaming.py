@@ -247,7 +247,7 @@ def test_next_copy_goes_out_before_the_solve():
     _j, tcfg = configs(head_size=4, num_iters=1)
     tr = port(groups, vocab, tcfg, resident_head=False)
     events = []
-    orig_put, orig_solver = tr._put_group, tr.solver
+    orig_put, orig_solver = tr._put_group, tr._solve_group
 
     def put(gi, u_host=None):
         events.append(("put", gi))
@@ -257,7 +257,7 @@ def test_next_copy_goes_out_before_the_solve():
         events.append(("solve", sum(e[0] == "solve" for e in events)))
         return orig_solver(*args)
 
-    tr._put_group, tr.solver = put, solver
+    tr._put_group, tr._solve_group = put, solver
     tr.run()
     assert events == [("put", 0), ("put", 1), ("solve", 0), ("put", 2),
                       ("solve", 1), ("solve", 2)]
