@@ -50,7 +50,9 @@ Phases, each of which fails the run when it fails:
      head.size=128, 8 blocks, lambda 1/10/100, float32, Jacobi PCG, flat
      blocks) on synthetic data made from --seed, 8 x --rows-per-block rows
      (by default ctr-12m.job's 12.5M, uncut; --rows-per-block 250000 for
-     a quicker run); K1's launch count is read from exactly this run; then the
+     a quicker run); K1's runs are counted in exactly this run (its
+     eager launches and its executions inside run()'s device loop, counted
+     on the card; the loop's set-up apart; kernel_runs); then the
      first iteration again with the plain reduce,
      max|z_kernel - z_plain| <= 1e-4 * max|z|;
   7. speed phase: ADMM iterations/s at bench.py's default shape (4 x 16,384
@@ -167,8 +169,8 @@ Phases, each of which fails the run when it fails:
      iterations: z, u and the diffs bit for bit (or within 1e-6 * max|z|,
      the difference printed), equal iterations and trip totals, and K1
      (and K2 in head-block) executed inside the loop's graphs as often as
-     run() launches them (counted on the card by an add each wrapper
-     makes right after its kernel, captured with it, and equal to the
+     they run in run() (kernel_runs; counted on the card by an add each
+     wrapper makes right after its kernel, captured with it, and equal to the
      captured launches x branch executions); s/iteration, the end-to-end
      seconds of each run with run_fused's capture included, capture
      seconds, peak memory, the card's idle share of run() (profiler) and
@@ -216,7 +218,7 @@ Phases, each of which fails the run when it fails:
      dual_layout, 5 iterations: run_fused against run() bit for bit, s an
      iteration, capture seconds and the synchronizing calls of each run,
      K1 (the lanes objective's sorted sums on the card) executed in the
-     loop as often as run() launches it, and those sums held against their
+     loop as often as it runs in run(), and those sums held against their
      float64 scatter on the same inputs (random out0 and vectors, per entry
      <= 1e-5 * (|out0| + sum|contrib|)): the column-sorted stream of both
      solves, of the lanes problem also in sub-stacks of 2 blocks and on a
@@ -227,14 +229,15 @@ Phases, each of which fails the run when it fails:
      head-block, --iters iterations: run_fused bit for bit with the mesh
      trainer's run() and with phase 14's no-mesh run, equal trips, and the
      K1, K2 and all_reduce executions counted on the card (the captured
-     branches' adds) equal to run()'s launches and calls (two all_reduces
+     branches' adds) equal to run()'s runs and calls (two all_reduces
      an iteration; the branches holding one captured "thread_local", the
      node types of the captured iteration end printed); (c) the same
      per-block Jacobi solve with ops/tron_multi.py's STACK_ID_BOUND lowered
      in this process so that the 8 blocks solve as 4 sub-stacks of 2: z
      within 1e-6 * max|z| of phase 14's run with its trips, K1 executed
      in every sub-stack's branches of run()'s device loop every iteration
-     (counted on the card); (d) phase 5's job through the CLI with
+     (counted on the card), its runs counted (kernel_runs); (d) phase
+     5's job through the CLI with
      fused.loop = true under use.mesh (a one-rank NCCL group) and with
      multi.rhs = false (the lanes solve), each against the same job
      run eagerly (the four processes started together): final models
@@ -263,28 +266,36 @@ Phases, each of which fails the run when it fails:
      in two parts: right after phase 20 on the two trainers, (a) one
      x-update from random z and u through build_x_update (the host-driven
      solve) and through a _SolveLoop, x and trips bit for bit and K1 / K2
-     launched alike: at bench and full width flat, per-block and
-     head-block, at bench the lanes solves (multi_rhs=False, dual_layout)
-     and 4 sub-stacks at bench (of 1 block) and full width (of 2; the int32
-     bound lowered, as phase 19 does); then at bench flat and lanes and
-     full flat, run() against the host-driven path (`host_run`: run()'s
-     schedules over build_admm_step's solve, one host read a trip), 3
-     iterations: z and u bit for bit with equal trips, (c) the
+     run as often (the loop's set-up apart): at bench and full width flat,
+     per-block and head-block, at bench the lanes solves (multi_rhs=False,
+     dual_layout) and 4 sub-stacks at bench (of 1 block) and full width
+     (of 2; the int32 bound lowered, as phase 19 does); then at bench flat
+     and lanes and full flat, the host-driven path (run() with its
+     x-update through build_x_update's solve, one host read a trip; no
+     device loop made) and then run() on its loop, made anew, 3
+     iterations each: z and u bit for bit with equal trips, (c) the
      synchronizing calls of each iteration (one; the others of the run
-     named by file:line), (d) K1 and K2 launched as often as the host path
-     launches them (the executions inside the loops counted on the card),
-     (e) s an iteration of each, the capture seconds (once a trainer), the
-     peak memory of each (after a garbage collection) and, at bench flat
-     and full flat, the card's idle share of an iteration (the admm_iteration
-     span; the loop's derived from the host path's device time); after
-     phase 11, on its data, (b) stream (a), (b) and (c) in float32 and (a)
-     in bfloat16: group 0's first solve through the trainer's loop against
+     named by file:line), (d) K1 and K2 run as often as on the host path
+     (kernel_runs: the wrappers' eager launches less the calls captured,
+     plus the executions counted on the card; the loop's set-up apart),
+     (e) s an iteration of each, the capture seconds and the bytes the
+     captures leave reserved (the graph pool), the peak allocated and
+     reserved memory of each (after a garbage collection, with the free
+     cache given back) and the bytes the loops keep after the run; the
+     host path's idle share of an admm_iteration span at bench flat and
+     full flat (profiler) and, for the loops, each iteration's time inside
+     their graphs (CUDA events around each launch), whose complement
+     bounds the idle share from above; the streamed part, on phase 11's
+     trainers (a), (b), (c) and phase 18's (a) in bfloat16 right after
+     each trainer's own runs (under --loops-only on trainers of its own):
+     (b) group 0's first solve through the trainer's loop against
      build_group_solver on the same inputs while they are in the group's
-     slot (bit for bit, equal trips), the tiers' first iterations bit for
-     bit with each other; (c) the syncs of a run at (c); and at (a) and (a)
-     in bfloat16 the run against the host path (the group solves through
-     build_group_solver), 3 iterations, with (c)-(e) as above, the
-     stream_iteration span's idle share at (a).
+     slot (bit for bit, equal trips), the tiers' runs bit for bit with
+     each other; (c)-(e) as above on each run, at (a) and (a) in bfloat16
+     against the host path (the group solves through build_group_solver),
+     with the stream_iteration span's idle share of the host path at (a),
+     and the slots' and solver state's bytes beside the reserve that
+     _cap_budget keeps free of the pinned tiers.
 
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
@@ -299,8 +310,8 @@ them, sets up the two trainers and runs phase 16 alone (with its own
 no-mesh runs for (a)); --fused-only builds them, sets up the two trainers
 and runs phases 17 and 19 alone (with its own eager CLI run for 17 (c) and
 no-mesh runs for 19 (b)-(c)); --loops-only builds them, sets up the two
-trainers and runs phase 21 alone (its streamed part on data made as phase
-11 makes it); --bf16-only
+trainers and runs phase 21 alone (its streamed part on trainers of its own,
+on data made as phase 11 makes it); --bf16-only
 builds them, sets up the two trainers, makes the float32 runs phase 18
 compares with (phase 5, phase 6, phase 8's first run, phase 11's (a) once)
 and runs phase 18 alone.
@@ -1140,9 +1151,10 @@ def full_width_phase(trainer, args):
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
     segment_sum_sorted.launches = 0          # main path: count from here
-    res = trainer.run(callback=keep_first)
-    torch.cuda.synchronize()
-    launches = segment_sum_sorted.launches   # ... to here
+    with kernel_runs() as runs:
+        res = trainer.run(callback=keep_first)
+        torch.cuda.synchronize()
+    launches = runs["k1"]                    # ... to here
     peak = torch.cuda.max_memory_allocated()
     F32_BASE["full"] = {"z1": z_first["z"].double().cpu().numpy(),
                         "z": res.z, "solver_stats": res.solver_stats,
@@ -1155,10 +1167,13 @@ def full_width_phase(trainer, args):
            "tail_entries": int(trainer.prob.tail_vals.numel()),
            "iterations": res.iterations, "iter_s": res.iter_times,
            "solver_stats": res.solver_stats, "kernel_launches": launches,
-           "expected_launches": expected,
+           "kernel_runs": runs, "expected_launches": expected,
            "max_memory_allocated_bytes": int(peak),
            "z_finite": bool(np.isfinite(res.z).all())}
-    if launches == 0 or launches != expected or not row["z_finite"]:
+    # K1's runs: eager, and inside run()'s device loop counted on the card;
+    # beyond the host-driven solve's, those of the loop's set-up
+    if launches == 0 or launches - runs["setup"]["k1"] != expected \
+            or not runs["card"]["k1"] or not row["z_finite"]:
         raise AssertionError(f"full-width run: {row}")
 
     # the first iteration again, every sorted-tail reduce on the plain version
@@ -1398,9 +1413,11 @@ def streaming_phase(args, in_memory_iter_s=None):
         build_s = time.monotonic() - t0
         torch.cuda.reset_peak_memory_stats()
         segment_sum_sorted.launches = 0          # this path: count from here
-        res = tr.run(callback=keep_first if name.startswith("c_s") else None)
-        torch.cuda.synchronize()
-        launches = segment_sum_sorted.launches   # ... to here
+        with kernel_runs() as runs:
+            res = tr.run(callback=keep_first if name.startswith("c_s")
+                         else None)
+            torch.cuda.synchronize()
+        launches = runs["k1"]                    # ... to here
         row = {"residency": tr.residency_report(), "build_s": build_s,
                "wire_bytes_per_iter": tr.stream_wire_bytes(),
                "dense_wire_bytes_per_iter": tr._dense_wire_bytes(),
@@ -1441,6 +1458,7 @@ def streaming_phase(args, in_memory_iter_s=None):
             row["z_kernel_vs_plain_max_abs"] = float(
                 np.abs(z_first["z"] - plain.z).max())
             row["z_max_abs"] = float(np.abs(z_first["z"]).max())
+        loops_stream_hook("float32", name, tr)
         del tr
         torch.cuda.empty_cache()
         print(f"streaming {name} " + json.dumps(row), flush=True)
@@ -1837,13 +1855,16 @@ def solver_modes_phase(trainers, args, flat_iter_s=None):
         def keep(iteration, z, **_kw):
             z_first.setdefault(name, {})[iteration] = \
                 z.double().cpu().numpy()
-        res = tr.run(callback=keep)
-        torch.cuda.synchronize()
+        with kernel_runs() as runs:
+            res = tr.run(callback=keep)
+            torch.cuda.synchronize()
+        # the runs of the solves: the device loop's set-up apart
         row = {"mode": tr.mode, "build_s": build_s, "iter_s": res.iter_times,
                "steady_iter_s": steady_s(res.iter_times),
                "solver_stats": res.solver_stats,
-               "k1_launches": segment_sum_sorted.launches,
-               "k2_launches": gram.gram_batched.launches,
+               "k1_launches": runs["k1"] - runs["setup"]["k1"],
+               "k2_launches": runs["k2"] - runs["setup"]["k2"],
+               "kernel_runs": runs,
                "z_finite": bool(np.isfinite(res.z).all()),
                "z_max_abs": float(np.abs(res.z).max())}
         out[name] = row
@@ -2086,6 +2107,67 @@ def fresh_loops(trainer):
     _close_loops(trainer._loops)
 
 
+@contextlib.contextmanager
+def kernel_runs():
+    """K1's and K2's runs on the card inside the block. A kernel wrapper
+    adds one to its `launches` at each call: an eager launch, or a launch
+    that a device loop's capture records into its graph, which then runs
+    each time the graph does, counted on the card (ops/device_loop.py).
+    So a kernel's runs here are its `launches` less the calls that the
+    loops prepared here captured, plus the executions that the loops
+    counted on the card here. "setup" counts apart, and among the runs,
+    those of the loops' set-up: each _SolveLoop's first state and each
+    loop's warm-up. Yields a dict filled in at the exit: {"k1", "k2" (the
+    runs), "setup", "eager", "card" (each {"k1", "k2"})}; it adds no host
+    read before the exit."""
+    from mlease_tpu_torch.ops import gram
+    from mlease_tpu_torch.ops.device_loop import DeviceLoop
+    from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+    from mlease_tpu_torch.train import admm
+    fns = {"k1": segment_sum_sorted, "k2": gram.gram_batched}
+    names = {"k1": "segment_sum_gather", "k2": "gram_batched"}
+    start = {k: f.launches for k, f in fns.items()}
+    setup, captured = dict.fromkeys(fns, 0), dict.fromkeys(fns, 0)
+    seen, box = {}, {}
+    prepare, run, init = (DeviceLoop.prepare, DeviceLoop.run,
+                          admm._SolveLoop.__init__)
+
+    def in_setup(fn, self, *a, **kw):
+        before = {k: f.launches for k, f in fns.items()}
+        fn(self, *a, **kw)
+        for k, f in fns.items():
+            setup[k] += f.launches - before[k]
+
+    def prepared(self):
+        fresh = self.on_card and self._handles is None
+        in_setup(prepare, self)
+        if fresh:
+            for k in fns:
+                c = sum(b.get(names[k], 0) for b in self.captured.values())
+                captured[k] += c
+                setup[k] -= c
+
+    def ran(self):
+        if self not in seen:
+            seen[self] = self.runs.clone()
+        run(self)
+
+    def made(self, *a, **kw):
+        in_setup(init, self, *a, **kw)
+    with mock.patch.object(DeviceLoop, "prepare", prepared), \
+            mock.patch.object(DeviceLoop, "run", ran), \
+            mock.patch.object(admm._SolveLoop, "__init__", made):
+        yield box
+    card = dict.fromkeys(fns, 0)
+    for lp, r0 in seen.items():
+        ex = dict(zip(lp.kernels, (lp.runs - r0).tolist()[len(lp.names):]))
+        for k in fns:
+            card[k] += ex.get(names[k], 0)
+    eager = {k: f.launches - start[k] - captured[k] for k, f in fns.items()}
+    box.update({k: eager[k] + card[k] for k in fns}, setup=setup,
+               eager=eager, card=card)
+
+
 def fused_compare(name, tr, iters, profile=True):
     """run() against run_fused() on one trainer, --iters (or `iters`)
     iterations: bit for bit (or within 1e-6 * max|z| with equal trips,
@@ -2107,11 +2189,12 @@ def fused_compare(name, tr, iters, profile=True):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     segment_sum_sorted.launches = gram.gram_batched.launches = 0
-    t0 = time.monotonic()
-    run = tr.run()
-    torch.cuda.synchronize()
-    run_call_s = time.monotonic() - t0
-    k_run = (segment_sum_sorted.launches, gram.gram_batched.launches)
+    with kernel_runs() as runs:          # eager, and in run()'s device loop
+        t0 = time.monotonic()
+        run = tr.run()
+        torch.cuda.synchronize()
+        run_call_s = time.monotonic() - t0
+    k_run = (runs["k1"], runs["k2"])
     run_peak = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
@@ -2465,10 +2548,13 @@ def fused_more_phase(trainers, args):
             torch.cuda.synchronize()
             segment_sum_sorted.launches = gram.gram_batched.launches = 0
             all_reduce.launches = 0
-            run = tr.run()
-            torch.cuda.synchronize()
-            k_run = {"segment_sum_gather": segment_sum_sorted.launches,
-                     "gram_batched": gram.gram_batched.launches,
+            with kernel_runs() as runs:
+                run = tr.run()
+                torch.cuda.synchronize()
+            # K1's and K2's runs in run()'s solves (its device loop's
+            # set-up apart: run_fused's is not counted on the card)
+            k_run = {"segment_sum_gather": runs["k1"] - runs["setup"]["k1"],
+                     "gram_batched": runs["k2"] - runs["setup"]["k2"],
                      "all_reduce": all_reduce.launches}
             t0 = time.monotonic()
             fused = tr.run_fused()
@@ -2542,14 +2628,15 @@ def fused_more_phase(trainers, args):
         ranges = list(tr.prob.ranges) if isinstance(
             tr.prob, tm.SubStacks) else None
         segment_sum_sorted.launches = 0
-        res = tr.run(callback=counted)
-        torch.cuda.synchronize()
+        with kernel_runs() as runs:
+            res = tr.run(callback=counted)
+            torch.cuda.synchronize()
     ref = MESH_REFS["per_block_jacobi"]
     zmax = float(np.abs(ref.z).max())
     row = {"ranges": ranges, "build_s": build_s,
            "iter_s": res.iter_times, "steady_iter_s": steady_s(res.iter_times),
            "no_split_steady_iter_s": steady_s(ref.iter_times),
-           "k1_launches": segment_sum_sorted.launches,
+           "k1_launches": runs["k1"], "kernel_runs": runs,
            "k1_launches_per_substack_call": per_call,
            "solver_stats": res.solver_stats,
            "trips_equal": res.solver_stats == ref.solver_stats,
@@ -2649,15 +2736,15 @@ def mesh_one_rank_phase(trainers, args):
             tr = AdmmTrainer(data, vocab, cfg, mesh=mesh)
             torch.cuda.synchronize()
             segment_sum_sorted.launches = gram.gram_batched.launches = 0
-            res = tr.run()
-            torch.cuda.synchronize()
+            with kernel_runs() as runs:
+                res = tr.run()
+                torch.cuda.synchronize()
             row = {"mode": tr.mode, "iter_s": res.iter_times,
                    "steady_iter_s": steady_s(res.iter_times),
                    "no_mesh_steady_iter_s": steady_s(ref.iter_times),
                    "solver_stats": res.solver_stats,
                    "trips_equal": res.solver_stats == ref.solver_stats,
-                   "k1_launches": segment_sum_sorted.launches,
-                   "k2_launches": gram.gram_batched.launches,
+                   "k1_launches": runs["k1"], "k2_launches": runs["k2"],
                    "z_bitwise": bool(np.array_equal(res.z, ref.z)),
                    "u_bitwise": bool(np.array_equal(res.u, ref.u)),
                    "z_rel_diff": _rel(res.z, ref.z),
@@ -2754,12 +2841,13 @@ def _mesh_rank(args) -> int:
         distributed.barrier()
         segment_sum_sorted.launches = gram.gram_batched.launches = 0
         COLLECTIVE_STATS.update(calls=0, seconds=0.0)
-        t0 = time.monotonic()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, {"wall_s": time.monotonic() - t0,
-                     "k1_launches": segment_sum_sorted.launches,
-                     "k2_launches": gram.gram_batched.launches,
+        with kernel_runs() as runs:
+            t0 = time.monotonic()
+            res = fn()
+            torch.cuda.synchronize()
+            wall_s = time.monotonic() - t0
+        return res, {"wall_s": wall_s,
+                     "k1_launches": runs["k1"], "k2_launches": runs["k2"],
                      "collective_calls": COLLECTIVE_STATS["calls"],
                      "collective_s": COLLECTIVE_STATS["seconds"]}
 
@@ -3066,9 +3154,10 @@ def bf16_full_phase(trainer, args):
 
     torch.cuda.reset_peak_memory_stats()
     segment_sum_sorted.launches = 0          # this path: count from here
-    res = tr.run(callback=keep_first)
-    torch.cuda.synchronize()
-    launches = segment_sum_sorted.launches   # ... to here
+    with kernel_runs() as runs:
+        res = tr.run(callback=keep_first)
+        torch.cuda.synchronize()
+    launches = runs["k1"]                    # ... to here
     peak = torch.cuda.max_memory_allocated()
 
     def per_cg_trip(stats, iter_s):
@@ -3082,7 +3171,7 @@ def bf16_full_phase(trainer, args):
     row = {
         "rows": int(tr.data.nrows.sum()), "dim": tr.dim,
         "setup_s": setup_s, "iterations": res.iterations,
-        "kernel_launches": launches,
+        "kernel_launches": launches, "kernel_runs": runs,
         "expected_launches": 2 * cg + 2 * nt + 3 * len(res.solver_stats),
         "z_finite": bool(np.isfinite(res.z).all()),
         "z1_vs_f32_max_abs": float(np.abs(z_first["z"] - base["z1"]).max()),
@@ -3111,9 +3200,10 @@ def bf16_full_phase(trainer, args):
     bad = []
     if not row["z_finite"]:
         bad.append("z not finite")
-    if launches == 0 or launches != row["expected_launches"]:
-        bad.append(f"K1 launched {launches} times, expected "
-                   f"{row['expected_launches']}")
+    if launches == 0 or launches - runs["setup"]["k1"] \
+            != row["expected_launches"] or not runs["card"]["k1"]:
+        bad.append(f"K1 ran {launches} times ({runs}), expected "
+                   f"{row['expected_launches']} and the set-up's")
     if not row["z1_vs_f32_max_abs"] <= 0.01 * zmax1:
         bad.append("iteration 1 not within 1% of max|z_f32|")
     if not row["z_vs_f32_max_abs"] <= 0.05 * zmax:
@@ -3226,9 +3316,10 @@ def bf16_stream_phase(args):
         build_s = time.monotonic() - t0
         torch.cuda.reset_peak_memory_stats()
         segment_sum_sorted.launches = 0          # this path: count from here
-        res = tr.run()
-        torch.cuda.synchronize()
-        launches = segment_sum_sorted.launches   # ... to here
+        with kernel_runs() as runs:
+            res = tr.run()
+            torch.cuda.synchronize()
+        launches = runs["k1"]                    # ... to here
         row = {"residency": tr.residency_report(), "build_s": build_s,
                "wire_bytes_per_iter": tr.stream_wire_bytes(),
                "iter_s": res.iter_times,
@@ -3248,6 +3339,7 @@ def bf16_stream_phase(args):
             prof = span_profile(tr.run, "stream_iteration")
             row["profiled_iterations"] = prof
             row["copy_kernel_ms_3_iterations"] = _copy_kernel_ms(prof)
+        loops_stream_hook("bfloat16", name, tr)
         del tr
         torch.cuda.empty_cache()
         print(f"bf16-stream {name} " + json.dumps(row), flush=True)
@@ -3671,25 +3763,39 @@ LOOPS_ITERS = 3             # (c)-(e)'s iterations a run
 
 @contextlib.contextmanager
 def timed_prepare():
-    """Sum the seconds (synchronised) of every device loop's first prepare
-    (warm-up, captures, build) made inside; yields {"s", "loops"}."""
+    """Every device loop's first prepare (warm-up, captures, build) made
+    inside: its seconds (synchronised), and what the card holds after it
+    beyond what it held before, each read after the caching allocator's
+    free blocks were given back: the allocator's reserved bytes (which
+    hold the graph pools) and the card's used bytes from cudaMemGetInfo
+    (which also see the graphs themselves). Yields {"s", "loops",
+    "pool_reserved_bytes", "card_used_bytes"}."""
     import torch
     from mlease_tpu_torch.ops.device_loop import DeviceLoop
-    box = {"s": 0.0, "loops": 0}
+    box = {"s": 0.0, "loops": 0, "pool_reserved_bytes": 0,
+           "card_used_bytes": 0}
     prepare = DeviceLoop.prepare
 
-    def timed(self):
+    def held():
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        return torch.cuda.memory_reserved(), total - free
+
+    def timed(self):
+        if not self.on_card or self._handles is not None:
+            return prepare(self)
+        r0, u0 = held()
         t0 = time.monotonic()
         prepare(self)
         torch.cuda.synchronize()
         box["s"] += time.monotonic() - t0
+        r1, u1 = held()
         box["loops"] += 1
-    DeviceLoop.prepare = timed
-    try:
+        box["pool_reserved_bytes"] += r1 - r0
+        box["card_used_bytes"] += u1 - u0
+    with mock.patch.object(DeviceLoop, "prepare", timed):
         yield box
-    finally:
-        DeviceLoop.prepare = prepare
 
 
 def _syncs_by_iteration(run):
@@ -3724,44 +3830,31 @@ def _syncs_by_iteration(run):
                  "after_last_at": where(bounds[-2], len(seen))}
 
 
-def host_run(tr, iters):
-    """run()'s driver loop from z = u = 0 with the host-driven step
-    (build_admm_step: build_x_update's solve, which reads the host once a
-    Newton and a CG trip, and a blocking copy of rho_eff and eps), the
-    reference run()'s device loop is held to. Returns z, u, solver_stats
-    and iter_times."""
+def run_with(tr, iters, callback=None, **seams):
+    """tr.run(callback=callback) for `iters` iterations, with the
+    trainer's methods named in `seams` replaced for the call."""
+    kept = tr.config
+    tr.config = dataclasses.replace(kept, num_iters=iters)
+    for k, fn in seams.items():
+        setattr(tr, k, fn)
+    try:
+        return tr.run(callback=callback)
+    finally:
+        for k in seams:
+            delattr(tr, k)
+        tr.config = kept
+
+
+def host_x_update(tr):
+    """An AdmmTrainer._x_update through build_x_update's solve, the
+    host-driven reference (one host read a Newton and a CG trip)."""
     import torch
-    from mlease_tpu_torch.ops import admm_math
-    cfg, dev = tr.config, tr.device
-    L, n, B, dt = len(tr.lambdas), tr.dim, tr.data.nblocks, cfg.dtype
-    z = torch.zeros((L, n), dtype=dt, device=dev)
-    u = torch.zeros((L, B, n), dtype=dt, device=dev)
-    rho_base = torch.as_tensor(tr.rhos, dtype=dt, device=dev)
-    inner, mindiff, stats, times = cfg.liblinear_epsilon, 99999999.0, [], []
-    for it in range(1, iters + 1):
-        t0 = time.monotonic()
-        inner = admm_math.inner_eps_schedule(
-            inner, it, mindiff,
-            aggressive=cfg.aggressive_liblinear_epsilon_decay)
-        with torch.profiler.record_function("admm_iteration"):
-            rho = torch.as_tensor([admm_math.rho_effective(
-                r, it, initialize_boost_rate=0.0,
-                rho_adapt_coefficient=cfg.rho_adapt_coefficient)
-                for r in tr.rhos], dtype=dt, device=dev)
-            eps = torch.as_tensor(inner, dtype=dt, device=dev) \
-                * tr.eps_scale
-            z, u, diffs, st = tr.step(tr.prob, tr.present, z, u,
-                                      tr.lam_vec, rho, rho_base, eps,
-                                      tr.block_valid)
-            d = diffs.to(torch.float64).cpu().numpy()
-        times.append(time.monotonic() - t0)
-        stats.append(st)
-        mindiff = float(d.min())
-        if admm_math.should_stop(float(d.max()), inner, cfg.epsilon,
-                                 cfg.inner_eps_floor):
-            break
-    return (z.double().cpu().numpy(), u.double().cpu().numpy(), stats,
-            times)
+    solve = tr.step.solve
+
+    def x_update(z, u, rho_eff, eps):
+        x, trips = solve(tr.prob, tr.present, z, u, rho_eff, eps)
+        return x, torch.as_tensor(trips, device=z.device)
+    return x_update
 
 
 def host_group_solve(tr):
@@ -3784,46 +3877,60 @@ def host_group_solve(tr):
     return solve
 
 
+def group0_check(tr, seen):
+    """A StreamingAdmmTrainer._solve_group (through the trainer's loops)
+    that also solves group 0's first solve through build_group_solver on
+    the same inputs, while they are in the group's slot, and puts into
+    `seen` whether x is the same bits and both trip counts."""
+    import torch
+    host = host_group_solve(tr)
+    solve_group = tr._solve_group
+
+    def check(gi, prob, present, z, u, rho_eff, eps, perm):
+        x, trips = solve_group(gi, prob, present, z, u, rho_eff, eps, perm)
+        if gi == 0 and not seen:
+            xh, th = host(gi, prob, present, z, u, rho_eff, eps, perm)
+            seen.update(x=bool(torch.equal(x, xh)),
+                        trips=[int(v) for v in trips.tolist()],
+                        host_trips=[int(v) for v in th.tolist()])
+        return x, trips
+    return check
+
+
 def _counted(fn):
-    """fn() with K1's and K2's launch counts (the wrappers' `launches`:
-    eager launches, and the executions counted on the card inside device
-    loops, added when a loop's counts are read) read around it,
-    synchronised, with its seconds, the device memory allocated at its
-    start (after a garbage collection) and its peak: (result, {"k1",
-    "k2", "s", "base_bytes", "peak_bytes"})."""
+    """fn() synchronised, with K1's and K2's runs (kernel_runs), its
+    seconds, and the device memory at its start and its peak, after a
+    garbage collection and with the caching allocator's free blocks given
+    back: allocated (tensors) and reserved (the allocator's segments: the
+    tensors' and the graph pools', which a graph's replays use without
+    allocating). (result, {"k1", "k2", "setup", "card", "s", "base_bytes",
+    "peak_bytes", "base_reserved_bytes", "peak_reserved_bytes"})."""
     import gc
     import torch
-    from mlease_tpu_torch.ops import gram
-    from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
     gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    segment_sum_sorted.launches = gram.gram_batched.launches = 0
-    t0 = time.monotonic()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, {"k1": segment_sum_sorted.launches,
-                 "k2": gram.gram_batched.launches,
-                 "s": time.monotonic() - t0, "base_bytes": int(base),
-                 "peak_bytes": int(torch.cuda.max_memory_allocated())}
-
-
-def _card_executions(loops):
-    """K1 and K2 executions counted on the card so far in these loops."""
-    from mlease_tpu_torch.ops.device_loop import read_counts
-    tot = {"segment_sum_gather": 0, "gram_batched": 0}
-    for c in read_counts(loops):
-        for k in tot:
-            tot[k] += c["kernel_executions"][k]
-    return tot
+    base_reserved = torch.cuda.memory_reserved()
+    with kernel_runs() as k:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.monotonic() - t0
+    return out, {"k1": k["k1"], "k2": k["k2"], "setup": k["setup"],
+                 "card": k["card"], "s": s, "base_bytes": int(base),
+                 "peak_bytes": int(torch.cuda.max_memory_allocated()),
+                 "base_reserved_bytes": int(base_reserved),
+                 "peak_reserved_bytes": int(torch.cuda.max_memory_reserved())}
 
 
 def one_x_update_check(name, tr, mode, pcg, gen):
     """(a): one x-update of trainer tr's problem from random z and u
     through build_x_update (the host-driven solve) and through a
     _SolveLoop (captured, looped on the card), bit for bit with equal
-    trips; each solve's seconds and the loop's capture seconds."""
+    trips and K1 / K2 run as often (the loop's set-up apart); each
+    solve's seconds and the loop's capture seconds."""
     import numpy as np
     import torch
     from mlease_tpu_torch.train.admm import (_SolveLoop, build_x_update,
@@ -3840,17 +3947,16 @@ def one_x_update_check(name, tr, mode, pcg, gen):
     (xh, th), ch = _counted(lambda: solve(tr.prob, tr.present, z, u, rho,
                                           eps))
     t0 = time.monotonic()
-    lp = _SolveLoop(mode, substacks_of(tr.prob, B), L, n, pcg,
-                    cfg.max_newton_iter, cfg.max_cg_iter, z, u, rho, eps)
-    lp.own_loop(_graph_pool(tr.device)).prepare()
-    torch.cuda.synchronize()
-    capture_s = time.monotonic() - t0
+    with kernel_runs() as made:
+        lp = _SolveLoop(mode, substacks_of(tr.prob, B), L, n, pcg,
+                        cfg.max_newton_iter, cfg.max_cg_iter, z, u, rho, eps)
+        lp.own_loop(_graph_pool(tr.device)).prepare()
+        torch.cuda.synchronize()
+        capture_s = time.monotonic() - t0
     try:
-        (_, counts), cl = _counted(lambda: (lp.solve(z, u, rho, eps),
-                                            lp.loop.counts()))
+        _, cl = _counted(lambda: lp.solve(z, u, rho, eps))
         xl = solve.finish(lp.x(), tr.present, x_prior(z, u), z)
         tl = lp.trips().cpu().numpy()
-        execs = counts["kernel_executions"]
     finally:
         lp.loop.close()
     row = {"mode": mode, "pcg": pcg,
@@ -3862,80 +3968,124 @@ def one_x_update_check(name, tr, mode, pcg, gen):
            "host_s": ch["s"], "loop_s": cl["s"], "capture_s": capture_s,
            "k1_host": ch["k1"], "k1_loop": cl["k1"],
            "k2_host": ch["k2"], "k2_loop": cl["k2"],
-           "card_executions": execs}
+           "loop_runs_on_card": cl["card"], "loop_setup_runs": made["setup"]}
     print(f"loops (a) {name} " + json.dumps(row), flush=True)
     bad = []
     if not (row["x_bit_for_bit"] and row["trips_equal"]):
         bad.append(f"(a) {name}: x or trips differ ({row})")
-    if (cl["k1"], cl["k2"]) != (ch["k1"], ch["k2"]) or ch["k1"] == 0:
+    if (cl["k1"], cl["k2"]) != (ch["k1"], ch["k2"]) or ch["k1"] == 0 \
+            or cl["card"]["k1"] == 0:
         bad.append(f"(a) {name}: K1/K2 {cl} against the host's {ch}")
     return row, bad
 
 
-def _idle_share(prof, iter_s):
-    """The card's idle share of each steady iteration of a device-loop
-    run: 1 - the host path's device busy time in the same iteration (the
-    same kernels on the same values; the profiler's records inside a
-    conditional graph's bodies are not reliable, PERF.md) over the loop
-    iteration's wall time."""
-    if not prof:
-        return None
-    return [1.0 - busy / 1e3 / s
-            for busy, s in zip(prof["device_busy_ms"][1:], iter_s[1:])]
+def _loop_run(tr, **seams):
+    """(c)-(e) of run() through the device loops on a trainer whose loops
+    are made anew (captured in its first iteration), LOOPS_ITERS
+    iterations: the synchronizing calls of each iteration, K1 / K2 runs
+    (the loops' set-up apart), s an iteration, the captures' seconds and
+    bytes, the peak memory, and each iteration's time inside the loops'
+    graphs (CUDA events around each launch: no host read), whose share of
+    the iteration's wall time bounds the card's idle share from above.
+    `seams`: the trainer's methods replaced for the run (run_with).
+    Returns (result, row)."""
+    import gc
+    import torch
+    from mlease_tpu_torch.ops.device_loop import DeviceLoop
+    fresh_loops(tr)
+    spans, marks = [], []
+    launch = DeviceLoop.run
+
+    def timed(self):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        launch(self)
+        ev[1].record()
+        spans.append(ev)
+
+    def run(cb):
+        def mark(**kw):
+            marks.append(len(spans))
+            cb(**kw)
+        return run_with(tr, LOOPS_ITERS, mark, **seams)
+    with timed_prepare() as cap, mock.patch.object(DeviceLoop, "run", timed):
+        (res, syncs), cl = _counted(lambda: _syncs_by_iteration(run))
+    graph_ms = [sum(a.elapsed_time(b) for a, b in spans[lo:hi])
+                for lo, hi in zip([0] + marks, marks)]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return res, {
+        "solver_stats": res.solver_stats, "loop_iter_s": res.iter_times,
+        "loop_steady_iter_s": steady_s(res.iter_times),
+        "loop_graph_ms": graph_ms,
+        "idle_share_loop_at_most": [
+            1.0 - g / 1e3 / s for g, s in zip(graph_ms[1:],
+                                               res.iter_times[1:])],
+        "k1_loop": cl["k1"] - cl["setup"]["k1"],
+        "k2_loop": cl["k2"] - cl["setup"]["k2"],
+        "loop_setup_runs": cl["setup"], "loop_runs_on_card": cl["card"],
+        "capture_s": cap["s"], "loops_captured": cap["loops"],
+        "pool_reserved_bytes": cap["pool_reserved_bytes"],
+        "card_used_bytes_by_captures": cap["card_used_bytes"],
+        "peak_bytes_loop": cl["peak_bytes"],
+        "peak_reserved_bytes_loop": cl["peak_reserved_bytes"],
+        "solver_state_bytes": _state_bytes(tr._loops.values()),
+        # what the loops keep after the run (their state and pool, and a
+        # streaming trainer's slots), in reserved bytes
+        "kept_reserved_bytes": int(torch.cuda.memory_reserved()
+                                   - cl["base_reserved_bytes"]),
+        "syncs": syncs}
 
 
-def _run_against_host(name, tr, run_host, loops, span, profile=True):
-    """(c)-(e) on one warm trainer whose loops exist: its run() (the
-    device loops) against the host path run_host(iterations), each with
-    K1 / K2 counted and its peak memory, the loops' card-counted
-    executions, the synchronizing calls of each iteration, and (profile)
-    the host path's profile of `span` for the idle shares."""
+def _loop_failures(name, row):
+    bad = []
+    if not row["loop_runs_on_card"]["k1"] > 0:
+        bad.append(f"(d) {name}: no K1 run counted on the card")
+    if any(k != 1 for k in row["syncs"]["per_iteration"]):
+        bad.append(f"(c) {name}: syncs per iteration "
+                   f"{row['syncs']['per_iteration']}")
+    return bad
+
+
+def _run_against_host(name, tr, host_seams, span, profile=True):
+    """(c)-(e) on one trainer: first the host path (run() with
+    `host_seams`, no device loop made), LOOPS_ITERS iterations, with K1 /
+    K2 counted and its peak memory, and (profile) the device idle share of
+    its `span` over 2 iterations; then the device loops (_loop_run): z and
+    u bit for bit with equal trips, K1 / K2 run as
+    often (the loops' set-up apart). Returns (row, failures, the loops'
+    run's result)."""
     import numpy as np
+    fresh_loops(tr)
     t = [time.monotonic()]
-    before = _card_executions(loops())
-    (res, syncs), cl = _counted(lambda: _syncs_by_iteration(
-        lambda cb: tr.run(callback=cb)))
-    after = _card_executions(loops())
-    hres, ch = _counted(lambda: run_host(LOOPS_ITERS))
+    hres, ch = _counted(lambda: run_with(tr, LOOPS_ITERS, **host_seams))
+    prof = (span_profile(lambda: run_with(tr, 2, **host_seams), span)
+            if profile else None)
     t.append(time.monotonic())
-    prof = span_profile(lambda: run_host(2), span) if profile else None
+    res, row = _loop_run(tr)
     t.append(time.monotonic())
-    row = {
+    row.update({
         "bit_for_bit_with_host_path": bool(
             np.array_equal(res.z, hres.z) and np.array_equal(res.u, hres.u)),
         "trips_equal": res.solver_stats == hres.solver_stats,
-        "solver_stats": res.solver_stats,
-        "loop_iter_s": res.iter_times, "host_iter_s": hres.iter_times,
-        "loop_steady_iter_s": steady_s(res.iter_times),
+        "host_iter_s": hres.iter_times,
         "host_steady_iter_s": steady_s(hres.iter_times),
-        "k1_loop": cl["k1"], "k1_host": ch["k1"],
-        "k2_loop": cl["k2"], "k2_host": ch["k2"],
-        "card_executions": {k: after[k] - before[k] for k in after},
-        "base_bytes": cl["base_bytes"],
-        "peak_bytes_loop": cl["peak_bytes"],
-        "peak_bytes_host": ch["peak_bytes"], "syncs": syncs,
+        "k1_host": ch["k1"], "k2_host": ch["k2"],
+        "base_bytes": ch["base_bytes"], "peak_bytes_host": ch["peak_bytes"],
+        "base_reserved_bytes": ch["base_reserved_bytes"],
+        "peak_reserved_bytes_host": ch["peak_reserved_bytes"],
         "idle_share_host": prof and prof["device_idle_share_steady"],
-        "idle_share_loop": _idle_share(prof, res.iter_times),
-        "runs_and_profile_s": [b - a for a, b in zip(t, t[1:])]}
-    bad = []
+        "host_and_profile_s_loop_s": [b - a for a, b in zip(t, t[1:])]})
+    bad = _loop_failures(name, row)
     if not (row["bit_for_bit_with_host_path"] and row["trips_equal"]):
         bad.append(f"{name}: the run differs from the host path")
-    if (cl["k1"], cl["k2"]) != (ch["k1"], ch["k2"]) or ch["k1"] == 0:
-        bad.append(f"(d) {name}: K1/K2 {cl} against the host's {ch}")
-    if not row["card_executions"]["segment_sum_gather"] > 0:
-        bad.append(f"(d) {name}: no K1 execution counted on the card")
-    if any(k != 1 for k in syncs["per_iteration"]):
-        bad.append(f"(c) {name}: syncs per iteration "
-                   f"{syncs['per_iteration']}")
-    return row, bad
-
-
-class _HostRun:
-    """host_run's result as run()'s (z, u, solver_stats, iter_times)."""
-
-    def __init__(self, z, u, solver_stats, iter_times):
-        self.z, self.u = z, u
-        self.solver_stats, self.iter_times = solver_stats, iter_times
+    if (row["k1_loop"], row["k2_loop"]) != (ch["k1"], ch["k2"]) \
+            or ch["k1"] == 0:
+        bad.append(f"(d) {name}: K1/K2 {row['k1_loop'], row['k2_loop']} "
+                   f"against the host's {ch['k1'], ch['k2']}")
+    return row, bad, res
 
 
 def loops_phase(trainers, args):
@@ -3970,7 +4120,6 @@ def loops_phase(trainers, args):
     # sub-stacks of the head trainers' data (the head's sorted tails are
     # K1's; the ELL part of a problem without one is index_add_'s scatter,
     # whose atomics give other bits every run)
-    out["a_s"] = time.monotonic() - t_phase
     for tag, tr, per in (("bench", bench, 1), ("full", full, 2)):
         t0 = time.monotonic()
         n, R = tr.data.dim, tr.data.padded_rows
@@ -3987,23 +4136,16 @@ def loops_phase(trainers, args):
         bad += b
         del sub
         torch.cuda.empty_cache()
+    out["a_s"] = time.monotonic() - t_phase
 
     # (c)-(e) run() against the host-driven path: bench flat and lanes,
     # full flat
     for name, tr in (("bench flat", bench), ("bench lanes", lanes),
                      ("full flat", full)):
-        kept = tr.config
-        tr.config = dataclasses.replace(kept, num_iters=LOOPS_ITERS)
-        fresh_loops(tr)
-        with timed_prepare() as cap:
-            first = tr.run()                   # makes and captures the loop
-        row, b = _run_against_host(
-            name, tr, lambda k, tr=tr: _HostRun(*host_run(tr, k)),
-            lambda tr=tr: [tr._loops["x"].loop], "admm_iteration",
+        row, b, _ = _run_against_host(
+            name, tr, dict(_x_update=host_x_update(tr)), "admm_iteration",
             profile=name != "bench lanes")
-        tr.config = kept
-        row.update(mode=tr.mode, first_run_iter_s=first.iter_times,
-                   capture_s=cap["s"], loops_captured=cap["loops"])
+        row["mode"] = tr.mode
         out[f"run {name}"] = row
         print(f"loops run {name} " + json.dumps(row), flush=True)
         bad += b
@@ -4014,108 +4156,118 @@ def loops_phase(trainers, args):
     return out
 
 
+# phase 21 (b)-(e) streamed: its cells, made on phase 11's and phase 18's
+# trainers of the same settings (loops_stream_hook), or under --loops-only
+# on trainers of its own
+STREAM_CELLS = {("float32", "a_job_budget"): "a",
+                ("float32", "b_one_head"): "b",
+                ("float32", "c_streamed_compact"): "c",
+                ("bfloat16", "a_job_budget"): "a bf16"}
+LOOPS_STREAM: dict = {}     # "on": phase 21 runs; cell -> (row, bad, z, u)
+
+
+def loops_stream_hook(dtype, setting, tr):
+    """Phase 21's streamed cell of this phase 11 or 18 trainer, if it has
+    one and phase 21 runs."""
+    cell = STREAM_CELLS.get((dtype, setting))
+    if cell is not None and LOOPS_STREAM.get("on"):
+        LOOPS_STREAM[cell] = loops_stream_cell(cell, tr)
+
+
+def loops_stream_cell(cell, tr):
+    """Phase 21 (b)-(e) on one streaming trainer: a run through the loops
+    (_loop_run), at "a" and "a bf16" against the host path (the group
+    solves through build_group_solver, _run_against_host; the host's
+    stream_iteration idle share at "a"); group 0's first solve of a run
+    through the loops against build_group_solver on the same inputs while
+    they are in the group's slot (bit for bit, equal trips): at "b" and
+    "c" in that run, at "a" and "a bf16" in one more iteration (the
+    reference's launches kept out of (d)'s counts). Returns (row,
+    failures, z, u)."""
+    t0 = time.monotonic()
+    seen = {}
+    if cell in ("a", "a bf16"):
+        row, bad, res = _run_against_host(
+            cell, tr, dict(_solve_group=host_group_solve(tr)),
+            "stream_iteration", profile=cell == "a")
+        run_with(tr, 1, _solve_group=group0_check(tr, seen))
+    else:
+        res, row = _loop_run(tr, _solve_group=group0_check(tr, seen))
+        bad = _loop_failures(cell, row)
+    row.update({"residency": tr.residency_report(),
+                "group0_x_bit_for_bit": seen.get("x"),
+                "group0_trips": seen.get("trips"),
+                "group0_host_trips": seen.get("host_trips"),
+                "slots_bytes": sum(sl.nbytes() for sl in tr._slots),
+                "budget_reserve_bytes": tr._reserve_bytes(),
+                "cell_s": time.monotonic() - t0})
+    if not (seen.get("x") and seen["trips"] == seen["host_trips"]):
+        bad.append(f"(b) {cell}: group 0's solve differs: {seen}")
+    print(f"loops stream {cell} " + json.dumps(row), flush=True)
+    return row, bad, res.z, res.u
+
+
+def _state_bytes(loops):
+    """Device bytes of these _SolveLoops' state (a tensor that loops share
+    counted once)."""
+    seen, n = set(), 0
+    for lp in loops:
+        for t in lp.state():
+            if t.data_ptr() not in seen:
+                seen.add(t.data_ptr())
+                n += t.numel() * t.element_size()
+    return n
+
+
 def loops_stream_phase(args):
-    """Phase 21 (b)-(e) streamed: see the module docstring."""
+    """Phase 21 (b)-(e) streamed: see the module docstring. Its cells are
+    made on phases 11's and 18's trainers (loops_stream_hook); under
+    --loops-only it makes their trainers itself, on the data phase 11
+    makes."""
     import numpy as np
     import torch
     from mlease_tpu_torch.core.dataset import split_blocks, to_hybrid
     from mlease_tpu_torch.train.admm import AdmmConfig
-    from mlease_tpu_torch.train.streaming import (StreamingAdmmTrainer,
-                                                  build_group_solver)
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
 
-    if "stream" in F32_BASE:
-        groups = F32_BASE["stream"]["groups"]
-    else:
+    if args.loops_only:
         groups = split_blocks(synth_blocked_data(
             1_000_000, 8, args.rows_per_block, 12, args.seed), STREAM_GROUPS)
         for i, g in enumerate(groups):
             groups[i] = to_hybrid(g, 128, column_sorted=True,
                                   head_dtype=torch.bfloat16)
-    vocab = make_vocab(1_000_000)
-    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=LOOPS_ITERS,
-                     head_size=128, head_dtype=torch.bfloat16, pcg=True,
-                     flat_blocks=True, dtype=torch.float32)
-    head0 = int(groups[0].head.nbytes + groups[0].head_ids.nbytes)
-    # (a) f32 and bf16: against the host path; (c): the syncs of a run
-    # whose groups stream into the slots; (b): every cell
-    cells = {
-        "a": (cfg, dict(resident_head_budget_gb=8.0)),
-        "b": (cfg, dict(resident_head_budget_gb=1.2 * head0 / 2**30)),
-        "c": (cfg, dict(resident_head=False, compact_wire=True)),
-        "a bf16": (dataclasses.replace(cfg, dtype=torch.bfloat16),
-                   dict(resident_head_budget_gb=8.0)),
-    }
-    out, bad, z1 = {}, [], {}
-    for name, (c, kw) in cells.items():
-        t_cell = t0 = time.monotonic()
-        tr = StreamingAdmmTrainer(groups, vocab, c, **kw)
-        torch.cuda.synchronize()
-        build_s = time.monotonic() - t0
-        # (b) group 0's first solve: the trainer's loop against
-        # build_group_solver on the same inputs, while they are in its slot
-        host = build_group_solver(c.max_newton_iter, c.max_cg_iter,
-                                  mode=tr.mode, pcg=c.pcg,
-                                  relaxation=c.relaxation)
-        solve_group, seen = tr._solve_group, {}
-
-        def check(gi, prob, present, z, u, rho_eff, eps, perm):
-            x, trips = solve_group(gi, prob, present, z, u, rho_eff, eps,
-                                   perm)
-            if gi == 0 and not seen:
-                xh, nt, cg = host(prob, present, z, u, rho_eff, eps, perm)
-                seen.update(x=bool(torch.equal(x, xh)),
-                            trips=[int(v) for v in trips.tolist()],
-                            host_trips=[nt, cg])
-            return x, trips
-        tr._solve_group = check
-        tr.config = dataclasses.replace(c, num_iters=1)
-        try:
-            with timed_prepare() as cap:
-                first = tr.run()
-        finally:
-            del tr._solve_group
-        tr.config = dataclasses.replace(c, num_iters=LOOPS_ITERS)
-        z1[name] = first.z
-        row = {"residency": tr.residency_report(), "build_s": build_s,
-               "group0_x_bit_for_bit": seen.get("x"),
-               "group0_trips": seen.get("trips"),
-               "group0_host_trips": seen.get("host_trips"),
-               "capture_s": cap["s"], "loops_captured": cap["loops"],
-               "loop_bytes": tr._loop_bytes()}
-        if not (seen.get("x") and seen["trips"] == seen["host_trips"]):
-            bad.append(f"(b) {name}: group 0's solve differs: {seen}")
-        if name == "c":
-            row["syncs"] = _syncs_by_iteration(
-                lambda cb: tr.run(callback=cb))[1]
-            if any(k != 1 for k in row["syncs"]["per_iteration"]):
-                bad.append(f"(c) {name}: syncs per iteration "
-                           f"{row['syncs']['per_iteration']}")
-        elif name != "b":
-            def run_host(k, tr=tr):
-                tr._solve_group = host_group_solve(tr)
-                tr.config = dataclasses.replace(tr.config, num_iters=k)
-                try:
-                    return tr.run()
-                finally:
-                    del tr._solve_group
-                    tr.config = dataclasses.replace(tr.config,
-                                                    num_iters=LOOPS_ITERS)
-            more, b = _run_against_host(
-                name, tr, run_host,
-                lambda tr=tr: [lp.loop for lp in tr._loops.values()],
-                "stream_iteration", profile=name == "a")
-            row.update(more)
-            bad += b
-        row["cell_s"] = time.monotonic() - t_cell
-        out[name] = row
-        print(f"loops stream {name} " + json.dumps(row), flush=True)
-        del tr
-        torch.cuda.empty_cache()
-    same = {k: bool(np.array_equal(z1[k], z1["a"])) for k in ("b", "c")}
+        vocab = make_vocab(1_000_000)
+        cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=LOOPS_ITERS,
+                         head_size=128, head_dtype=torch.bfloat16, pcg=True,
+                         flat_blocks=True, dtype=torch.float32)
+        head0 = int(groups[0].head.nbytes + groups[0].head_ids.nbytes)
+        settings = {  # phase 11's and 18's
+            "a_job_budget": dict(resident_head_budget_gb=8.0),
+            "b_one_head": dict(resident_head_budget_gb=1.2 * head0 / 2**30),
+            "c_streamed_compact": dict(resident_head=False,
+                                       compact_wire=True)}
+        for (dtype, setting), cell in STREAM_CELLS.items():
+            tr = StreamingAdmmTrainer(
+                groups, vocab, dataclasses.replace(
+                    cfg, dtype=getattr(torch, dtype)), **settings[setting])
+            LOOPS_STREAM[cell] = loops_stream_cell(cell, tr)
+            del tr
+            torch.cuda.empty_cache()
+    missing = [c for c in STREAM_CELLS.values() if c not in LOOPS_STREAM]
+    if missing:
+        raise AssertionError(f"loops stream: cells not run: {missing}")
+    out, bad = {}, []
+    for cell in STREAM_CELLS.values():
+        out[cell], b, _, _ = LOOPS_STREAM[cell]
+        bad += b
+    a = LOOPS_STREAM["a"]
+    same = {k: bool(np.array_equal(LOOPS_STREAM[k][2], a[2])
+                    and np.array_equal(LOOPS_STREAM[k][3], a[3]))
+            for k in ("b", "c")}
     out["tiers_bit_for_bit"] = same
     print("loops stream tiers " + json.dumps(same), flush=True)
     if not all(same.values()):
-        bad.append(f"(b) the tiers' first iterations differ: {same}")
+        bad.append(f"(b) the tiers' runs differ: {same}")
     if bad:
         raise AssertionError(f"loops stream: {bad}")
     return out
@@ -4325,10 +4477,11 @@ def main(argv=None) -> int:
         phase("bf16_item", bf16_item_phase, args)
         phase("item_cli", item_cli_phase, args)
         phase("head_block", head_block_phase, args)
+        LOOPS_STREAM["on"] = True    # phase 21's cells on 11's and 18's
         phase("streaming", streaming_phase, args,
               speed["full"]["steady_iter_s"] if speed else None)
-        phase("loops_stream", loops_stream_phase, args)
         phase("bf16_stream", bf16_stream_phase, args)
+        phase("loops_stream", loops_stream_phase, args)
         phase("scale_cli", scale_cli_phase, args)
         phase("naive", naive_phase, args)
         phase("fit", fit_phase, args)

@@ -18,8 +18,10 @@ train and item read their input through the native columnar decoder when
 `native.ingest` is on (the default), and record at a time otherwise or when
 the decoder is unavailable. --device defaults to cuda and fails without a
 CUDA device. The JSON summary line of train, naive, item and itemtest
-carries `kernel_launches`, the count of launches of each hand-written
-kernel in the run (0 on the CPU).
+carries `kernel_launches`, the calls of each hand-written kernel's
+wrapper in the run (0 on the CPU): its eager launches, and the launches
+that a device loop's capture recorded, whose executions on the card the
+loop counts (ops/device_loop.py) and this count does not.
 
 `train --mesh N` runs the job on a block mesh of N ranks (the use.mesh /
 mesh.devices job keys), one process per rank, every rank running the

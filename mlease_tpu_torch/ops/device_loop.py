@@ -4,7 +4,8 @@ The counterpart of a `lax.while_loop` whose body picks one of a few
 branches: an x-update's TRON loops (train/admm.py::_SolveLoop: one CG
 trip, the Newton epilogue, the CG start, for each solve) in run() and the
 streaming trainer, and AdmmTrainer.run_fused's driver loop (those, the
-end of an ADMM iteration and the next x-update's start). Each branch is a function that reads and writes only tensors made
+end of an ADMM iteration and the next x-update's start). Each branch is
+a function that reads and writes only tensors made
 before the loop (its static state) and ends by writing the next phase into
 `phase`, a 0-d int32 tensor; phase 0 stops the loop. One pass of the loop
 runs the branches in the order given, each when the phase equals its own
@@ -47,16 +48,15 @@ captured add runs on the card each time the kernel has run, and
 `counts()` reads the kernels' executions from the card. The loop also
 records each branch's captured launches and counts each branch's
 executions on the device, which gives the same numbers a second way.
-A wrapper's `launches` counts the kernel's executions wherever they ran:
-`prepare` puts back what its warm-up and captures added (the warm-up's
-writes are put back too), and each read of the counts (`counts`,
-`read_counts`) adds the executions counted on the card since the last
-read to the wrappers' `launches`.
+A wrapper's `launches` stays its own: it holds the warm-up's launches and
+the calls the captures recorded, and none of the executions on the card,
+which only `counts()` reports. So the runs of a kernel in some span are
+its `launches` over the span, less the calls captured in it, plus the
+executions the loops counted on the card in it.
 """
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 from pathlib import Path
 from typing import Callable, Mapping, Sequence
@@ -97,35 +97,6 @@ def _load():
     return _lib
 
 
-@contextlib.contextmanager
-def uncounted(kernels):
-    """Put back the `launches` of each kernel wrapper on exit: for set-up
-    work (a loop's first state, its warm-up and captures) whose launches
-    are not the solves'."""
-    before = [(fn, fn.launches) for fn in kernels]
-    try:
-        yield
-    finally:
-        for fn, n in before:
-            fn.launches = n
-
-
-def read_counts(loops: Sequence["DeviceLoop"]) -> list[dict]:
-    """Each loop's `counts()` from one host read of all their counters;
-    on the card each kernel's executions since the last read are added to
-    its wrapper's `launches`."""
-    loops = list(loops)
-    if not loops:
-        return []
-    flat = torch.cat([lp.runs for lp in loops]).cpu().tolist()
-    out, off = [], 0
-    for lp in loops:
-        n = flat[off:off + lp.runs.numel()]
-        off += lp.runs.numel()
-        out.append(lp._counts(n))
-    return out
-
-
 class DeviceLoop:
     """branches: (phase number, name, function) in pass order; phase: the
     0-d int32 phase word; state: every tensor the branches write (put back
@@ -161,7 +132,6 @@ class DeviceLoop:
         self.pool = pool
         self._graphs: list = []
         self._handles = None
-        self._added = [0] * len(self.kernels)   # executions in `launches`
 
     @property
     def on_card(self) -> bool:
@@ -175,10 +145,6 @@ class DeviceLoop:
         """Warm up, capture and build (CUDA); nothing on the CPU."""
         if not self.on_card or self._handles is not None:
             return
-        with uncounted(self.kernels.values()):
-            self._prepare()
-
-    def _prepare(self) -> None:
         lib = _load()
         saved = [t.clone() for t in (*self.state, self.phase)]
         collective = set()
@@ -265,21 +231,15 @@ class DeviceLoop:
     def counts(self) -> dict:
         """What the loop ran so far, from one host read: each branch's
         executions; on the card also each kernel's launches captured per
-        branch, and its executions as counted on the card (added to the
-        wrappers' `launches` as they are read)."""
-        return read_counts([self])[0]
-
-    def _counts(self, n: list[int]) -> dict:
+        branch, and its executions as counted on the card."""
+        n = self.runs.cpu().tolist()
         out = {"branch_executions": dict(zip(self.names, n))}
         if self.on_card:
-            execs = n[len(self.names):]
-            for i, fn in enumerate(self.kernels.values()):
-                fn.launches += execs[i] - self._added[i]
-                self._added[i] = execs[i]
             out["captured_launches"] = self.captured
             out["capture_modes"] = self.capture_modes
             out["node_types"] = self.node_types
-            out["kernel_executions"] = dict(zip(self.kernels, execs))
+            out["kernel_executions"] = dict(zip(self.kernels,
+                                                n[len(self.names):]))
         return out
 
     def close(self) -> None:

@@ -79,8 +79,7 @@ from mlease_tpu_torch.ops.objective import (K1Streams, LRProblem,
                                             class_balance_eps_scale,
                                             column_sorted, k1_streams)
 from mlease_tpu_torch.ops.tron import LaneSolver, tron
-from mlease_tpu_torch.ops.device_loop import (DeviceLoop, read_counts,
-                                              uncounted)
+from mlease_tpu_torch.ops.device_loop import DeviceLoop
 from mlease_tpu_torch.ops.gram import gram_batched
 from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, MultiSolver,
@@ -767,16 +766,19 @@ class AdmmTrainer:
                           len(self.lambdas), self.dim, pcg, max_newton_iter,
                           max_cg_iter, z, u, rho_eff, eps, **kw)
 
-    def _x_loop(self, z, u, rho_eff, eps) -> "_SolveLoop":
-        """run()'s x-update loop: made, and on the card captured, at the
-        trainer's first iteration, then kept for every later one."""
+    def _x_update(self, z, u, rho_eff, eps):
+        """run()'s x-update through the trainer's _SolveLoop (made, and on
+        the card captured, at the trainer's first iteration, then kept for
+        every later one): (x (L, B, n), its (k, 2) (Newton, CG) trips), on
+        the device."""
         loop = self._loops.get("x")
         if loop is None:
-            with uncounted(_SOLVE_KERNELS.values()):
-                loop = self._solve_loop(z, u, rho_eff, eps)
-                loop.own_loop(_graph_pool(self.device)).prepare()
+            loop = self._solve_loop(z, u, rho_eff, eps)
+            loop.own_loop(_graph_pool(self.device)).prepare()
             self._loops["x"] = loop
-        return loop
+        loop.solve(z, u, rho_eff, eps)
+        x = self.step.solve.finish(loop.x(), self.present, x_prior(z, u), z)
+        return x, loop.trips()
 
     def run(self, z0: np.ndarray | None = None,
             u0: np.ndarray | None = None, *, start_iteration: int = 1,
@@ -841,7 +843,7 @@ class AdmmTrainer:
         rho_base = torch.as_tensor(self.rhos, dtype=dtype, device=dev)
         rho_tab = _rho_table(self.rhos, cfg.num_iters, cfg, z0 is not None,
                              dev)
-        finish, consensus = self.step.solve.finish, self.step.consensus
+        consensus = self.step.consensus
         iteration = start_iteration - 1
         for iteration in range(start_iteration, cfg.num_iters + 1):
             t_iter = time.monotonic()
@@ -855,12 +857,10 @@ class AdmmTrainer:
             # the span the device idle share of an iteration is read over
             # (chip_smoke.py phase 21); nearly free when no profiler runs
             with torch.profiler.record_function("admm_iteration"):
-                loop = self._x_loop(z, u, rho_eff, eps)
-                loop.solve(z, u, rho_eff, eps)
-                x = finish(loop.x(), self.present, x_prior(z, u), z)
+                x, trips = self._x_update(z, u, rho_eff, eps)
                 z, u, diffs = consensus(x, z, u, self.lam_vec, rho_base,
                                         self.block_valid)
-                trip_max = loop.trips().amax(0).to(torch.int64)
+                trip_max = trips.amax(0).to(torch.int64)
                 if self._group is not None:
                     all_reduce(trip_max, "max", self._group)
                 read = [diffs, trip_max]
@@ -906,8 +906,6 @@ class AdmmTrainer:
                 converged = True
                 break
 
-        if dev.type == "cuda":
-            read_counts([lp.loop for lp in self._loops.values()])
         z_np = z.to(torch.float64).cpu().numpy()
         models = {
             _lambda_key(lam): LinearModel.from_dense(z_np[i], self.vocab)

@@ -102,7 +102,6 @@ from mlease_tpu_torch.core.dataset import (BlockedData, _numpy_dtype,
 from mlease_tpu_torch.core.linear_model import LinearModel
 from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
-from mlease_tpu_torch.ops.device_loop import read_counts, uncounted
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, SubStacks,
                                              stack_fits, substack_ranges,
@@ -114,7 +113,7 @@ from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, axis_size,
 from mlease_tpu_torch.train.admm import (MAX_NTEST_EVENTS, AdmmConfig,
                                          AdmmResult, _close_loops,
                                          _graph_pool, _lambda_key, _leaves,
-                                         _rho_table, _SOLVE_KERNELS,
+                                         _rho_table,
                                          _SolveLoop, _to_device,
                                          build_x_update, sample_loglik_lanes,
                                          solver_mode, unstack_problem,
@@ -720,6 +719,25 @@ class StreamingAdmmTrainer:
         """A resident array: copied once, on the compute stream."""
         return None if t is None else t.to(self.device, non_blocking=True)
 
+    def _reserve_bytes(self) -> dict:
+        """What `_cap_budget` keeps free beside the pinned tiers, in bytes:
+        the card ("hbm"), the two streamed slots ("slots"), the x slab
+        ("x"), and the transients with the solver's workspace ("slack", of
+        which "work" is the workspace)."""
+        L = len(self.lambdas)
+        item = torch.empty((), dtype=self.config.dtype).element_size()
+        group_dev = max(_group_stream_bytes(g) + _nbytes(g.head)
+                        + _nbytes(g.head_ids) for g in self.groups)
+        hbm = _device_hbm_bytes(self.device)
+        head_block = max(g.padded_rows * g.head.shape[2] for g in self.groups)
+        work = max(32 * L * g.nblocks * (g.padded_rows + g.dim) * item
+                   for g in self.groups)
+        slack = int(max(_nbytes(g.head) for g in self.groups)
+                    + 2 * head_block * item + work + 0.05 * hbm)
+        return {"hbm": hbm, "slots": 2 * group_dev,
+                "x": L * self.nblocks * self.dim * item, "slack": slack,
+                "work": work}
+
     def _cap_budget(self, budget_gb: float, consensus_bytes: int) -> float:
         """Cap the pin budget by what the card can hold beside the rest.
 
@@ -735,18 +753,9 @@ class StreamingAdmmTrainer:
         card for the caching allocator (it rounds blocks up and keeps each
         stream's freed blocks cached). A budget above what is left degrades
         to less pinning instead of an out-of-memory error."""
-        cfg = self.config
-        L = len(self.lambdas)
-        item = torch.empty((), dtype=cfg.dtype).element_size()
-        group_dev = max(_group_stream_bytes(g) + _nbytes(g.head)
-                        + _nbytes(g.head_ids) for g in self.groups)
-        x_bytes = L * self.nblocks * self.dim * item
-        hbm = _device_hbm_bytes(self.device)
-        head_block = max(g.padded_rows * g.head.shape[2] for g in self.groups)
-        work = max(32 * L * g.nblocks * (g.padded_rows + g.dim) * item
-                   for g in self.groups)
-        slack = int(max(_nbytes(g.head) for g in self.groups)
-                    + 2 * head_block * item + work + 0.05 * hbm)
+        r = self._reserve_bytes()
+        hbm, group_dev, x_bytes, slack = (r["hbm"], r["slots"] // 2, r["x"],
+                                          r["slack"])
         avail = (hbm - slack - 2 * group_dev - x_bytes
                  - (consensus_bytes if self._consensus_device else 0))
         if budget_gb * (1 << 30) > max(avail, 0):
@@ -973,31 +982,18 @@ class StreamingAdmmTrainer:
         loop = self._loops.get(gi)
         if loop is None:
             pcg, max_newton_iter, max_cg_iter = self._solve_args
-            with uncounted(_SOLVE_KERNELS.values()):
-                loop = _SolveLoop(
-                    self.mode, self._group_problems(gi, prob, perm),
-                    len(self.lambdas), self.dim, pcg, max_newton_iter,
-                    max_cg_iter, z, u, rho_eff, eps,
-                    share=list(self._loops.values()))
-                loop.own_loop(self._pool).prepare()
+            loop = _SolveLoop(
+                self.mode, self._group_problems(gi, prob, perm),
+                len(self.lambdas), self.dim, pcg, max_newton_iter,
+                max_cg_iter, z, u, rho_eff, eps,
+                share=list(self._loops.values()))
+            loop.own_loop(self._pool).prepare()
             self._loops[gi] = loop
         elif self.mode == "lanes" and gi not in self._resident_groups:
             _refresh(loop.parts, self._group_problems(gi, prob, perm))
         loop.solve(z, u, rho_eff, eps)
         x = self._finish(loop.x(), present, x_prior(z, u), z)
         return x, loop.trips().sum(0)
-
-    def _loop_bytes(self) -> dict:
-        """Device bytes of the loops' persistent state beside the data:
-        the two slots and the solver state (shared state counted once)."""
-        seen, state = set(), 0
-        for lp in self._loops.values():
-            for t in lp.state():
-                if t.data_ptr() not in seen:
-                    seen.add(t.data_ptr())
-                    state += t.numel() * t.element_size()
-        return {"slots": sum(sl.nbytes() for sl in self._slots),
-                "solver_state": state}
 
     def _iterate(self, z, u_groups, rho_eff, rho_base, inner_eps: float,
                  track_ll: bool):
@@ -1226,8 +1222,6 @@ class StreamingAdmmTrainer:
                 converged = True
                 break
 
-        if dev.type == "cuda":
-            read_counts([lp.loop for lp in self._loops.values()])
         z_out = z.to(torch.float64).cpu().numpy()
         best_model = (None if best_z is None else LinearModel.from_dense(
             best_z.to(torch.float64).cpu().numpy(), self.vocab))
