@@ -62,13 +62,18 @@ Phases, each of which fails the run when it fails:
   8. item phase (the per-item main path, at its full size): 10,000 items x
      48 rows x 12 features (the generator of bench.py's item mode, from
      --seed), 1 x 2 grid, full posterior covariance, Cholesky route,
-     float32, through `train_item_models_columnar`; K2's launch count is
-     read from exactly this run and must equal the Newton trips plus one
-     covariance pass per bucket; then the same run with K2 patched to its
-     plain version (coefficients to 1e-4 * max|w|, variances to 1e-3
-     relative), the TRON route on 1,000 items against the Cholesky route
-     (5e-3 * max|w|: float32 bounds both routes at about 1e-3),
-     cold and steady models/s and one run under torch.profiler;
+     float32, through `train_item_models_columnar` (each bucket's solve a
+     device loop, train/item.py::_solve_bucket); K1's and K2's runs are
+     read from exactly this run (kernel_runs: eager launches and the
+     executions counted on the card, the loops' set-up apart): K2's must
+     equal the Newton trips plus one covariance pass per bucket, K1's
+     the Newton trips plus the Newton init's two; then the same run with
+     K2 patched to its plain version, and again with K1 patched to its
+     plain version (each: coefficients to 1e-4 * max|w|, variances to
+     1e-3 relative), the TRON route on 1,000 items against the Cholesky
+     route (5e-3 * max|w|: float32 bounds both routes at about 1e-3),
+     cold and steady models/s and one run under torch.profiler; the first
+     two runs and the TRON run are phase 22 (a)'s loop runs;
   9. item CLI phase: 200 items written as Avro, then `python -m
      mlease_tpu_torch item` and `itemtest` on the card; checks the outputs,
      finite testLoglik and both kernels' launch counts;
@@ -116,12 +121,17 @@ Phases, each of which fails the run when it fails:
      train_naive in this process on the same rows (float32, lambda
      1/10/100, the job's liblinear.epsilon), timed for models/s (whole
      call and solve alone) and once under torch.profiler, with both
-     kernels' launch counts read around it: the naive problem is the ELL
-     layout of the JAX package's naive trainer (no dense head, no sorted
-     tail), so neither kernel is on this path and both counts must be 0;
+     kernels' runs read around it (kernel_runs): the naive problem is the
+     ELL layout of the JAX package's naive trainer (no dense head), whose
+     entries the port carries as a row-sorted and a column-sorted tail
+     (ops/tron_multi.py::ell_as_sorted_tails) and sums with K1 (one order
+     every run), so K1 runs inside the solve's loop and K2 does not
+     (phase 22 (c) holds the solve on these rows against K1's plain
+     version);
      its models must equal the CLI's to 1e-4 * max|w|; and two blocks in
      float64 at liblinear.epsilon 1e-6 on the card must equal the same
-     solve on the CPU to 1e-6 * max|w|;
+     solve on the CPU to 1e-6 * max|w|; the solve is a device loop
+     (train/naive.py::_solve_keys);
  14. solver-modes phase (run right after phase 7, on the full trainer's
      data: ctr-12m widths, head 128 float32, 8 blocks, --rows-per-block):
      AdmmTrainer with flat_blocks=False (Jacobi) and with pcg="head_block",
@@ -297,6 +307,39 @@ Phases, each of which fails the run when it fails:
      and the slots' and solver state's bytes beside the reserve that
      _cap_budget keeps free of the pinned tiers.
 
+ 22. per-key loops phase (train/item.py::_solve_bucket and train/naive.py::
+     _solve_keys: each item bucket's and each naive solve one program on
+     the card), run right after phase 13 (its rows), each run on its
+     loops (phase 8's and 18 (e)'s runs where a whole run made them),
+     then again (items), then with the seam on the host-driven solvers
+     (tests/torch_host_solves.py: newton_cholesky, tron, tron_multi; one
+     host read a trip): (a) phase 8's items in float32, the Cholesky route
+     on the 10,000 (full covariance), the TRON route on phase 8's 1,000 at
+     liblinear.epsilon 1e-6, and both routes on 10,000 items in three
+     (R, K, F) buckets (ITEM_BUCKET_PARTS, diagonal variances, no second
+     run: s per bucket); (b) the same in bfloat16 (phase 18 (e)'s
+     settings, diagonal variances); w, variances, covariances and trips
+     bit for bit with the host path and between the two loop runs, K1 /
+     K2 run as often as on the host path (the loops' set-up apart), one
+     host read a bucket (the synchronizing calls by site, the captures'
+     apart), s per bucket of each, capture seconds, the captures' pool
+     (reserved bytes) and the bytes kept after the run; K1 held to its
+     plain version on the item path's shapes: every K1 call of the first
+     bucket's host-driven solve and Hessian diagonal against its float64
+     plain version (k1_checked, K1's bound), the TRON and diagonal-variance
+     runs again with K1 on its plain version (w and variances within
+     K1_PLAIN_BOUNDS), and the Cholesky buckets' sorted sums, plain and
+     squared, against the float64 scatter (lanes_sorted_sum_check); (c)
+     phase 13's in-process train_naive on its 125,000 rows in its three
+     modes (flat, per key in 4 sub-stacks with the int32 bound lowered as
+     phase 19 lowers it, the lanes of multi_rhs=False): models and trips
+     bit for bit with the host path, K1 run as often, no host read inside
+     the solve, every K1 call of the host-driven solve against its float64
+     plain version, and the stacked solves' loop with K1 on its plain
+     version within NAIVE_K1_PLAIN_BOUND (the lanes' distance reported),
+     s of each; (d), items on 2 gloo ranks against 1
+     rank, is phase 16 (e)'s, whose rows say whether they are the same
+     bits.
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -310,8 +353,9 @@ them, sets up the two trainers and runs phase 16 alone (with its own
 no-mesh runs for (a)); --fused-only builds them, sets up the two trainers
 and runs phases 17 and 19 alone (with its own eager CLI run for 17 (c) and
 no-mesh runs for 19 (b)-(c)); --loops-only builds them, sets up the two
-trainers and runs phase 21 alone (its streamed part on trainers of its own,
-on data made as phase 11 makes it); --bf16-only
+trainers and runs phases 21 and 22 alone (21's streamed part on trainers of
+its own, on data made as phase 11 makes it; 22's naive rows made as phase
+13 makes them); --bf16-only
 builds them, sets up the two trainers, makes the float32 runs phase 18
 compares with (phase 5, phase 6, phase 8's first run, phase 11's (a) once)
 and runs phase 18 alone.
@@ -794,12 +838,26 @@ def max_model_diff(a, b):
     return diff, scale
 
 
+def max_var_rel(a, b):
+    """max relative difference of two posterior-variance dictionaries with
+    equal keys, relative to b's."""
+    rel = 0.0
+    for key, v in a.items():
+        o = b[key]
+        rel = max(rel, abs(v.intercept - o.intercept) / o.intercept,
+                  *(abs(x - o.coefficients[n]) / o.coefficients[n]
+                    for n, x in v.coefficients.items()))
+    return rel
+
+
 def item_phase(args):
     import math
     import torch
     import mlease_tpu_torch.ops.newton as newton_mod
     import mlease_tpu_torch.ops.objective as objective_mod
     from mlease_tpu_torch.ops.gram import gram_batched, gram_batched_reference
+    from mlease_tpu_torch.ops.segment_sum import (
+        segment_sum_gather_reference, segment_sum_sorted)
     from mlease_tpu_torch.train import item
 
     n_items, rows_per_item, n_feat = 10_000, 48, 12
@@ -810,17 +868,25 @@ def item_phase(args):
                           compute_var=True, full_cov=True, solver="cholesky",
                           dtype=torch.float32)
 
+    def train():
+        return item.train_item_models_columnar(decoded, cfg, device="cuda")
+
     def run():
         t0 = time.monotonic()
-        res = item.train_item_models_columnar(decoded, cfg, device="cuda")
+        res = train()
         torch.cuda.synchronize()
         return res, time.monotonic() - t0
 
-    gram_batched.launches = 0                # main path: count from here
-    res, cold_s = run()
-    launches = gram_batched.launches         # ... to here
+    # main path, counted from here to here (kernel_runs in _counted), and
+    # kept as phase 22 (a)'s first loop run
+    first = item_loop_run(train)
+    res, runs, cold_s = first["res"], first["counts"], first["counts"]["s"]
+    launches = runs["k2"]              # every run, the loops' set-up too
     F32_BASE["item"] = {"decoded": decoded, "models": res.models}
+    # each bucket's loop runs K2 once a Newton step, then dense_hessian;
+    # K1 at the Newton init (2) and once a Newton finish
     expected = sum(s["newton_trips"] + 1 for s in res.solver_stats)
+    expected_k1 = sum(s["newton_trips"] + 2 for s in res.solver_stats)
     n_models = len(res.models)
     finite = all(
         math.isfinite(m.intercept)
@@ -833,15 +899,23 @@ def item_phase(args):
     row = {"items": n_items, "rows_per_item": rows_per_item,
            "features": n_feat, "models": n_models, "datagen_s": datagen_s,
            "buckets": res.solver_stats, "kernel_launches": launches,
-           "expected_launches": expected, "finite": finite,
+           "kernel_runs": runs, "expected_launches": expected,
+           "k1_runs": runs["k1"], "expected_k1_runs": expected_k1,
+           "finite": finite,
            "variances_positive": var_pos, "cold_s": cold_s,
            "cold_models_per_s": n_models / cold_s}
     if (n_models != 2 * n_items or not finite or not var_pos or launches == 0
-            or launches != expected
+            or launches - runs["setup"]["k2"] != expected
+            or runs["k1"] - runs["setup"]["k1"] != expected_k1
+            or runs["card"]["k2"] == 0 or runs["card"]["k1"] == 0
             or len(res.covariances) != n_models):
         raise AssertionError(f"item run: {row}")
 
-    _res2, steady_s = run()
+    # phase 22 (a)'s second loop run: its captures timed (timed_prepare
+    # synchronises around each), so steady_s holds that too
+    second = item_second_run(train)
+    ITEM_LOOP_RUNS["a cholesky"] = dict(first, second=second)
+    steady_s = second["s"]
     row["steady_s"] = steady_s
     row["steady_models_per_s"] = n_models / steady_s
     t0 = time.monotonic()
@@ -864,15 +938,28 @@ def item_phase(args):
     row["plain_s"] = plain_s
     diff, scale = max_model_diff(res.models, plain.models)
     row["w_kernel_vs_plain_max_abs"], row["w_max_abs"] = diff, scale
-    var_rel = 0.0
-    for key, v in res.posterior_var.items():
-        o = plain.posterior_var[key]
-        var_rel = max(var_rel, abs(v.intercept - o.intercept) / o.intercept,
-                      *(abs(x - o.coefficients[n]) / o.coefficients[n]
-                        for n, x in v.coefficients.items()))
+    var_rel = max_var_rel(res.posterior_var, plain.posterior_var)
     row["var_kernel_vs_plain_max_rel"] = var_rel
     if not diff <= 1e-4 * scale or not var_rel <= 1e-3:
         raise AssertionError(f"kernel and plain item runs differ: {row}")
+
+    # the same run with K1 on its plain version (X'v, the gradient, over
+    # the item problem's column-sorted copy), held as K2's run is
+    with mock.patch.object(objective_mod, "segment_sum_gather",
+                           segment_sum_gather_reference):
+        before = segment_sum_sorted.launches
+        plain1, plain1_s = run()
+        if segment_sum_sorted.launches != before:
+            raise AssertionError("the K1-plain run launched the kernel")
+    row["k1_plain_s"] = plain1_s
+    row["w_k1_vs_plain_max_abs"], _ = max_model_diff(res.models,
+                                                     plain1.models)
+    row["var_k1_vs_plain_max_rel"] = max_var_rel(res.posterior_var,
+                                                 plain1.posterior_var)
+    if not (row["w_k1_vs_plain_max_abs"] <= 1e-4 * scale
+            and row["var_k1_vs_plain_max_rel"] <= 1e-3):
+        raise AssertionError(f"K1 and plain item runs differ: {row}")
+    del plain, plain1
 
     # the TRON route on 1,000 items against the Cholesky route, both solved
     # to a tight tolerance. In float32 either route stops once a step no
@@ -881,8 +968,10 @@ def item_phase(args):
     small = synth_item_decoded(1_000, rows_per_item, n_feat, args.seed + 1)
     tight = dataclasses.replace(cfg, full_cov=False, liblinear_epsilon=1e-6)
     chol = item.train_item_models_columnar(small, tight, device="cuda")
-    tron = item.train_item_models_columnar(
-        small, dataclasses.replace(tight, solver="tron"), device="cuda")
+    tron_run = item_loop_run(lambda: item.train_item_models_columnar(
+        small, dataclasses.replace(tight, solver="tron"), device="cuda"))
+    ITEM_LOOP_RUNS["a tron"] = tron_run       # phase 22 (a)'s first run
+    tron = tron_run["res"]
     F32_BASE["item"].update(small=small, tight=tight, tron=tron.models)
     diff, scale = max_model_diff(chol.models, tron.models)
     row["tron_vs_cholesky_max_abs"], row["tron_w_max_abs"] = diff, scale
@@ -1653,6 +1742,7 @@ def scale_cli_phase(args):
 
 
 NAIVE_ROWS = 125_000         # phase 13's rows (ctr-12m.job: 12.5M)
+NAIVE_BASE: dict = {}        # phase 13's rows and config, phase 22 (c)'s
 NAIVE_LAMBDAS = [1.0, 10.0, 100.0]
 FIT_ROWS, FIT_FEATURES, FIT_NNZ = 100_000, 512, 32
 
@@ -1671,8 +1761,6 @@ def naive_phase(args):
     from mlease_tpu_torch.core.prepare import prepare_to_blocks
     from mlease_tpu_torch.core.vocab import build_vocab
     from mlease_tpu_torch.io import avro
-    from mlease_tpu_torch.ops.gram import gram_batched
-    from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
     from mlease_tpu_torch.train.naive import NaiveConfig, train_naive
     from mlease_tpu_torch.utils.config import JobConfig
 
@@ -1750,13 +1838,15 @@ def naive_phase(args):
         cfg = NaiveConfig(lambdas=NAIVE_LAMBDAS, liblinear_epsilon=float(
             base["liblinear.epsilon"]), compute_model_mean=True,
             dtype=torch.float32)
-        segment_sum_sorted.launches = gram_batched.launches = 0
-        t0 = time.monotonic()
-        res = train_naive(keyed, cfg, vocab=vocab)              # the path
-        torch.cuda.synchronize()
-        wall_s = time.monotonic() - t0
-        launches = {"segment_sum_sorted": segment_sum_sorted.launches,
-                    "gram_batched": gram_batched.launches}
+        NAIVE_BASE.update(keyed=keyed, vocab=vocab, cfg=cfg)  # phase 22
+        with kernel_runs() as runs:
+            t0 = time.monotonic()
+            res = train_naive(keyed, cfg, vocab=vocab)          # the path
+            torch.cuda.synchronize()
+            wall_s = time.monotonic() - t0
+        launches = {"segment_sum_sorted": runs["k1"],
+                    "gram_batched": runs["k2"], "setup": runs["setup"],
+                    "on_card": runs["card"]}
         profiled = device_time(lambda: train_naive(keyed, cfg, vocab=vocab))
 
         def diff(a, b):
@@ -1817,9 +1907,9 @@ def naive_phase(args):
             ("K1 ran in the boosted ADMM runs",
              rows["boost_l2"]["summary"]["kernel_launches"][
                  "segment_sum_sorted"] > 0),
-            ("no kernel on the naive path (ELL problem: no sorted tail, "
-             "no head)", launches == {"segment_sum_sorted": 0,
-                                     "gram_batched": 0})) if not ok]
+            ("K1 sums the naive ELL's X'v (its column-sorted copy) inside "
+             "the solve's loop; K2 does not run",
+             runs["card"]["k1"] > 0 and runs["k2"] == 0)) if not ok]
         if bad:
             raise AssertionError(f"naive phase: not {bad}: {row}")
         return row
@@ -2116,21 +2206,22 @@ def kernel_runs():
     So a kernel's runs here are its `launches` less the calls that the
     loops prepared here captured, plus the executions that the loops
     counted on the card here. "setup" counts apart, and among the runs,
-    those of the loops' set-up: each _SolveLoop's first state and each
-    loop's warm-up. Yields a dict filled in at the exit: {"k1", "k2" (the
-    runs), "setup", "eager", "card" (each {"k1", "k2"})}; it adds no host
-    read before the exit."""
+    those of the loops' set-up: each _SolveLoop's (and the item trainer's
+    _NewtonLoop's) first state and each loop's warm-up. Yields a dict
+    filled in at the exit: {"k1", "k2" (the runs), "setup", "eager",
+    "card" (each {"k1", "k2"})}; it adds no host read before the exit."""
     from mlease_tpu_torch.ops import gram
     from mlease_tpu_torch.ops.device_loop import DeviceLoop
     from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
-    from mlease_tpu_torch.train import admm
+    from mlease_tpu_torch.train import admm, item
     fns = {"k1": segment_sum_sorted, "k2": gram.gram_batched}
     names = {"k1": "segment_sum_gather", "k2": "gram_batched"}
     start = {k: f.launches for k, f in fns.items()}
     setup, captured = dict.fromkeys(fns, 0), dict.fromkeys(fns, 0)
     seen, box = {}, {}
-    prepare, run, init = (DeviceLoop.prepare, DeviceLoop.run,
-                          admm._SolveLoop.__init__)
+    prepare, run = DeviceLoop.prepare, DeviceLoop.run
+    inits = {cls: cls.__init__ for cls in (admm._SolveLoop,
+                                           item._NewtonLoop)}
 
     def in_setup(fn, self, *a, **kw):
         before = {k: f.launches for k, f in fns.items()}
@@ -2152,11 +2243,17 @@ def kernel_runs():
             seen[self] = self.runs.clone()
         run(self)
 
-    def made(self, *a, **kw):
-        in_setup(init, self, *a, **kw)
-    with mock.patch.object(DeviceLoop, "prepare", prepared), \
-            mock.patch.object(DeviceLoop, "run", ran), \
-            mock.patch.object(admm._SolveLoop, "__init__", made):
+    def maker(init):
+        def made(self, *a, **kw):
+            in_setup(init, self, *a, **kw)
+        return made
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(mock.patch.object(DeviceLoop, "prepare",
+                                              prepared))
+        stack.enter_context(mock.patch.object(DeviceLoop, "run", ran))
+        for cls, init in inits.items():
+            stack.enter_context(mock.patch.object(cls, "__init__",
+                                                  maker(init)))
         yield box
     card = dict.fromkeys(fns, 0)
     for lp, r0 in seen.items():
@@ -2389,13 +2486,15 @@ def _max_model_diff(ref, got):
                   for f in ref[k][1]])
 
 
-def lanes_sorted_sum_check(name, prob, n, gen, L=3):
+def lanes_sorted_sum_check(name, prob, n, gen, L=3, squares=(False,),
+                           tag="fused-more"):
     """The lanes objective's sorted sums on the card (ops/objective.py::
     _sorted_sum: K1 over prob.k1's ids, one call per block range), for
-    every sorted stream prob carries, against the float64 scatter of the
-    same inputs (random out0 and V3): per entry |got - ref64| <= 1e-5 *
-    (|out0| + sum|contrib|), K1's float32 bound (k1_tolerances). Returns
-    one row per stream."""
+    every sorted stream prob carries and each of `squares` (True: the
+    Hessian diagonal's sum of squared values, K1's square_from 0), against
+    the float64 scatter of the same inputs (random out0 and V3): per entry
+    |got - ref64| <= 1e-5 * (|out0| + sum|contrib|), K1's float32 bound
+    (k1_tolerances). Returns one row per stream and square."""
     import torch
     from mlease_tpu_torch.ops import objective
 
@@ -2408,27 +2507,32 @@ def lanes_sorted_sum_check(name, prob, n, gen, L=3):
             continue
         seg, idx, vals = (getattr(prob, f)
                           for f in objective._STREAMS[stream])
-        V3 = torch.randn((L, B, m), generator=gen, device="cuda")
-        out0 = torch.randn((L, B, W), generator=gen, device="cuda")
-        got = objective._sorted_sum(prob, stream, out0.clone(), V3)
-        torch.cuda.synchronize()
+        for square in squares:
+            V3 = torch.randn((L, B, m), generator=gen, device="cuda")
+            out0 = torch.randn((L, B, W), generator=gen, device="cuda")
+            got = objective._sorted_sum(prob, stream, out0.clone(), V3,
+                                        square=square)
+            torch.cuda.synchronize()
 
-        def scatter64(o, v, V):
-            return o.double().scatter_add_(
-                2, seg[None].expand(L, -1, -1), v.double() * V.double()
-                .gather(2, idx[None].expand(L, -1, -1)))
-        err = (got.double() - scatter64(out0, vals, V3)).abs_()
-        scale = scatter64(out0.abs(), vals.abs(), V3.abs())
-        row = {"check": name, "stream": stream, "blocks": B,
-               "entries": int(seg.numel()), "values": str(vals.dtype),
-               "ranges": [list(r) for r in prob.k1.ranges],
-               "max_abs_err": float(err.max()),
-               "max_rel_err": float((err / scale.clamp_min(1e-300)).max()),
-               "ok": bool((err <= tol * scale + 1e-300).all())}
-        print("fused-more k1 " + json.dumps(row), flush=True)
-        rows.append(row)
-        del got, err, scale
-        torch.cuda.empty_cache()
+            def scatter64(o, v, V):
+                v = v.double()
+                return o.double().scatter_add_(
+                    2, seg[None].expand(L, -1, -1), (v * v if square else v)
+                    * V.double().gather(2, idx[None].expand(L, -1, -1)))
+            err = (got.double() - scatter64(out0, vals, V3)).abs_()
+            scale = scatter64(out0.abs(), vals.abs(), V3.abs())
+            row = {"check": name, "stream": stream, "square": square,
+                   "blocks": B, "lanes": L, "entries": int(seg.numel()),
+                   "values": str(vals.dtype),
+                   "ranges": [list(r) for r in prob.k1.ranges],
+                   "max_abs_err": float(err.max()),
+                   "max_rel_err": float(
+                       (err / scale.clamp_min(1e-300)).max()),
+                   "ok": bool((err <= tol * scale + 1e-300).all())}
+            print(f"{tag} k1 " + json.dumps(row), flush=True)
+            rows.append(row)
+            del got, err, scale
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -2953,9 +3057,13 @@ def _mesh_rank(args) -> int:
         diff, scale = max_model_diff(res.models, plain.models)
         vdiff, vscale = max_model_diff(res.posterior_var,
                                        plain.posterior_var)
+        # phase 22 (d): since the item problem sums X'v with K1 (one
+        # order every run), whether 2 ranks give one rank's bits
         row.update(w_vs_one_rank_max_abs=diff, w_max_abs=scale,
                    var_vs_one_rank_max_abs=vdiff, var_max_abs=vscale,
-                   same_keys=set(res.models) == set(plain.models))
+                   same_keys=set(res.models) == set(plain.models),
+                   bit_for_bit_with_one_rank=diff == 0 and vdiff == 0
+                   and res.covariances == plain.covariances)
     out["item"] = row
     distributed.barrier()
     torch.distributed.destroy_process_group()
@@ -3385,7 +3493,6 @@ def bf16_item_phase(args):
     of max|w| from the optimum, so its models are held at 1e-6)."""
     import math
     import torch
-    from mlease_tpu_torch.ops.gram import gram_batched
     from mlease_tpu_torch.train import item
 
     base = F32_BASE.pop("item")
@@ -3401,13 +3508,16 @@ def bf16_item_phase(args):
             base["tight"], dtype=torch.bfloat16, solver="tron"),
             base["tron"])}
     rows = {}
+    # phase 22 (b)'s first loop runs
+    kept = {"cholesky": "b bf16 cholesky", "tron_tight": "b bf16 tron"}
     for name, (decoded, rcfg, ref) in runs.items():
-        gram_batched.launches = 0            # this path: count from here
-        t0 = time.monotonic()
-        res = item.train_item_models_columnar(decoded, rcfg, device="cuda")
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
-        launches = gram_batched.launches     # ... to here
+        # this path, counted from here to here (kernel_runs in _counted)
+        loop_run = item_loop_run(lambda: item.train_item_models_columnar(
+            decoded, rcfg, device="cuda"))
+        if name in kept:
+            ITEM_LOOP_RUNS[kept[name]] = loop_run
+        res, wall = loop_run["res"], loop_run["counts"]["s"]
+        launches = loop_run["counts"]["k2"]
         finite = all(math.isfinite(m.intercept) and all(
             math.isfinite(v) for v in m.coefficients.values())
             for m in res.models.values())
@@ -4273,6 +4383,498 @@ def loops_stream_phase(args):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the per-key trainers' solves as device loops (train/item.py::
+# _solve_bucket, train/naive.py::_solve_keys) against the host-driven solves
+# they replaced, through those seams
+# ---------------------------------------------------------------------------
+
+# where a device loop's capture synchronizes (its set-up, not a read)
+CAPTURE_SITES = ("device_loop.py", "graphs.py")
+
+
+def _sync_sites(fn):
+    """fn() under torch.cuda.set_sync_debug_mode("warn"): its result and
+    the file:line of each synchronizing call it made."""
+    import warnings
+    import torch
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return out, [f"{os.path.basename(w.filename)}:{w.lineno}" for w in seen
+                 if "called a synchronizing" in str(w.message)]
+
+
+def _reads(sites):
+    """The synchronizing calls outside a loop's capture, by site."""
+    out = {}
+    for site in sites:
+        if not site.startswith(CAPTURE_SITES):
+            out[site] = out.get(site, 0) + 1
+    return out
+
+
+def host_solves():
+    """tests/torch_host_solves.py (the host-driven seams the CPU and card
+    tests hold the loops to: host_bucket, host_keys), loaded by its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_host_solves", os.path.join(REPO, "tests",
+                                          "torch_host_solves.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def k1_checked(*modules):
+    """Every K1 call `modules` make inside (through their
+    segment_sum_gather; eager calls only) held, on the same inputs, to the float64 sum of its
+    plain version: |got - ref64| <= tol * (|out0| + sum|contrib|) + rel *
+    |ref64|, K1's bound for the result's type (k1_tolerances). Yields
+    {"calls", "max_rel_err", "ok"}, filled at the exit (one read)."""
+    import torch
+    from mlease_tpu_torch.ops.segment_sum import (
+        segment_sum_gather, segment_sum_gather_reference as ref)
+    excess, rel, box = [], [], {}
+
+    def checked(vals, V, idx, seg, S, *, out=None, square_from=None):
+        out0 = None if out is None else out.clone()
+        got = segment_sum_gather(vals, V, idx, seg, S, out=out,
+                                 square_from=square_from)
+
+        def f64(o, v, VV):
+            return ref(v.double(), None if VV is None else VV.double(), idx,
+                       seg, S, out=None if o is None else o.double(),
+                       square_from=square_from)
+        ref64 = f64(out0, vals, V)
+        scale = f64(None if out0 is None else out0.abs(), vals.abs(),
+                    None if V is None else V.abs())
+        tol, r = k1_tolerances()[got.dtype]
+        err = (got.double() - ref64).abs_()
+        excess.append((err - tol * scale - r * ref64.abs()).max())
+        rel.append((err / scale.clamp_min(1e-300)).max())
+        return got
+    with contextlib.ExitStack() as stack:
+        for module in modules:
+            stack.enter_context(mock.patch.object(
+                module, "segment_sum_gather", checked))
+        yield box
+    box.update(calls=len(rel),
+               max_rel_err=float(torch.stack(rel).max()) if rel else 0.0,
+               ok=bool(rel) and float(torch.stack(excess).max()) <= 0.0)
+
+
+@contextlib.contextmanager
+def k1_plain(*modules):
+    """`modules`' K1 calls on K1's plain version inside; the box says
+    whether the kernel was launched all the same."""
+    from mlease_tpu_torch.ops.segment_sum import (
+        segment_sum_gather_reference, segment_sum_sorted)
+    box, before = {}, segment_sum_sorted.launches
+    with contextlib.ExitStack() as stack:
+        for module in modules:
+            stack.enter_context(mock.patch.object(
+                module, "segment_sum_gather", segment_sum_gather_reference))
+        yield box
+    box["kernel_launched"] = segment_sum_sorted.launches != before
+
+
+# phases 8 and 18 (e)'s item runs on their loops, phase 22 (a)/(b)'s first
+# (and phase 8's second) loop runs, by cell name
+ITEM_LOOP_RUNS: dict = {}
+
+
+def item_loop_run(train):
+    """train() (an item call) on its loops, as phase 22 reads a first run:
+    {"res", "counts" (_counted: K1 / K2 runs, seconds, memory), "sites"
+    (the synchronizing calls, _sync_sites)}."""
+    (res, sites), counts = _counted(lambda: _sync_sites(train))
+    return {"res": res, "counts": counts, "sites": sites}
+
+
+def item_second_run(train):
+    """train() again on new loops, its captures timed (timed_prepare:
+    seconds, pool bytes), and the bytes the card keeps reserved after
+    it: {"res", "s", "capture", "kept_reserved_bytes"}."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved0 = torch.cuda.memory_reserved()
+    with timed_prepare() as cap:
+        t0 = time.monotonic()
+        res = train()
+        torch.cuda.synchronize()
+        s = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    return {"res": res, "s": s, "capture": cap,
+            "kept_reserved_bytes": int(torch.cuda.memory_reserved()
+                                       - reserved0)}
+
+
+def _item_same(a, b):
+    """Whether two ItemResults hold the same models, variances and
+    covariances (every float compared, dictionaries as they are: no
+    sorting of the 20,000 covariance dictionaries)."""
+    def plain(models):
+        return {k: (m.intercept, m.coefficients) for k, m in models.items()}
+    return (plain(a.models) == plain(b.models)
+            and plain(a.posterior_var) == plain(b.posterior_var)
+            and a.covariances == b.covariances)
+
+
+def _untimed_stats(stats):
+    return [{k: v for k, v in s.items() if not k.endswith("_s")}
+            for s in stats]
+
+
+# phase 22's bounds on an item run with K1 on its plain version against
+# the run with K1, by cell: (w as a share of max|w|, variances relative).
+# The Cholesky route converges quadratically, as phase 8 holds K2; a
+# float32 TRON stop leaves each run about 1e-3 of max|w| from the optimum
+# (phase 8's 5e-3 between the routes); bfloat16 phase 18's 1e-2 of max|w|,
+# and a few bfloat16 roundings (2^-8 each) on a variance
+K1_PLAIN_BOUNDS = {"a tron": (5e-3, 1e-2), "b bf16 cholesky": (1e-2, 5e-2),
+                   "b bf16 tron": (1e-2, 5e-2)}
+
+
+def item_loop_cell(name, decoded, cfg, gen, second=True, k1_sums=False):
+    """Phase 22 (a)/(b) on one item run: train_item_models_columnar on its
+    loops (phase 8's or 18 (e)'s run where it made one, else here: K1 / K2
+    runs, the synchronizing calls by site), again (bits; the captures'
+    seconds and pool bytes, the bytes kept after the run), and with
+    _solve_bucket on the host-driven solvers (K1 / K2 runs, its
+    synchronizing calls): w, variances, covariances and trips bit for
+    bit, K1 / K2 run as often (the loops' set-up apart), one host read a
+    bucket, s per bucket of each. Then the first bucket's host-driven solve
+    and Hessian diagonal with every K1 call held to its float64 plain
+    version (k1_checked); where K1_PLAIN_BOUNDS names the cell, the run
+    with K1 on its plain version; with k1_sums, the first bucket's sorted
+    sums, plain and squared, against the float64 scatter
+    (lanes_sorted_sum_check)."""
+    import torch
+    from mlease_tpu_torch.ops import objective
+    from mlease_tpu_torch.train import item
+
+    def train():
+        return item.train_item_models_columnar(decoded, cfg, device="cuda")
+    t0 = time.monotonic()
+    first = ITEM_LOOP_RUNS.pop(name, None) or item_loop_run(train)
+    res, sites, cl = first["res"], first["sites"], first["counts"]
+    again = first.get("second") or (item_second_run(train) if second
+                                    else None)
+    seams = host_solves()
+    buckets_seen = []
+
+    def host_bucket(prob, w0, eps_t, c, pool=None):
+        if not buckets_seen:
+            buckets_seen.append((prob, w0, eps_t))
+        return seams.host_bucket(prob, w0, eps_t, c)
+    with mock.patch.object(item, "_solve_bucket", host_bucket):
+        (resh, host_sites), ch = _counted(lambda: _sync_sites(train))
+    reads = _reads(sites)
+    buckets = len(res.solver_stats)
+    row = {
+        "models": len(res.models), "buckets": buckets,
+        "shapes": [s["shape"] for s in res.solver_stats],
+        "bit_for_bit_with_host_path": _item_same(res, resh),
+        "trips_equal": (_untimed_stats(res.solver_stats)
+                        == _untimed_stats(resh.solver_stats)),
+        "trips": [{k: s.get(k) for k in ("newton_trips", "cg_trips")}
+                  for s in res.solver_stats],
+        "loop_reads": reads, "loop_reads_total": sum(reads.values()),
+        "loop_capture_syncs": len(sites) - sum(reads.values()),
+        "host_syncs": len(host_sites),
+        "k1_loop": cl["k1"] - cl["setup"]["k1"], "k1_host": ch["k1"],
+        "k2_loop": cl["k2"] - cl["setup"]["k2"], "k2_host": ch["k2"],
+        "loop_setup_runs": cl["setup"], "loop_runs_on_card": cl["card"],
+        "loop_s": cl["s"], "host_s": ch["s"],
+        "loop_solve_s": [s["solve_s"] for s in res.solver_stats],
+        "host_solve_s": [s["solve_s"] for s in resh.solver_stats],
+        "capture_s": [s["capture_s"] for s in res.solver_stats],
+        "peak_reserved_bytes_loop": cl["peak_reserved_bytes"],
+        "peak_reserved_bytes_host": ch["peak_reserved_bytes"],
+        "base_reserved_bytes": cl["base_reserved_bytes"]}
+    if again is not None:
+        cap = again["capture"]
+        row.update(
+            second_run_bit_for_bit=_item_same(res, again["res"]),
+            second_trips_equal=(_untimed_stats(res.solver_stats) ==
+                                _untimed_stats(again["res"].solver_stats)),
+            second_loop_s=again["s"],
+            capture_s_timed=cap["s"], loops_captured=cap["loops"],
+            pool_reserved_bytes=cap["pool_reserved_bytes"],
+            card_used_bytes_by_captures=cap["card_used_bytes"],
+            kept_reserved_bytes=again["kept_reserved_bytes"])
+    del first, again, resh
+    # every K1 call of the first bucket's host-driven solve and of its
+    # Hessian diagonal against its float64 plain version
+    prob, w0, eps_t = buckets_seen[0]
+    with k1_checked(objective) as kc:
+        w = seams.host_bucket(prob, w0, eps_t, cfg).w
+        objective.hessian_diagonal(prob, w)
+    row["k1_calls_checked"] = kc
+    if name in K1_PLAIN_BOUNDS:
+        with k1_plain(objective) as kp:
+            plain = train()
+        w_tol, v_tol = K1_PLAIN_BOUNDS[name]
+        diff, scale = max_model_diff(res.models, plain.models)
+        row.update(k1_plain_launched=kp["kernel_launched"],
+                   w_k1_vs_plain_max_abs=diff, w_max_abs=scale,
+                   var_k1_vs_plain_max_rel=max_var_rel(
+                       res.posterior_var, plain.posterior_var),
+                   k1_plain_bounds=[w_tol, v_tol])
+        del plain
+    if k1_sums:
+        G = w0.shape[0] // prob.y.shape[0]
+        row["k1_sorted_sums"] = lanes_sorted_sum_check(
+            f"item {name}", prob, prob.dim, gen, L=G, squares=(False, True),
+            tag="per-key loops")
+    row["cell_s"] = time.monotonic() - t0
+    print(f"per-key loops {name} " + json.dumps(row), flush=True)
+    checks = [
+        ("the loop's bits are the host path's",
+         row["bit_for_bit_with_host_path"] and row["trips_equal"]),
+        ("K1 / K2 run as often as on the host path",
+         (row["k1_loop"], row["k2_loop"]) == (ch["k1"], ch["k2"])
+         and ch["k1"] > 0 and cl["card"]["k1"] > 0
+         and (cfg.solver != "cholesky" or cl["card"]["k2"] > 0)),
+        ("one host read a bucket", row["loop_reads_total"] == buckets),
+        ("K1's calls on the host path equal its plain version's",
+         kc["ok"] and kc["calls"] > 0)]
+    if "second_run_bit_for_bit" in row:
+        checks.append(("a second loop run gives the same bits",
+                       row["second_run_bit_for_bit"]
+                       and row["second_trips_equal"]))
+    if "k1_plain_bounds" in row:
+        checks.append(("the run with K1's plain version is within bounds",
+                       not row["k1_plain_launched"]
+                       and row["w_k1_vs_plain_max_abs"] <= w_tol * scale
+                       and row["var_k1_vs_plain_max_rel"] <= v_tol))
+    if k1_sums:
+        checks.append(("K1's sorted sums on the item problem",
+                       bool(row["k1_sorted_sums"])
+                       and all(r["ok"] for r in row["k1_sorted_sums"])))
+    return row, [f"{name}: {w}" for w, ok in checks if not ok]
+
+
+def _runs_and_s(fn):
+    """fn() synchronised, with K1's and K2's runs (kernel_runs) and its
+    seconds: _counted without its garbage collection and memory reads (a
+    call inside a trainer's call)."""
+    import torch
+    torch.cuda.synchronize()
+    with kernel_runs() as k:
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        s = time.monotonic() - t0
+    return out, dict(k, s=s)
+
+
+# phase 22 (c)'s bound on the naive solve with K1 on its plain version
+# against the solve with K1: twice the job's liblinear.epsilon (0.01) of
+# max|x|, the distance two runs that each stop at ||g|| <= eps * ||g0||
+# may keep between them. It holds the stacked solves (tron_multi's K1
+# calls) only: on the lanes solve the plain version's float32 atomics took
+# 13 Newton and 133 CG trips against K1's 12 and 109 and ended 6% of
+# max|x| away on an H100, every K1 call there within 3e-7 of its float64
+# sum: that distance is the stop test's reach, and is reported
+NAIVE_K1_PLAIN_BOUND = 2e-2
+
+
+def naive_loop_cell(name, keyed, vocab, cfg, ranges):
+    """Phase 22 (c) on one naive mode: one train_naive call whose
+    _solve_keys first solves through the host-driven solvers (K1 runs,
+    seconds, its synchronizing calls), then on its loop on the same inputs
+    (K1 runs, seconds, the synchronizing calls inside it), the loop's
+    result going on; then, on the same inputs, the host-driven solve with
+    every K1 call held to its float64 plain version (k1_checked) and the
+    loop with K1 on its plain version (NAIVE_K1_PLAIN_BOUND on the stacked
+    solves, the lanes' distance and trips reported): x bit for
+    bit, equal trips, K1 run as often (set-up apart), the block ranges of
+    the solve's parts, no host read inside the loop's solve (the call's
+    synchronizing calls outside the solves, this cell's comparisons among
+    them, reported by site)."""
+    import torch
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.ops import objective
+    from mlease_tpu_torch.train import naive
+
+    seen = {}
+    solve_keys, host = naive._solve_keys, host_solves().host_keys
+
+    def both(mode, probs, *a):
+        seen.update(mode=mode, ranges=[list(r) for _p, r in probs])
+        (hs, host_sites), ch = _runs_and_s(
+            lambda: _sync_sites(lambda: host(mode, probs, *a)))
+        (ls, sites), cl = _runs_and_s(
+            lambda: _sync_sites(lambda: solve_keys(mode, probs, *a)))
+        # the stacked solves' K1 calls are tron_multi's, the lanes' the
+        # objective's
+        with k1_checked(tm, objective) as kc:
+            host(mode, probs, *a)
+        with k1_plain(tm, objective) as kp:
+            plain = solve_keys(mode, probs, *a)
+        scale = float(ls.w.abs().max())
+        seen.update(
+            bits=bool(torch.equal(ls.w, hs.w)),
+            trips=ls.trips.tolist(), host_trips=hs.trips.tolist(),
+            solve_reads=_reads(sites), host_syncs=len(host_sites),
+            k1_loop=cl["k1"] - cl["setup"]["k1"], k1_host=ch["k1"],
+            loop_setup_runs=cl["setup"], loop_runs_on_card=cl["card"],
+            loop_s=cl["s"], host_s=ch["s"], capture_s=ls.capture_s,
+            k1_calls_checked=kc, k1_plain_launched=kp["kernel_launched"],
+            x_k1_vs_plain_max_abs=float((ls.w - plain.w).abs().max()),
+            plain_trips=plain.trips.tolist(), x_max_abs=scale)
+        plain.loop.close()
+        return ls
+
+    t0 = time.monotonic()
+    with mock.patch.object(naive, "_solve_keys", both):
+        res, sites = _sync_sites(
+            lambda: naive.train_naive(keyed, cfg, vocab=vocab))
+    row = dict(seen, models=len(res.models),
+               call_syncs_outside_the_solves=_reads(sites),
+               pack_s=res.solver_stats["pack_s"],
+               cell_s=time.monotonic() - t0)
+    print(f"per-key loops naive {name} " + json.dumps(row), flush=True)
+    bad = [f"naive {name}: {w}" for w, ok in (
+        ("the loop's bits and trips are the host path's",
+         row["bits"] and row["trips"] == row["host_trips"]),
+        ("the solve's parts", row["ranges"] == ranges),
+        ("K1 runs as often as on the host path",
+         row["k1_loop"] == row["k1_host"] > 0
+         and row["loop_runs_on_card"]["k1"] > 0),
+        ("K1's calls on the host path equal its plain version's",
+         row["k1_calls_checked"]["ok"]
+         and row["k1_calls_checked"]["calls"] > 0),
+        ("the loop with K1's plain version is within bounds",
+         not row["k1_plain_launched"] and (
+             row["mode"] == "lanes" or row["x_k1_vs_plain_max_abs"]
+             <= NAIVE_K1_PLAIN_BOUND * row["x_max_abs"])),
+        ("no host read inside the loop's solve",
+         not row["solve_reads"])) if not ok]
+    return row, bad
+
+
+def synth_item_buckets(parts, seed):
+    """Items of several (R, K, F) buckets in one columnar decode: for each
+    (items, rows_per_item, features) of `parts` synth_item_decoded's items
+    (a seed and a key prefix each), over the widest part's vocabulary."""
+    import numpy as np
+    from mlease_tpu_torch.io.fast_decode import DecodedRows
+    decs = [synth_item_decoded(n, r, f, seed + i)
+            for i, (n, r, f) in enumerate(parts)]
+    starts, base = [], 0
+    for d in decs:
+        starts.append(d.row_start[:-1] + base)
+        base += int(d.row_start[-1])
+    return DecodedRows(
+        response=np.concatenate([d.response for d in decs]),
+        weight=np.concatenate([d.weight for d in decs]),
+        offset=np.concatenate([d.offset for d in decs]),
+        row_start=np.concatenate(starts + [np.array([base], np.int64)]),
+        feat_id=np.concatenate([d.feat_id for d in decs]),
+        feat_val=np.concatenate([d.feat_val for d in decs]),
+        vocab_names=max((d.vocab_names for d in decs), key=len),
+        keys=[f"p{i}-{k}" for i, d in enumerate(decs) for k in d.keys])
+
+
+# phase 22 (a)'s multi-bucket items: (items, rows per item, features), the
+# three (R, K, F) buckets (16, 8, 8), (64, 8, 16), (256, 8, 32)
+ITEM_BUCKET_PARTS = ((4_000, 12, 6), (4_000, 48, 12), (2_000, 160, 24))
+
+
+def per_key_loops_phase(args):
+    """Phase 22: see the module docstring."""
+    import torch
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.train import item
+
+    t_phase = time.monotonic()
+    out, bad = {}, []
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 22)
+    # (a) phase 8's items, float32: the Cholesky route on the 10,000, full
+    # covariance; the TRON route on its 1,000 at its tolerance; then three
+    # buckets of 10,000 items on each route, diagonal variances, timed
+    decoded = synth_item_decoded(10_000, 48, 12, args.seed)
+    small = synth_item_decoded(1_000, 48, 12, args.seed + 1)
+    multi = synth_item_buckets(ITEM_BUCKET_PARTS, args.seed + 3)
+    cfg = item.ItemConfig(intercept_lambdas=[1.0], default_lambdas=[1.0, 10.0],
+                          compute_var=True, full_cov=True, solver="cholesky",
+                          dtype=torch.float32)
+    tight = dataclasses.replace(cfg, full_cov=False, liblinear_epsilon=1e-6,
+                                solver="tron")
+    diag = dataclasses.replace(cfg, full_cov=False)
+    bf16 = dataclasses.replace(diag, dtype=torch.bfloat16)
+    for name, dec, c, kw in (
+            ("a cholesky", decoded, cfg, dict(k1_sums=True)),
+            ("a tron", small, tight, {}),
+            ("a multi-bucket cholesky", multi, diag, dict(second=False)),
+            ("a multi-bucket tron", multi,
+             dataclasses.replace(diag, solver="tron"), dict(second=False)),
+            ("b bf16 cholesky", decoded, bf16, dict(k1_sums=True)),
+            ("b bf16 tron", small, dataclasses.replace(
+                tight, dtype=torch.bfloat16), {})):
+        out[name], b = item_loop_cell(name, dec, c, gen, **kw)
+        bad += b
+    del decoded, small, multi
+    torch.cuda.empty_cache()
+    # (c) phase 13's rows and config: the three modes
+    if not NAIVE_BASE:
+        NAIVE_BASE.update(naive_rows(args))
+    keyed, vocab, ncfg = (NAIVE_BASE[k] for k in ("keyed", "vocab", "cfg"))
+    K, n = len(keyed), vocab.size
+    rows = max(len(v) for v in keyed.values())
+    for name, kw, ranges, bound in (
+            ("flat", {}, [[0, K]], None),
+            ("per_key 4 substacks", dict(flat_blocks=False),
+             [[b, b + 2] for b in range(0, K, 2)],
+             2 * max(n, rows) + 1),
+            ("lanes", dict(multi_rhs=False), [[0, K]], None)):
+        ctx = (mock.patch.object(tm, "STACK_ID_BOUND", bound) if bound
+               else contextlib.nullcontext())
+        with ctx:
+            out[f"c {name}"], b = naive_loop_cell(
+                name, keyed, vocab, dataclasses.replace(ncfg, **kw), ranges)
+        bad += b
+    out["s"] = time.monotonic() - t_phase
+    print(f"per-key loops phase {out['s']:.1f} s", flush=True)
+    if bad:
+        raise AssertionError(f"per-key loops: {bad}")
+    return out
+
+
+def naive_rows(args):
+    """--loops-only: phase 13's rows (write_scale_dataset, read and
+    prepared as phase 13 does) and its in-process config."""
+    import torch
+    from mlease_tpu_torch.core.prepare import prepare_to_blocks
+    from mlease_tpu_torch.core.vocab import build_vocab
+    from mlease_tpu_torch.io import avro
+    from mlease_tpu_torch.train.naive import NaiveConfig
+    from mlease_tpu_torch.utils.config import JobConfig
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-naive-") as tmp:
+        train = os.path.join(tmp, "part-00000.avro")
+        write_scale_dataset(train, NAIVE_ROWS, args.seed + 1000)
+        blocks = prepare_to_blocks(avro.read_records(train), 8, seed=0)
+    base = dict(JobConfig.from_file(os.path.join(
+        REPO, "examples", "data", "ctr-12m.job")))
+    return {"keyed": {str(i): b for i, b in enumerate(blocks)},
+            "vocab": build_vocab(r for b in blocks for r in b),
+            "cfg": NaiveConfig(lambdas=NAIVE_LAMBDAS, liblinear_epsilon=float(
+                base["liblinear.epsilon"]), compute_model_mean=True,
+                dtype=torch.float32)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4302,7 +4904,7 @@ def main(argv=None) -> int:
                          "phases (17, 19) alone and stop")
     ap.add_argument("--loops-only", action="store_true",
                     help="build, set up the trainers, run the solve-loop "
-                         "phase (21) alone and stop")
+                         "phases (21, 22) alone and stop")
     ap.add_argument("--bf16-only", action="store_true",
                     help="build, set up the trainers, make the float32 "
                          "runs phase 18 compares with, run phase 18 (the "
@@ -4420,6 +5022,7 @@ def main(argv=None) -> int:
             del trainers
             torch.cuda.empty_cache()
             phase("loops_stream", loops_stream_phase, args)
+            phase("per_key_loops", per_key_loops_phase, args)
         elif trainers is not None and args.bf16_only:
             phase("bf16_baselines", bf16_baselines, trainers, args)
             phase("bf16_kernel", bf16_kernel_phase, trainers["full"], args)
@@ -4484,6 +5087,8 @@ def main(argv=None) -> int:
         phase("loops_stream", loops_stream_phase, args)
         phase("scale_cli", scale_cli_phase, args)
         phase("naive", naive_phase, args)
+        phase("per_key_loops", per_key_loops_phase, args)
+        NAIVE_BASE.clear()
         phase("fit", fit_phase, args)
         phase("bf16_cli", bf16_cli_phase, args)
         phase("mesh", mesh_phase, args)
@@ -4505,6 +5110,8 @@ def main(argv=None) -> int:
         "replaces": "mlease_tpu/ops/pallas/tile_sum.py:72",
         "dtype": "float32",
         "launches": full["kernel_launches"],
+        # phase 8's 10,000-item run: its bucket loops' runs of K1
+        "item_launches": items["k1_runs"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

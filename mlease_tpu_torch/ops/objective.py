@@ -28,12 +28,13 @@ scatter-add becomes one batched `scatter_add_`; the dense Hessian of
 On the card the sums over sorted streams (the column-sorted copy of the
 ELL nonzeros, the row-sorted and column-sorted tails) are K1
 (`_sorted_sum`), whose sums run in one fixed order: scatter_add_'s atomics
-sum in another order on every run, and the lanes solve's run() and
-run_fused could then not give the same bits. The ADMM lanes problems carry
-a column-sorted copy on the card for this, and every sorted stream's ids
-as K1 reads them (`K1Streams`), made once with the problem (train/admm.py::
-blocked_problem); an ELL problem without a column-sorted copy (the item
-solvers) keeps the scatter-add.
+sum in another order on every run, and a device loop and the host-driven
+solve it replaces could then not give the same bits, nor two runs of one
+solve. The ADMM and naive lanes problems and the item buckets carry a
+column-sorted copy on the card for this, and every sorted stream's ids as
+K1 reads them (`K1Streams`), made once with the problem (train/admm.py::
+blocked_problem): X'v (and through it the gradient and Hv) and the Hessian
+diagonal sum over it with K1.
 """
 
 from __future__ import annotations
@@ -166,10 +167,11 @@ def k1_streams(prob: LRProblem, n: int, ranges) -> K1Streams:
     the block ranges `ranges`, each of which the caller keeps inside int32
     (ops/tron_multi.py::substack_ranges)."""
     B, R = prob.y.shape
-    first = torch.zeros(B, dtype=torch.long)
+    # each block's place in its range, made on the device (no host copy)
+    local = torch.arange(B, device=prob.y.device)
     for b0, b1 in ranges:
-        first[b0:b1] = b0
-    local = (torch.arange(B) - first).to(prob.y.device)[:, None]
+        local[b0:b1] -= b0
+    local = local[:, None]
 
     def pair(seg, seg_w, idx, idx_w):
         if seg is None:
@@ -189,27 +191,32 @@ _STREAMS = {"csc": ("csc_cols", "csc_rows", "csc_vals"),
 
 
 def _sorted_sum(prob: LRProblem, stream: str, out3: torch.Tensor,
-                V3: torch.Tensor) -> torch.Tensor:
+                V3: torch.Tensor, square: bool = False) -> torch.Tensor:
     """out3[l, b, seg[b, t]] += vals[b, t] * V3[l, b, idx[b, t]], in place,
     over one of prob's sorted streams (_STREAMS), for out3 (L, B, W) and
-    V3 (L, B, m) in the accumulate type. The CPU runs the batched
+    V3 (L, B, m) in the accumulate type; `square`: vals[b, t]^2 in its
+    place, formed in V3's type (K1's square_from). The CPU runs the batched
     scatter_add_; the card runs K1 over prob.k1's ids, one call per block
     range."""
     seg, idx, vals = (getattr(prob, f) for f in _STREAMS[stream])
     if not out3.is_cuda:
+        if square:
+            vals = vals.to(V3.dtype)
+            vals = vals * vals
         return out3.scatter_add_(2, _ids(seg, out3.shape[0]),
                                  vals * V3.gather(2, _ids(idx, V3.shape[0])))
     if prob.k1 is None:
         raise ValueError(f"the sorted stream {stream!r} on the card needs "
                          f"its K1 ids (LRProblem.k1)")
     return _k1_sorted_sum(out3, getattr(prob.k1, stream), vals, V3,
-                          prob.k1.ranges)
+                          prob.k1.ranges, square)
 
 
-def _k1_sorted_sum(out3, ids, vals, V3, ranges):
+def _k1_sorted_sum(out3, ids, vals, V3, ranges, square=False):
     """_sorted_sum through K1's wrapper (its plain version on a CPU
     tensor), ids a K1Streams pair: a bfloat16 stream is widened to V3's
-    float32 (the same products and float32 sums)."""
+    float32 (the same products and float32 sums); `square` has K1 square
+    the values in every lane (square_from 0)."""
     seg, idx = ids
     L, B, W = out3.shape
     if seg.shape[1] == 0:
@@ -223,7 +230,7 @@ def _k1_sorted_sum(out3, ids, vals, V3, ranges):
         segment_sum_gather(vals[b0:b1].reshape(-1),
                            V3[:, b0:b1].reshape(L, nb * m),
                            idx[b0:b1].reshape(-1), seg[b0:b1].reshape(-1),
-                           nb * W, out=flat)
+                           nb * W, out=flat, square_from=0 if square else None)
         if flat.data_ptr() != o.data_ptr():
             o.copy_(flat.view(L, nb, W))
     return out3
@@ -357,7 +364,9 @@ def hessian_diagonal(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
     K = prob.indices.shape[-1]
     acc = accumulate_dtype(prob.prior_var_inv.dtype)
     out = _lanes(prob, prob.prior_var_inv.to(acc, copy=True))
-    if K > 0:
+    if prob.csc_cols is not None:   # the column-sorted copy, K1 on the card
+        _sorted_sum(prob, "csc", out, q3.to(acc), square=True)
+    elif K > 0:
         out.scatter_add_(2, _ids(prob.indices, L),
                          (prob.values * prob.values
                           * q3[..., None]).flatten(2).to(acc))
@@ -378,8 +387,9 @@ def hessian_diagonal(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
 
 
 def densify(prob: LRProblem) -> torch.Tensor:
-    """Padded sparse rows -> dense (P, R, n) design matrices, for the
-    per-item dense-Newton path where n is small."""
+    """Padded sparse rows -> dense (B, R, n) design matrices, one per data
+    block (P = B unless lanes share the data), for the per-item
+    dense-Newton path where n is small."""
     P, R, K = prob.indices.shape
     n = prob.dim
     X = torch.zeros((P, R * n), dtype=prob.values.dtype,
@@ -403,9 +413,12 @@ def dense_hessian(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
     Gram kernel (reference: LogisticRegressionL2.hessian,
     LogisticRegressionL2.java:258-297). Only sensible for small n (per-item
     models); inverse(H) is the Laplace posterior covariance
-    (LibLinear.java:317-327)."""
-    return gram_batched(densify(prob), _curvature(prob, w),
-                        prob.prior_var_inv)
+    (LibLinear.java:317-327). Lanes that share a block's data share its
+    dense rows, copied to each lane for the one batched Gram."""
+    X = densify(prob)
+    lanes = w.shape[0] // X.shape[0]
+    return gram_batched(X.repeat(lanes, 1, 1) if lanes > 1 else X,
+                        _curvature(prob, w), prob.prior_var_inv)
 
 
 # ---------------------------------------------------------------------------

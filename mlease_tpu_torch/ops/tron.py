@@ -14,8 +14,9 @@ and a lane whose condition is false keeps its state, so per-lane results
 and iteration counts equal the JAX solver's. The loops are split into
 functions of a state (`LaneSolver`); `tron` runs them in host loops that
 read `any(lane condition)` back once per trip, and the trainers' device
-loops (train/admm.py::_SolveLoop) run the same functions inside a CUDA
-graph that loops on the card.
+loops (train/admm.py::_SolveLoop: the ADMM lanes solve, naive's lanes
+solve and the item trainer's TRON buckets) run the same functions inside a
+CUDA graph that loops on the card.
 
 Stopping mirrors the reference: ||g|| <= eps * ||grad(0)||, plus the guard
 breaks at Tron.java:108-121 (f < -1e32, non-positive reductions, reductions
@@ -66,7 +67,8 @@ def _safe_div(num, den, ok):
 class LaneState(NamedTuple):
     """The Newton loop's carried state, every field (P, ...) on the device:
     w, g, D (P, n); f, gnorm, gnorm1, eps, delta (P,); it (P,) int32
-    (accepted Newton iterations + 1), cg_total (P,) int32, active (P,)."""
+    (accepted Newton iterations + 1), cg_total (P,) int32, active (P,);
+    trips, cg_trips (0-d int64) the lock-step Newton and CG trips."""
 
     w: torch.Tensor
     f: torch.Tensor
@@ -79,13 +81,15 @@ class LaneState(NamedTuple):
     it: torch.Tensor
     cg_total: torch.Tensor
     active: torch.Tensor
+    trips: torch.Tensor
+    cg_trips: torch.Tensor
 
 
 class LaneCgState(NamedTuple):
     """One Newton trip's truncated-CG state (Tron.java:126-179): s, r, d
     (P, n); rTr, cgtol (P,); cg_iter (P,) int32; done (P,); lanes (P,) the
     lanes whose Newton loop runs this trip (the others start done and hold
-    nothing open)."""
+    nothing open); it (0-d int64) the trip's lock-step CG trips so far."""
 
     s: torch.Tensor
     r: torch.Tensor
@@ -95,6 +99,7 @@ class LaneCgState(NamedTuple):
     cg_iter: torch.Tensor
     done: torch.Tensor
     lanes: torch.Tensor
+    it: torch.Tensor
 
 
 class LaneSolver:
@@ -118,12 +123,14 @@ class LaneSolver:
         f = obj.fun(prob, w0)
         g, D = obj.grad_and_curvature(prob, w0)
         gnorm = _norm(g)
+        zero = torch.zeros((), dtype=torch.int64, device=w0.device)
         return LaneState(
             w=w0, f=f, g=g, D=D, gnorm=gnorm, gnorm1=gnorm1, eps=eps,
             delta=gnorm,
             it=torch.ones(P, dtype=torch.int32, device=w0.device),
             cg_total=torch.zeros(P, dtype=torch.int32, device=w0.device),
-            active=~(gnorm <= eps * gnorm1))
+            active=~(gnorm <= eps * gnorm1), trips=zero,
+            cg_trips=zero.clone())
 
     def running(self, st: LaneState) -> torch.Tensor:
         """(P,): the lanes whose Newton loop takes another trip."""
@@ -137,7 +144,8 @@ class LaneSolver:
             cgtol=0.1 * _norm(g),
             cg_iter=torch.zeros(g.shape[0], dtype=torch.int32,
                                 device=g.device),
-            done=~lanes, lanes=lanes)
+            done=~lanes, lanes=lanes,
+            it=torch.zeros((), dtype=torch.int64, device=g.device))
 
     def _live(self, cs: LaneCgState) -> torch.Tensor:
         return ~cs.done & (cs.cg_iter < self.max_cg_iter)
@@ -188,7 +196,7 @@ class LaneSolver:
             d=torch.where(int2, d_int, d),
             rTr=torch.where(take_int, rTr_new, rTr),
             cg_iter=cs.cg_iter + step.to(torch.int32),
-            done=cs.done | (live & (small | take_bnd)))
+            done=cs.done | (live & (small | take_bnd)), it=cs.it + 1)
 
     # -- the Newton step after the CG loop --------------------------------
     def epilogue(self, st: LaneState, cs: LaneCgState) -> LaneState:
@@ -251,14 +259,20 @@ class LaneSolver:
                        & (torch.abs(prered) <= stall_rtol * torch.abs(f)))
         return st._replace(w=w, f=f, g=g, D=D, gnorm=gnorm, delta=delta,
                            it=it, cg_total=cg_total,
-                           active=st.active & ~(done & lanes))
+                           active=st.active & ~(done & lanes),
+                           trips=st.trips + 1, cg_trips=st.cg_trips + cs.it)
 
-    def result(self, st: LaneState, newton_trips: int = 0,
-               cg_trips: int = 0) -> TronResult:
+    def lockstep_trips(self, st: LaneState) -> torch.Tensor:
+        """(2,) int64 on the device: the lock-step Newton and CG trips."""
+        return torch.stack([st.trips, st.cg_trips])
+
+    def result(self, st: LaneState) -> TronResult:
+        """The solve's result, with the trip counters read to the host."""
+        trips, cg_trips = self.lockstep_trips(st).tolist()
         return TronResult(w=st.w, f=st.f, gnorm=st.gnorm,
                           iterations=st.it - 1, cg_iterations=st.cg_total,
                           converged=st.gnorm <= st.eps * st.gnorm1,
-                          newton_trips=newton_trips, cg_trips=cg_trips)
+                          newton_trips=trips, cg_trips=cg_trips)
 
 
 def tron(prob: obj.LRProblem, w0: torch.Tensor, eps,
@@ -268,10 +282,10 @@ def tron(prob: obj.LRProblem, w0: torch.Tensor, eps,
     eps, a scalar or (P,), is the already class-balance-scaled tolerance
     (the caller applies eps * min(pos,neg)/l, LibLinear.java:309-313).
     The loops run on the host over LaneSolver's functions: one read of
-    "any lane open" per CG trip and per Newton trip."""
+    "any lane open" per CG trip and per Newton trip (the state counts the
+    trips, read once at the end)."""
     solver = LaneSolver(prob, max_iter, max_cg_iter)
     st = solver.init(w0, eps)
-    trips = cg_trips = 0
     while True:
         lanes = solver.running(st)
         if not bool(lanes.any()):
@@ -279,10 +293,8 @@ def tron(prob: obj.LRProblem, w0: torch.Tensor, eps,
         cs = solver.cg_init(st, lanes)
         while bool(solver.cg_open(cs)):
             cs = solver.cg_trip(st, cs)
-            cg_trips += 1
         st = solver.epilogue(st, cs)
-        trips += 1
-    return solver.result(st, trips, cg_trips)
+    return solver.result(st)
 
 
 # the JAX package's name for the vmapped solver; here every call is batched

@@ -17,7 +17,10 @@ is the JAX one, (n, L) in and (n, L) out. Each sorted sparse-tail reduce is
 one call of `ops.segment_sum.segment_sum_gather`, the hand-written kernel on
 the card that gathers, weights and reduces the tail into the pass's output
 in place (no size gate: every sorted-tail reduce takes it); the ELL and
-unsorted tail scatters use `index_add_`, as XLA's scatter does.
+unsorted tail scatters use `index_add_`, as XLA's scatter does, whose
+atomics sum in another order on every run on the card, so a problem whose
+solve must give the same bits every run carries its ELL entries as two
+sorted tails instead (`ell_as_sorted_tails`, the naive trainer's).
 
 precondition="head_block" solves the dense-head curvature block exactly:
 its (L, H, H) build is the weighted-Gram kernel of ops/gram.py with one
@@ -269,6 +272,26 @@ def stack_blocks(indices, values, y, weight, offset, head,
         offset=offset.reshape(-1),
         prior_mean=None, prior_var_inv=None, **kw)
     return with_prior(prob, prior_mean, rho_eff)
+
+
+def ell_as_sorted_tails(prob: MultiProblem) -> MultiProblem:
+    """prob (ELL only, no head) with its ELL entries, padding slots
+    included, as the row-sorted and the column-sorted tail (int32 ids; the
+    ELL's row-major order is row-sorted, the column order a stable sort):
+    Xv and X'v then sum them with K1, in one fixed order, where X'v's
+    `index_add_` atomics sum in another order on every run on the card
+    (the naive trainer's stacked keys, whose device loop is held to the
+    host-driven solve bit for bit). A padding slot adds 0 * v."""
+    R, K = prob.indices.shape
+    cols = prob.indices.reshape(-1).to(torch.int32)
+    vals = prob.values.reshape(-1)
+    rows = torch.arange(R * K, device=cols.device) // K
+    order = torch.sort(cols, stable=True).indices
+    return prob._replace(
+        indices=prob.indices[:, :0], values=prob.values[:, :0],
+        tail_rows=rows.to(torch.int32), tail_cols=cols, tail_vals=vals,
+        tail_c_rows=rows[order].to(torch.int32), tail_c_cols=cols[order],
+        tail_c_vals=vals[order])
 
 
 # ---------------------------------------------------------------------------

@@ -64,7 +64,7 @@ import logging
 import time
 import weakref
 from dataclasses import dataclass, field
-from typing import Any, Callable, Mapping, Sequence
+from typing import Any, Callable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -935,11 +935,14 @@ class _Part:
     solve through ops/tron.py's LaneSolver. Its priors, Newton state,
     running mask and CG state are static tensors, made here from the
     first inputs (z, u, rho_eff, eps), which `set_priors`, `init` and the
-    loop's branches write in place with run()'s ops."""
+    loop's branches write in place with run()'s ops. `prior`: a fixed
+    (prior mean, prior precision) of all the loop's blocks, each (L, B, n)
+    (an expanded view will do), in place of z - u and rho_eff (the naive
+    and item trainers' priors); u and rho_eff are then unused."""
 
     def __init__(self, mode: str, prob, b0: int, b1: int, L: int, n: int,
                  pcg, max_newton_iter: int, max_cg_iter: int,
-                 z, u, rho_eff, eps):
+                 z, u, rho_eff, eps, prior=None):
         self.L, self.n = L, n
         self.b0, self.b1 = b0, b1
         self.lanes = mode == "lanes"
@@ -950,7 +953,16 @@ class _Part:
         else:
             self.blocks = B if mode == "per_block" else 1
             self.prob = multi_problem(prob, mode, B)
-        pm, pvi = self._priors(z, u, rho_eff)
+        self.fixed = prior is not None
+        if self.fixed:
+            pm, pvi = (t[:, b0:b1] for t in prior)
+            # the (L*B, n) lanes or the lanes-major (L, B*n) multi-RHS
+            # priors: the values tron and tron_multi are given
+            pm, pvi = ((pm.reshape(L * B, n), pvi.reshape(L * B, n))
+                       if self.lanes else
+                       (pm.reshape(L, B * n), pvi.reshape(L, B * n)))
+        else:
+            pm, pvi = self._priors(z, u, rho_eff)
         self.pm, self.pvi = _materialize(pm), _materialize(pvi)
         if self.lanes:
             self.solver = LaneSolver(
@@ -978,9 +990,11 @@ class _Part:
     def _init_state(self, z, eps):
         eps = eps[self.b0:self.b1]
         if self.lanes:
+            # z (L, n), every block's lanes starting from it, or the
+            # (L*B, n) lanes' own starts
             L, n, B = self.L, self.n, self.blocks
             return self.solver.init(
-                z[:, None, :].expand(L, B, n).reshape(L * B, n),
+                z.reshape(L, -1, n).expand(L, B, n).reshape(L * B, n),
                 eps.repeat(L))
         return self.solver.init(z.T.repeat(self.b1 - self.b0, 1),
                                 eps if self.blocks > 1 else eps.min())
@@ -1010,6 +1024,8 @@ class _Part:
             prior_mean=self.pm, prior_var_inv=self.pvi)
 
     def set_priors(self, z, u, rho_eff) -> None:
+        if self.fixed:
+            return
         pm, pvi = self._priors(z, u, rho_eff)
         self.pm.copy_(pm)
         self.pvi.copy_(pvi)
@@ -1030,6 +1046,13 @@ class _Part:
         if self.lanes:
             return torch.stack([self.ns.it - 1, self.ns.cg_total], 1)
         return self.solver.block_trips(self.ns)
+
+    def lockstep_trips(self) -> torch.Tensor:
+        """(2,) int64: the solve's lock-step Newton and CG trips, as
+        tron and tron_multi report them."""
+        if self.lanes:
+            return self.solver.lockstep_trips(self.ns)
+        return torch.stack([self.ns.trips, self.ns.cg_trips])
 
 
 # the kernels a solve launches, counted on the card inside a device loop
@@ -1060,17 +1083,20 @@ class _SolveLoop:
     part, then CG_START of each; on the card captured once, into `pool`,
     at `prepare`). `share`: loops of the same trainer; where one's parts
     keep state of the same layout, this one takes over its state tensors
-    (the two solve one after another, never at once)."""
+    (the two solve one after another, never at once). `prior`: a fixed
+    prior mean and precision for every part (_Part), the naive trainer's
+    and the item trainer's TRON buckets', which then pass None for u and
+    rho_eff and zeros (or the lanes' own starts) for z."""
 
     def __init__(self, mode: str, probs, L: int, n: int, pcg,
                  max_newton_iter: int, max_cg_iter: int, z, u, rho_eff,
                  eps, *, first: int = 1, after: int = 0, phase=None,
-                 share: Sequence["_SolveLoop"] = ()):
+                 share: Sequence["_SolveLoop"] = (), prior=None):
         self.first, self.after = first, after
         self.phase = (torch.zeros((), dtype=torch.int32, device=z.device)
                       if phase is None else phase)
         self.parts = [_Part(mode, p, b0, b1, L, n, pcg, max_newton_iter,
-                            max_cg_iter, z, u, rho_eff, eps)
+                            max_cg_iter, z, u, rho_eff, eps, prior)
                       for p, (b0, b1) in probs]
         for other in share:
             if len(other.parts) == len(self.parts) and all(
@@ -1176,10 +1202,29 @@ class _SolveLoop:
         them."""
         return torch.cat([p.trips() for p in self.parts])
 
+    def lockstep_trips(self) -> torch.Tensor:
+        """(2,) int64: the lock-step Newton and CG trips, the maxima over
+        the parts (as ops/tron_multi.py::join_block_results joins
+        sub-stacks)."""
+        return torch.stack([p.lockstep_trips() for p in self.parts]).amax(0)
+
     def solve(self, z, u, rho_eff, eps) -> None:
         """set_inputs, then the loop (one graph launch on the card)."""
         self.set_inputs(z, u, rho_eff, eps)
         self.loop.run()
+
+
+class _Solved(NamedTuple):
+    """A one-shot solve of the naive or the item trainer (train/naive.py::
+    _solve_keys, train/item.py::_solve_bucket): its solution and lock-step
+    trips ((1,) Newton, or (2,) Newton and CG; int64), on the device; the
+    seconds of its loop's warm-up and capture; the loop, to close after the
+    caller's read (None for a solve without one)."""
+
+    w: torch.Tensor
+    trips: torch.Tensor
+    capture_s: float = 0.0
+    loop: Any = None
 
 
 class _FusedRun:

@@ -16,6 +16,20 @@ size with copies of item 0, only so that XLA reuses a compiled program for
 other item counts. PyTorch compiles nothing, so the port does not pad the
 item axis; results are unchanged. The (R, K, F) shape buckets stay.
 
+A bucket's problem keeps each item's data once and lets the G grid points
+share it (ops/objective.py's lanes: data blocks (I, R, K), lanes P = G*I,
+grid-major); on the card it carries the column-sorted copy of its
+nonzeros, so that X'v (the gradient, Hv) and the Hessian diagonal sum
+with K1 in one fixed order, and two runs give the same bits. Each
+bucket's solve is one program on the card, as the JAX package jits it
+(`_solve_bucket`): the Cholesky route's Newton step, Armijo trial and
+Newton finish (ops/newton.py::NewtonSolver) or the TRON route's CG start,
+CG trip and Newton epilogue (train/admm.py::_SolveLoop's lanes solve),
+looped on the card by ops/device_loop.py; the posterior variance or
+covariance follows eagerly, and the host reads the bucket once: w, the
+variances, the covariances and the trips in one copy. All buckets of a
+call capture into one graph pool.
+
 Under a mesh (`mesh=`, a 1-D block mesh of parallel/mesh.py, every rank
 calling with the whole input) a bucket's item axis is padded to a multiple
 of the ranks with copies of item 0 (as the JAX package pads it) and each
@@ -39,6 +53,7 @@ Reference semantics kept:
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 from typing import Any, Mapping, Sequence
@@ -51,12 +66,15 @@ from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.io.fast_decode import DecodedRows  # noqa: F401 (re-export)
 from mlease_tpu_torch.io.records import INTERCEPT_NAME
 from mlease_tpu_torch.ops import objective as obj
-from mlease_tpu_torch.ops.newton import newton_cholesky
-from mlease_tpu_torch.ops.tron import tron
-from mlease_tpu_torch.collectives import all_gather, max_over
+from mlease_tpu_torch.ops.device_loop import DeviceLoop
+from mlease_tpu_torch.ops.newton import NewtonSolver, NewtonStep
+from mlease_tpu_torch.collectives import all_gather, all_reduce
 from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, axis_size,
                                             block_sharding, mesh_device)
-from mlease_tpu_torch.train.admm import _lambda_key
+from mlease_tpu_torch.train.admm import (_SOLVE_KERNELS, _Solved,
+                                         _SolveLoop, _assign, _graph_pool,
+                                         _lambda_key, _materialize,
+                                         _to_device, blocked_problem)
 
 
 @dataclass
@@ -84,8 +102,10 @@ class ItemResult:
                                                    # compute_var=False)
     covariances: dict[str, dict] | None = None     # full_cov: {key: {(f1,f2): v}}
     # per bucket: shape, problems, the solver's lock-step trips, and the
-    # host's wall seconds for the solve (copies to and from the device
-    # included) and for assembling the result dictionaries
+    # host's wall seconds for the
+    # solve (copies to and from the device included; capture_s of it the
+    # device loop's warm-up and capture) and for assembling the result
+    # dictionaries
     solver_stats: list[dict] | None = None
 
 
@@ -373,6 +393,119 @@ def train_item_models_columnar(decoded, config: ItemConfig, mesh=None,
                          mesh=mesh, device=device)
 
 
+class _NewtonLoop:
+    """The Cholesky route's bucket solve as branches over a static state,
+    looped by ops/device_loop.py: newton_cholesky without the host. Its
+    Newton state, running mask and step are made here from the first
+    inputs; `set_inputs` writes the Newton init in place and chooses the
+    first phase on the device. A pass takes BACKTRACK, FINISH, STEP:
+
+      STEP       the Newton step (NewtonSolver.step), then BACKTRACK while
+                 a lane's Armijo trial is open, else FINISH;
+      BACKTRACK  one Armijo trial, then again or FINISH;
+      FINISH     accept, gradient and stop test, the next running mask,
+                 then STEP while a lane runs, else 0 (stop)."""
+
+    BACKTRACK, FINISH, STEP = 1, 2, 3
+
+    def __init__(self, solver: NewtonSolver, w0, eps):
+        self.solver = solver
+        self.phase = torch.zeros((), dtype=torch.int32, device=w0.device)
+        self.ns = ns = _materialize(solver.init(w0, eps))
+        self.lanes = _materialize(solver.running(ns))
+        # the step's tensors, of the types `step` writes into them
+        self.bs = NewtonStep(
+            s=torch.zeros_like(ns.w), gs=torch.zeros_like(ns.gnorm),
+            t=torch.zeros_like(ns.gnorm), fn=torch.zeros_like(ns.f),
+            k=torch.zeros_like(ns.it), lanes=self.lanes.clone())
+        self.loop: DeviceLoop | None = None
+
+    def state(self) -> list[torch.Tensor]:
+        return [self.lanes, *self.ns, *self.bs]
+
+    def own_loop(self, pool=None) -> DeviceLoop:
+        self.loop = DeviceLoop(
+            [(self.BACKTRACK, "backtrack", self.bt_trip),
+             (self.FINISH, "newton_finish", self.finish),
+             (self.STEP, "newton_step", self.step)],
+            self.phase, self.state(), _SOLVE_KERNELS, pool=pool)
+        return self.loop
+
+    def _next(self, cond, yes, no):
+        self.phase.copy_(torch.where(cond, yes, no))
+
+    def _next_trip(self):
+        self.lanes.copy_(self.solver.running(self.ns))
+        self._next(self.lanes.any(), self.STEP, 0)
+
+    def set_inputs(self, w0, eps) -> None:
+        """The solve's inputs, written in place (eager, no host read)."""
+        _assign(self.ns, self.solver.init(w0, eps))
+        self._next_trip()
+
+    # -- branches ---------------------------------------------------------
+    def step(self):
+        _assign(self.bs, self.solver.step(self.ns, self.lanes))
+        self._next(self.solver.bt_open(self.ns, self.bs), self.BACKTRACK,
+                   self.FINISH)
+
+    def bt_trip(self):
+        _assign(self.bs, self.solver.bt_trip(self.ns, self.bs))
+        self._next(self.solver.bt_open(self.ns, self.bs), self.BACKTRACK,
+                   self.FINISH)
+
+    def finish(self):
+        _assign(self.ns, self.solver.finish(self.ns, self.bs))
+        self._next_trip()
+
+    # -- results ----------------------------------------------------------
+    def w(self) -> torch.Tensor:
+        return self.ns.w
+
+    def trips(self) -> torch.Tensor:
+        """(1,) int64: the lock-step Newton trips."""
+        return self.ns.trips[None]
+
+    def close(self) -> None:
+        if self.loop is not None:
+            self.loop.close()
+
+
+def _solve_bucket(prob: obj.LRProblem, w0: torch.Tensor, eps_t,
+                  cfg: ItemConfig, pool=None) -> _Solved:
+    """One bucket's (grid x item) solve as one device loop: `prob` its
+    problem (data blocks (I, ...), priors (P, F) for the P = G*I lanes),
+    w0 (P, F) the start (0 for every lane: ItemModelTrain's initParam is
+    null), eps_t (P,) the tolerances. On the card the loop is captured
+    into `pool` and launched once; the host reads nothing. The
+    host-driven newton_cholesky / tron (one read a trip) take this seam's
+    place where a caller holds the loop to them."""
+    t0 = time.monotonic()
+    P, F = w0.shape
+    if cfg.solver == "cholesky":
+        lp = _NewtonLoop(NewtonSolver(prob, min(cfg.max_newton_iter, 100)),
+                         w0, eps_t)
+    else:
+        I = prob.y.shape[0]
+        G = P // I
+
+        def grid3(t):
+            return t.reshape(-1, I, F).expand(G, I, F)
+        lp = _SolveLoop("lanes", [(prob, (0, I))], G, F, False,
+                        cfg.max_newton_iter, cfg.max_cg_iter, w0,
+                        None, None, eps_t.view(G, I)[0],
+                        prior=(grid3(prob.prior_mean),
+                               grid3(prob.prior_var_inv)))
+    lp.own_loop(pool).prepare()
+    capture_s = time.monotonic() - t0
+    if cfg.solver == "cholesky":
+        lp.set_inputs(w0, eps_t)
+        lp.loop.run()
+        return _Solved(lp.w(), lp.trips(), capture_s, lp)
+    lp.solve(w0, None, None, eps_t.view(G, I)[0])
+    return _Solved(lp.x().reshape(P, F), lp.lockstep_trips(), capture_s, lp)
+
+
 def _train_packed(packed, config: ItemConfig, mesh=None,
                   device="cuda") -> ItemResult:
     cfg = config
@@ -383,125 +516,139 @@ def _train_packed(packed, config: ItemConfig, mesh=None,
     dev = resolve_device(device)
     dtype = cfg.dtype
     lambda_map = dict(cfg.lambda_map or {})
+    trip_names = (("newton_trips",) if cfg.solver == "cholesky"
+                  else ("newton_trips", "cg_trips"))
 
     grid = [(il, dl) for il in cfg.intercept_lambdas
             for dl in cfg.default_lambdas]
     G = len(grid)
 
     def on_dev(a, dt=dtype):
-        return torch.as_tensor(a, device=dev).to(dt)
+        # without a blocking copy: a bucket's one sync is its read
+        return _to_device(np.asarray(a), dt, dev)
 
     il_arr = on_dev([g[0] for g in grid])
     dl_arr = on_dev([g[1] for g in grid])
+    pool = _graph_pool(dev)     # every bucket's loop captures into it
 
     models: dict[str, LinearModel] = {}
     posterior: dict[str, LinearModel] = {}
     covs: dict[str, dict] = {} if (cfg.compute_var and cfg.full_cov) else None
     stats: list[dict] = []
 
-    for (R, K, F), arrs, meta in packed:
-        t_start = time.monotonic()
-        I_all = I = len(meta)
-        if mesh is not None:
-            # items shard like blocks: pad with copies of item 0 (real,
-            # solvable, discarded), then this rank's contiguous share
-            W = axis_size(mesh, BLOCK_AXIS)
-            I_pad = -(-I // W) * W
-            sh = block_sharding(mesh, 0)
-            arrs = {k: sh.take(np.concatenate(
-                [v, np.broadcast_to(v[:1], (I_pad - I,) + v.shape[1:])]))
-                for k, v in arrs.items()}
-            I = I_pad // W
-        eps = cfg.liblinear_epsilon * obj.class_balance_eps_scale(
-            arrs["y"], arrs["nrows"])
-        # prior precision per grid point g and item i: pvi[0] = il_g;
-        # pvi[f] = the lambda.map override, else dl_g; padding lanes 1
-        map_mask = torch.as_tensor(arrs["map_mask"], device=dev)
-        pad_mask = torch.as_tensor(arrs["pad_mask"], device=dev)
-        pvi = torch.where(map_mask[None], on_dev(arrs["map_pvi"])[None],
-                          dl_arr[:, None, None].expand(G, I, F))
-        pvi[:, :, 0] = il_arr[:, None]
-        pvi = torch.where(pad_mask[None], torch.ones_like(pvi), pvi)
-
-        def per_grid(a, dt=dtype):
-            """(I, ...) host array -> (G*I, ...) device tensor, grid-major:
-            every grid point solves the same data."""
-            t = on_dev(a, dt)
-            return t[None].expand(G, *t.shape).reshape(G * I, *t.shape[1:])
-
-        prob = obj.LRProblem(
-            indices=per_grid(arrs["indices"], torch.int64),
-            values=per_grid(arrs["values"]), y=per_grid(arrs["y"]),
-            weight=per_grid(arrs["weight"]), offset=per_grid(arrs["offset"]),
-            prior_mean=per_grid(arrs["prior_mean"]),
-            prior_var_inv=pvi.reshape(G * I, F))
-        w0 = torch.zeros((G * I, F), dtype=dtype, device=dev)
-        eps_t = per_grid(eps)
-        if cfg.solver == "cholesky":
-            res = newton_cholesky(prob, w0, eps_t,
-                                  max_iter=min(cfg.max_newton_iter, 100))
-            trips = {"newton_trips": res.trips}
-        else:
-            res = tron(prob, w0, eps_t, max_iter=cfg.max_newton_iter,
-                       max_cg_iter=cfg.max_cg_iter)
-            trips = {"newton_trips": res.newton_trips,
-                     "cg_trips": res.cg_trips}
-        if mesh is not None:      # the bucket's trips: the slowest rank's
-            trips = dict(zip(trips, max_over(
-                list(trips.values()), mesh.get_group(BLOCK_AXIS), dev)))
-        stats.append({"shape": (R, K, F), "problems": G * I_all, **trips})
-        w_t = res.w
-
-        def items(t, *tail):
-            """(G*I, ...) -> (G, I_all, ...): under a mesh every rank's
-            items gathered in order, the padding dropped."""
-            t = t.reshape(G, I, *tail)
+    with contextlib.ExitStack() as loops:
+        for (R, K, F), arrs, meta in packed:
+            t_start = time.monotonic()
+            I_all = I = len(meta)
             if mesh is not None:
-                t = all_gather(t, mesh.get_group(BLOCK_AXIS),
-                               dim=1)[:, :I_all]
-            return t.double().cpu().numpy()
-        cov = None
-        if cfg.compute_var:
-            if cfg.full_cov:
-                cov_t = torch.linalg.inv(obj.dense_hessian(prob, w_t))
-                pvar_t = torch.diagonal(cov_t, dim1=-2, dim2=-1)
-                cov = items(cov_t, F, F)
-            else:
-                pvar_t = 1.0 / obj.hessian_diagonal(prob, w_t)
-            pvar = items(pvar_t, F)
-        w = items(w_t, F)
-        t_solved = time.monotonic()
+                # items shard like blocks: pad with copies of item 0 (real,
+                # solvable, discarded), then this rank's contiguous share
+                W = axis_size(mesh, BLOCK_AXIS)
+                I_pad = -(-I // W) * W
+                sh = block_sharding(mesh, 0)
+                arrs = {k: sh.take(np.concatenate(
+                    [v, np.broadcast_to(v[:1], (I_pad - I,) + v.shape[1:])]))
+                    for k, v in arrs.items()}
+                I = I_pad // W
+            eps = cfg.liblinear_epsilon * obj.class_balance_eps_scale(
+                arrs["y"], arrs["nrows"])
+            # prior precision per grid point g and item i: pvi[0] = il_g;
+            # pvi[f] = the lambda.map override, else dl_g; padding lanes 1
+            map_mask = on_dev(arrs["map_mask"], torch.bool)
+            pad_mask = on_dev(arrs["pad_mask"], torch.bool)
+            pvi = torch.where(map_mask[None], on_dev(arrs["map_pvi"])[None],
+                              dl_arr[:, None, None].expand(G, I, F))
+            pvi[:, :, 0] = il_arr[:, None]
+            pvi = torch.where(pad_mask[None], torch.ones_like(pvi), pvi)
 
-        # plain Python floats from here on: one tolist() per array instead
-        # of a numpy scalar lookup per coefficient
-        w, pvar = w.tolist(), (pvar.tolist() if cfg.compute_var else None)
-        cov = None if cov is None else cov.tolist()
-        for g, (il, dl) in enumerate(grid):
-            prefix = f"{_lambda_key(il)}:{_lambda_key(dl)}#"
-            for i, (key, names) in enumerate(meta):
-                out_key = prefix + key
-                nf = len(names)
-                wi = w[g][i]
-                models[out_key] = LinearModel(dict(zip(names[1:], wi[1:nf])),
-                                              intercept=wi[0])
-                if cfg.compute_var:
-                    pvi_ = pvar[g][i]
-                    pv = dict(zip(names[1:], pvi_[1:nf]))
-                    # absent lambda.map features report prior variance
-                    # (LibLinear.java:385-396)
-                    for k, lam_k in lambda_map.items():
-                        if k not in pv:
-                            pv[k] = 1.0 / lam_k
-                    posterior[out_key] = LinearModel(pv, intercept=pvi_[0])
-                    if cfg.full_cov:
-                        ci = cov[g][i]
-                        covs[out_key] = {
-                            (names[a], names[b]): ci[a][b]
-                            for a in range(nf) for b in range(nf)}
+            def per_grid(a, dt=dtype):
+                """(I, ...) host array -> (G*I, ...) device tensor, grid-major:
+                every grid point solves the same data."""
+                t = on_dev(a, dt)
+                return t[None].expand(G, *t.shape).reshape(G * I, *t.shape[1:])
+
+            # the items' data once, shared by the G grid points' lanes
+            prob = blocked_problem(
+                on_dev(arrs["indices"], torch.int64), on_dev(arrs["values"]),
+                on_dev(arrs["y"]), on_dev(arrs["weight"]),
+                on_dev(arrs["offset"]), (None,) * 8, dtype, F)._replace(
+                prior_mean=per_grid(arrs["prior_mean"]),
+                prior_var_inv=pvi.reshape(G * I, F))
+            w0 = torch.zeros((G * I, F), dtype=dtype, device=dev)
+            solved = _solve_bucket(prob, w0, per_grid(eps), cfg, pool=pool)
+            # torch frees a graph pool with the last graph captured into it:
+            # the previous bucket's loop is closed now that this one is
+            # captured into the pool, and the last one after the call
+            loops.close()
+            if solved.loop is not None:
+                loops.callback(solved.loop.close)
+            w_t, trips = solved.w, solved.trips
+            if mesh is not None:      # the bucket's trips: the slowest rank's
+                trips = all_reduce(trips, "max", mesh.get_group(BLOCK_AXIS))
+
+            def items(t, *tail):
+                """(G*I, ...) -> (G, I_all, ...): under a mesh every rank's
+                items gathered in order, the padding dropped."""
+                t = t.reshape(G, I, *tail)
+                if mesh is not None:
+                    t = all_gather(t, mesh.get_group(BLOCK_AXIS),
+                                   dim=1)[:, :I_all]
+                return t
+            out = [items(w_t, F)]
+            if cfg.compute_var:
+                if cfg.full_cov:
+                    # inv_ex: the inverse without inv's check of its info on
+                    # the host (H is positive definite)
+                    cov_t = torch.linalg.inv_ex(
+                        obj.dense_hessian(prob, w_t))[0]
+                    out += [items(torch.diagonal(cov_t, dim1=-2, dim2=-1), F),
+                            items(cov_t, F, F)]
                 else:
-                    posterior[out_key] = LinearModel()
-        stats[-1].update(solve_s=t_solved - t_start,
-                         assemble_s=time.monotonic() - t_solved)
+                    out.append(items(1.0 / obj.hessian_diagonal(prob, w_t), F))
+            # the bucket's one host read: w, variances, covariances, trips
+            host = torch.cat([t.reshape(-1).to(torch.float64)
+                              for t in (*out, trips)]).cpu()
+            parts = host.split([t.numel() for t in (*out, trips)])
+            w = parts[0].view(G, I_all, F).numpy()
+            pvar = parts[1].view(G, I_all, F).numpy() if cfg.compute_var \
+                else None
+            cov = (parts[2].view(G, I_all, F, F).numpy()
+                   if cfg.compute_var and cfg.full_cov else None)
+            stats.append({"shape": (R, K, F), "problems": G * I_all,
+                          **dict(zip(trip_names, parts[-1].long().tolist())),
+                          "capture_s": solved.capture_s})
+            t_solved = time.monotonic()
+
+            # plain Python floats from here on: one tolist() per array instead
+            # of a numpy scalar lookup per coefficient
+            w, pvar = w.tolist(), (pvar.tolist() if cfg.compute_var else None)
+            cov = None if cov is None else cov.tolist()
+            for g, (il, dl) in enumerate(grid):
+                prefix = f"{_lambda_key(il)}:{_lambda_key(dl)}#"
+                for i, (key, names) in enumerate(meta):
+                    out_key = prefix + key
+                    nf = len(names)
+                    wi = w[g][i]
+                    models[out_key] = LinearModel(
+                        dict(zip(names[1:], wi[1:nf])), intercept=wi[0])
+                    if cfg.compute_var:
+                        pvi_ = pvar[g][i]
+                        pv = dict(zip(names[1:], pvi_[1:nf]))
+                        # absent lambda.map features report prior variance
+                        # (LibLinear.java:385-396)
+                        for k, lam_k in lambda_map.items():
+                            if k not in pv:
+                                pv[k] = 1.0 / lam_k
+                        posterior[out_key] = LinearModel(pv, intercept=pvi_[0])
+                        if cfg.full_cov:
+                            ci = cov[g][i]
+                            covs[out_key] = {
+                                (names[a], names[b]): ci[a][b]
+                                for a in range(nf) for b in range(nf)}
+                    else:
+                        posterior[out_key] = LinearModel()
+            stats[-1].update(solve_s=t_solved - t_start,
+                             assemble_s=time.monotonic() - t_solved)
 
     return ItemResult(models=models, posterior_var=posterior,
                       covariances=covs, solver_stats=stats)

@@ -28,9 +28,16 @@ consecutive sub-stacks of keys past int32, ops/tron_multi.py::SubStacks),
 and the batched reference TRON over (lambda x key) lanes with the data
 shared by the lambdas (multi_rhs=False; each key keeps its own int64
 ids). The keys are packed as the JAX package packs them, in the ELL layout
-alone (no dense head, so no sorted tail): neither hand-written kernel runs
-in a multi-RHS naive solve; on the card the lanes solve sums X'v over a
-column-sorted copy with K1 (ops/objective.py). Under a mesh (`mesh=`, a 1-D
+alone (no dense head); the sums over the data run with K1, so that they
+run in one order every run on the card: the stacked problems carry their
+ELL entries as a row-sorted and a column-sorted tail (ops/tron_multi.py::
+ell_as_sorted_tails), the lanes problem a column-sorted copy on the card
+(ops/objective.py). K2 does not run. Each solve is one program on
+the card, as the JAX package jits it (`_solve_keys`): the branches of
+train/admm.py::_SolveLoop (CG start, CG trip and Newton epilogue of each
+solve or sub-stack) with the naive prior fixed, looped on the card by
+ops/device_loop.py, then one host read of the solution and the trips.
+Under a mesh (`mesh=`, a 1-D
 block mesh of parallel/mesh.py, every rank calling with the whole rows)
 the keys are padded to a multiple of the ranks and split over them, each
 rank solves its own keys one problem per key (never the joint flat solve,
@@ -53,15 +60,14 @@ from mlease_tpu_torch.core.vocab import build_vocab
 from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
-from mlease_tpu_torch.ops.tron import tron
-from mlease_tpu_torch.ops.tron_multi import (join_block_results,
+from mlease_tpu_torch.ops.tron_multi import (ell_as_sorted_tails,
                                              stack_blocks, stack_fits,
-                                             stack_substacks, substacks_of,
-                                             tron_multi)
-from mlease_tpu_torch.collectives import all_gather, max_over
+                                             stack_substacks, substacks_of)
+from mlease_tpu_torch.collectives import all_gather, all_reduce
 from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, local_blocks,
                                             mesh_device)
-from mlease_tpu_torch.train.admm import _lambda_key, blocked_problem
+from mlease_tpu_torch.train.admm import (_Solved, _SolveLoop, _graph_pool,
+                                         _lambda_key, blocked_problem)
 
 
 @dataclass
@@ -98,8 +104,30 @@ class NaiveResult:
     mean_models: dict[str, LinearModel] | None  # "lambda" -> mean (final-model)
     skipped_keys: list[str]
     # where a run's time went: host packing, the solve (to the solution's
-    # readback) and its lock-step Newton / CG trips
+    # readback; capture_s of it the device loop's warm-up and capture) and
+    # its lock-step Newton / CG trips
     solver_stats: dict = field(default_factory=dict)
+
+
+def _solve_keys(mode: str, probs, L: int, n: int, eps, prior,
+                cfg: NaiveConfig) -> _Solved:
+    """Every (lambda, key) model as one device loop (train/admm.py::
+    _SolveLoop in `mode`, over `probs`, the [(problem, (b0, b1))] of the
+    stacked keys or of their sub-stacks, or the lanes problem; eps (K,)
+    the keys' tolerances; prior the fixed (prior mean, prior precision),
+    each (L, K, n)), from w = 0: x (L, K, n) and the lock-step (Newton,
+    CG) trips on the device. On the card the loop is captured and
+    launched once; the host reads nothing. The host-driven
+    tron_multi / tron (one read a trip) take this seam's place where a
+    caller holds the loop to them."""
+    t0 = time.monotonic()
+    z0 = torch.zeros((L, n), dtype=cfg.dtype, device=eps.device)
+    lp = _SolveLoop(mode, probs, L, n, cfg.pcg, cfg.max_newton_iter,
+                    cfg.max_cg_iter, z0, None, None, eps, prior=prior)
+    lp.own_loop(_graph_pool(eps.device)).prepare()
+    capture_s = time.monotonic() - t0
+    lp.solve(z0, None, None, eps)
+    return _Solved(lp.x(), lp.lockstep_trips(), capture_s, lp)
 
 
 def train_naive(keyed_rows: Mapping[str, Sequence[Mapping]],
@@ -161,17 +189,10 @@ def train_naive(keyed_rows: Mapping[str, Sequence[Mapping]],
     t1 = time.monotonic()
     arrays = (t(pad_data.indices), t(pad_data.values, dtype), y, weight,
               t(pad_data.offset, dtype), (None,) * 8)
-    common = dict(max_iter=cfg.max_newton_iter, max_cg_iter=cfg.max_cg_iter)
+    # the prior: cfg.prior_mean everywhere, pvi per (lambda, feature)
+    prior = (torch.full((L, K, n), cfg.prior_mean, dtype=dtype, device=dev),
+             pvi_t[:, None, :].expand(L, K, n))
     if cfg.multi_rhs:
-        def solve(prob, k, key_eps, **kw):
-            """The multi-RHS solve of k keys stacked in `prob`."""
-            return tron_multi(prob._replace(
-                prior_mean=torch.full((k * n, L), cfg.prior_mean,
-                                      dtype=dtype, device=dev),
-                prior_var_inv=pvi_t.T.repeat(k, 1)),
-                torch.zeros((k * n, L), dtype=dtype, device=dev), key_eps,
-                precondition=cfg.pcg, **common, **kw)
-
         zeros_prior = (torch.zeros((L, K, n), dtype=dtype, device=dev),
                        torch.ones(L, dtype=dtype, device=dev))
         # the keys fold into the coefficient axis (one joint trust region
@@ -180,28 +201,32 @@ def train_naive(keyed_rows: Mapping[str, Sequence[Mapping]],
         # is stacked), else one per key, in sub-stacks past int32
         if (cfg.flat_blocks and mesh is None
                 and stack_fits(K, n, pad_data.padded_rows)):
-            res = solve(stack_blocks(*arrays, *zeros_prior), K, eps.min())
+            mode = "flat"
+            probs = [(stack_blocks(*arrays, *zeros_prior), (0, K))]
         else:
-            res = join_block_results(
-                solve(p, b1 - b0, eps[b0:b1], blocks=b1 - b0)
-                for p, (b0, b1) in substacks_of(
-                    stack_substacks(*arrays, *zeros_prior), K))
-        x = res.w.reshape(K, n, L).permute(2, 0, 1)               # (L, K, n)
+            mode = "per_block"
+            probs = substacks_of(stack_substacks(*arrays, *zeros_prior), K)
+        # the ELL entries as sorted tails, K1's on the card: one
+        # summation order every run
+        probs = [(ell_as_sorted_tails(p), r) for p, r in probs]
     else:
-        lanes = blocked_problem(*arrays, dtype, n)._replace(
-            prior_mean=torch.full((L * K, n), cfg.prior_mean, dtype=dtype,
-                                  device=dev),
-            prior_var_inv=pvi_t[:, None, :].expand(L, K, n).reshape(L * K, n))
-        res = tron(lanes, torch.zeros((L * K, n), dtype=dtype, device=dev),
-                   eps.repeat(L), **common)
-        x = res.w.view(L, K, n)
-    trips = [res.newton_trips, res.cg_trips]
+        mode = "lanes"
+        probs = [(blocked_problem(*arrays, dtype, n), (0, K))]
+    solved = _solve_keys(mode, probs, L, n, eps, prior, cfg)
+    x, trips = solved.w, solved.trips
     if mesh is not None:      # every rank's keys, the padding dropped
         x = all_gather(x, mesh.get_group(BLOCK_AXIS), dim=1)[:, :data.nblocks]
-        trips = max_over(trips, mesh.get_group(BLOCK_AXIS), dev)
-    x = x.to(torch.float64).cpu().numpy()
+        trips = all_reduce(trips, "max", mesh.get_group(BLOCK_AXIS))
+    # the solve's one host read: the models and the trips
+    host = torch.cat([x.reshape(-1).to(torch.float64),
+                      trips.to(torch.float64)]).cpu()
+    if solved.loop is not None:
+        solved.loop.close()
+    x = host[:x.numel()].view(x.shape).numpy()
+    trips = host[x.size:].long().tolist()
     stats = {"pack_s": t1 - t0, "solve_s": time.monotonic() - t1,
-             "newton_trips": trips[0], "cg_trips": trips[1]}
+             "newton_trips": trips[0], "cg_trips": trips[1],
+             "capture_s": solved.capture_s}
 
     models: dict[str, LinearModel] = {}
     for i, lam in enumerate(lambdas):

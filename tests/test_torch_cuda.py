@@ -21,6 +21,8 @@ inputs (the float64 reference is taken from the bf16-rounded inputs, so
 only the accumulation is judged), 1e-12 for float64, and G == G' exactly.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -252,8 +254,15 @@ def test_segment_sum_bf16_into_float32(cuda, L):
     plain = segment_sum_gather_reference(vals, V, idx, seg, 60_000,
                                          out=out0.clone(), square_from=sf)
     assert plain.dtype == got.dtype == torch.float32
-    assert float((plain - got).abs().max()) <= \
-        1e-5 * float(plain.abs().max() + 1)
+    # the plain version (float32 index_add_, whose atomics sum in another
+    # order each run) to the kernel's bound against the same float64 sum
+    f64 = (lambda t: t.double())                          # noqa: E731
+    ref = segment_sum_gather_reference(f64(vals), f64(V), idx, seg, 60_000,
+                                       out=f64(out0).clone(), square_from=sf)
+    scale = segment_sum_gather_reference(
+        f64(vals).abs(), f64(V).abs(), idx, seg, 60_000,
+        out=f64(out0).abs(), square_from=sf)
+    assert bool(((plain.double() - ref).abs() <= 1e-5 * scale).all())
     T = 3 * CHUNK + 7                     # a stream of a few steps
     check_gather(vals[:T], V, idx[:T], seg[:T], 60_000, 1e-5, out0=out0,
                  square_from=sf)
@@ -592,24 +601,21 @@ def test_gram_wrapper_raises_rather_than_falling_back(cuda, monkeypatch,
 def test_item_trainer_on_card_matches_cpu(cuda, solver):
     from mlease_tpu_torch.train.item import ItemConfig, train_item_models
 
-    rng = np.random.default_rng(5)
-    keyed = {}
-    for i in range(40):
-        n = int(rng.integers(20, 90))
-        keyed[f"it{i}"] = [{
-            "response": int(rng.integers(0, 2)), "weight": 1.0, "offset": 0.0,
-            "features": [(f"f{int(j)}", float(rng.normal()))
-                         for j in rng.choice(9, 3, replace=False)]}
-            for _ in range(n)]
+    keyed = item_rows(5, 40)
     cfg = ItemConfig(intercept_lambdas=[1.0], default_lambdas=[1.0, 10.0],
                      compute_var=True, full_cov=True, solver=solver,
                      liblinear_epsilon=1e-8, dtype=torch.float64)
     want = train_item_models(keyed, cfg, device="cpu")
-    before = gram_batched.launches
-    got = train_item_models(keyed, cfg, device=cuda)
+    with recorded_loops() as loops:
+        before = gram_batched.launches
+        got = train_item_models(keyed, cfg, device=cuda)
+        launches = gram_batched.launches - before
     trips = sum(s["newton_trips"] for s in got.solver_stats)
     expected = len(got.solver_stats) + (trips if solver == "cholesky" else 0)
-    assert gram_batched.launches - before == expected
+    # K2's runs: the eager calls (the launches less the loops' warm-up
+    # and captured ones) and the executions counted inside the loops
+    assert launches - 2 * loops.captured("gram_batched") \
+        + loops.executed("gram_batched") == expected
     assert set(got.models) == set(want.models)
     for key, m in want.models.items():
         assert got.models[key].intercept == pytest.approx(m.intercept,
@@ -619,6 +625,173 @@ def test_item_trainer_on_card_matches_cpu(cuda, solver):
                 v, rel=1e-6, abs=1e-8)
         pv, pw = got.posterior_var[key], want.posterior_var[key]
         assert pv.intercept == pytest.approx(pw.intercept, rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cholesky", "tron"])
+def test_item_diagonal_variances_on_card_match_cpu(cuda, solver):
+    """The diagonal posterior variances (compute_var without full_cov:
+    1 / the Hessian diagonal, whose squared values K1 sums over the item
+    problem's column-sorted copy on the card) and the models, card against
+    CPU in float64: models to 1e-6 relative, variances to 1e-5, as the
+    full-covariance test holds them; K1 runs inside every bucket's loop."""
+    from mlease_tpu_torch.train.item import ItemConfig, train_item_models
+
+    keyed = item_rows(6, 40)
+    cfg = ItemConfig(intercept_lambdas=[1.0], default_lambdas=[1.0, 10.0],
+                     compute_var=True, full_cov=False, solver=solver,
+                     liblinear_epsilon=1e-8, dtype=torch.float64)
+    want = train_item_models(keyed, cfg, device="cpu")
+    with recorded_loops() as loops:
+        got = train_item_models(keyed, cfg, device=cuda)
+    assert len(loops) == len(got.solver_stats) > 1
+    assert loops.executed("segment_sum_gather") > 0
+    assert set(got.models) == set(want.models) == set(got.posterior_var)
+    for key, m in want.models.items():
+        g, pv, pw = got.models[key], got.posterior_var[key], \
+            want.posterior_var[key]
+        assert g.intercept == pytest.approx(m.intercept, rel=1e-6, abs=1e-8)
+        assert pv.intercept == pytest.approx(pw.intercept, rel=1e-5)
+        for name, v in m.coefficients.items():
+            assert g.coefficients[name] == pytest.approx(v, rel=1e-6,
+                                                         abs=1e-8)
+            assert pv.coefficients[name] == pytest.approx(
+                pw.coefficients[name], rel=1e-5)
+
+
+class _Loops(list):
+    """The device loops prepared inside `recorded_loops`."""
+
+    def captured(self, kernel):
+        """A kernel's launches the loops' captures recorded (as many as
+        their warm-ups launched)."""
+        return sum(b.get(kernel, 0) for lp in self
+                   for b in lp.captured.values())
+
+    def executed(self, kernel):
+        """A kernel's executions inside the loops, counted on the card."""
+        return sum(lp.counts()["kernel_executions"].get(kernel, 0)
+                   for lp in self)
+
+
+@contextlib.contextmanager
+def recorded_loops():
+    from mlease_tpu_torch.ops.device_loop import DeviceLoop
+    loops, prepare = _Loops(), DeviceLoop.prepare
+
+    def prepared(self):
+        prepare(self)
+        loops.append(self)
+    DeviceLoop.prepare = prepared
+    try:
+        yield loops
+    finally:
+        DeviceLoop.prepare = prepare
+
+
+def item_rows(seed, n_items=30):
+    rng = np.random.default_rng(seed)
+    return {f"it{i}": [{
+        "response": int(rng.integers(0, 2)), "weight": 1.0, "offset": 0.0,
+        "features": [(f"f{int(j)}", float(rng.normal()))
+                     for j in rng.choice(9, 3, replace=False)]}
+        for _ in range(int(rng.integers(20, 90)))] for i in range(n_items)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver,full_cov", [("cholesky", True),
+                                             ("cholesky", False),
+                                             ("tron", False)])
+def test_item_loop_reads_the_host_once_a_bucket(cuda, solver, full_cov):
+    """A bucket's solve is one device loop: after a first call has built
+    the kernels, a call's only synchronizing calls are its buckets' reads,
+    one each; K1 runs inside every loop (the item problem's column-sorted
+    copy), K2 inside the Cholesky route's."""
+    from mlease_tpu_torch.train.item import ItemConfig, train_item_models
+    keyed = item_rows(8)
+    cfg = ItemConfig(intercept_lambdas=[1.0], default_lambdas=[1.0, 10.0],
+                     compute_var=True, full_cov=full_cov, solver=solver)
+    train_item_models(keyed, cfg, device=cuda)
+    with recorded_loops() as loops:
+        res, syncs = count_syncs(
+            lambda: train_item_models(keyed, cfg, device=cuda))
+    assert len(res.solver_stats) > 1
+    assert syncs == len(res.solver_stats) == len(loops)
+    assert all(lp.counts()["kernel_executions"]["segment_sum_gather"] > 0
+               for lp in loops)
+    assert (loops.executed("gram_batched") > 0) == (solver == "cholesky")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("solver", ["cholesky", "tron"])
+def test_item_runs_give_the_same_bits(cuda, monkeypatch, solver, dtype):
+    """Two runs of the same buckets give the same bits (X'v and the
+    Hessian diagonal sum with K1 in one fixed order, not with atomics), and
+    so does the host-driven solve through the trainer's seam: models,
+    posterior variances (diagonal, and from the full covariance in
+    float32) and trips."""
+    from mlease_tpu_torch.train import item
+    from torch_host_solves import host_bucket
+    keyed = item_rows(9, 60)
+    cfg = item.ItemConfig(intercept_lambdas=[1.0, 3.0],
+                          default_lambdas=[1.0, 10.0], compute_var=True,
+                          full_cov=dtype == torch.float32, solver=solver,
+                          dtype=dtype)
+
+    def flat(res):
+        return [(k, m.intercept, sorted(m.coefficients.items()),
+                 res.posterior_var[k].intercept,
+                 sorted(res.posterior_var[k].coefficients.items()))
+                for k, m in sorted(res.models.items())]
+
+    def trips(res):
+        return [(s["newton_trips"], s.get("cg_trips"))
+                for s in res.solver_stats]
+
+    runs = [item.train_item_models(keyed, cfg, device=cuda)
+            for _ in range(2)]
+    monkeypatch.setattr(item, "_solve_bucket", host_bucket)
+    runs.append(item.train_item_models(keyed, cfg, device=cuda))
+    assert flat(runs[0]) == flat(runs[1]) == flat(runs[2])
+    assert trips(runs[0]) == trips(runs[1]) == trips(runs[2])
+    if cfg.full_cov:
+        assert runs[0].covariances == runs[1].covariances \
+            == runs[2].covariances
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("F", [16, 64])
+def test_batched_cholesky_and_triangular_solves_capture(cuda, F):
+    """The Newton step's factor and solves at the item loop's shapes
+    (B 20,000): torch.linalg.cholesky_ex and two solve_triangular calls
+    captured in a CUDA graph give the eager calls' bits on replay, on
+    inputs written after the capture."""
+    g = torch.Generator(device=cuda)
+    g.manual_seed(F)
+    B = 20_000
+    A = torch.randn((B, 2 * F, F), generator=g, device=cuda)
+    H = A.mT @ A + torch.eye(F, device=cuda)
+    rhs = torch.randn((B, F, 1), generator=g, device=cuda)
+
+    def solve():
+        L, info = torch.linalg.cholesky_ex(H)
+        y = torch.linalg.solve_triangular(L, rhs, upper=False)
+        return torch.linalg.solve_triangular(L.mT, y, upper=True), info
+    want, info = solve()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got, ginfo = solve()
+    # the replay reads the new inputs: 4H and 4rhs give the factor 2L and
+    # the same solution, each op scaled by a power of two (exact)
+    H.mul_(4.0)
+    rhs.mul_(4.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert int(info.abs().max()) == int(ginfo.abs().max()) == 0
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert bool(torch.isfinite(got).all())
 
 
 @pytest.mark.cuda
@@ -1061,6 +1234,21 @@ def test_substacked_run_fused_on_card_equals_run(cuda, monkeypatch, kw):
 # run() and the streaming trainer: each x-update one device loop
 # (train/admm.py::_SolveLoop), one host sync an iteration
 # ---------------------------------------------------------------------------
+
+def count_syncs(fn):
+    """fn() under set_sync_debug_mode("warn"): its result and the number
+    of synchronizing calls it made."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("called a synchronizing" in str(w.message)
+                    for w in seen)
+
 
 def syncs_per_iteration(run):
     """run(callback) under set_sync_debug_mode("warn"): the synchronizing

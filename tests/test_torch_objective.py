@@ -200,6 +200,35 @@ def test_k1_sorted_sum_matches_the_scatter(monkeypatch, per, dtype):
         assert bool(((got - want).abs() <= tol * scale).all()), stream
 
 
+@pytest.mark.parametrize("per", [None, 1], ids=["one-call", "by-1"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_k1_sorted_sum_squares_like_the_scatter(monkeypatch, per, dtype):
+    """The Hessian diagonal's sorted sum (square=True: K1 squares the
+    values itself, square_from 0), through K1's plain version on the CPU,
+    against the CPU's scatter of the squared values, for the column-sorted
+    copy the item problems carry: to 1e-12 in float64, to 1e-6 of the
+    sums' magnitude for a bfloat16 stream (the square formed in float32
+    both ways)."""
+    from mlease_tpu_torch.ops import objective, tron_multi
+    rng = np.random.default_rng(4)
+    L, B, R, n = 2, 3, 11, 7
+    if per is not None:
+        monkeypatch.setattr(tron_multi, "STACK_ID_BOUND",
+                            per * max(R, n) + 1)
+    prob = sorted_streams_problem(rng, dtype, B, R, n)
+    k1 = objective.k1_streams(prob, n, tron_multi.substack_ranges(B, n, R))
+    acc = torch.float32 if dtype == torch.bfloat16 else dtype
+    V3 = torch.as_tensor(rng.uniform(0.0, 0.25, size=(L, B, R))).to(acc)
+    out0 = torch.as_tensor(rng.uniform(0.5, 4.0, size=(L, B, n))).to(acc)
+    want = objective._sorted_sum(prob, "csc", out0.clone(), V3, square=True)
+    got = objective._k1_sorted_sum(out0.clone(), k1.csc, prob.csc_vals, V3,
+                                   k1.ranges, square=True)
+    plain = objective._sorted_sum(prob, "csc", out0.clone(), V3)
+    assert not torch.allclose(want, plain)      # the square is taken
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    assert bool(((got - want).abs() <= tol * want.abs()).all())
+
+
 def test_stacked_k1_ids_are_the_blocked_ones():
     """A streamed group's K1 ids (train/admm.py::stacked_k1, the stacked
     int32 ids as they ship, the column-sorted copy made from the shipped
