@@ -13,7 +13,8 @@ Phases, each of which fails the run when it fails:
   2. build the port's kernels (mlease_tpu_torch/csrc/segment_sum.cu, gram.cu
      and gram_mma_{f32,bf16,f64}.cu) and the fused loop's graph builder
      (csrc/device_loop.cu) with nvcc from the sources in this checkout, one
-     nvcc process per source, started together;
+     nvcc process per source, started together, while the bench and full
+     trainers are set up (their set-up launches no kernel);
   3. kernel phase K1: the contrib form `segment_sum_sorted` against its
      plain version on the card, at the main path's tail streams (the
      bench-default shape and the full-width shape of phase 6), float32 with
@@ -29,8 +30,8 @@ Phases, each of which fails the run when it fails:
      at every row; times from CUDA events over >= 20 repeats;
   4. kernel phase K2: `gram_batched` against a float64 reference at the
      per-item bucket shapes (B = 20,000; R 64, F 16 in float32 and float64;
-     R 256, F 64), the head-block shapes (3 lanes sharing X (1,562,500,
-     128), and phase 10's X (16,384, 512)), the TPU kernel's documented
+     R 256, F 64), the head-block shapes (3 lanes sharing X
+     (--rows-per-block, 128), and phase 10's X (16,384, 512)), the TPU kernel's documented
      shape (R = 131,072, F = 512 in
      float32, bf16-in and float64; F = 256) and edge shapes (ragged R, rows
      that are no 16-byte multiple, R = 1, F = 8, rows with d = 0); per entry
@@ -44,13 +45,17 @@ Phases, each of which fails the run when it fails:
   5. CLI phase: `python -m mlease_tpu_torch train` on a copy of
      examples/data/breast-cancer.job (float64, head.size=16), output in a
      temporary directory; checks the output layout, finite logliks and
-     that the kernel was launched;
+     that the kernel was launched; in a whole run every later train CLI
+     run on this job (17 (c), 18 (f), 19 (d)'s four, 16 (f)) is started
+     here with it, each a process of its own (CLI_RUNS), and checked in its
+     own phase, so that the eight processes start up together;
   6. full-width phase (the ADMM main path): AdmmTrainer at the widths of
      examples/data/ctr-12m.job (1,000,001 columns, 12 nnz/row on zipf 1.3,
      head.size=128, 8 blocks, lambda 1/10/100, float32, Jacobi PCG, flat
      blocks) on synthetic data made from --seed, 8 x --rows-per-block rows
-     (by default ctr-12m.job's 12.5M, uncut; --rows-per-block 250000 for
-     a quicker run); K1's runs are counted in exactly this run (its
+     (by default 8 x 781,250: ctr-12m.job's 12.5M rows cut to half to
+     keep the whole run well inside its time limit; --rows-per-block
+     1562500 for all of them, 250000 for a quicker run); K1's runs are counted in exactly this run (its
      eager launches and its executions inside run()'s device loop, counted
      on the card; the loop's set-up apart; kernel_runs); then the
      first iteration again with the plain reduce,
@@ -76,7 +81,8 @@ Phases, each of which fails the run when it fails:
      two runs and the TRON run are phase 22 (a)'s loop runs;
   9. item CLI phase: 200 items written as Avro, then `python -m
      mlease_tpu_torch item` and `itemtest` on the card; checks the outputs,
-     finite testLoglik and both kernels' launch counts;
+     finite testLoglik and both kernels' launch counts; in a whole run it
+     runs beside phase 12's CLI runs, with phase 13's;
  10. head-block phase: `tron_multi(precondition="head_block")` on one block
      of the bench shape (16,384 rows, head 512) against
      precondition="jacobi": the same W to 1e-3 * max|W|, no more CG trips,
@@ -86,8 +92,8 @@ Phases, each of which fails the run when it fails:
      solve alone could not fail a wrong Gram).
 
  11. streaming phase (the scale path's trainer): StreamingAdmmTrainer at
-     ctr-12m.job's widths on the full phase's 12.5M-row data (same
-     generator, --seed), split as the job splits it (8 blocks in 4 groups),
+     ctr-12m.job's widths on the full phase's data (8 x --rows-per-block
+     rows, the same arrays), split as the job splits it (8 blocks in 4 groups),
      head 128 stored as bfloat16, float32, lambda 1/10/100, Jacobi PCG,
      --iters iterations, in three residency settings: (a) the job's 8 GB
      budget, (b) a budget that pins group 0's head and streams the
@@ -100,11 +106,11 @@ Phases, each of which fails the run when it fails:
      copies alone against a plain pinned copy of the same bytes, the share
      of copy time hidden under the solves, peak device memory, and one
      iteration of (a) and of (c) under torch.profiler;
- 12. scale CLI phase: 1,000,000 training rows and 20,000 test rows at
+ 12. scale CLI phase: 1,000,000 training rows and 5,000 test rows at
      ctr-12m widths written as Avro by the port's native encoder (the
      generator of examples/make_scale_dataset.py; the row count cut from
-     12.5M to keep the run inside its time limit: phase 11 runs all 12.5M
-     rows), then `python -m mlease_tpu_torch train` twice on a copy of
+     12.5M to keep the run inside its time limit: phase 11 runs the full
+     phase's rows), then `python -m mlease_tpu_torch train` twice on a copy of
      examples/data/ctr-12m.job with its paths replaced and pack.cache.dir
      set: the first log must show the native decoder and the cache write,
      the second a cache hit, and both the same final models bit for bit;
@@ -113,7 +119,7 @@ Phases, each of which fails the run when it fails:
      same generator (cut from 12.5M: the naive and boosted jobs read their
      rows record by record, as the JAX package's do, and three CLI runs
      read them); three CLI runs on a copy of ctr-12m.job, started
-     together: `naive` with compute.model.mean=true, `train` with
+     together (in a whole run, beside phase 12's): `naive` with compute.model.mean=true, `train` with
      initialize.boost.rate=2 (initialModel/ must hold the 24 naive models,
      equal to the naive run's to 1e-4 * max|w|, z0 logged, an iteration-0
      sample loglik written, records read, K1 launched by the ADMM that
@@ -164,9 +170,12 @@ Phases, each of which fails the run when it fails:
      call of each held against its plain version on the rank's data; (c)
      the streaming trainer with phase 11's split, nothing pinned, 2
      iterations, within 2e-3 of (b)'s float32-head z; (d) the
-     feature-sharded trainer 1 x 2 in ELL at 8 x 125,000 rows, no kernel,
-     within 1e-5 of the same solve unsharded, the collectives' time
-     reported; (e) phase 8's 10,000 items split over the ranks, models and
+     feature-sharded trainer 1 x 2 in ELL at 8 x 125,000 rows, run()
+     through its host-driven seam (_host_x_update: a gloo group cannot be
+     captured on the card, where run() raises), K1 launched on every rank
+     (X'v over the ELL's column copy), within 1e-5 of the same solve
+     unsharded, the collectives' time reported; (e) phase 8's 10,000 items
+     split over the ranks, models and
      posterior variances within 1e-6 of the one-rank run, every rank the
      same bucket stats (20,000 problems); (f) `train --mesh 1 --device
      cuda` on phase 5's job, checked as phase 5.
@@ -340,6 +349,31 @@ Phases, each of which fails the run when it fails:
      s of each; (d), items on 2 gloo ranks against 1
      rank, is phase 16 (e)'s, whose rows say whether they are the same
      bits.
+ 23. head-less phase (X'v over the ELL summed by K1 over its column-sorted
+     copy, ops/tron_multi.py::with_column_copy; the feature-sharded
+     trainer's x-update as one device loop), run after phase 22, at most
+     about 50 s: (a) bench's step without a head (head.size = 0, 4 x
+     16,384 rows, 50K features, 15 nnz) flat, per-block and in 4
+     sub-stacks (the int32 bound lowered): one x-update through the loop
+     against build_x_update's host-driven solve (bits, trips, K1 run as
+     often), two run() calls of LOOPS_ITERS iterations and a run on the
+     host-driven path the same bits, s an iteration of each; (b)
+     every K1 call of one host-driven x-update of each held to its float64
+     plain sum (k1_checked); (c) at ctr-12m.job's widths without a head
+     (1,000,001 columns, 12 nnz, 8 blocks, 3 lambdas, float32), rows cut to
+     8 x 250,000 (HEADLESS_ROWS): the flat trainer's run() against its
+     host-driven path and twice on its loop (bits, one host read an
+     iteration, K1 counted on the card, s an iteration, capture s, pool
+     and kept bytes), K1 at its X'v site against its plain version, timed
+     beside the `index_add_` over the ELL it replaces and its bound; then
+     FeatureShardedAdmmTrainer on a one-rank NCCL 1 x 1 mesh: run() on its
+     loop (made and captured in the first run), again on the kept loop,
+     and with the seam on the host-driven solve, bit for bit, one host read
+     an iteration (set_sync_debug_mode("warn")), K1 executions on the card
+     (kernel_runs; one feat shard's solve makes no collective, so none is
+     captured), capture s, pool and kept bytes,
+     s an iteration of each; every K1 call of one host-driven x-update
+     held to its float64 plain sum.
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -353,9 +387,9 @@ them, sets up the two trainers and runs phase 16 alone (with its own
 no-mesh runs for (a)); --fused-only builds them, sets up the two trainers
 and runs phases 17 and 19 alone (with its own eager CLI run for 17 (c) and
 no-mesh runs for 19 (b)-(c)); --loops-only builds them, sets up the two
-trainers and runs phases 21 and 22 alone (21's streamed part on trainers of
-its own, on data made as phase 11 makes it; 22's naive rows made as phase
-13 makes them); --bf16-only
+trainers and runs phases 21, 22 and 23 alone (21's streamed part on
+trainers of its own, on data made as phase 11 makes it; 22's naive rows
+made as phase 13 makes them); --bf16-only
 builds them, sets up the two trainers, makes the float32 runs phase 18
 compares with (phase 5, phase 6, phase 8's first run, phase 11's (a) once)
 and runs phase 18 alone.
@@ -387,6 +421,9 @@ PEAK_OPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 GRAM_PEAK_OPS = {"float32": 495e12 / 3, "float64": 67e12,
                  "bfloat16": 989e12}
 CLI_TIMEOUT_S = 300
+# the full trainer's rows per block: ctr-12m.job's 12.5M rows cut to half,
+# 8 x 781,250, to keep the whole run well inside its time limit
+FULL_ROWS = 781_250
 
 
 def fail(msg: str) -> int:
@@ -416,38 +453,75 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
+SYNTH: dict = {}       # synth_blocked_data's results, by their arguments
+BLOCKED_FIELDS = ("indices", "values", "y", "weight", "offset", "present",
+                  "nrows")
+
+
 def synth_blocked_data(n_features, nblocks, rows_per_block, nnz, seed):
-    """Power-law CTR-like blocks, the generator of the JAX package's
-    bench.py (zipf 1.3 column draw, intercept appended to every row)."""
+    """Power-law CTR-like blocks, the distribution of the JAX package's
+    bench.py (zipf 1.3 column draw, intercept appended to every row); each
+    block drawn from its own stream of `seed` (numpy's SeedSequence.spawn),
+    the blocks on threads. Made once for each set of arguments: a later
+    call gets copies of the same arrays."""
     import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
     from mlease_tpu_torch.core.dataset import BlockedData
 
-    rng = np.random.default_rng(seed)
-    n = n_features + 1
-    icpt = n_features
-    B, R = nblocks, rows_per_block
-    raw = rng.zipf(1.3, size=(B, R, nnz)).astype(np.int64)
-    cols = (raw - 1) % n_features
-    indices = np.concatenate(
-        [cols, np.full((B, R, 1), icpt, dtype=np.int64)],
-        axis=2).astype(np.int32)
-    values = np.concatenate(
-        [rng.normal(size=(B, R, nnz)).astype(np.float32) * 0.5,
-         np.ones((B, R, 1), dtype=np.float32)], axis=2)
-    w_true = (rng.normal(size=n) * 0.3).astype(np.float32)
-    w_true[icpt] = -1.5
-    scores = np.einsum("brk,brk->br", values,
-                       w_true[indices]).astype(np.float32)
-    p = 1.0 / (1.0 + np.exp(-scores))
-    y = np.where(rng.random((B, R)) < p, 1.0, -1.0).astype(np.float32)
-    present = np.zeros((B, n), dtype=bool)
-    for b in range(B):
-        present[b, np.unique(indices[b])] = True
-    return BlockedData(
-        indices=indices, values=values, y=y,
-        weight=np.ones((B, R), np.float32),
-        offset=np.zeros((B, R), np.float32), present=present,
-        nrows=np.full(B, R, np.int32), nblocks=B, dim=n)
+    key = (n_features, nblocks, rows_per_block, nnz, seed)
+    if key not in SYNTH:
+        n = n_features + 1
+        icpt = n_features
+        B, R = nblocks, rows_per_block
+        seqs = np.random.SeedSequence(seed).spawn(B + 1)
+        w_true = (np.random.default_rng(seqs[B]).normal(size=n)
+                  * 0.3).astype(np.float32)
+        w_true[icpt] = -1.5
+        indices = np.empty((B, R, nnz + 1), np.int32)
+        values = np.empty((B, R, nnz + 1), np.float32)
+        y = np.empty((B, R), np.float32)
+        present = np.zeros((B, n), dtype=bool)
+
+        def block(b):
+            rng = np.random.default_rng(seqs[b])
+            raw = rng.zipf(1.3, size=(R, nnz))
+            raw -= 1
+            raw %= n_features
+            indices[b, :, :nnz] = raw
+            indices[b, :, nnz] = icpt
+            values[b, :, :nnz] = rng.normal(size=(R, nnz)) * 0.5
+            values[b, :, nnz] = 1.0
+            scores = np.einsum("rk,rk->r", values[b],
+                               w_true[indices[b]]).astype(np.float32)
+            p = 1.0 / (1.0 + np.exp(-scores))
+            y[b] = np.where(rng.random(R) < p, 1.0, -1.0)
+            present[b, indices[b].ravel()] = True
+
+        with ThreadPoolExecutor(min(B, os.cpu_count() or 1)) as ex:
+            list(ex.map(block, range(B)))
+        SYNTH[key] = BlockedData(
+            indices=indices, values=values, y=y,
+            weight=np.ones((B, R), np.float32),
+            offset=np.zeros((B, R), np.float32), present=present,
+            nrows=np.full(B, R, np.int32), nblocks=B, dim=n)
+    d = SYNTH[key]
+    return d._replace(**{f: getattr(d, f).copy() for f in BLOCKED_FIELDS})
+
+
+def save_blocked(data, path):
+    """synth_blocked_data's arrays into one .npz (uncompressed)."""
+    import numpy as np
+    np.savez(path, dim=data.dim, **{f: getattr(data, f)
+                                    for f in BLOCKED_FIELDS})
+
+
+def load_blocked(path):
+    import numpy as np
+    from mlease_tpu_torch.core.dataset import BlockedData
+    with np.load(path) as z:
+        arrays = {f: z[f] for f in BLOCKED_FIELDS}
+        return BlockedData(**arrays, nblocks=int(arrays["y"].shape[0]),
+                           dim=int(z["dim"]))
 
 
 def make_vocab(n_features):
@@ -685,9 +759,10 @@ GRAM_SHAPES = [
     ("item/R64_F16", 20_000, 64, 16, "float32", False),
     ("item/R64_F16", 20_000, 64, 16, "float64", False),
     ("item/R256_F64", 20_000, 256, 64, "float32", False),
-    ("head_block/ctr-12m", 3, 1_562_500, 128, "float32", True),
+    # one block of the full trainer (R None: --rows-per-block rows)
+    ("head_block/ctr-12m", 3, None, 128, "float32", True),
     # the streamed head-block build: one block's bfloat16 head, 3 lanes
-    ("head_block/ctr-12m", 3, 1_562_500, 128, "bfloat16", True),
+    ("head_block/ctr-12m", 3, None, 128, "bfloat16", True),
     ("fit/F513", 1, 100_000, 513, "float64", False),       # phase 15's
     ("head_block/bench", 3, 16_384, 512, "float32", True),   # phase 10's
     ("tpu_doc/F512", 1, 131_072, 512, "float32", False),
@@ -787,8 +862,9 @@ def gram_phase(args):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     results = []
-    for shape in GRAM_SHAPES:
-        gram_check_and_time(*shape, gen, results)
+    for name, B, R, *rest in GRAM_SHAPES:
+        gram_check_and_time(name, B, R or args.rows_per_block, *rest, gen,
+                            results)
         torch.cuda.empty_cache()
     return results
 
@@ -1144,7 +1220,70 @@ CLI_ROWS: dict = {}         # phase 5's row (its output layout), phase 18 (f)'s
 F32_BASE: dict = {}
 
 
+AHEAD: dict = {}            # work started before its phase: key -> Future
+AHEAD_POOL: list = []
+
+
+def ahead(key, fn, *a, **kw):
+    """Start fn(*a, **kw) on a thread of its own now; the phase it belongs
+    to takes its result (or its exception) with taken(key, ...)."""
+    from concurrent.futures import ThreadPoolExecutor
+    if not AHEAD_POOL:
+        AHEAD_POOL.append(ThreadPoolExecutor(16))
+    AHEAD[key] = AHEAD_POOL[0].submit(fn, *a, **kw)
+
+
+def taken(key, fn, *a, **kw):
+    """The result of the work started ahead under `key`, or fn(*a, **kw)
+    run now where none was."""
+    fut = AHEAD.pop(key, None)
+    return fut.result() if fut is not None else fn(*a, **kw)
+
+
+def wait_ahead(keys):
+    """Wait until the work started under `keys` has ended (its results and
+    exceptions stay for taken)."""
+    from concurrent.futures import wait
+    wait([AHEAD[k] for k in keys if k in AHEAD])
+
+
+def _cli_key(extra_args=(), extra_props=None, tag="eager"):
+    return ("cli", tuple(extra_args), tuple(sorted((extra_props
+                                                    or {}).items())), tag)
+
+
+# every run of the train CLI on phase 5's job, each a process of its own,
+# all started together in phase 5 (none reads what another wrote): phase
+# 5's, 17 (c)'s, 18 (f)'s, 19 (d)'s four and 16 (f)'s
+CLI_RUNS = [((), None, "eager"),
+            ((), {"fused.loop": "true", "checkpoint.every": "2"}, "fused"),
+            ((), {"dtype": "bfloat16"}, "bf16"),
+            *(((), dict(v, **({"fused.loop": "true"} if how == "fused"
+                              else {})), f"{k} {how}")
+              for k, v in (("use.mesh", {"use.mesh": "true"}),
+                           ("multi.rhs=false", {"multi.rhs": "false"}))
+              for how in ("eager", "fused")),
+            (("--mesh", "1", "--device", "cuda"), None, "mesh")]
+
+
+def cli_runs_phase():
+    """Phase 5: every run of CLI_RUNS started together; phase 5's own row
+    once they have all ended (the later phases take theirs)."""
+    keys = [_cli_key(*r) for r in CLI_RUNS]
+    for key, r in zip(keys, CLI_RUNS):
+        ahead(key, _cli_run, *r)
+    wait_ahead(keys)
+    return cli_phase()
+
+
 def cli_phase(extra_args=(), extra_props=None, tag="eager"):
+    """The row of a train CLI run on phase 5's job: started ahead by
+    cli_runs_phase, or run now."""
+    return taken(_cli_key(extra_args, extra_props, tag), _cli_run,
+                 extra_args, extra_props, tag)
+
+
+def _cli_run(extra_args=(), extra_props=None, tag="eager"):
     """Phase 5 (and phase 17 (c) with extra job keys): the train CLI on
     breast-cancer.job in float64; the final models are kept under `tag`,
     and with checkpoint.every the checkpoint files are listed."""
@@ -1368,7 +1507,10 @@ def speed_phase(trainers, args):
 
 STREAM_GROUPS = 4           # ctr-12m.job: num.blocks 8, streaming.groups 4
 SCALE_CLI_ROWS = 1_000_000  # phase 12's training rows (ctr-12m.job: 12.5M)
-SCALE_TEST_ROWS = 20_000
+# its test rows: make_scale_dataset.py writes 200,000 for 10M training
+# rows; 5,000 here, since scoring them and writing the scored rows is most
+# of a CLI run's time after training
+SCALE_TEST_ROWS = 5_000
 
 
 def steady_s(iter_times):
@@ -1453,8 +1595,8 @@ def span_profile(fn, span):
 
 
 def streaming_phase(args, in_memory_iter_s=None):
-    """Phase 11: StreamingAdmmTrainer at ctr-12m.job's widths (12.5M rows
-    in 8 blocks, 4 groups, head 128 stored as bfloat16), in three residency
+    """Phase 11: StreamingAdmmTrainer at ctr-12m.job's widths (the full
+    phase's rows in 8 blocks, 4 groups, head 128 stored as bfloat16), in three residency
     settings that must give the same bits."""
     import numpy as np
     import torch
@@ -1747,24 +1889,21 @@ NAIVE_LAMBDAS = [1.0, 10.0, 100.0]
 FIT_ROWS, FIT_FEATURES, FIT_NNZ = 100_000, 512, 32
 
 
-def naive_phase(args):
-    """Phase 13: the naive trainer and the boosted warm start at ctr-12m
-    widths. Three CLI runs on one Avro file, started together: `naive`
-    (compute.model.mean), `train` with initialize.boost.rate (L2: the naive
-    warm start) and the same with regularizer=1 (no warm start); then
-    train_naive in this process on the same rows, with the kernels' launch
-    counts read around it, against the naive run's mean models and, on two
-    of the blocks in float64, against the same solve on the CPU."""
-    import numpy as np
-    import torch
+def naive_clis(args):
+    """Phase 13's host part: its rows (NAIVE_ROWS, and SCALE_TEST_ROWS test
+    rows) written as Avro into a new directory, its three CLI runs on them
+    started together, and the same rows read and prepared in this process
+    while they go; the CLI runs' rows and models, and the rows read."""
+    import shutil
     from mlease_tpu_torch.core.linear_model import read_model_file
     from mlease_tpu_torch.core.prepare import prepare_to_blocks
     from mlease_tpu_torch.core.vocab import build_vocab
     from mlease_tpu_torch.io import avro
-    from mlease_tpu_torch.train.naive import NaiveConfig, train_naive
     from mlease_tpu_torch.utils.config import JobConfig
 
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-naive-") as tmp:
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-naive-")
+    procs = {}
+    try:
         t0 = time.monotonic()
         train = os.path.join(tmp, "train", "part-00000.avro")
         write_scale_dataset(train, NAIVE_ROWS, args.seed + 1000)
@@ -1779,7 +1918,6 @@ def naive_phase(args):
                 "boost_l2": ("train", {"initialize.boost.rate": "2.0"}),
                 "boost_l1": ("train", {"initialize.boost.rate": "2.0",
                                        "regularizer": "1"})}
-        procs = {}
         env = dict(os.environ, PYTHONPATH=REPO, MLEASE_LOG="INFO")
         for name, (cmd, extra) in runs.items():
             props = dict(base, **extra,
@@ -1801,11 +1939,8 @@ def naive_phase(args):
         read_s = time.monotonic() - t0
         rows = {}
         for name, (proc, log, t_start) in procs.items():
-            try:
-                out, _ = proc.communicate(timeout=CLI_TIMEOUT_S)
-            finally:
-                proc.kill()
-                log.close()
+            out, _ = proc.communicate(timeout=CLI_TIMEOUT_S)
+            log.close()
             text = open(log.name).read()
             if args.out:
                 with open(f"{args.out}.naive-{name}.log", "w") as f:
@@ -1822,97 +1957,125 @@ def naive_phase(args):
                 if "warm start: z0 from" in line:
                     rows[name]["z0_line"] = line.split("warm start: ", 1)[1]
         out_dir = {k: os.path.join(tmp, k) for k in runs}
-        naive_cli = read_model_file(os.path.join(out_dir["naive"], "models"))
-        means_cli = read_model_file(os.path.join(out_dir["naive"],
-                                                 "final-model"))
         init_dir = os.path.join(out_dir["boost_l2"], "initialModel")
-        init = (read_model_file(init_dir) if os.path.isdir(init_dir)
-                else {})
+        init = read_model_file(init_dir) if os.path.isdir(init_dir) else {}
         rows["boost_l2"]["initial_models"] = len(init)
         rows["boost_l1"]["initial_model_dir"] = os.path.isdir(os.path.join(
             out_dir["boost_l1"], "initialModel"))
-        rows["boost_l2"]["iteration_0_loglik"] = os.path.exists(os.path.join(
-            out_dir["boost_l2"], "sample-test-loglik", "iteration-0.avro"))
+        rows["boost_l2"]["iteration_0_loglik"] = os.path.exists(
+            os.path.join(out_dir["boost_l2"], "sample-test-loglik",
+                         "iteration-0.avro"))
+        return {"base": base, "rows": rows, "init": init, "gen_s": gen_s,
+                "read_s": read_s, "keyed": keyed, "vocab": vocab,
+                "naive_cli": read_model_file(os.path.join(
+                    out_dir["naive"], "models")),
+                "means_cli": read_model_file(os.path.join(
+                    out_dir["naive"], "final-model"))}
+    finally:
+        for proc, log, _ in procs.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
-        # in process: the naive run's config, timed, kernels counted
-        cfg = NaiveConfig(lambdas=NAIVE_LAMBDAS, liblinear_epsilon=float(
-            base["liblinear.epsilon"]), compute_model_mean=True,
-            dtype=torch.float32)
-        NAIVE_BASE.update(keyed=keyed, vocab=vocab, cfg=cfg)  # phase 22
-        with kernel_runs() as runs:
-            t0 = time.monotonic()
-            res = train_naive(keyed, cfg, vocab=vocab)          # the path
-            torch.cuda.synchronize()
-            wall_s = time.monotonic() - t0
-        launches = {"segment_sum_sorted": runs["k1"],
-                    "gram_batched": runs["k2"], "setup": runs["setup"],
-                    "on_card": runs["card"]}
-        profiled = device_time(lambda: train_naive(keyed, cfg, vocab=vocab))
 
-        def diff(a, b):
-            """max |coefficient difference| over two model dictionaries,
-            infinite when their keys or features differ."""
-            if sorted(a) != sorted(b) or any(
-                    sorted(a[k].coefficients) != sorted(b[k].coefficients)
-                    for k in a):
-                return float("inf")
-            return max_model_diff(a, b)[0]
+def naive_phase(args):
+    """Phase 13: the naive trainer and the boosted warm start at ctr-12m
+    widths. Three CLI runs on one Avro file, started together (naive_clis;
+    in a whole run, beside phase 12's): `naive` (compute.model.mean),
+    `train` with initialize.boost.rate (L2: the naive warm start) and the
+    same with regularizer=1 (no warm start); then train_naive in this
+    process on the same rows, with the kernels' launch counts read around
+    it, against the naive run's mean models and, on two of the blocks in
+    float64, against the same solve on the CPU."""
+    import torch
+    from mlease_tpu_torch.train.naive import NaiveConfig, train_naive
 
-        # float64 on two blocks, card against CPU, at a tight tolerance
-        sub = {k: keyed[k] for k in ("0", "1")}
-        cfg64 = dataclasses.replace(cfg, dtype=torch.float64,
-                                    liblinear_epsilon=1e-6)
+    clis = taken("naive_clis", naive_clis, args)
+    base, rows, init = clis["base"], clis["rows"], clis["init"]
+    naive_cli, means_cli = clis["naive_cli"], clis["means_cli"]
+    keyed, vocab = clis["keyed"], clis["vocab"]
+    gen_s, read_s = clis["gen_s"], clis["read_s"]
+
+    # in process: the naive run's config, timed, kernels counted
+    cfg = NaiveConfig(lambdas=NAIVE_LAMBDAS, liblinear_epsilon=float(
+        base["liblinear.epsilon"]), compute_model_mean=True,
+        dtype=torch.float32)
+    NAIVE_BASE.update(keyed=keyed, vocab=vocab, cfg=cfg)  # phase 22
+    with kernel_runs() as runs:
         t0 = time.monotonic()
-        card64 = train_naive(sub, cfg64, vocab=vocab)
-        cpu64 = train_naive(sub, cfg64, vocab=vocab, device="cpu")
-        ref_s = time.monotonic() - t0
-        row = {"rows": NAIVE_ROWS, "features": vocab.size, "blocks": 8,
-               "lambdas": NAIVE_LAMBDAS, "dataset_s": gen_s,
-               "read_prepare_s": read_s, "runs": rows,
-               "models": len(res.models), "wall_s": wall_s,
-               "solver_stats": res.solver_stats,
-               "models_per_s": len(res.models) / wall_s,
-               "models_per_s_solve": (len(res.models)
-                                      / res.solver_stats["solve_s"]),
-               "profiled_run": profiled,
-               "kernel_launches": launches,
-               "mean_vs_cli_max_abs": diff(res.mean_models, means_cli),
-               "models_vs_cli_max_abs": diff(res.models, naive_cli),
-               "initial_vs_naive_cli_max_abs": diff(init, naive_cli),
-               "w_max_abs": max_model_diff(res.models, res.models)[1],
-               "card_vs_cpu_f64_max_abs": diff(card64.models, cpu64.models),
-               "f64_w_max_abs": max_model_diff(cpu64.models,
-                                               cpu64.models)[1],
-               "cpu_ref_s": ref_s}
-        print("naive " + json.dumps(row), flush=True)
-        bad = [what for what, ok in (
-            ("models written", rows["naive"]["summary"]["models"] == 24
-             and sorted(means_cli) == ["1.0", "10.0", "100.0"]),
-            ("the in-process run equals the CLI's",
-             row["mean_vs_cli_max_abs"] <= 1e-4 * row["w_max_abs"]
-             and row["models_vs_cli_max_abs"] <= 1e-4 * row["w_max_abs"]),
-            ("card equals CPU in float64",
-             row["card_vs_cpu_f64_max_abs"] <= 1e-6 * row["f64_w_max_abs"]),
-            ("L2 boost wrote initialModel/ and logged z0",
-             len(init) == 24 and rows["boost_l2"]["warm_start_logged"]
-             and rows["boost_l2"]["iteration_0_loglik"]
-             and row["initial_vs_naive_cli_max_abs"]
-             <= 1e-4 * row["w_max_abs"]),
-            ("L1 boost did not warm-start",
-             not rows["boost_l1"]["warm_start_logged"]
-             and not rows["boost_l1"]["initial_model_dir"]),
-            ("boosted runs read records",
-             not rows["boost_l2"]["native_ingest"]
-             and not rows["boost_l1"]["native_ingest"]),
-            ("K1 ran in the boosted ADMM runs",
-             rows["boost_l2"]["summary"]["kernel_launches"][
-                 "segment_sum_sorted"] > 0),
-            ("K1 sums the naive ELL's X'v (its column-sorted copy) inside "
-             "the solve's loop; K2 does not run",
-             runs["card"]["k1"] > 0 and runs["k2"] == 0)) if not ok]
-        if bad:
-            raise AssertionError(f"naive phase: not {bad}: {row}")
-        return row
+        res = train_naive(keyed, cfg, vocab=vocab)          # the path
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+    launches = {"segment_sum_sorted": runs["k1"],
+                "gram_batched": runs["k2"], "setup": runs["setup"],
+                "on_card": runs["card"]}
+    profiled = device_time(lambda: train_naive(keyed, cfg, vocab=vocab))
+
+    def diff(a, b):
+        """max |coefficient difference| over two model dictionaries,
+        infinite when their keys or features differ."""
+        if sorted(a) != sorted(b) or any(
+                sorted(a[k].coefficients) != sorted(b[k].coefficients)
+                for k in a):
+            return float("inf")
+        return max_model_diff(a, b)[0]
+
+    # float64 on two blocks, card against CPU, at a tight tolerance
+    sub = {k: keyed[k] for k in ("0", "1")}
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64,
+                                liblinear_epsilon=1e-6)
+    t0 = time.monotonic()
+    card64 = train_naive(sub, cfg64, vocab=vocab)
+    cpu64 = train_naive(sub, cfg64, vocab=vocab, device="cpu")
+    ref_s = time.monotonic() - t0
+    row = {"rows": NAIVE_ROWS, "features": vocab.size, "blocks": 8,
+           "lambdas": NAIVE_LAMBDAS, "dataset_s": gen_s,
+           "read_prepare_s": read_s, "runs": rows,
+           "models": len(res.models), "wall_s": wall_s,
+           "solver_stats": res.solver_stats,
+           "models_per_s": len(res.models) / wall_s,
+           "models_per_s_solve": (len(res.models)
+                                  / res.solver_stats["solve_s"]),
+           "profiled_run": profiled,
+           "kernel_launches": launches,
+           "mean_vs_cli_max_abs": diff(res.mean_models, means_cli),
+           "models_vs_cli_max_abs": diff(res.models, naive_cli),
+           "initial_vs_naive_cli_max_abs": diff(init, naive_cli),
+           "w_max_abs": max_model_diff(res.models, res.models)[1],
+           "card_vs_cpu_f64_max_abs": diff(card64.models, cpu64.models),
+           "f64_w_max_abs": max_model_diff(cpu64.models,
+                                           cpu64.models)[1],
+           "cpu_ref_s": ref_s}
+    print("naive " + json.dumps(row), flush=True)
+    bad = [what for what, ok in (
+        ("models written", rows["naive"]["summary"]["models"] == 24
+         and sorted(means_cli) == ["1.0", "10.0", "100.0"]),
+        ("the in-process run equals the CLI's",
+         row["mean_vs_cli_max_abs"] <= 1e-4 * row["w_max_abs"]
+         and row["models_vs_cli_max_abs"] <= 1e-4 * row["w_max_abs"]),
+        ("card equals CPU in float64",
+         row["card_vs_cpu_f64_max_abs"] <= 1e-6 * row["f64_w_max_abs"]),
+        ("L2 boost wrote initialModel/ and logged z0",
+         len(init) == 24 and rows["boost_l2"]["warm_start_logged"]
+         and rows["boost_l2"]["iteration_0_loglik"]
+         and row["initial_vs_naive_cli_max_abs"]
+         <= 1e-4 * row["w_max_abs"]),
+        ("L1 boost did not warm-start",
+         not rows["boost_l1"]["warm_start_logged"]
+         and not rows["boost_l1"]["initial_model_dir"]),
+        ("boosted runs read records",
+         not rows["boost_l2"]["native_ingest"]
+         and not rows["boost_l1"]["native_ingest"]),
+        ("K1 ran in the boosted ADMM runs",
+         rows["boost_l2"]["summary"]["kernel_launches"][
+             "segment_sum_sorted"] > 0),
+        ("K1 sums the naive ELL's X'v (its column-sorted copy) inside "
+         "the solve's loop; K2 does not run",
+         runs["card"]["k1"] > 0 and runs["k2"] == 0)) if not ok]
+    if bad:
+        raise AssertionError(f"naive phase: not {bad}: {row}")
+    return row
 
 
 def solver_modes_phase(trainers, args, flat_iter_s=None):
@@ -2788,7 +2951,7 @@ def fused_more_phase(trainers, args):
 
 MESH_REFS: dict = {}        # phase 14's no-mesh runs, phase 16 (a)'s reference
 MESH_WORLD = 2              # gloo ranks on the one card in (b)-(e)
-MESH_FS_ROWS = 125_000      # (d)'s rows per block (cut from 1,562,500)
+MESH_FS_ROWS = 125_000      # (d)'s rows per block (ctr-12m.job: 1,562,500)
 MESH_RANK_TIMEOUT_S = 600
 
 
@@ -2958,8 +3121,8 @@ def _mesh_rank(args) -> int:
     # (b) the full trainer's data (ctr-12m widths), 4 blocks a rank
     t0 = time.monotonic()
     nf = 1_000_000
-    data = to_hybrid(synth_blocked_data(nf, 8, args.rows_per_block, 12,
-                                        args.seed), 128)
+    # the parent's data (synth_blocked_data at --rows-per-block), saved once
+    data = to_hybrid(load_blocked(args.mesh_data), 128)
     vocab = make_vocab(nf)
     out["setup_s"] = time.monotonic() - t0
     base = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=args.iters,
@@ -3017,7 +3180,9 @@ def _mesh_rank(args) -> int:
     del st, data, res
     torch.cuda.empty_cache()
 
-    # (d) feature-sharded 1 x world, ELL at ctr-12m widths, rows cut
+    # (d) feature-sharded 1 x world, ELL at ctr-12m widths, rows cut; a
+    # gloo feat group cannot be captured on the card (run() raises), so
+    # run() takes each x-update through the host-driven seam
     ell = synth_blocked_data(nf, 8, MESH_FS_ROWS, 12, args.seed)
     fcfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=2, pcg=True,
                       flat_blocks=False, dtype=torch.float32)
@@ -3025,8 +3190,10 @@ def _mesh_rank(args) -> int:
     fst = FeatureShardedAdmmTrainer(ell, vocab, fcfg,
                                     mesh=make_mesh_2d(1, world, "cuda"))
     build_s = time.monotonic() - t0
+    fst._x_update = fst._host_x_update
     res, row = counted(fst.run)
-    row.update(build_s=build_s, iter_s=res.iter_times,
+    row.update(x_update="the host-driven seam (_host_x_update)",
+               build_s=build_s, iter_s=res.iter_times,
                solver_stats=res.solver_stats, z_sum=float(np.abs(
                    res.z).sum()), z_finite=bool(np.isfinite(res.z).all()),
                collective_s_per_iter=row["collective_s"] / res.iterations,
@@ -3080,6 +3247,9 @@ def mesh_phase(args):
 
     row = {}
     with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        data_path = os.path.join(tmp, "data.npz")
+        save_blocked(synth_blocked_data(1_000_000, 8, args.rows_per_block,
+                                        12, args.seed), data_path)
         env = dict(os.environ, PYTHONPATH=REPO, MLEASE_LOG="WARNING")
         for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                   "MASTER_PORT"):
@@ -3089,6 +3259,7 @@ def mesh_phase(args):
             [sys.executable, os.path.join(REPO, "chip_smoke.py"),
              "--mesh-rank", str(r),
              "--mesh-init", os.path.join(tmp, "pg"), "--mesh-out", tmp,
+             "--mesh-data", data_path,
              "--seed", str(args.seed), "--rows-per-block",
              str(args.rows_per_block), "--iters", str(args.iters)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
@@ -3163,9 +3334,10 @@ def mesh_phase(args):
         ("finite z", f0["z_finite"]),
         ("every rank the same z", all(r["feature_sharded"]["z_sum"]
                                       == f0["z_sum"] for r in ranks)),
-        ("no kernel (ELL)", all(r["feature_sharded"]["k1_launches"] == 0
-                                and r["feature_sharded"]["k2_launches"] == 0
-                                for r in ranks)),
+        ("K1 launched on every rank (X'v over the ELL's column copy), "
+         "K2 on none", all(r["feature_sharded"]["k1_launches"] > 0
+                           and r["feature_sharded"]["k2_launches"] == 0
+                           for r in ranks)),
         ("z within 1e-5 of the unsharded solve",
          f0["z_vs_unsharded_rel"] <= 1e-5)) if not ok]
     i0 = r0["item"]
@@ -3183,7 +3355,8 @@ def mesh_phase(args):
         ("K2 launched on every rank", all(r["item"]["k2_launches"] > 0
                                           for r in ranks))) if not ok]
     row["ranks"] = ranks
-    row["cli"] = cli_phase(extra_args=["--mesh", "1", "--device", "cuda"])
+    row["cli"] = cli_phase(extra_args=("--mesh", "1", "--device", "cuda"),
+                           tag="mesh")
     print("mesh " + json.dumps({k: v for k, v in row.items()
                                 if k != "ranks"}), flush=True)
     for r in ranks:
@@ -4227,9 +4400,8 @@ def loops_phase(trainers, args):
         out[f"a {name}"], b = one_x_update_check(name, lanes, "lanes", True,
                                                  gen)
         bad += b
-    # sub-stacks of the head trainers' data (the head's sorted tails are
-    # K1's; the ELL part of a problem without one is index_add_'s scatter,
-    # whose atomics give other bits every run)
+    # sub-stacks of the head trainers' data (head-less sub-stacks, whose
+    # X'v K1 sums over the ELL's column copy, are phase 23's)
     for tag, tr, per in (("bench", bench, 1), ("full", full, 2)):
         t0 = time.monotonic()
         n, R = tr.data.dim, tr.data.padded_rows
@@ -4852,6 +5024,260 @@ def per_key_loops_phase(args):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: X'v over the ELL on K1 (the column-sorted copy of a head-less
+# problem) and the feature-sharded trainer's x-update as one device loop
+# ---------------------------------------------------------------------------
+
+HEADLESS_ROWS = 250_000      # (c)'s rows per block (ctr-12m.job: 1,562,500)
+
+
+def _fs_run(tr):
+    """tr.run() of a FeatureShardedAdmmTrainer under
+    torch.cuda.set_sync_debug_mode("warn"): its result and the
+    synchronizing calls of each iteration but the last (from the start of
+    one x-update to the next's: the iteration's own read included, the
+    run's set-up and its closing gathers apart). The iterations are
+    marked at the trainer's `_x_update`, whatever it is set to."""
+    import warnings
+    import torch
+    own = "_x_update" in tr.__dict__
+    x_update, marks = tr._x_update, []
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+
+        def marked(*a):
+            marks.append(len(seen))
+            return x_update(*a)
+        tr._x_update = marked
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = tr.run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            if own:
+                tr._x_update = x_update
+            else:
+                del tr._x_update
+    sync = [i for i, w in enumerate(seen)
+            if "called a synchronizing" in str(w.message)]
+    return res, [sum(lo <= i < hi for i in sync)
+                 for lo, hi in zip(marks[:-1], marks[1:])]
+
+
+def _same_run(a, b):
+    import numpy as np
+    return bool(np.array_equal(a.z, b.z) and np.array_equal(a.u, b.u)
+                and a.solver_stats == b.solver_stats)
+
+
+def _k1_checked_x_update(tr, gen):
+    """(b): one host-driven x-update of an AdmmTrainer from random z and u,
+    every K1 call of it held to its float64 plain sum (k1_checked)."""
+    import torch
+    import mlease_tpu_torch.ops.tron_multi as tm
+    cfg = tr.config
+    L, n, B = len(tr.lambdas), tr.dim, tr.data.nblocks
+    z = 0.01 * torch.randn((L, n), generator=gen, device="cuda")
+    u = 0.01 * torch.randn((L, B, n), generator=gen, device="cuda")
+    rho = torch.as_tensor(tr.rhos, device="cuda")
+    with k1_checked(tm) as chk:
+        tr.step.solve(tr.prob, tr.present, z, u, rho,
+                      cfg.liblinear_epsilon * tr.eps_scale)
+    return chk
+
+
+def headless_fs_cell(ell, vocab, args, gen):
+    """(c)'s feature-sharded cell: FeatureShardedAdmmTrainer on a one-rank
+    NCCL 1 x 1 mesh, LOOPS_ITERS iterations on its device loop (made and
+    captured in the first run's first iteration), again on the kept loop
+    (host reads an iteration, K1 / all_reduce executions on the card), and
+    with the seam on the host-driven solve; every K1 call of one
+    host-driven x-update held to its float64 plain sum."""
+    import gc
+    import torch
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.parallel import distributed
+    from mlease_tpu_torch.parallel.mesh import make_mesh_2d
+    from mlease_tpu_torch.train.admm import AdmmConfig
+    from mlease_tpu_torch.train.feature_sharded import \
+        FeatureShardedAdmmTrainer
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=LOOPS_ITERS,
+                     pcg=True, flat_blocks=False, dtype=torch.float32)
+    distributed.initialize_single("cuda")
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("a cuda mesh must run NCCL")
+        t0 = time.monotonic()
+        tr = FeatureShardedAdmmTrainer(ell, vocab, cfg,
+                                       mesh=make_mesh_2d(1, 1, "cuda"))
+        torch.cuda.synchronize()
+        build_s = time.monotonic() - t0
+        with timed_prepare() as cap:
+            first, c1 = _counted(tr.run)
+        # what the loop keeps after its run (its state and pool), with the
+        # caching allocator's free blocks given back
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        kept = torch.cuda.memory_reserved() - c1["base_reserved_bytes"]
+        (again, syncs), c2 = _counted(lambda: _fs_run(tr))
+        counts = tr._loops["x"].loop.counts()
+        tr._x_update = tr._host_x_update
+        try:
+            (host, host_syncs), ch = _counted(lambda: _fs_run(tr))
+            L, nl = len(tr.lambdas), tr.fs.n_local
+            B = tr.present.shape[0]
+            z = 0.01 * torch.randn((L, nl), generator=gen, device="cuda")
+            u = 0.01 * torch.randn((L, B, nl), generator=gen, device="cuda")
+            rho = torch.as_tensor(tr.rhos, device="cuda")
+            with k1_checked(tm) as chk:
+                tr._host_x_update(z, u, rho,
+                                  cfg.liblinear_epsilon * tr.eps_scale)
+        finally:
+            del tr._x_update
+        row = {
+            "rows": int(ell.y.size), "build_s": build_s,
+            "iterations": [first.iterations, again.iterations,
+                           host.iterations],
+            "loop_bit_for_bit_with_seam": _same_run(again, host),
+            "two_loop_runs_bit_for_bit": _same_run(first, again),
+            "solver_stats": again.solver_stats,
+            "syncs_per_iteration_loop": syncs,
+            "syncs_per_iteration_seam": host_syncs,
+            "k1_loop": c2["k1"], "k1_on_card": c2["card"]["k1"],
+            "k1_seam": ch["k1"], "k1_first_run_setup": c1["setup"]["k1"],
+            "all_reduce_executions": counts.get(
+                "kernel_executions", {}).get("all_reduce"),
+            "capture_modes": counts.get("capture_modes"),
+            "capture_s": cap["s"],
+            "pool_reserved_bytes": cap["pool_reserved_bytes"],
+            "kept_reserved_bytes": int(kept),
+            "solver_state_bytes": _state_bytes(tr._loops.values()),
+            "loop_iter_s": again.iter_times,
+            "loop_steady_iter_s": steady_s(again.iter_times),
+            "seam_iter_s": host.iter_times,
+            "seam_steady_iter_s": steady_s(host.iter_times),
+            "k1_check": chk}
+        del tr
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    bad = [f"(c) feature-sharded: {w}" for w, ok in (
+        ("the loop's run equals the seam's", row[
+            "loop_bit_for_bit_with_seam"]),
+        ("two loop runs the same bits", row["two_loop_runs_bit_for_bit"]),
+        ("one host read an iteration",
+         row["syncs_per_iteration_loop"] == [1] * (LOOPS_ITERS - 1)),
+        ("K1 executed on the card", row["k1_on_card"] > 0),
+        ("K1 run as often as on the seam", row["k1_loop"] == row["k1_seam"]),
+        ("every K1 call within its float64 bound",
+         chk["ok"] and chk["calls"] > 0)) if not ok]
+    return row, bad
+
+
+def headless_phase(args):
+    """Phase 23: see the module docstring."""
+    import torch
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+
+    t_phase = time.monotonic()
+    out, bad = {}, []
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 23)
+    # (a), (b) bench's step without a head
+    bdata = synth_blocked_data(50_000, 4, 16_384, 15, args.seed)
+    bvocab = make_vocab(50_000)
+    bcfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=LOOPS_ITERS,
+                      pcg=True, flat_blocks=True, dtype=torch.float32)
+    n, R = bdata.dim, bdata.padded_rows
+    for name, kw, bound in (
+            ("flat", {}, None),
+            ("per_block", dict(flat_blocks=False), None),
+            ("4 substacks", {}, max(n, R) + 1)):
+        ctx = (mock.patch.object(tm, "STACK_ID_BOUND", bound) if bound
+               else contextlib.nullcontext())
+        with ctx:
+            tr = AdmmTrainer(bdata, bvocab, dataclasses.replace(bcfg, **kw))
+        parts = tm.substacks_of(tr.prob, bdata.nblocks)
+        row, b = one_x_update_check(f"headless {name}", tr, tr.mode, True,
+                                    gen)
+        bad += b
+        row["k1_check"] = chk = _k1_checked_x_update(tr, gen)
+        runs = [run_with(tr, LOOPS_ITERS) for _ in range(2)]
+        host = run_with(tr, LOOPS_ITERS, _x_update=host_x_update(tr))
+        row.update(parts=len(parts), copy_bytes=sum(
+            t.numel() * t.element_size() for p, _r in parts
+            for t in (p.csc_rows, p.csc_cols, p.csc_vals)),
+            two_runs_bit_for_bit=_same_run(*runs),
+            run_bit_for_bit_with_host_path=_same_run(runs[1], host),
+            iter_s=[r.iter_times for r in runs],
+            host_iter_s=host.iter_times)
+        out[f"a {name}"] = row
+        print(f"headless (a) {name} " + json.dumps(row), flush=True)
+        if not (row["two_runs_bit_for_bit"]
+                and row["run_bit_for_bit_with_host_path"]):
+            bad.append(f"(a) {name}: two runs, or a run and the host "
+                       f"path's, differ")
+        if not (chk["ok"] and chk["calls"] > 0):
+            bad.append(f"(b) {name}: K1 calls {chk}")
+        if len(parts) != (4 if bound else 1):
+            bad.append(f"(a) {name}: {len(parts)} sub-stacks")
+        del tr, runs
+        torch.cuda.empty_cache()
+    out["a_s"] = time.monotonic() - t_phase
+
+    # (c) ctr-12m.job's widths without a head, rows cut to HEADLESS_ROWS
+    t0 = time.monotonic()
+    ell = synth_blocked_data(1_000_000, 8, HEADLESS_ROWS, 12, args.seed)
+    vocab = make_vocab(1_000_000)
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=LOOPS_ITERS,
+                     pcg=True, flat_blocks=True, dtype=torch.float32)
+    tr = AdmmTrainer(ell, vocab, cfg)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    prob = tr.prob
+    row, b, res = _run_against_host("headless full flat", tr,
+                                    dict(_x_update=host_x_update(tr)),
+                                    "admm_iteration", profile=False)
+    bad += b
+    again = run_with(tr, LOOPS_ITERS)
+    # K1 at the head-less X'v site against its plain version, and the
+    # index_add_ over the ELL that it replaces (the library call)
+    site = (prob.csc_vals, prob.csc_rows, prob.csc_cols, prob.y.shape[0],
+            prob.prior_mean.shape[0], 1)
+    sites = []
+    fused_check_and_time("headless/xtv", site, 3, torch.float32, gen, sites,
+                         variants=False)
+    D = torch.randn((3, prob.y.shape[0]), generator=gen, device="cuda")
+    lib = torch.zeros((3, prob.prior_mean.shape[0]), device="cuda")
+    ids = prob.indices.reshape(-1)
+    sites[0]["ell_index_add_ms"] = cuda_ms(lambda: lib.zero_().index_add_(
+        1, ids, (prob.values[None] * D[:, :, None]).reshape(3, -1)))
+    del D, lib, ids
+    row.update(rows=int(ell.y.size), build_s=build_s,
+               two_runs_bit_for_bit=_same_run(res, again),
+               copy_bytes=sum(t.numel() * t.element_size() for t in (
+                   prob.csc_rows, prob.csc_cols, prob.csc_vals)),
+               ell_slots=int(prob.indices.numel()), xtv_site=sites[0])
+    out["c flat"] = row
+    print("headless (c) flat " + json.dumps(row), flush=True)
+    if not row["two_runs_bit_for_bit"]:
+        bad.append("(c) flat: two runs differ")
+    del tr, prob, site, res, again
+    torch.cuda.empty_cache()
+    out["c feature_sharded"], b = headless_fs_cell(ell, vocab, args, gen)
+    print("headless (c) feature-sharded " + json.dumps(
+        out["c feature_sharded"]), flush=True)
+    bad += b
+    out["s"] = time.monotonic() - t_phase
+    print(f"headless phase {out['s']:.1f} s", flush=True)
+    if bad:
+        raise AssertionError(f"headless: {bad}")
+    return out
+
+
 def naive_rows(args):
     """--loops-only: phase 13's rows (write_scale_dataset, read and
     prepared as phase 13 does) and its in-process config."""
@@ -4878,9 +5304,9 @@ def naive_rows(args):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--rows-per-block", type=int, default=1_562_500,
+    ap.add_argument("--rows-per-block", type=int, default=FULL_ROWS,
                     help="full-width rows per block (8 blocks; the default"
-                         " is ctr-12m.job's 12.5M rows, uncut)")
+                         " is half of ctr-12m.job's 12.5M rows)")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--out", default="",
                     help="also write every phase's numbers to this JSON file")
@@ -4904,7 +5330,7 @@ def main(argv=None) -> int:
                          "phases (17, 19) alone and stop")
     ap.add_argument("--loops-only", action="store_true",
                     help="build, set up the trainers, run the solve-loop "
-                         "phases (21, 22) alone and stop")
+                         "phases (21, 22, 23) alone and stop")
     ap.add_argument("--bf16-only", action="store_true",
                     help="build, set up the trainers, make the float32 "
                          "runs phase 18 compares with, run phase 18 (the "
@@ -4914,6 +5340,7 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-init", default="", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-data", default="", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(REPO, "mlease_tpu_torch", "csrc")):
@@ -4964,8 +5391,6 @@ def main(argv=None) -> int:
         print("build " + json.dumps(row), flush=True)
         return row
 
-    phase("build", build)
-
     def setup():
         trainers = {}
         # bench.py's default step: 4 x 16,384 rows, 50K features, 15 nnz,
@@ -4995,6 +5420,15 @@ def main(argv=None) -> int:
             with open(args.out, "w") as f:
                 json.dump(dict(report, card=card), f, indent=1)
 
+    trainers = None
+    if not (args.gram_only or args.streaming_only):
+        # the trainers' set-up launches no kernel: it runs while nvcc builds
+        ahead("build", build)
+        trainers = phase("setup", setup)
+    phase("build", taken, "build", build)
+    if report["failed"]:
+        trainers = None
+
     if args.gram_only:
         if not report["failed"]:
             phase("kernel_gram", gram_phase, args)
@@ -5012,9 +5446,6 @@ def main(argv=None) -> int:
         return fail(f"failed phases: {report['failed']}") \
             if report["failed"] else 0
 
-    trainers = None
-    if not report["failed"]:
-        trainers = phase("setup", setup)
     if args.segsum_only or args.modes_only or args.mesh_only \
             or args.fused_only or args.bf16_only or args.loops_only:
         if trainers is not None and args.loops_only:
@@ -5023,6 +5454,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
             phase("loops_stream", loops_stream_phase, args)
             phase("per_key_loops", per_key_loops_phase, args)
+            phase("headless", headless_phase, args)
         elif trainers is not None and args.bf16_only:
             phase("bf16_baselines", bf16_baselines, trainers, args)
             phase("bf16_kernel", bf16_kernel_phase, trainers["full"], args)
@@ -5057,7 +5489,7 @@ def main(argv=None) -> int:
     if trainers is not None:
         kernels = phase("kernel", kernel_phase, trainers, args)
         grams = phase("kernel_gram", gram_phase, args)
-        phase("cli", cli_phase)
+        phase("cli", cli_runs_phase)
         full = phase("full_width", full_width_phase, trainers["full"], args)
         speed = phase("speed", speed_phase, trainers, args)
         phase("solver_modes", solver_modes_phase, trainers, args,
@@ -5078,17 +5510,22 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         items = phase("item", item_phase, args)
         phase("bf16_item", bf16_item_phase, args)
-        phase("item_cli", item_cli_phase, args)
         phase("head_block", head_block_phase, args)
         LOOPS_STREAM["on"] = True    # phase 21's cells on 11's and 18's
         phase("streaming", streaming_phase, args,
               speed["full"]["steady_iter_s"] if speed else None)
         phase("bf16_stream", bf16_stream_phase, args)
         phase("loops_stream", loops_stream_phase, args)
+        # phase 9's and 13's CLI runs go with phase 12's (no phase runs in
+        # this process meanwhile)
+        ahead("item_cli", item_cli_phase, args)
+        ahead("naive_clis", naive_clis, args)
         phase("scale_cli", scale_cli_phase, args)
+        phase("item_cli", taken, "item_cli", item_cli_phase, args)
         phase("naive", naive_phase, args)
         phase("per_key_loops", per_key_loops_phase, args)
         NAIVE_BASE.clear()
+        phase("headless", headless_phase, args)
         phase("fit", fit_phase, args)
         phase("bf16_cli", bf16_cli_phase, args)
         phase("mesh", mesh_phase, args)

@@ -23,6 +23,7 @@ import ctypes
 import logging
 import os
 import subprocess
+import threading
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -33,9 +34,17 @@ logger = logging.getLogger(__name__)
 
 _lib = None
 _tried = False
+_load_lock = threading.Lock()
 
 
 def _load():
+    """The library, built and loaded at the first call (None where it
+    cannot be); a call on another thread meanwhile waits for it."""
+    with _load_lock:
+        return _load_once()
+
+
+def _load_once():
     global _lib, _tried
     if _tried:
         return _lib

@@ -30,11 +30,15 @@ ELL nonzeros, the row-sorted and column-sorted tails) are K1
 (`_sorted_sum`), whose sums run in one fixed order: scatter_add_'s atomics
 sum in another order on every run, and a device loop and the host-driven
 solve it replaces could then not give the same bits, nor two runs of one
-solve. The ADMM and naive lanes problems and the item buckets carry a
-column-sorted copy on the card for this, and every sorted stream's ids as
-K1 reads them (`K1Streams`), made once with the problem (train/admm.py::
-blocked_problem): X'v (and through it the gradient and Hv) and the Hessian
-diagonal sum over it with K1.
+solve. The ADMM and naive lanes problems, the item buckets and `fit`'s
+problem (`make_problem`) carry a column-sorted copy on the card for this,
+and every sorted stream's ids as K1 reads them (`K1Streams`), made once
+with the problem (train/admm.py::blocked_problem): X'v (and through it
+the gradient and Hv) and the Hessian diagonal sum over it with K1. The
+ELL scatter of a problem without the copy and the scatter over a
+row-sorted tail without its column-sorted one run on the CPU only
+(`segment_sum.host_scatter_only`); no problem the port builds on the card
+lacks either copy.
 """
 
 from __future__ import annotations
@@ -47,7 +51,9 @@ import torch
 from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops.gram import gram_batched
 from mlease_tpu_torch.ops.segment_sum import (accumulate_dtype,
+                                              host_scatter_only,
                                               segment_sum_gather)
+from mlease_tpu_torch.ops.tron_multi import substack_ranges
 
 
 class K1Streams(NamedTuple):
@@ -109,7 +115,8 @@ def make_problem(block, prior_mean, prior_var_inv, *,
     lies, so this decides whether they launch the kernels).
 
     positive_weight is the reference's Cp (LogisticRegressionL2.java:93-99);
-    Cn = 1."""
+    Cn = 1. On the card the problem carries the column-sorted copy of its
+    ELL and K1's ids (`with_sorted_streams`)."""
     device = resolve_device(device)
 
     def f(a):
@@ -122,10 +129,11 @@ def make_problem(block, prior_mean, prior_var_inv, *,
     weight = f(block.weight)
     if positive_weight != 1.0:
         weight = torch.where(y == 1, positive_weight * weight, weight)
-    return LRProblem(
+    prob = LRProblem(
         indices=lift(indices), values=lift(f(block.values)), y=lift(y),
         weight=lift(weight), offset=lift(f(block.offset)),
         prior_mean=lift(f(prior_mean)), prior_var_inv=lift(f(prior_var_inv)))
+    return with_sorted_streams(prob, prob.prior_mean.shape[-1])
 
 
 def _lanes(prob: LRProblem, v: torch.Tensor) -> torch.Tensor:
@@ -160,6 +168,28 @@ def column_sorted(indices: torch.Tensor, values: torch.Tensor):
     order = torch.sort(cols, dim=1, stable=True).indices
     return (cols.gather(1, order), order // K,
             values.reshape(B, -1).gather(1, order))
+
+
+def with_sorted_streams(prob: LRProblem, n: int, csc=None,
+                        k1=None) -> LRProblem:
+    """prob with the column-sorted copy of its ELL (`csc`, the (cols, rows,
+    vals) of column_sorted, each (B, R*K); on the card made here when not
+    given) and, on the card, its sorted streams' K1 ids (`k1`, made here
+    when not given, over the sub-stacks that keep them inside int32); n
+    columns. Both once per problem: on the card X'v and the Hessian
+    diagonal then sum with K1, in one order every run."""
+    B, R, K = prob.indices.shape
+    on_card = prob.indices.is_cuda
+    if csc is None and on_card and K > 0:
+        csc = column_sorted(prob.indices, prob.values)
+    if csc is not None:
+        cols, rows, vals = csc
+        prob = prob._replace(csc_cols=cols.long(), csc_rows=rows.long(),
+                             csc_vals=vals)
+    if on_card:
+        prob = prob._replace(k1=k1 if k1 is not None else k1_streams(
+            prob, n, substack_ranges(B, n, R)))
+    return prob
 
 
 def k1_streams(prob: LRProblem, n: int, ranges) -> K1Streams:
@@ -283,6 +313,7 @@ def xtv(prob: LRProblem, d: torch.Tensor) -> torch.Tensor:
     if prob.csc_cols is not None:
         _sorted_sum(prob, "csc", out, d3)
     elif K > 0:
+        host_scatter_only(d3, "X'v over the ELL")
         out.scatter_add_(2, _ids(prob.indices, L),
                          (prob.values * d3[..., None]).flatten(2))
     if prob.head_x is not None:     # the GEMM reads d in the head's type
@@ -293,6 +324,7 @@ def xtv(prob: LRProblem, d: torch.Tensor) -> torch.Tensor:
     if prob.tail_c_cols is not None:
         _sorted_sum(prob, "tail_c", out, d3)
     elif prob.tail_cols is not None:
+        host_scatter_only(d3, "X'v over a row-sorted tail")
         out.scatter_add_(2, _ids(prob.tail_cols, L), prob.tail_vals
                          * d3.gather(2, _ids(prob.tail_rows, L)))
     return out.reshape(d.shape[0], -1)
@@ -367,6 +399,7 @@ def hessian_diagonal(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
     if prob.csc_cols is not None:   # the column-sorted copy, K1 on the card
         _sorted_sum(prob, "csc", out, q3.to(acc), square=True)
     elif K > 0:
+        host_scatter_only(q3, "The Hessian diagonal over the ELL")
         out.scatter_add_(2, _ids(prob.indices, L),
                          (prob.values * prob.values
                           * q3[..., None]).flatten(2).to(acc))
@@ -376,10 +409,9 @@ def hessian_diagonal(prob: LRProblem, w: torch.Tensor) -> torch.Tensor:
         out.scatter_add_(2, _ids(prob.head_ids, L),
                          head.permute(2, 0, 1).to(acc))
     if prob.tail_c_cols is not None:
-        out.scatter_add_(2, _ids(prob.tail_c_cols, L), (
-            prob.tail_c_vals * prob.tail_c_vals
-            * q3.gather(2, _ids(prob.tail_c_rows, L))).to(acc))
+        _sorted_sum(prob, "tail_c", out, q3.to(acc), square=True)
     elif prob.tail_cols is not None:
+        host_scatter_only(q3, "The Hessian diagonal over a row-sorted tail")
         out.scatter_add_(2, _ids(prob.tail_cols, L), (
             prob.tail_vals * prob.tail_vals
             * q3.gather(2, _ids(prob.tail_rows, L))).to(acc))

@@ -117,6 +117,18 @@ def accumulate_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.bfloat16 else dtype
 
 
+def host_scatter_only(t: torch.Tensor, what: str) -> None:
+    """The solvers' scatter over a stream that is not sorted (the ELL of a
+    problem built without its column-sorted copy, a row-sorted tail without
+    its column-sorted one) is `index_add_` / `scatter_add_`, on the CPU
+    only: on the card their atomics would sum in another order on every
+    run, so there a problem carries the sorted copy and K1 sums it."""
+    if t.is_cuda:
+        raise ValueError(f"{what} on the card sums a column-sorted copy with "
+                         f"K1 (one order every run), and this problem "
+                         f"carries none")
+
+
 def segment_sum_gather_reference(vals, V, idx, seg, num_segments: int, *,
                                  out=None, square_from=None):
     """Plain version: the contributions w * V[:, idx] (or w(vals)), then one

@@ -16,11 +16,15 @@ Internally the state is lanes-major, (L, n) and (L, R); the public contract
 is the JAX one, (n, L) in and (n, L) out. Each sorted sparse-tail reduce is
 one call of `ops.segment_sum.segment_sum_gather`, the hand-written kernel on
 the card that gathers, weights and reduces the tail into the pass's output
-in place (no size gate: every sorted-tail reduce takes it); the ELL and
-unsorted tail scatters use `index_add_`, as XLA's scatter does, whose
-atomics sum in another order on every run on the card, so a problem whose
-solve must give the same bits every run carries its ELL entries as two
-sorted tails instead (`ell_as_sorted_tails`, the naive trainer's).
+in place (no size gate: every sorted-tail reduce takes it). Xv gathers the
+ELL row by row, each row summed in one order; X'v, its 2L pass and the
+Hessian diagonal sum the ELL with K1 too, over the column-sorted copy of
+its slots that every stacked problem carries (`with_column_copy`, made
+once by `stack_blocks` and by the streaming trainer's shipped column
+order): `index_add_`'s atomics would sum in another order on every run on
+the card. On the card the ELL without that copy and a row-sorted tail
+without its column-sorted one raise (`host_scatter_only`); on the CPU
+they are `index_add_`'s, as XLA's scatter.
 
 precondition="head_block" solves the dense-head curvature block exactly:
 its (L, H, H) build is the weighted-Gram kernel of ops/gram.py with one
@@ -78,6 +82,7 @@ import torch
 
 from mlease_tpu_torch.ops.gram import gram_batched
 from mlease_tpu_torch.ops.segment_sum import (accumulate_dtype,
+                                              host_scatter_only,
                                               segment_sum_gather)
 from mlease_tpu_torch.collectives import all_reduce
 
@@ -110,6 +115,11 @@ class MultiProblem(NamedTuple):
     tail_c_rows: torch.Tensor | None = None  # (T,)
     tail_c_cols: torch.Tensor | None = None  # (T,) sorted ascending
     tail_c_vals: torch.Tensor | None = None  # (T,)
+    # the column-sorted copy of the ELL slots, padding included (X'v's K1
+    # stream; `with_column_copy`): int32 row and column ids, the values
+    csc_rows: torch.Tensor | None = None   # (R*K,)
+    csc_cols: torch.Tensor | None = None   # (R*K,) sorted ascending
+    csc_vals: torch.Tensor | None = None   # (R*K,)
 
     @property
     def dim(self) -> int:
@@ -237,7 +247,9 @@ def stack_blocks(indices, values, y, weight, offset, head,
     of hybrid arrays (all (B, ...) or None); prior_mean (L, B, n); rho_eff
     (L,). Per-block sorted tails stay globally sorted because block-major
     offsets are monotone; this is checked here, once, together with the id
-    ranges of both streams, since the sorted-stream kernel relies on both."""
+    ranges of both streams, since the sorted-stream kernel relies on both.
+    The ELL slots get their column-sorted copy (`with_column_copy`), in
+    block order for the same reason."""
     (head_x, head_ids, t_rows, t_cols, t_vals,
      tc_rows, tc_cols, tc_vals) = head
     B, R, K = indices.shape
@@ -271,27 +283,56 @@ def stack_blocks(indices, values, y, weight, offset, head,
         y=y.reshape(-1), weight=weight.reshape(-1),
         offset=offset.reshape(-1),
         prior_mean=None, prior_var_inv=None, **kw)
-    return with_prior(prob, prior_mean, rho_eff)
+    return with_prior(with_column_copy(prob), prior_mean, rho_eff)
+
+
+def column_copy(indices: torch.Tensor, values: torch.Tensor,
+                order: torch.Tensor | None = None):
+    """(rows, cols, vals) of the ELL slots (indices / values (R, K), or
+    flat with K given by a 2-D indices) in column order, padding slots
+    included: int32 ids, the stable sort by column id (a row's slots and
+    rows of one column keep the ELL's row-major order) or `order`, that
+    sort made elsewhere (int32 or int64 positions in the flat slots)."""
+    K = indices.shape[-1]
+    cols = indices.reshape(-1)
+    if order is None:
+        order = torch.sort(cols.to(torch.int32), stable=True).indices
+    return ((order // K).to(torch.int32),
+            cols.index_select(0, order).to(torch.int32),
+            values.reshape(-1).index_select(0, order))
+
+
+def with_column_copy(prob: MultiProblem) -> MultiProblem:
+    """prob with the column-sorted copy of its ELL slots (`column_copy`;
+    none without ELL slots): X'v, its 2L pass and the Hessian diagonal sum
+    the ELL over it with K1, in one fixed order, where `index_add_`'s
+    atomics would sum in another order on every run on the card. Xv keeps
+    the ELL (a row's gather sums in one order). Made once per problem:
+    4 + 4 bytes of ids and a value a slot."""
+    if prob.indices.shape[-1] == 0:
+        return prob
+    rows, cols, vals = column_copy(prob.indices, prob.values)
+    return prob._replace(csc_rows=rows, csc_cols=cols, csc_vals=vals)
 
 
 def ell_as_sorted_tails(prob: MultiProblem) -> MultiProblem:
     """prob (ELL only, no head) with its ELL entries, padding slots
     included, as the row-sorted and the column-sorted tail (int32 ids; the
-    ELL's row-major order is row-sorted, the column order a stable sort):
-    Xv and X'v then sum them with K1, in one fixed order, where X'v's
-    `index_add_` atomics sum in another order on every run on the card
-    (the naive trainer's stacked keys, whose device loop is held to the
+    ELL's row-major order is row-sorted, the column order its column
+    copy): Xv and X'v then both sum them with K1, in one fixed order (the
+    naive trainer's stacked keys, whose device loop is held to the
     host-driven solve bit for bit). A padding slot adds 0 * v."""
     R, K = prob.indices.shape
+    if prob.csc_cols is None:
+        prob = with_column_copy(prob)
     cols = prob.indices.reshape(-1).to(torch.int32)
-    vals = prob.values.reshape(-1)
     rows = torch.arange(R * K, device=cols.device) // K
-    order = torch.sort(cols, stable=True).indices
     return prob._replace(
         indices=prob.indices[:, :0], values=prob.values[:, :0],
-        tail_rows=rows.to(torch.int32), tail_cols=cols, tail_vals=vals,
-        tail_c_rows=rows[order].to(torch.int32), tail_c_cols=cols[order],
-        tail_c_vals=vals[order])
+        tail_rows=rows.to(torch.int32), tail_cols=cols,
+        tail_vals=prob.values.reshape(-1), tail_c_rows=prob.csc_rows,
+        tail_c_cols=prob.csc_cols, tail_c_vals=prob.csc_vals,
+        csc_rows=None, csc_cols=None, csc_vals=None)
 
 
 # ---------------------------------------------------------------------------
@@ -370,13 +411,18 @@ def _xv_lm(prob: MultiProblem, V: torch.Tensor,
 
 def _xtv_lm(prob: MultiProblem, D: torch.Tensor) -> torch.Tensor:
     """(L, R) -> (L, n) accumulation, in the accumulate type (for a
-    bfloat16 D every sum in float32, K1's tail added into the float32 sums;
-    the caller rounds once)."""
+    bfloat16 D every sum in float32, K1's sums added into the float32
+    sums; the caller rounds once): the ELL's column copy, the head, the
+    column-sorted tail, in that order."""
     n = prob.prior_mean.shape[-1]
     L = D.shape[0]
     acc = accumulate_dtype(D.dtype)
     out = torch.zeros((L, n), dtype=acc, device=D.device)
-    if prob.indices.shape[-1] > 0:
+    if prob.csc_cols is not None:
+        segment_sum_gather(prob.csc_vals, D, prob.csc_rows, prob.csc_cols, n,
+                           out=out)
+    elif prob.indices.shape[-1] > 0:
+        host_scatter_only(D, "X'v over the ELL")
         out.index_add_(1, prob.indices.reshape(-1),
                        (prob.values[None] * D.to(acc)[:, :, None])
                        .reshape(L, -1))
@@ -386,6 +432,7 @@ def _xtv_lm(prob: MultiProblem, D: torch.Tensor) -> torch.Tensor:
         segment_sum_gather(prob.tail_c_vals, D, prob.tail_c_rows,
                            prob.tail_c_cols, n, out=out)
     elif prob.tail_cols is not None:
+        host_scatter_only(D, "X'v over a row-sorted tail")
         out = out + torch.zeros_like(out).index_add_(
             1, prob.tail_cols,
             prob.tail_vals[None, :] * D.to(acc)[:, prob.tail_rows])
@@ -400,7 +447,12 @@ def _xtv_and_sqdiag_lm(prob: MultiProblem, C: torch.Tensor,
     L = C.shape[0]
     acc = accumulate_dtype(C.dtype)
     out = torch.zeros((2 * L, n), dtype=acc, device=C.device)
-    if prob.indices.shape[-1] > 0:
+    CD = torch.cat([C, Dm])
+    if prob.csc_cols is not None:
+        segment_sum_gather(prob.csc_vals, CD, prob.csc_rows, prob.csc_cols,
+                           n, out=out, square_from=L)
+    elif prob.indices.shape[-1] > 0:
+        host_scatter_only(C, "X'v over the ELL")
         v = prob.values[None]
         contrib = torch.cat([v * C[:, :, None], (v * v) * Dm[:, :, None]])
         out.index_add_(1, prob.indices.reshape(-1),
@@ -410,11 +462,11 @@ def _xtv_and_sqdiag_lm(prob: MultiProblem, C: torch.Tensor,
         out.index_add_(1, prob.head_ids,
                        torch.cat([_head_t(hx, C),
                                   _head_t(hx, Dm, square=True)]).to(acc))
-    CD = torch.cat([C, Dm])
     if prob.tail_c_cols is not None:
         segment_sum_gather(prob.tail_c_vals, CD, prob.tail_c_rows,
                            prob.tail_c_cols, n, out=out, square_from=L)
     elif prob.tail_cols is not None:
+        host_scatter_only(C, "X'v over a row-sorted tail")
         tv = prob.tail_vals[None, :]
         rows = CD[:, prob.tail_rows]
         contrib = torch.cat([tv * rows[:L], (tv * tv) * rows[L:]])
@@ -497,7 +549,11 @@ def _hessian_diagonal_lm(prob: MultiProblem, Dm: torch.Tensor
     L = Dm.shape[0]
     acc = accumulate_dtype(Dm.dtype)
     out = torch.zeros((L, n), dtype=acc, device=Dm.device)
-    if prob.indices.shape[-1] > 0:
+    if prob.csc_cols is not None:
+        segment_sum_gather(prob.csc_vals, Dm, prob.csc_rows, prob.csc_cols,
+                           n, out=out, square_from=0)
+    elif prob.indices.shape[-1] > 0:
+        host_scatter_only(Dm, "X'v over the ELL")
         v = prob.values[None]
         out.index_add_(1, prob.indices.reshape(-1),
                        ((v * v) * Dm[:, :, None]).reshape(L, -1).to(acc))
@@ -508,6 +564,7 @@ def _hessian_diagonal_lm(prob: MultiProblem, Dm: torch.Tensor
         segment_sum_gather(prob.tail_c_vals, Dm, prob.tail_c_rows,
                            prob.tail_c_cols, n, out=out, square_from=0)
     elif prob.tail_cols is not None:
+        host_scatter_only(Dm, "X'v over a row-sorted tail")
         tv = prob.tail_vals[None, :]
         out = out + torch.zeros_like(out).index_add_(
             1, prob.tail_cols, ((tv * tv) * Dm[:, prob.tail_rows]).to(acc))

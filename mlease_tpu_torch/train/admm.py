@@ -77,7 +77,7 @@ from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
 from mlease_tpu_torch.ops.objective import (K1Streams, LRProblem,
                                             class_balance_eps_scale,
-                                            column_sorted, k1_streams)
+                                            with_sorted_streams)
 from mlease_tpu_torch.ops.tron import LaneSolver, tron
 from mlease_tpu_torch.ops.device_loop import DeviceLoop
 from mlease_tpu_torch.ops.gram import gram_batched
@@ -85,8 +85,8 @@ from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, MultiSolver,
                                              SubStacks, lanes_major,
                                              stack_fits, stack_substacks,
-                                             substack_ranges, substacks_of,
-                                             tron_multi, with_prior)
+                                             substacks_of, tron_multi,
+                                             with_prior)
 from mlease_tpu_torch.collectives import all_gather, all_reduce, max_over
 from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, axis_size,
                                             block_sharding, local_blocks,
@@ -218,10 +218,11 @@ def blocked_problem(indices, values, y, weight, offset, head, dtype, n,
     solve promotes it the same way); `csc` the (cols, rows, vals) dual
     layout, each (B, R*K), made on the card when not given. On the card the
     sorted streams' K1 ids (`k1`, objective.K1Streams) are made here when
-    not given, once, over the sub-stacks that keep them inside int32."""
+    not given, once, over the sub-stacks that keep them inside int32
+    (objective.with_sorted_streams)."""
     (head_x, head_ids, t_rows, t_cols, t_vals,
      tc_rows, tc_cols, tc_vals) = head
-    B, R = y.shape
+    B = y.shape[0]
 
     def ids(a):
         return None if a is None else a.long()
@@ -233,20 +234,12 @@ def blocked_problem(indices, values, y, weight, offset, head, dtype, n,
                   tail_rows=ids(t_rows), tail_cols=ids(t_cols),
                   tail_vals=t_vals, tail_c_rows=ids(tc_rows),
                   tail_c_cols=ids(tc_cols), tail_c_vals=tc_vals)
-    if csc is None and indices.is_cuda and indices.shape[-1] > 0:
-        # on the card X'v sums over the column-sorted copy with K1, in one
-        # order every run (ops/objective.py::_sorted_sum)
-        csc = column_sorted(indices, values)
-    if csc is not None:
-        cols, rows, vals = csc
-        kw.update(csc_cols=cols.long(), csc_rows=rows.long(), csc_vals=vals)
     prob = LRProblem(indices=indices.long(), values=values, y=y,
                      weight=weight, offset=offset, prior_mean=None,
                      prior_var_inv=None, **kw)
-    if indices.is_cuda:
-        prob = prob._replace(k1=k1 if k1 is not None else k1_streams(
-            prob, n, substack_ranges(B, n, R)))
-    return prob
+    # on the card X'v sums over the column-sorted copy with K1, in one
+    # order every run (ops/objective.py::_sorted_sum)
+    return with_sorted_streams(prob, n, csc, k1)
 
 
 def stacked_k1(prob: MultiProblem, B: int, csc=None) -> K1Streams:
@@ -938,11 +931,13 @@ class _Part:
     loop's branches write in place with run()'s ops. `prior`: a fixed
     (prior mean, prior precision) of all the loop's blocks, each (L, B, n)
     (an expanded view will do), in place of z - u and rho_eff (the naive
-    and item trainers' priors); u and rho_eff are then unused."""
+    and item trainers' priors); u and rho_eff are then unused. `group`:
+    the feature shards' process group of a multi-RHS solve whose columns
+    are sharded (MultiSolver's, the feature-sharded trainer's)."""
 
     def __init__(self, mode: str, prob, b0: int, b1: int, L: int, n: int,
                  pcg, max_newton_iter: int, max_cg_iter: int,
-                 z, u, rho_eff, eps, prior=None):
+                 z, u, rho_eff, eps, prior=None, group=None):
         self.L, self.n = L, n
         self.b0, self.b1 = b0, b1
         self.lanes = mode == "lanes"
@@ -972,7 +967,7 @@ class _Part:
             self.solver = MultiSolver(
                 self.prob._replace(prior_mean=self.pm,
                                    prior_var_inv=self.pvi),
-                L, pcg, self.blocks, max_newton_iter, max_cg_iter)
+                L, pcg, self.blocks, max_newton_iter, max_cg_iter, group)
         self.ns = _materialize(self._init_state(z, eps))
         self.running = _materialize(self.solver.running(self.ns))
         self.cs = _materialize(self.solver.cg_init(self.ns, self.running))
@@ -1086,17 +1081,23 @@ class _SolveLoop:
     (the two solve one after another, never at once). `prior`: a fixed
     prior mean and precision for every part (_Part), the naive trainer's
     and the item trainer's TRON buckets', which then pass None for u and
-    rho_eff and zeros (or the lanes' own starts) for z."""
+    rho_eff and zeros (or the lanes' own starts) for z. `group`: a
+    multi-RHS solve's feature shards (_Part): every dot, norm and Xv of
+    the branches is then an all_reduce over it, which the loop of its own
+    captures into the branches on the card (NCCL; DeviceLoop's
+    "thread_local" capture), as run_fused's loop captures a mesh's."""
 
     def __init__(self, mode: str, probs, L: int, n: int, pcg,
                  max_newton_iter: int, max_cg_iter: int, z, u, rho_eff,
                  eps, *, first: int = 1, after: int = 0, phase=None,
-                 share: Sequence["_SolveLoop"] = (), prior=None):
+                 share: Sequence["_SolveLoop"] = (), prior=None,
+                 group=None):
         self.first, self.after = first, after
+        self.group = group
         self.phase = (torch.zeros((), dtype=torch.int32, device=z.device)
                       if phase is None else phase)
         self.parts = [_Part(mode, p, b0, b1, L, n, pcg, max_newton_iter,
-                            max_cg_iter, z, u, rho_eff, eps, prior)
+                            max_cg_iter, z, u, rho_eff, eps, prior, group)
                       for p, (b0, b1) in probs]
         for other in share:
             if len(other.parts) == len(self.parts) and all(
@@ -1135,9 +1136,10 @@ class _SolveLoop:
         self.cg_branches, self.init_branches = [], []
 
     def own_loop(self, pool=None) -> DeviceLoop:
+        kernels = (_SOLVE_KERNELS if self.group is None
+                   else dict(_SOLVE_KERNELS, all_reduce=all_reduce))
         self.loop = DeviceLoop(self.cg_branches + self.init_branches,
-                               self.phase, self.state(), _SOLVE_KERNELS,
-                               pool=pool)
+                               self.phase, self.state(), kernels, pool=pool)
         return self.loop
 
     # part k's phases: CG, EPILOGUE, CG_START

@@ -24,15 +24,36 @@ replicated per rank). Here the coefficient axis is sharded over the mesh's
     maximum over `feat`. z is gathered over `feat` only for the sample
     loglik and the result.
 
+`run()` takes each x-update as the JAX step's one jitted program takes
+it: through `_x_update`, a device loop of the solve's branches
+(train/admm.py::_SolveLoop, one part a sub-stack, per block, the feat
+group's all_reduces inside the branches), captured at the first
+iteration and kept, freed with the trainer. On the card the loop's
+all_reduces are NCCL calls captured into its CUDA graphs; a gloo feat
+group of two or more ranks cannot be captured there, and run() raises
+ValueError before the loop is made. On the CPU the branches run eagerly
+over gloo, every rank taking the same phases (they branch only on
+all_reduced values). The block all_reduce of the consensus, the z- and
+u-updates, the diffs' maximum over `feat` and the trips' maximum over
+`block` stay eager collectives on the stream (a one-rank feat group's
+solve makes no collective: nothing to sum), and an iteration reads the
+host once (the diffs and the trip maxima in one copy; the sample loglik
+makes its own gather). `step()` is the host-driven iteration (tron_multi's
+host loops, a read a Newton and a CG trip), the reference the loop is
+held to.
+
 The ELL layout only (shard_features refuses a dense head, as in the JAX
-package), so neither hand-written kernel runs here. Ranks past the mesh's
-block x feat sit out the solve and receive the result by broadcast.
+package). X'v sums each shard's ELL slots over their column-sorted copy
+with K1 (ops/tron_multi.py::with_column_copy), so the solve gives the same
+bits every run; K2 does not run. Ranks past the mesh's block x feat sit
+out the solve and receive the result by broadcast.
 """
 
 from __future__ import annotations
 
 import logging
 import time
+import weakref
 from typing import Mapping, Sequence
 
 import numpy as np
@@ -55,8 +76,10 @@ from mlease_tpu_torch.collectives import (all_gather, all_reduce,
 from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, FEAT_AXIS,
                                             mesh_device, pad_blocks)
 from mlease_tpu_torch.train.admm import (MAX_NTEST_EVENTS, AdmmConfig,
-                                         AdmmResult, _lambda_key,
-                                         sample_loglik_lanes)
+                                         AdmmResult, _close_loops,
+                                         _graph_pool, _lambda_key,
+                                         _rho_table, _SolveLoop, _to_device,
+                                         sample_loglik_lanes, x_prior)
 
 logger = logging.getLogger(__name__)
 
@@ -93,6 +116,10 @@ class FeatureShardedAdmmTrainer:
         b, s = (int(c) for c in mesh.get_coordinate())
         self._block_group = mesh.get_group(BLOCK_AXIS)
         self._feat_group = mesh.get_group(FEAT_AXIS)
+        # the solve's group: over one feat shard there is nothing to sum
+        # (the JAX psum over a size-1 axis is the identity), so that solve
+        # makes no collective and its loop captures none
+        self._solve_group = self._feat_group if df > 1 else None
 
         data, valid = pad_blocks(data, db)
         fs = with_intercept(shard_features(data, df), vocab.intercept_index)
@@ -134,6 +161,8 @@ class FeatureShardedAdmmTrainer:
             icpt_mask[fs.intercept_shard, fs.intercept_local] = True
         self.icpt_mask = t(icpt_mask[s])
         self._shard = s
+        self._loops: dict[str, _SolveLoop] = {}   # freed with the trainer
+        weakref.finalize(self, _close_loops, self._loops).atexit = False
 
         if test_rows:
             blk = pack_rows(list(test_rows)[:MAX_NTEST_EVENTS], vocab)
@@ -144,25 +173,82 @@ class FeatureShardedAdmmTrainer:
     # ------------------------------------------------------------------
     def step(self, z, u, rho_eff, rho_base, eps):
         """One iteration on this rank's (L, n_local) z and (L, B_local,
-        n_local) u: the feature-sharded per-block solve, the block
-        all_reduce, the masked z-update, the dual update. Returns (z_new,
-        u_new, diffs (L,) maxed over the feat group, (newton, cg) trip
-        maxima over every block)."""
+        n_local) u, the host-driven reference of run()'s: the
+        feature-sharded per-block solve on tron_multi's host loops, the
+        block all_reduce, the masked z-update, the dual update. Returns
+        (z_new, u_new, diffs (L,) maxed over the feat group, (newton, cg)
+        trip maxima over every block, on the host)."""
+        x, trips = self._host_x_update(z, u, rho_eff, eps)
+        z_new, u_new, diffs = self._consensus(x, z, u, rho_base)
+        return z_new, u_new, diffs, self._trip_max(trips).cpu().numpy()
+
+    def _finish(self, x, z, u):
+        """The x-update's mask (a feature absent from a block solves to its
+        prior mean) and over-relaxation."""
+        cfg = self.config
+        x = torch.where(self.present[None], x, x_prior(z, u))
+        if cfg.relaxation != 1.0:
+            x = cfg.relaxation * x + (1.0 - cfg.relaxation) * z[:, None, :]
+        return x
+
+    def _host_x_update(self, z, u, rho_eff, eps):
+        """The x-update through tron_multi's host loops (a read a Newton
+        and a CG trip): (x (L, B_local, n_local), its (B_local, 2) (Newton,
+        CG) trips on the device)."""
         cfg = self.config
         L, nl = z.shape
         B = u.shape[1]
-        prior_mean = z[:, None, :] - u                       # (L, B, nl)
+        prior_mean = x_prior(z, u)                           # (L, B, nl)
         r = join_block_results(
             tron_multi(with_prior(p, prior_mean[:, b0:b1], rho_eff),
                        z.T.repeat(b1 - b0, 1), eps[b0:b1],
                        max_iter=cfg.max_newton_iter,
                        max_cg_iter=cfg.max_cg_iter, precondition=cfg.pcg,
-                       blocks=b1 - b0, group=self._feat_group)
+                       blocks=b1 - b0, group=self._solve_group)
             for p, (b0, b1) in substacks_of(self.prob, B))
         x = r.w.reshape(B, nl, L).permute(2, 0, 1)
-        x = torch.where(self.present[None], x, prior_mean)
-        if cfg.relaxation != 1.0:
-            x = cfg.relaxation * x + (1.0 - cfg.relaxation) * z[:, None, :]
+        return self._finish(x, z, u), torch.as_tensor(
+            r.block_trips, dtype=torch.int64, device=z.device)
+
+    def _x_update(self, z, u, rho_eff, eps):
+        """run()'s x-update through the trainer's _SolveLoop (made, and on
+        the card captured, at the first iteration, then kept): the same
+        result as _host_x_update, bit for bit, without a host read."""
+        loop = self._loops.get("x")
+        if loop is None:
+            self._check_capturable()
+            cfg = self.config
+            loop = _SolveLoop(
+                "per_block", substacks_of(self.prob, u.shape[1]),
+                z.shape[0], z.shape[1], cfg.pcg, cfg.max_newton_iter,
+                cfg.max_cg_iter, z, u, rho_eff, eps, group=self._solve_group)
+            loop.own_loop(_graph_pool(self.device)).prepare()
+            self._loops["x"] = loop
+        loop.solve(z, u, rho_eff, eps)
+        return self._finish(loop.x(), z, u), loop.trips()
+
+    def _check_capturable(self):
+        """On the card the loop captures the feat group's all_reduces into
+        its CUDA graphs, which only NCCL allows; a one-rank feat group's
+        solve makes none. Decided from the backend, before anything is
+        captured."""
+        group = self._solve_group
+        if self.device.type == "cuda" and group is not None:
+            backend = torch.distributed.get_backend(group)
+            if backend != "nccl":
+                raise ValueError(
+                    f"FeatureShardedAdmmTrainer.run on a CUDA device "
+                    f"captures the feat group's all_reduces into its "
+                    f"x-update's CUDA graphs (ROADMAP.md A21), which needs "
+                    f"NCCL; this group runs {backend!r} over "
+                    f"{torch.distributed.get_world_size(group)} ranks: "
+                    f"use step(), the host-driven iteration")
+
+    def _consensus(self, x, z, u, rho_base):
+        """The block all_reduce of the x-update's and u's partial sums,
+        the masked z-update, the dual update and the diffs maxed over the
+        feat group, all on the device: (z_new, u_new, diffs (L,))."""
+        cfg = self.config
         bv = self.block_valid[None, :, None]
         x = torch.where(bv, x, torch.zeros_like(x))
         # consensus: ONE all_reduce over the block group per iteration
@@ -181,10 +267,13 @@ class FeatureShardedAdmmTrainer:
                             torch.zeros_like(u))
         diffs = all_reduce(admm_math.max_abs_diff(z_new, z, axis=-1), "max",
                            self._feat_group)
-        trips = torch.as_tensor(r.block_trips.max(0), dtype=torch.int64,
-                                device=z.device)
-        all_reduce(trips, "max", self._block_group)
-        return z_new, u_new, diffs, trips.cpu().numpy()
+        return z_new, u_new, diffs
+
+    def _trip_max(self, trips):
+        """(2,) int64 on the device: the (Newton, CG) maxima over this
+        rank's blocks and then over the block group."""
+        return all_reduce(trips.amax(0).to(torch.int64), "max",
+                          self._block_group)
 
     def _gather_z(self, z: torch.Tensor) -> np.ndarray:
         """(L, n_local) on each shard -> the (L, n) model (host, float64)."""
@@ -207,9 +296,11 @@ class FeatureShardedAdmmTrainer:
 
     # ------------------------------------------------------------------
     def run(self, z0: np.ndarray | None = None) -> AdmmResult:
-        """Host driver loop, the schedules and stop rule of AdmmTrainer.run
-        (RegressionAdmmTrain.java:281-497); every rank returns the same
-        result."""
+        """The driver loop, the schedules and stop rule of AdmmTrainer.run
+        (RegressionAdmmTrain.java:281-497), each x-update on the trainer's
+        device loop (`_x_update`), one host read an iteration; every rank
+        returns the same result. On a CUDA device a feat group of two or
+        more ranks must run NCCL (ValueError otherwise)."""
         result = self._run(z0) if self.in_mesh else None
         if self.mesh.mesh.numel() < torch.distributed.get_world_size():
             # the ranks past the mesh take the result of global rank 0
@@ -231,6 +322,8 @@ class FeatureShardedAdmmTrainer:
             dtype=dtype, device=dev)
         u = torch.zeros((L, B, nl), dtype=dtype, device=dev)
         rho_base = torch.as_tensor(self.rhos, dtype=dtype, device=dev)
+        rho_tab = _rho_table(self.rhos, cfg.num_iters, cfg, z0 is not None,
+                             dev)
 
         inner_eps = cfg.liblinear_epsilon
         mindiff = 99999999.0
@@ -256,21 +349,22 @@ class FeatureShardedAdmmTrainer:
             inner_eps = admm_math.inner_eps_schedule(
                 inner_eps, iteration, mindiff,
                 aggressive=cfg.aggressive_liblinear_epsilon_decay)
-            rho_eff = torch.as_tensor([
-                admm_math.rho_effective(
-                    r, iteration,
-                    initialize_boost_rate=(cfg.initialize_boost_rate
-                                           if z0 is not None else 0.0),
-                    rho_adapt_coefficient=cfg.rho_adapt_coefficient)
-                for r in self.rhos], dtype=dtype, device=dev)
-            eps = torch.as_tensor(inner_eps, dtype=dtype,
-                                  device=dev) * self.eps_scale
+            rho_eff = rho_tab[iteration]
+            # the scalar rounded to the compute dtype first, as AdmmTrainer
+            eps = _to_device(inner_eps, dtype, dev) * self.eps_scale
 
-            z, u, diffs, trips = self.step(z, u, rho_eff, rho_base, eps)
-            diffs_np = diffs.to(torch.float64).cpu().numpy()
+            # the span the device idle share of an iteration is read over
+            with torch.profiler.record_function("fs_iteration"):
+                x, trips = self._x_update(z, u, rho_eff, eps)
+                z, u, diffs = self._consensus(x, z, u, rho_base)
+                # the iteration's one host sync
+                host = torch.cat([diffs.to(torch.float64),
+                                  self._trip_max(trips).to(torch.float64)]
+                                 ).cpu()
+            diffs_np = host[:L].numpy()
             iter_times.append(time.monotonic() - t_iter)
-            solver_stats.append({"newton_trips": int(trips[0]),
-                                 "cg_trips": int(trips[1])})
+            solver_stats.append({"newton_trips": int(host[L]),
+                                 "cg_trips": int(host[L + 1])})
             mindiff = float(diffs_np.min())
             maxdiff = float(diffs_np.max())
             diff_history.append({_lambda_key(l): float(d)

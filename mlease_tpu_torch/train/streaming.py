@@ -104,8 +104,8 @@ from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, SubStacks,
-                                             stack_fits, substack_ranges,
-                                             substacks_of)
+                                             column_copy, stack_fits,
+                                             substack_ranges, substacks_of)
 from mlease_tpu_torch.collectives import all_gather, all_reduce
 from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, axis_size,
                                             block_sharding, local_blocks,
@@ -508,10 +508,12 @@ class StreamingAdmmTrainer:
 
         # ---- stack once on the host, check once, pin ------------------
         self._pinned = on_card and pin_host
-        # a lanes solve on the card sums X'd over the column-sorted order
-        # of each group's ELL entries (K1, ops/objective.py::_sorted_sum):
-        # that order is made here, once, and ships with the group
-        self._csc_order = on_card and self.mode == "lanes"
+        # X'v sums a group's ELL slots over their column-sorted copy with
+        # K1 (ops/tron_multi.py::with_column_copy, ops/objective.py::
+        # _sorted_sum): the copy's order is made here, once, and ships with
+        # the group; the multi-RHS solves' copy on every device, the lanes
+        # solve's on the card
+        self._csc_order = on_card or self.mode != "lanes"
         self.groups = []
         self.ranges: list[list[tuple[int, int]]] = []
         self.csc_perms: list[torch.Tensor | None] = []
@@ -559,7 +561,7 @@ class StreamingAdmmTrainer:
             for gi, g in enumerate(self.groups):
                 if gi not in self._resident_heads:
                     continue
-                gb = _group_stream_bytes(g) + _nbytes(self.csc_perms[gi])
+                gb = _group_stream_bytes(g) + self._order_bytes(gi)
                 if gb > budget:
                     break
                 self._resident_groups[gi] = self._ship(
@@ -662,9 +664,10 @@ class StreamingAdmmTrainer:
         int32, each block's ids are offset from the first block of its
         sub-stack instead (substack_ranges, kept in self.ranges), so every
         sub-stack is the problem stack_blocks would build of its blocks,
-        and each is checked on its own. A lanes solve on the card gets the
+        and each is checked on its own. A group with ELL slots gets the
         column-sorted order of each sub-stack's ELL entries (kept in
-        self.csc_perms: int32 positions in the sub-stack's flat entries)."""
+        self.csc_perms: int32 positions in the sub-stack's flat entries;
+        a lanes solve's on the card only)."""
         B, R, n = g.nblocks, g.padded_rows, g.dim
         ranges = substack_ranges(B, n, R)
         self.ranges.append(ranges)
@@ -714,6 +717,15 @@ class StreamingAdmmTrainer:
                 t = t.to(self.config.dtype)
             out[f] = self._pin(t.contiguous())
         return g._replace(**out)
+
+    def _order_bytes(self, gi: int) -> int:
+        """Device bytes of group gi's column order once shipped: the order
+        itself for a lanes solve, the column-sorted copy (two int32 ids
+        and a value a slot) for a multi-RHS solve."""
+        perm = self.csc_perms[gi]
+        if perm is None or self.mode == "lanes":
+            return _nbytes(perm)
+        return 2 * _nbytes(perm) + _nbytes(self.groups[gi].values)
 
     def _to_dev(self, t: torch.Tensor | None) -> torch.Tensor | None:
         """A resident array: copied once, on the compute stream."""
@@ -844,10 +856,15 @@ class StreamingAdmmTrainer:
         if gi in self._resident_groups:
             return out
         B, R = g.nblocks, g.padded_rows
+        perm = self.csc_perms[gi]
         fields = {"indices": g.indices.view(B * R, -1),
                   "values": g.values.view(B * R, -1), "y": g.y,
                   "weight": g.weight, "offset": g.offset,
-                  "present": g.present, "perm": self.csc_perms[gi]}
+                  "present": g.present, "perm": perm}
+        if perm is not None and self.mode != "lanes":
+            # the column-sorted copy, gathered on the card by the order
+            fields.update(csc_rows=perm, csc_cols=perm,
+                          csc_vals=g.values.view(-1))
         if self.use_head:
             fields.update({f: getattr(g, f) for f in (
                 "tail_rows", "tail_cols", "tail_vals")})
@@ -872,10 +889,12 @@ class StreamingAdmmTrainer:
     def _ship(self, gi: int, dst):
         """Group gi's arrays on the device, copied into dst(field, shape,
         dtype) tensors on the current stream (non-blocking from page-locked
-        memory), the compact-wire rebuilds into them after their copies:
-        (the group's MultiProblem without its prior, present, the column
-        order of a lanes solve on the card or None). Resident heads and
-        column-sorted tails are used as they are."""
+        memory), the compact-wire rebuilds into them after their copies,
+        and a multi-RHS solve's column-sorted copy of the ELL slots
+        gathered by their shipped order: (the group's MultiProblem without
+        its prior, present, the column order of a lanes solve on the card
+        or None). Resident heads and column-sorted tails are used as they
+        are."""
         g = self.groups[gi]
         w = self._wire.get(gi, {})
         dev = self.device
@@ -922,8 +941,30 @@ class StreamingAdmmTrainer:
             y=put("y", g.y.view(-1)), weight=put("weight", g.weight.view(-1)),
             offset=put("offset", g.offset.view(-1)), prior_mean=None,
             prior_var_inv=None, **head)
-        return prob, put("present", g.present), put("perm",
-                                                   self.csc_perms[gi])
+        perm = put("perm", self.csc_perms[gi])
+        if perm is not None and self.mode != "lanes":
+            prob = self._with_column_copy(gi, prob, perm, dst)
+            perm = None
+        return prob, put("present", g.present), perm
+
+    def _with_column_copy(self, gi: int, prob: MultiProblem,
+                          perm: torch.Tensor, dst) -> MultiProblem:
+        """prob with the column-sorted copy of its ELL slots
+        (ops/tron_multi.py::column_copy), each sub-stack's gathered by its
+        share of the shipped order `perm`, into dst(field, shape, dtype)
+        tensors: the copy stack_blocks makes of those blocks (one stable
+        sort), in block order."""
+        R = self.groups[gi].padded_rows
+        K = prob.indices.shape[1]
+        parts = [column_copy(prob.indices[b0 * R:b1 * R],
+                             prob.values[b0 * R:b1 * R],
+                             perm[b0 * R * K:b1 * R * K])
+                 for b0, b1 in self.ranges[gi]]
+        copy = {}
+        for f, *pieces in zip(("csc_rows", "csc_cols", "csc_vals"), *parts):
+            d = dst(f, (perm.numel(),), pieces[0].dtype)
+            copy[f] = torch.cat(pieces, out=d)
+        return prob._replace(**copy)
 
     def _put_group(self, gi: int, u_host: torch.Tensor | None = None):
         """Issue group gi's host->device copies (and its compact-wire

@@ -829,11 +829,12 @@ def test_head_block_solve_on_card_matches_cpu(cuda):
 
     def problem(dev):
         t = lambda a: torch.as_tensor(a, device=dev)    # noqa: E731
-        return tm.MultiProblem(
+        # X'v sums the ELL over its column-sorted copy with K1 on the card
+        return tm.with_column_copy(tm.MultiProblem(
             indices=t(idx), values=t(vals), y=t(y), weight=t(np.ones(R)),
             offset=t(np.zeros(R)), prior_mean=t(np.zeros((n, 2))),
             prior_var_inv=t(np.tile([1.0, 10.0], (n, 1))), head_x=t(head_x),
-            head_ids=t(np.arange(H)))
+            head_ids=t(np.arange(H))))
 
     W0 = torch.zeros((n, 2), dtype=torch.float64)
     want = tm.tron_multi(problem("cpu"), W0, 1e-6, precondition="head_block")
@@ -1340,3 +1341,145 @@ def test_a_slot_is_not_overwritten_while_a_loop_reads_it(cuda):
                                 device=cuda).run()
     np.testing.assert_array_equal(got.z, want.z)
     np.testing.assert_array_equal(got.u, want.u)
+
+
+# ---------------------------------------------------------------------------
+# X'v over the ELL on K1, and the feature-sharded trainer's device loop
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_headless_per_block_x_update_gives_the_same_bits(cuda):
+    """A head-less per-block x-update (X'v summed over the ELL's
+    column-sorted copy with K1) on the trainer's device loop, twice from
+    the same inputs, and through the host-driven build_x_update solve:
+    the same bits and trips every time, K1 executed inside the loop; two
+    run() calls of fresh trainers alike."""
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.train.admm import (AdmmConfig, AdmmTrainer,
+                                             build_x_update, x_prior)
+
+    data = blocked_data(41, B=3, R=4000)
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=3,
+                     flat_blocks=False, dtype=torch.float32)
+    tr = AdmmTrainer(data, vocab, cfg, device=cuda)
+    assert tr.mode == "per_block" and tr.prob.csc_cols is not None
+    gen = torch.Generator(device=cuda).manual_seed(41)
+    L, n, B = 3, tr.dim, data.nblocks
+    z = 0.01 * torch.randn((L, n), generator=gen, device=cuda)
+    u = 0.01 * torch.randn((L, B, n), generator=gen, device=cuda)
+    rho = torch.as_tensor(tr.rhos, device=cuda)
+    eps = cfg.liblinear_epsilon * tr.eps_scale
+    solve = build_x_update(tr.mode, cfg.max_newton_iter, cfg.max_cg_iter,
+                           cfg.pcg)
+    xh, th = solve(tr.prob, tr.present, z, u, rho, eps)
+    loop = tr._solve_loop(z, u, rho, eps)
+    loop.own_loop().prepare()
+    try:
+        for _ in range(2):
+            loop.solve(z, u, rho, eps)
+            x = solve.finish(loop.x(), tr.present, x_prior(z, u), z)
+            assert torch.equal(x, xh)
+            np.testing.assert_array_equal(loop.trips().cpu().numpy(), th)
+        assert loop.loop.counts()["kernel_executions"][
+            "segment_sum_gather"] > 0
+    finally:
+        loop.close()
+    a = AdmmTrainer(data, vocab, cfg, device=cuda).run()
+    b = AdmmTrainer(data, vocab, cfg, device=cuda).run()
+    np.testing.assert_array_equal(a.z, b.z)
+    np.testing.assert_array_equal(a.u, b.u)
+    assert a.solver_stats == b.solver_stats
+
+
+def fs_rows(seed, n_rows, n_feat=400):
+    """Rows as the port's pack_rows reads them (the CPU tests take them
+    from tests/test_admm.py::synth_rows, which needs JAX)."""
+    rng = np.random.default_rng(seed)
+    w = rng.normal(size=n_feat)
+    rows = []
+    for _ in range(n_rows):
+        js = rng.choice(n_feat, size=int(rng.integers(2, 12)),
+                        replace=False)
+        vals = rng.normal(size=js.size)
+        p = 1.0 / (1.0 + np.exp(-(w[js] @ vals - 0.2)))
+        rows.append({"response": int(rng.random() < p),
+                     "features": [(f"f{j}", float(v))
+                                  for j, v in zip(js, vals)],
+                     "weight": 1.0, "offset": 0.0})
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_rank", ["nccl"], indirect=True)
+def test_one_rank_nccl_feature_sharded_loop_equals_its_seam(one_rank):
+    """FeatureShardedAdmmTrainer on a one-rank NCCL 1 x 1 mesh: run() on
+    its device loop (one feat shard: the solve sums nothing over the
+    group, so no collective is captured) against run() with the seam on
+    the host-driven solve, bit for bit with equal trips; a second run() on
+    the kept loop alike, reading the host once an iteration; K1 executed
+    inside the loop."""
+    import warnings
+    from mlease_tpu_torch.core import build_vocab, pack_blocks
+    from mlease_tpu_torch.parallel.mesh import make_mesh_2d
+    from mlease_tpu_torch.train.admm import AdmmConfig
+    from mlease_tpu_torch.train.feature_sharded import \
+        FeatureShardedAdmmTrainer
+
+    rows = fs_rows(43, 6000)
+    blocks = [rows[i::3] for i in range(3)]
+    vocab = build_vocab(rows)
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=3,
+                     flat_blocks=False, dtype=torch.float32, epsilon=0.0)
+    tr = FeatureShardedAdmmTrainer(pack_blocks(blocks, vocab), vocab, cfg,
+                                   mesh=make_mesh_2d(1, 1, "cuda"))
+    got = tr.run()
+    loop = tr._loops["x"].loop
+    counts = loop.counts()
+    assert counts["kernel_executions"]["segment_sum_gather"] > 0
+    assert counts["capture_modes"]["cg_trip"] == "global"
+    assert "all_reduce" not in counts["kernel_executions"]
+
+    marks, x_update = [], tr._x_update
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+
+        def marked(*a):
+            marks.append(len(seen))
+            return x_update(*a)
+        tr._x_update = marked
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            again = tr.run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    sync = [i for i, w in enumerate(seen) if "synchroniz" in str(w.message)]
+    assert [sum(lo <= i < hi for i in sync)
+            for lo, hi in zip(marks[:-1], marks[1:])] == [1, 1]
+    tr._x_update = tr._host_x_update
+    host = tr.run()
+    del tr._x_update
+    for res in (again, host):
+        np.testing.assert_array_equal(res.z, got.z)
+        np.testing.assert_array_equal(res.u, got.u)
+        assert res.solver_stats == got.solver_stats
+
+
+@pytest.mark.cuda
+def test_feature_sharded_run_on_a_gloo_group_of_two_raises(cuda, tmp_path):
+    """On the card a gloo feat group of 2 ranks cannot be captured: run()
+    raises ValueError naming NCCL before any loop is made, and run() with
+    the seam on the host-driven solve runs (2 ranks on the one card,
+    through tests/torch_mesh_worker.py, with a deadline)."""
+    from torch_mesh_worker import launch
+
+    rows = fs_rows(44, 900)
+    got = launch([("g", "fs_gloo_cuda", dict(
+        blocks=[rows[i::3] for i in range(3)], grid=(1, 2),
+        config=dict(lambdas=[1.0, 10.0], num_iters=2, flat_blocks=False,
+                    dtype="float32")))], 2, tmp_path, timeout=240,
+        device="cuda")["g"]
+    for r in got:
+        assert r["error"] is not None and "NCCL" in r["error"]
+        assert r["loops_made"] == 0
+        assert r["z_finite"] and r["iterations"] == 2

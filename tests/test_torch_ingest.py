@@ -302,6 +302,33 @@ def test_four_processes_building_at_once_all_load(tmp_path):
     assert built == sorted([os.path.basename(paths.pop()), "native.lock"])
 
 
+def test_threads_loading_at_once_all_get_the_library(monkeypatch,
+                                                     port_native):
+    """The first load on one thread while others call it: every thread
+    gets the library (the others wait for the first), none gets None."""
+    import threading
+    build = _native_build.build
+
+    def slow_build():
+        time.sleep(0.3)             # the first load's compile in progress
+        return build()
+    monkeypatch.setattr(_native_build, "build", slow_build)
+    monkeypatch.setattr(tfd, "_lib", None)
+    monkeypatch.setattr(tfd, "_tried", False)
+    barrier = threading.Barrier(4)
+    got = []
+
+    def load():
+        barrier.wait()
+        got.append(tfe.is_available())
+    threads = [threading.Thread(target=load) for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert got == [True] * 4
+
+
 def test_schema_without_one_response_column_falls_back(tmp_path,
                                                        port_native):
     schema = {"type": "record", "name": "r", "fields": [

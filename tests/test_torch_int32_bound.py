@@ -183,7 +183,16 @@ def test_streaming_substacks_match_jax_per_block(monkeypatch, kw):
                               device="cpu")
     assert tt.mode == ("lanes" if "multi_rhs" in kw else "per_block")
     assert tt.ranges == [[(0, 1)], [(0, 2), (2, 3)]]
-    assert tt.csc_perms == [None, None]        # made on the card only
+    if tt.mode == "lanes":
+        assert tt.csc_perms == [None, None]    # made on the card only
+    else:
+        # a multi-RHS group's ELL slots ship their column order on every
+        # device (none without ELL slots: the head layout's)
+        for perm, g, r in zip(tt.csc_perms, tt.groups, tt.ranges):
+            if g.indices.shape[2] == 0:
+                assert perm is None
+            else:
+                assert torch.equal(perm, _column_order(g.indices.numpy(), r))
     if column_order:
         tt.csc_perms = [_column_order(g.indices.numpy(), r)
                         for g, r in zip(tt.groups, tt.ranges)]

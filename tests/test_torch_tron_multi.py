@@ -138,11 +138,30 @@ def test_stack_blocks_and_flat_solve_match_jax(head_size):
     tp = ttm.stack_blocks(*[torch.as_tensor(np.array(a)) for a in args],
                           _head_arrays(data, torch.as_tensor),
                           torch.as_tensor(pm), torch.as_tensor(rho))
+    # the port's own fields: the column-sorted copy of the stacked ELL
+    # slots (X'v's K1 stream), the stable order by stacked column id
+    extra = [f for f in ttm.MultiProblem._fields
+             if f not in jtm.MultiProblem._fields]
+    assert extra == ["csc_rows", "csc_cols", "csc_vals"]
     for k in ttm.MultiProblem._fields:
+        if k in extra:
+            continue
         got, v = getattr(tp, k), getattr(jp, k)
         assert (got is None) == (v is None), k
         if v is not None:
             np.testing.assert_array_equal(got.numpy(), np.asarray(v), k)
+    idx = np.asarray(jp.indices)
+    if idx.shape[1] == 0:
+        assert all(getattr(tp, f) is None for f in extra)
+    else:
+        order = np.argsort(idx.reshape(-1), kind="stable")
+        np.testing.assert_array_equal(tp.csc_cols.numpy(),
+                                      idx.reshape(-1)[order])
+        np.testing.assert_array_equal(tp.csc_rows.numpy(),
+                                      order // idx.shape[1])
+        np.testing.assert_array_equal(
+            tp.csc_vals.numpy(), np.asarray(jp.values).reshape(-1)[order])
+        assert tp.csc_rows.dtype == tp.csc_cols.dtype == torch.int32
 
     W0 = rng.normal(size=(B * n, L)) * 0.1
     want = jtm.tron_multi(jp, jnp.asarray(W0), 1e-5, precondition=True)

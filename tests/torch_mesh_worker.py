@@ -3,12 +3,14 @@ test_torch_mesh.py and the mesh cases of the other test_torch_* files).
 
     python tests/torch_mesh_worker.py SPEC RANK WORLD INIT_FILE OUT_DIR
 
-SPEC is a pickle of {"cases": [(name, kind, params), ...]}: plain Python and
-numpy values only (rows as dicts, configs as keyword dicts), so that a rank
-imports torch and the port and never JAX. Every rank joins a gloo process
-group through a file:// store (no TCP port, so concurrent test workers
-never collide), runs every case in order on the CPU, one torch thread, and
-writes its own result of case NAME to OUT_DIR/NAME.RANK.pkl.
+SPEC is a pickle of {"cases": [(name, kind, params), ...], "device": ...}:
+plain Python and numpy values only (rows as dicts, configs as keyword
+dicts), so that a rank imports torch and the port and never JAX. Every rank
+joins a gloo process group through a file:// store (no TCP port, so
+concurrent test workers never collide), runs every case in order on the
+CPU (or, with "device": "cuda", on the card, gloo over CUDA tensors), one
+torch thread, and writes its own result of case NAME to
+OUT_DIR/NAME.RANK.pkl.
 
 `launch()` starts the ranks from a test and holds them to a deadline: a
 hung collective kills every rank and fails the test, not the suite.
@@ -26,14 +28,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 
 
-def launch(cases, world: int, tmp_path, timeout: float = 120.0) -> dict:
+def launch(cases, world: int, tmp_path, timeout: float = 120.0,
+           device: str = "cpu") -> dict:
     """Run `cases` on `world` ranks; returns {name: [result of rank r]}."""
     tmp = str(tmp_path)
     spec = os.path.join(tmp, f"spec-{world}.pkl")
     out = os.path.join(tmp, f"out-{world}")
     os.makedirs(out, exist_ok=True)
     with open(spec, "wb") as f:
-        pickle.dump({"cases": cases}, f)
+        pickle.dump({"cases": cases, "device": device}, f)
     init = os.path.join(tmp, f"pg-{world}-{time.monotonic_ns()}")
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("JAX_", "XLA_"))}
@@ -229,6 +232,74 @@ def case_fs(p):
     return _result(tr.run())
 
 
+def case_fs_loop(p):
+    """The feature-sharded trainer's run() on its device loop, twice (the
+    loop made once and kept), then with the seam `_x_update` set to the
+    host-driven `_host_x_update` (step()'s solve); and one iteration from
+    random z and u (seeded by this rank's shard and block row) through
+    step() and through the loop."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.parallel.mesh import make_mesh_2d
+    from mlease_tpu_torch.train.feature_sharded import \
+        FeatureShardedAdmmTrainer
+    _b, vocab, data = _packed(p)
+    tr = FeatureShardedAdmmTrainer(data, vocab, _admm_config(p["config"]),
+                                   test_rows=p.get("test_rows"),
+                                   mesh=make_mesh_2d(*p["grid"], "cpu"))
+    out = {"loop": _result(tr.run()), "loop_again": _result(tr.run()),
+           "loops_made": len(tr._loops),
+           "branches": tr._loops["x"].loop.counts()["branch_executions"]}
+    tr._x_update = tr._host_x_update
+    out["host"] = _result(tr.run())
+    del tr._x_update
+
+    cfg, dt = tr.config, tr.config.dtype
+    b = int(tr.mesh.get_coordinate()[0])
+    L, nl, B = len(tr.lambdas), tr.fs.n_local, tr.present.shape[0]
+    rng = np.random.default_rng(100 * tr._shard + 7)
+    z = torch.as_tensor(rng.normal(size=(L, nl)) * 0.1, dtype=dt)
+    rng = np.random.default_rng(100 * tr._shard + b)
+    u = torch.as_tensor(rng.normal(size=(L, B, nl)) * 0.1, dtype=dt)
+    rho = torch.as_tensor(tr.rhos, dtype=dt)
+    eps = cfg.liblinear_epsilon * tr.eps_scale
+    z_s, u_s, d_s, t_s = tr.step(z, u, rho, rho, eps)
+    x, trips = tr._x_update(z, u, rho, eps)
+    z_l, u_l, d_l = tr._consensus(x, z, u, rho)
+
+    def host(t):
+        return t.to(torch.float64).numpy()
+    out["one_step"] = {
+        "step": [host(z_s), host(u_s), host(d_s), t_s],
+        "loop": [host(z_l), host(u_l), host(d_l),
+                 tr._trip_max(trips).numpy()]}
+    return out
+
+
+def case_fs_gloo_cuda(p):
+    """On the card: run() of a feature-sharded trainer whose feat group is
+    gloo over this many ranks raises ValueError before any loop is made;
+    run() with the seam on the host-driven solve runs."""
+    import numpy as np
+    from mlease_tpu_torch.parallel.mesh import make_mesh_2d
+    from mlease_tpu_torch.train.feature_sharded import \
+        FeatureShardedAdmmTrainer
+    _b, vocab, data = _packed(p)
+    tr = FeatureShardedAdmmTrainer(data, vocab, _admm_config(p["config"]),
+                                   mesh=make_mesh_2d(*p["grid"], "cuda"))
+    out = {"error": None}
+    try:
+        tr.run()
+    except ValueError as e:
+        out["error"] = str(e)
+    out["loops_made"] = len(tr._loops)
+    tr._x_update = tr._host_x_update
+    res = tr.run()
+    out.update(z_finite=bool(np.isfinite(res.z).all()),
+               iterations=res.iterations)
+    return out
+
+
 def case_fs_api(p):
     """The feature-sharded trainer's sample_loglik on this rank's z shard
     alone and with the gathered z_host; xv, fun and hv with group= on this
@@ -313,6 +384,7 @@ def case_pipeline(p):
 
 CASES = {"admm": case_admm, "multiproc": case_multiproc,
          "streaming": case_streaming, "fs": case_fs,
+         "fs_loop": case_fs_loop, "fs_gloo_cuda": case_fs_gloo_cuda,
          "fs_api": case_fs_api, "naive": case_naive,
          "item": case_item, "pipeline": case_pipeline}
 
@@ -324,11 +396,12 @@ def main(argv):
     import torch
     torch.set_num_threads(1)
     from mlease_tpu_torch.parallel import distributed
-    distributed.initialize("cpu", init_method=f"file://{init}",
-                           world_size=world, rank=rank)
     with open(spec, "rb") as f:
-        cases = pickle.load(f)["cases"]
-    for name, kind, params in cases:
+        spec = pickle.load(f)
+    distributed.initialize(spec.get("device", "cpu"), backend="gloo",
+                           init_method=f"file://{init}", world_size=world,
+                           rank=rank)
+    for name, kind, params in spec["cases"]:
         res = CASES[kind](params)
         with open(os.path.join(out, f"{name}.{rank}.pkl"), "wb") as f:
             pickle.dump(res, f)
