@@ -5,7 +5,7 @@
                           [--out FILE.json]
                           [--gram-only | --segsum-only | --streaming-only
                            | --modes-only | --mesh-only | --fused-only
-                           | --bf16-only | --loops-only]
+                           | --bf16-only | --loops-only | --coverage-only]
 
 Phases, each of which fails the run when it fails:
 
@@ -374,6 +374,45 @@ Phases, each of which fails the run when it fails:
      captured), capture s, pool and kept bytes,
      s an iteration of each; every K1 call of one host-driven x-update
      held to its float64 plain sum.
+ 24. card-paths phase: the paths of the port that only the CPU tests had
+     run, on the card, run after phase 23, at most about 60 s, each case
+     one row with its bits, trips, s, host reads an iteration and K1's
+     runs (in the loops' graphs, at their set-up): (a) the streamed lanes
+     solve (multi_rhs=False) at bench.py's step (phase 14's lanes data,
+     4 blocks in 2 groups), 3 iterations a run: without a head (each
+     group ships its column order) streamed and streamed with consensus
+     on the host, with bench's head (512) every group resident and
+     streamed with consensus on the host (compact wire), and with the
+     tails unpadded (streaming.pad.tails = false) resident and streamed
+     (dense wire); each layout's runs the same bits, group 0's solve
+     equal to build_group_solver's in its slot, each head-less group's
+     problem unstacked with the shipped order equal to the in-memory
+     lanes problem's blocks bit for bit (at liblinear.epsilon 0.01 the
+     two runs' z apart by the distance stated, in float32 and float64,
+     beside which sums differ between the layouts: known trait 10; in
+     float64 at liblinear.epsilon 1e-8 within 1e-6 * max|z|, and the
+     padded and unpadded tails alike), and K1 on it against the float64
+     scatter (K1's bound); (b) the streamed lanes
+     solve at ctr-12m.job's widths without a head (phase 23 (c)'s
+     blocks) in 4 groups of 2, nothing resident: the loops' first
+     iteration bit for bit with the host-driven group solves, then 2
+     iterations on the kept loops (s, trips, wire bytes, each loop's
+     capture and pool); (c) phase 11 (c)'s groups with consensus on the
+     host (u pinned, shipped in the slots), --iters iterations bit for
+     bit with phase 11 (c)'s run; (d) resume: a run stopped after 2
+     iterations, its state kept as the pipeline's checkpoint keeps it,
+     resumed by a new trainer for 2 more, bit for bit with 4 uninterrupted
+     iterations, in memory (bench, flat Jacobi) and streamed ((a)'s
+     groups, multi-RHS and lanes), and phase 5's job through the CLI, 10
+     iterations then resume = true to 20 (two processes started in phase
+     5, one after the other): final-model/ within 1e-10 * max|w| of phase
+     5's (best-model/ is not compared: both packages checkpoint the
+     best-loglik sentinel, ROADMAP.md C); (e) rho adaptation
+     (rho.adapt.coefficient 0.1) in run() at bench, 4 iterations on its
+     loop, bit for bit with the host-driven x-update; (f) the same for
+     the solve keys no other phase runs on the card: pcg = false,
+     relaxation 1.6, penalize.intercept = true (PERF.md section 4 lists
+     every key that changes what runs on the card, and its phase).
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -392,7 +431,9 @@ trainers of its own, on data made as phase 11 makes it; 22's naive rows
 made as phase 13 makes them); --bf16-only
 builds them, sets up the two trainers, makes the float32 runs phase 18
 compares with (phase 5, phase 6, phase 8's first run, phase 11's (a) once)
-and runs phase 18 alone.
+and runs phase 18 alone; --coverage-only builds them, sets up the two
+trainers, runs phase 5's CLI run and phase 24's two, then phase 24 alone
+((c)'s reference made as phase 11 makes it).
 """
 
 from __future__ import annotations
@@ -458,23 +499,28 @@ BLOCKED_FIELDS = ("indices", "values", "y", "weight", "offset", "present",
                   "nrows")
 
 
-def synth_blocked_data(n_features, nblocks, rows_per_block, nnz, seed):
+def synth_blocked_data(n_features, nblocks, rows_per_block, nnz, seed,
+                       blocks=None):
     """Power-law CTR-like blocks, the distribution of the JAX package's
     bench.py (zipf 1.3 column draw, intercept appended to every row); each
     block drawn from its own stream of `seed` (numpy's SeedSequence.spawn),
     the blocks on threads. Made once for each set of arguments: a later
-    call gets copies of the same arrays."""
+    call gets copies of the same arrays. `blocks=(b0, b1)` draws only
+    those blocks of the nblocks, the same arrays as theirs in the whole
+    set, and keeps nothing (tools/torch_scale_layout.py makes its data
+    group by group)."""
     import numpy as np
     from concurrent.futures import ThreadPoolExecutor
     from mlease_tpu_torch.core.dataset import BlockedData
 
     key = (n_features, nblocks, rows_per_block, nnz, seed)
-    if key not in SYNTH:
+    if key not in SYNTH or blocks is not None:
         n = n_features + 1
         icpt = n_features
-        B, R = nblocks, rows_per_block
-        seqs = np.random.SeedSequence(seed).spawn(B + 1)
-        w_true = (np.random.default_rng(seqs[B]).normal(size=n)
+        b0, b1 = blocks or (0, nblocks)
+        B, R = b1 - b0, rows_per_block
+        seqs = np.random.SeedSequence(seed).spawn(nblocks + 1)
+        w_true = (np.random.default_rng(seqs[nblocks]).normal(size=n)
                   * 0.3).astype(np.float32)
         w_true[icpt] = -1.5
         indices = np.empty((B, R, nnz + 1), np.int32)
@@ -483,7 +529,7 @@ def synth_blocked_data(n_features, nblocks, rows_per_block, nnz, seed):
         present = np.zeros((B, n), dtype=bool)
 
         def block(b):
-            rng = np.random.default_rng(seqs[b])
+            rng = np.random.default_rng(seqs[b0 + b])
             raw = rng.zipf(1.3, size=(R, nnz))
             raw -= 1
             raw %= n_features
@@ -499,11 +545,14 @@ def synth_blocked_data(n_features, nblocks, rows_per_block, nnz, seed):
 
         with ThreadPoolExecutor(min(B, os.cpu_count() or 1)) as ex:
             list(ex.map(block, range(B)))
-        SYNTH[key] = BlockedData(
+        made = BlockedData(
             indices=indices, values=values, y=y,
             weight=np.ones((B, R), np.float32),
             offset=np.zeros((B, R), np.float32), present=present,
             nrows=np.full(B, R, np.int32), nblocks=B, dim=n)
+        if blocks is not None:
+            return made
+        SYNTH[key] = made
     d = SYNTH[key]
     return d._replace(**{f: getattr(d, f).copy() for f in BLOCKED_FIELDS})
 
@@ -1218,6 +1267,8 @@ CLI_ROWS: dict = {}         # phase 5's row (its output layout), phase 18 (f)'s
 # the float32 runs phase 18 compares its bfloat16 runs with, kept by phases
 # 6, 8 and 11 (or made by --bf16-only)
 F32_BASE: dict = {}
+# phase 11 (c)'s groups and its run, phase 24 (c)'s reference
+COVERAGE: dict = {}
 
 
 AHEAD: dict = {}            # work started before its phase: key -> Future
@@ -1266,14 +1317,38 @@ CLI_RUNS = [((), None, "eager"),
             (("--mesh", "1", "--device", "cuda"), None, "mesh")]
 
 
-def cli_runs_phase():
-    """Phase 5: every run of CLI_RUNS started together; phase 5's own row
-    once they have all ended (the later phases take theirs)."""
-    keys = [_cli_key(*r) for r in CLI_RUNS]
-    for key, r in zip(keys, CLI_RUNS):
+def cli_runs_phase(runs=CLI_RUNS):
+    """Phase 5: every run of `runs` (CLI_RUNS; under --coverage-only
+    phase 5's own) started together, and beside them phase 24 (d)'s two
+    runs, one after the other; phase 5's own row once they have all ended
+    (the later phases take theirs)."""
+    keys = [_cli_key(*r) for r in runs]
+    for key, r in zip(keys, runs):
         ahead(key, _cli_run, *r)
-    wait_ahead(keys)
+    ahead("cli_resume", cli_resume_runs)
+    wait_ahead(keys + ["cli_resume"])
     return cli_phase()
+
+
+def cli_resume_runs():
+    """Phase 24 (d)'s CLI runs, one after the other on one output: phase
+    5's job with num.iters = 10 (the host loop checkpoints every
+    iteration, keeping the last two), then with resume = true and
+    num.iters = 20. Returns their summaries and walls, the checkpoints
+    the first left and the final models of the second."""
+    from mlease_tpu_torch.core.linear_model import read_model_file
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-resume-") as tmp:
+        out = os.path.join(tmp, "out")
+        first, wall1 = _train_cli(_bc_job(tmp, "first.job", out,
+                                          {"num.iters": "10"}))
+        checkpoints = sorted(os.listdir(os.path.join(out, "checkpoint")))
+        second, wall2 = _train_cli(_bc_job(tmp, "resumed.job", out, {
+            "num.iters": "20", "resume": "true",
+            "force.output.overwrite": "false"}))
+        models = {k: (m.intercept, dict(m.coefficients)) for k, m in
+                  read_model_file(os.path.join(out, "final-model")).items()}
+    return {"first": first, "resumed": second, "wall_s": [wall1, wall2],
+            "checkpoints_after_first": checkpoints, "models": models}
 
 
 def cli_phase(extra_args=(), extra_props=None, tag="eager"):
@@ -1283,6 +1358,40 @@ def cli_phase(extra_args=(), extra_props=None, tag="eager"):
                  extra_args, extra_props, tag)
 
 
+def _bc_job(tmp, name, out, extra_props=None):
+    """A copy of breast-cancer.job as phase 5 runs it (float64, head.size
+    16, its data in this checkout, its output in `out`), with
+    `extra_props`, written to tmp/name."""
+    from mlease_tpu_torch.utils.config import JobConfig
+    data = os.path.join(REPO, "examples", "data", "breast-cancer")
+    props = dict(JobConfig.from_file(data + ".job"))
+    props.update({"input.paths": os.path.join(data, "train"),
+                  "test.path": os.path.join(data, "test"),
+                  "output.base.path": out, "head.size": "16",
+                  "dtype": "float64", **(extra_props or {})})
+    job = os.path.join(tmp, name)
+    with open(job, "w") as f:
+        f.writelines(f"{k}={v}\n" for k, v in props.items())
+    return job
+
+
+def _train_cli(job, extra_args=()):
+    """`python -m mlease_tpu_torch train job`: its summary (the last line
+    of its output) and its wall seconds; a failed run raises."""
+    env = dict(os.environ, PYTHONPATH=REPO, MLEASE_LOG="WARNING")
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "mlease_tpu_torch", "train", job,
+         *extra_args],
+        capture_output=True, text=True, env=env, cwd=REPO,
+        timeout=CLI_TIMEOUT_S)
+    wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI train failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1]), wall
+
+
 def _cli_run(extra_args=(), extra_props=None, tag="eager"):
     """Phase 5 (and phase 17 (c) with extra job keys): the train CLI on
     breast-cancer.job in float64; the final models are kept under `tag`,
@@ -1290,31 +1399,11 @@ def _cli_run(extra_args=(), extra_props=None, tag="eager"):
     import numpy as np
     from mlease_tpu_torch.core.linear_model import read_model_file
     from mlease_tpu_torch.io import avro
-    from mlease_tpu_torch.utils.config import JobConfig
 
-    data = os.path.join(REPO, "examples", "data", "breast-cancer")
     with tempfile.TemporaryDirectory(prefix="chip-smoke-cli-") as tmp:
-        props = dict(JobConfig.from_file(data + ".job"))
         out = os.path.join(tmp, "out")
-        props.update({"input.paths": os.path.join(data, "train"),
-                      "test.path": os.path.join(data, "test"),
-                      "output.base.path": out, "head.size": "16",
-                      "dtype": "float64", **(extra_props or {})})
-        job = os.path.join(tmp, "breast-cancer.job")
-        with open(job, "w") as f:
-            f.writelines(f"{k}={v}\n" for k, v in props.items())
-        env = dict(os.environ, PYTHONPATH=REPO, MLEASE_LOG="WARNING")
-        t0 = time.monotonic()
-        proc = subprocess.run(
-            [sys.executable, "-m", "mlease_tpu_torch", "train", job,
-             *extra_args],
-            capture_output=True, text=True, env=env, cwd=REPO,
-            timeout=CLI_TIMEOUT_S)
-        wall = time.monotonic() - t0
-        if proc.returncode != 0:
-            raise AssertionError(f"CLI train failed ({proc.returncode}):\n"
-                                 f"{proc.stderr[-3000:]}")
-        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        summary, wall = _train_cli(_bc_job(tmp, "breast-cancer.job", out,
+                                           extra_props), extra_args)
         for rel in ("final-model/part-r-00000.avro",
                     "lambda-rho/part-r-00000.avro", "model-vocab.json",
                     "test/lambda-1.0/_loglik/part-r-00000.avro",
@@ -1353,7 +1442,8 @@ def _cli_run(extra_args=(), extra_props=None, tag="eager"):
     row = {"args": list(extra_args), "props": extra_props or {},
            "checkpoints": checkpoints, "checkpoint_arrays": ckpt_dtypes,
            "files": files, "sample_loglik_files": ll_files,
-           "iterations": summary["iterations"], "wall_s": wall,
+           "iterations": summary["iterations"],
+           "best_loglik": summary["best_loglik"], "wall_s": wall,
            "solver_wall_s": summary["wall_time_s"],
            "sample_logliks": len(lls), "test_logliks": test_ll,
            "kernel_launches": launches}
@@ -1699,6 +1789,14 @@ def streaming_phase(args, in_memory_iter_s=None):
             raise AssertionError(f"streaming {name}: {row}")
         check_floor(row["pass_floor"], f"streaming {name}")
 
+    # phase 24 (c)'s reference: (c)'s run, on these groups
+    COVERAGE["stream_c"] = {
+        "groups": groups, "z": results["c_streamed_compact"].z,
+        "u": results["c_streamed_compact"].u,
+        "solver_stats": rows["c_streamed_compact"]["solver_stats"],
+        "steady_iter_s": rows["c_streamed_compact"]["steady_iter_s"],
+        "wire_bytes_per_iter": rows["c_streamed_compact"][
+            "wire_bytes_per_iter"]}
     F32_BASE["stream"] = {
         "groups": groups, "setup_s": setup_s,
         "steady_iter_s": rows["a_job_budget"]["steady_iter_s"],
@@ -4052,11 +4150,12 @@ def timed_prepare():
     free blocks were given back: the allocator's reserved bytes (which
     hold the graph pools) and the card's used bytes from cudaMemGetInfo
     (which also see the graphs themselves). Yields {"s", "loops",
-    "pool_reserved_bytes", "card_used_bytes"}."""
+    "pool_reserved_bytes", "card_used_bytes", "each"}, "each" the seconds
+    and reserved bytes of each loop in turn."""
     import torch
     from mlease_tpu_torch.ops.device_loop import DeviceLoop
     box = {"s": 0.0, "loops": 0, "pool_reserved_bytes": 0,
-           "card_used_bytes": 0}
+           "card_used_bytes": 0, "each": []}
     prepare = DeviceLoop.prepare
 
     def held():
@@ -4072,11 +4171,13 @@ def timed_prepare():
         t0 = time.monotonic()
         prepare(self)
         torch.cuda.synchronize()
-        box["s"] += time.monotonic() - t0
+        s = time.monotonic() - t0
+        box["s"] += s
         r1, u1 = held()
         box["loops"] += 1
         box["pool_reserved_bytes"] += r1 - r0
         box["card_used_bytes"] += u1 - u0
+        box["each"].append({"s": s, "pool_reserved_bytes": r1 - r0})
     with mock.patch.object(DeviceLoop, "prepare", timed):
         yield box
 
@@ -4113,15 +4214,16 @@ def _syncs_by_iteration(run):
                  "after_last_at": where(bounds[-2], len(seen))}
 
 
-def run_with(tr, iters, callback=None, **seams):
-    """tr.run(callback=callback) for `iters` iterations, with the
-    trainer's methods named in `seams` replaced for the call."""
+def run_with(tr, iters, callback=None, run_kw=None, **seams):
+    """tr.run(callback=callback, **run_kw) with the config's num_iters =
+    `iters`, the trainer's methods named in `seams` replaced for the
+    call."""
     kept = tr.config
     tr.config = dataclasses.replace(kept, num_iters=iters)
     for k, fn in seams.items():
         setattr(tr, k, fn)
     try:
-        return tr.run(callback=callback)
+        return tr.run(callback=callback, **(run_kw or {}))
     finally:
         for k in seams:
             delattr(tr, k)
@@ -4903,7 +5005,13 @@ def naive_loop_cell(name, keyed, vocab, cfg, ranges):
             loop_s=cl["s"], host_s=ch["s"], capture_s=ls.capture_s,
             k1_calls_checked=kc, k1_plain_launched=kp["kernel_launched"],
             x_k1_vs_plain_max_abs=float((ls.w - plain.w).abs().max()),
-            plain_trips=plain.trips.tolist(), x_max_abs=scale)
+            plain_trips=plain.trips.tolist(), x_max_abs=scale,
+            # the lanes' distance: the float32 lanes TRON at
+            # liblinear.epsilon 0.01 moves with the order of its sums, as
+            # the JAX package's does (tests/test_torch_f32_order.py)
+            x_k1_vs_plain_is=("known trait 10 (ROADMAP.md C)"
+                              if mode == "lanes"
+                              else "held to NAIVE_K1_PLAIN_BOUND"))
         plain.loop.close()
         return ls
 
@@ -5278,6 +5386,649 @@ def headless_phase(args):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the card paths, run on the card where only the CPU tests had
+# run them: the streamed lanes solve, consensus on the host, a resumed run
+# and a moving rho on the device loops
+# ---------------------------------------------------------------------------
+
+COVERAGE_ITERS = 3          # (a)'s iterations a run
+FULL_LANES_ITERS = 2        # (b)'s
+RESUME_AT = 2               # (d): a run stopped after 2 of 4 iterations
+RHO_ITERS = 4               # (e)'s
+RHO_ADAPT = 0.1             # (e)'s rho.adapt.coefficient
+TIGHT_EPS = 1e-8            # (a): liblinear.epsilon where two layouts'
+                            # float64 runs are held to one another
+
+
+def _card_run(tr, iters, seams=None, **run_kw):
+    """tr.run(**run_kw) through run_with (`iters` iterations, the
+    trainer's methods in `seams` replaced), counted: (result, row), the
+    row its iterations, trips, s an iteration, the host reads of each
+    iteration but the first and the last (_syncs_by_iteration; not
+    counted for a run with a callback of its own, which reads z and u),
+    K1's runs (kernel_runs: all of them, those inside the loops' graphs
+    counted on the card, and those of the loops' set-up), the run's
+    seconds and its peak device bytes."""
+    seams = seams or {}
+    callback = run_kw.pop("callback", None)
+    if callback is not None:
+        res, c = _counted(lambda: run_with(tr, iters, callback, run_kw,
+                                           **seams))
+        reads = None
+    else:
+        (res, syncs), c = _counted(lambda: _syncs_by_iteration(
+            lambda cb: run_with(tr, iters, cb, run_kw, **seams)))
+        reads = syncs["per_iteration"]
+    return res, {"iterations": res.iterations,
+                 "solver_stats": res.solver_stats, "iter_s": res.iter_times,
+                 "steady_iter_s": steady_s(res.iter_times),
+                 "reads_per_iteration": reads, "k1": c["k1"],
+                 "k1_in_graphs": c["card"]["k1"],
+                 "k1_setup": c["setup"]["k1"], "s": c["s"],
+                 "peak_bytes": c["peak_bytes"]}
+
+
+def _one_read(row, what):
+    """A run on the device loops reads the host once an iteration."""
+    reads = row["reads_per_iteration"]
+    return [] if reads is not None and all(r == 1 for r in reads) else [
+        f"{what}: host reads an iteration {reads}"]
+
+
+def _checkpoint_into(kept):
+    """A run's callback that keeps the run's state as the train pipeline's
+    checkpoint keeps it (train/pipeline.py: z, u, inner_eps, the smallest
+    diff, the best-loglik sentinel), as run()'s resume arguments
+    (convert.state_from_numpy)."""
+    import numpy as np
+    from mlease_tpu_torch.convert import state_from_numpy
+
+    def callback(iteration, z, u, diffs, inner_eps, logliks=None):
+        kept.clear()
+        kept.update(state_from_numpy(
+            z.cpu().numpy(), u.cpu().numpy(), iteration=iteration,
+            inner_eps=inner_eps, mindiff=float(np.min(diffs)),
+            best_loglik=-9999999.0))
+    return callback
+
+
+def _same_blocks(whole, parts):
+    """Whether `parts`, concatenated on the block axis, are `whole` bit
+    for bit (None where all are None)."""
+    import torch
+    if whole is None or any(p is None for p in parts):
+        return whole is None and all(p is None for p in parts)
+    return bool(torch.equal(whole, torch.cat(parts)))
+
+
+def _distance(a, b, tag):
+    """{tag}_max_abs_diff, the largest |a.z - b.z|, and {tag}_max_abs,
+    b's largest |z|."""
+    import numpy as np
+    return {f"{tag}_max_abs_diff": float(np.abs(a.z - b.z).max()),
+            f"{tag}_max_abs": float(np.abs(b.z).max())}
+
+
+def layout_sums(whole, parts, gen):
+    """Which sums of the lanes solve move with the layout on the card.
+    `whole` a lanes _SolveLoop, `parts` [(loop, b0)]: each loop's blocks
+    are whole's from b0 on (the same bits in another layout: the groups
+    of 2 and the 4 blocks in memory, or each group with its tails padded
+    and unpadded). On the same random inputs: X'v, Xv and the Jacobi
+    diagonal (objective.xtv, xv and hessian_diagonal: K1 over the
+    column-sorted copy and the tails, the head's GEMM) and a lane dot
+    product as ops/tron.py forms its norms
+    ((a * a).sum(-1) over (L, B, n)), each compared on the part's
+    blocks: {sum: {"bits_equal", "max_rel_diff"}} over all parts."""
+    import torch
+    from mlease_tpu_torch.ops import objective
+
+    pw = whole.parts[0].solver.prob
+    L = whole.parts[0].L
+    (B, R), n = pw.y.shape, pw.dim
+    dt = pw.prior_mean.dtype
+    d = torch.randn((L, B, R), generator=gen, device="cuda", dtype=dt)
+    v = torch.randn((L, B, n), generator=gen, device="cuda", dtype=dt)
+    got = {"xtv": [], "xv": [], "hessian_diagonal": [], "dot": []}
+    for loop, b0 in parts:
+        pp = loop.parts[0].solver.prob
+        b1 = b0 + pp.y.shape[0]
+        Bp = b1 - b0
+        got["xtv"].append((
+            objective.xtv(pw, d.reshape(L * B, R)).view(L, B, n)[:, b0:b1],
+            objective.xtv(pp, d[:, b0:b1].reshape(L * Bp, R)).view(
+                L, Bp, n)))
+        got["xv"].append((
+            objective.xv(pw, v.reshape(L * B, n)).view(L, B, R)[:, b0:b1],
+            objective.xv(pp, v[:, b0:b1].reshape(L * Bp, n)).view(
+                L, Bp, R)))
+        got["hessian_diagonal"].append((
+            objective.hessian_diagonal(pw, v.reshape(L * B, n)).view(
+                L, B, n)[:, b0:b1],
+            objective.hessian_diagonal(
+                pp, v[:, b0:b1].reshape(L * Bp, n)).view(L, Bp, n)))
+        got["dot"].append(((v * v).sum(-1)[:, b0:b1],
+                           (v[:, b0:b1] * v[:, b0:b1]).sum(-1)))
+    torch.cuda.synchronize()
+    return {k: {"bits_equal": all(bool(torch.equal(x, y)) for x, y in xy),
+                "max_rel_diff": max(float(((x - y).abs() / y.abs(
+                    ).clamp_min(1e-300)).max()) for x, y in xy)}
+            for k, xy in got.items()}
+
+
+def coverage_lanes_bench(args, gen):
+    """(a): the streamed lanes solve at bench.py's step (4 blocks, phase
+    14's lanes data) in 2 groups of 2, COVERAGE_ITERS iterations a run.
+    Without a head (each group ships its column order; no residency tier
+    exists without a head, in either package): streamed, and streamed
+    with consensus on the host; with bench's head (512): every group
+    resident and streamed with consensus on the host (the compact wire),
+    and with the tails left at their widths (streaming.pad.tails =
+    false) every group resident and streamed (the dense wire). Each
+    layout's tiers the same bits; group 0's solve through its loop (a run
+    of one iteration more) equal to build_group_solver's on the same
+    inputs in its slot; each head-less group's problem, unstacked from
+    its slot with the shipped order, equal to the in-memory lanes
+    problem's blocks field by field (the ELL and its column-sorted copy,
+    y, weight, offset), bit for bit; the two runs' z after one iteration
+    and after COVERAGE_ITERS stated in float32 and float64 at the job's
+    liblinear.epsilon 0.01 beside their trips and the sums that differ
+    between the layouts (layout_sums; ROADMAP.md C, known trait 10), and
+    in float64 at liblinear.epsilon TIGHT_EPS held within 1e-6 * max|z|;
+    the head 512 layout's padded and unpadded tails alike in float64
+    (stated at 0.01, held within 1e-6 * max|z| at TIGHT_EPS); K1 on each
+    streamed group's problem against the float64 scatter
+    (lanes_sorted_sum_check, K1's bound)."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.core.dataset import split_blocks, to_hybrid
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+
+    bdata = synth_blocked_data(50_000, 4, 16_384, 15, args.seed)
+    vocab = make_vocab(50_000)
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=COVERAGE_ITERS,
+                     pcg=True, multi_rhs=False, dtype=torch.float32)
+    groups = split_blocks(bdata, 2)
+    streamed = dict(resident_head=False)
+    host_u = dict(resident_head=False, consensus_device=False)
+    layouts = {
+        "head-less": (groups, cfg, {"streamed": streamed,
+                                    "streamed host u": host_u}),
+        # the dense wire with unpadded tails in one streamed tier, the
+        # compact wire with the tails padded to one width ("auto") in the
+        # other (streaming.wire, streaming.pad.tails)
+        # the unpadded tails are another layout of the same sums, which
+        # the card associates otherwise (layout_sums), with bits of
+        # their own: its streamed tier is held to a resident run of it,
+        # the two layouts to each other below
+        "head 512": ([to_hybrid(g, 512) for g in groups],
+                     dataclasses.replace(cfg, head_size=512),
+                     {"resident": dict(resident_head=True),
+                      "streamed host u": host_u,
+                      "resident, tails unpadded": dict(resident_head=True,
+                                                       pad_tails=False),
+                      "streamed": dict(streamed, compact_wire=False,
+                                       pad_tails=False)})}
+    out, bad, runs, k1 = {}, [], {}, 0
+    for layout, (lgroups, lcfg, tiers) in layouts.items():
+        for tier, kw in tiers.items():
+            name = f"{layout} {tier}"
+            t0 = time.monotonic()
+            tr = StreamingAdmmTrainer(lgroups, vocab, lcfg, **kw)
+            torch.cuda.synchronize()
+            build_s = time.monotonic() - t0
+            with timed_prepare() as cap:
+                res, row = _card_run(tr, COVERAGE_ITERS)
+            k1 += row["k1"]
+            seen = {}
+            one = run_with(tr, 1, _solve_group=group0_check(tr, seen))
+            row.update(
+                build_s=build_s, residency=tr.residency_report(),
+                slots={str(g): s for g, s in tr._slot_of.items()},
+                tail_widths=[None if g.tail_vals is None
+                             else int(g.tail_vals.shape[1])
+                             for g in tr.groups],
+                tails_padded_from=tr._tail_orig_T,
+                column_order_bytes=sum(
+                    p.numel() * p.element_size() for p in tr.csc_perms
+                    if p is not None),
+                capture_s=cap["s"], loops=cap["loops"],
+                pool_reserved_bytes=cap["pool_reserved_bytes"],
+                group0=seen)
+            if layout == "head-less" and tier == "streamed":
+                # each group's problem as its loop reads it, unstacked
+                # from its slot with the shipped order
+                unstacked = [lp.parts[0].prob for _g, lp in
+                             sorted(tr._loops.items())]
+                row["k1_on_shipped_order"] = [
+                    r for gi, lp in sorted(tr._loops.items())
+                    for r in lanes_sorted_sum_check(
+                        f"coverage (a) group {gi}", lp.parts[0].prob,
+                        tr.dim, gen, tag="coverage")]
+                if not (row["k1_on_shipped_order"] and all(
+                        r["ok"] for r in row["k1_on_shipped_order"])):
+                    bad.append(f"(a) {name}: K1 on the shipped order")
+            print(f"coverage (a) {name} " + json.dumps(row), flush=True)
+            out[name] = row
+            runs[name] = res, one
+            bad += _one_read(row, f"(a) {name}")
+            if not (seen.get("x") and seen["trips"] == seen["host_trips"]):
+                bad.append(f"(a) {name}: group 0's solve differs: {seen}")
+            if row["k1_in_graphs"] <= 0:
+                bad.append(f"(a) {name}: K1 not run in the loops' graphs")
+            del tr
+            torch.cuda.empty_cache()
+    # the same blocks in memory: each group's problem is the in-memory
+    # lanes problem's blocks, bit for bit, and so are its X'v, Xv and
+    # Jacobi diagonal, but the solver's dot products and norms (torch's
+    # reductions over 6 lanes or 12) associate otherwise (layout_sums),
+    # and at the job's liblinear.epsilon 0.01 the solver's stop tests
+    # carry a last-bit difference to its tolerance, as a permutation of
+    # the rows does in the JAX package's own float64 solve on the CPU
+    # (tests/test_torch_f64_order.py, ROADMAP.md C, known trait 10): the
+    # runs' z after one iteration and after COVERAGE_ITERS are stated in
+    # float32 and float64. At liblinear.epsilon TIGHT_EPS in float64 the
+    # two solve to one point: z held within 1e-6 * max|z|, trips stated
+    fields = ("indices", "values", "y", "weight", "offset", "csc_cols",
+              "csc_rows", "csc_vals")
+    f64 = dataclasses.replace(cfg, dtype=torch.float64)
+    tight = dataclasses.replace(f64, liblinear_epsilon=TIGHT_EPS)
+    for dt in (torch.float32, torch.float64):
+        dcfg = dataclasses.replace(cfg, dtype=dt)
+        if dt == torch.float32:
+            res, one = runs["head-less streamed"]
+        else:
+            st = StreamingAdmmTrainer(groups, vocab, dcfg, **streamed)
+            one = run_with(st, 1)
+            res, srow = _card_run(st, COVERAGE_ITERS)
+            k1 += srow["k1"]
+        mem = AdmmTrainer(bdata, vocab, dcfg)
+        if dt == torch.float32:
+            out["unstacked_equal_in_memory"] = {
+                f: _same_blocks(getattr(mem.prob, f),
+                                [getattr(p, f) for p in unstacked])
+                for f in fields}
+            del unstacked
+        mone, _ = _card_run(mem, 1)
+        mres, mrow = _card_run(mem, COVERAGE_ITERS)
+        if dt == torch.float64:
+            mrow["layout_sums_streamed_vs_in_memory"] = layout_sums(
+                mem._loops["x"], [(st._loops[g], 2 * g) for g in (0, 1)],
+                gen)
+            del st
+        del mem
+        k1 += mrow["k1"]
+        mrow.update(_distance(one, mone, "z1"), **_distance(res, mres, "z"),
+                    # the streamed run's trips are sums over its lanes,
+                    # the in-memory run's the lock-step maxima
+                    streamed_solver_stats=res.solver_stats)
+        name = f"in memory lanes, head-less, {str(dt)[6:]}"
+        out[name] = mrow
+        print(f"coverage (a) {name} " + json.dumps(mrow), flush=True)
+    # the head 512 layout's tails padded to one width and left at their
+    # widths: in float64 at 0.01 (stated) and at TIGHT_EPS (held)
+    hgroups = layouts["head 512"][0]
+    for ecfg, held in ((f64, False), (tight, True)):
+        pair = []
+        for kw in (dict(resident_head=True),
+                   dict(resident_head=True, pad_tails=False)):
+            tr = StreamingAdmmTrainer(hgroups, vocab, dataclasses.replace(
+                ecfg, head_size=512), **kw)
+            pair.append((tr,) + _card_run(tr, COVERAGE_ITERS))
+            k1 += pair[-1][2]["k1"]
+        row = _distance(pair[0][1], pair[1][1], "z")
+        row.update(solver_stats=[r.solver_stats for _t, r, _w in pair],
+                   s=[w["s"] for _t, _r, w in pair],
+                   liblinear_epsilon=ecfg.liblinear_epsilon)
+        if not held:
+            row["layout_sums"] = {
+                str(g): layout_sums(pair[0][0]._loops[g],
+                                    [(pair[1][0]._loops[g], 0)], gen)
+                for g in (0, 1)}
+        del pair
+        name = ("padded vs unpadded tails, float64, eps "
+                f"{ecfg.liblinear_epsilon}")
+        out[name] = row
+        print(f"coverage (a) {name} " + json.dumps(row), flush=True)
+        if held and not row["z_max_abs_diff"] <= 1e-6 * row["z_max_abs"]:
+            bad.append(f"(a) {name}: not within 1e-6 * max|z|: {row}")
+    # the head-less streamed and in-memory runs at TIGHT_EPS (held)
+    pair = []
+    for make in (lambda: StreamingAdmmTrainer(groups, vocab, tight,
+                                              **streamed),
+                 lambda: AdmmTrainer(bdata, vocab, tight)):
+        pair.append(_card_run(make(), COVERAGE_ITERS))
+        k1 += pair[-1][1]["k1"]
+    row = _distance(pair[0][0], pair[1][0], "z")
+    row.update(solver_stats=[r.solver_stats for r, _w in pair],
+               s=[w["s"] for _r, w in pair], liblinear_epsilon=TIGHT_EPS)
+    name = f"streamed vs in memory, head-less, float64, eps {TIGHT_EPS}"
+    out[name] = row
+    print(f"coverage (a) {name} " + json.dumps(row), flush=True)
+    if not row["z_max_abs_diff"] <= 1e-6 * row["z_max_abs"]:
+        bad.append(f"(a) {name}: not within 1e-6 * max|z|: {row}")
+    same = {name: _same_run(runs[name][0], runs[ref][0]) for name, ref in (
+        ("head-less streamed host u", "head-less streamed"),
+        ("head 512 streamed host u", "head 512 resident"),
+        ("head 512 streamed", "head 512 resident, tails unpadded"))}
+    out["tiers_bit_for_bit"] = same
+    out["padded_vs_unpadded_z_max_abs_diff"] = float(np.abs(
+        runs["head 512 resident"][0].z
+        - runs["head 512 resident, tails unpadded"][0].z).max())
+    out["k1_runs"] = k1
+    if not all(same.values()):
+        bad.append(f"(a) the tiers differ: {same}")
+    if not all(out["unstacked_equal_in_memory"].values()):
+        bad.append(f"(a) the streamed groups' problems against the "
+                   f"in-memory one: {out['unstacked_equal_in_memory']}")
+    return out, bad
+
+
+def coverage_lanes_full(args, gen):
+    """(b): the streamed lanes solve at ctr-12m.job's widths without a
+    head (phase 23 (c)'s blocks, 8 x HEADLESS_ROWS rows) in 4 groups of
+    2, nothing resident: one iteration on the loops (each group's loop
+    made and captured) against the same trainer's host-driven group
+    solves (build_group_solver), bit for bit; then FULL_LANES_ITERS
+    iterations on the kept loops: s an iteration, trips, host reads, K1
+    in the graphs, wire bytes (the column order 4 bytes an ELL entry),
+    each loop's capture s and pool."""
+    import torch
+    from mlease_tpu_torch.core.dataset import split_blocks
+    from mlease_tpu_torch.train.admm import AdmmConfig
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=FULL_LANES_ITERS,
+                     pcg=True, multi_rhs=False, dtype=torch.float32)
+    t0 = time.monotonic()
+    ell = synth_blocked_data(1_000_000, 8, HEADLESS_ROWS, 12, args.seed)
+    entries = int(ell.indices.size)
+    tr = StreamingAdmmTrainer(split_blocks(ell, 4), make_vocab(1_000_000),
+                              cfg, resident_head=False)
+    del ell
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    with timed_prepare() as cap:
+        first, r1 = _card_run(tr, 1)
+    host, rh = _card_run(tr, 1, seams=dict(
+        _solve_group=host_group_solve(tr)))
+    again, row = _card_run(tr, FULL_LANES_ITERS)
+    row.update(
+        build_s=build_s, rows=8 * HEADLESS_ROWS, groups=len(tr.groups),
+        ell_entries=entries, residency=tr.residency_report(),
+        wire_bytes_per_iter=tr.stream_wire_bytes(),
+        column_order_bytes=sum(p.numel() * p.element_size()
+                               for p in tr.csc_perms if p is not None),
+        capture_s=cap["s"], capture_each=cap["each"],
+        pool_reserved_bytes=cap["pool_reserved_bytes"],
+        first_iteration_loop=r1, first_iteration_host=rh,
+        bit_for_bit_with_host_path=_same_run(first, host),
+        slots_bytes=sum(sl.nbytes() for sl in tr._slots),
+        solver_state_bytes=_state_bytes(tr._loops.values()))
+    del tr
+    torch.cuda.empty_cache()
+    print("coverage (b) " + json.dumps(row), flush=True)
+    row["k1_runs"] = r1["k1"] + row["k1"]
+    bad = _one_read(row, "(b)")
+    if not row["bit_for_bit_with_host_path"]:
+        bad.append("(b): the loops' first iteration differs from the host "
+                   "path's")
+    if row["k1_in_graphs"] <= 0 or r1["k1_in_graphs"] <= 0:
+        bad.append("(b): K1 not run in the loops' graphs")
+    return row, bad
+
+
+def _stream_c_reference(args):
+    """--coverage-only: phase 11's groups and its (c) run, made as phase 11
+    makes them."""
+    import torch
+    from mlease_tpu_torch.core.dataset import split_blocks, to_hybrid
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+
+    groups = split_blocks(synth_blocked_data(
+        1_000_000, 8, args.rows_per_block, 12, args.seed), STREAM_GROUPS)
+    for i, g in enumerate(groups):
+        groups[i] = to_hybrid(g, 128, column_sorted=True,
+                              head_dtype=torch.bfloat16)
+    tr = StreamingAdmmTrainer(groups, make_vocab(1_000_000),
+                              _stream_c_config(args), resident_head=False,
+                              compact_wire=True)
+    res = tr.run()
+    row = {"groups": groups, "z": res.z, "u": res.u,
+           "solver_stats": res.solver_stats,
+           "steady_iter_s": steady_s(res.iter_times),
+           "wire_bytes_per_iter": tr.stream_wire_bytes()}
+    del tr
+    torch.cuda.empty_cache()
+    return row
+
+
+def _stream_c_config(args):
+    import torch
+    from mlease_tpu_torch.train.admm import AdmmConfig
+    return AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=args.iters,
+                      head_size=128, head_dtype=torch.bfloat16, pcg=True,
+                      flat_blocks=True, dtype=torch.float32)
+
+
+def coverage_host_u(args):
+    """(c): consensus on the host at full width: phase 11's (c) groups
+    (nothing resident, the compact wire) with consensus_device=False, u
+    in page-locked memory shipped in each group's slot and x fetched
+    back: --iters iterations, bit for bit with phase 11 (c)'s run, equal
+    trips; s an iteration beside (c)'s, the u and x bytes on the wire."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+
+    base = COVERAGE.pop("stream_c", None) or _stream_c_reference(args)
+    t0 = time.monotonic()
+    tr = StreamingAdmmTrainer(base["groups"], make_vocab(1_000_000),
+                              _stream_c_config(args), resident_head=False,
+                              compact_wire=True, consensus_device=False)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    with timed_prepare() as cap:
+        res, row = _card_run(tr, args.iters)
+    u_bytes = len(tr.lambdas) * tr.nblocks * tr.dim * 4
+    row.update(
+        build_s=build_s, residency=tr.residency_report(),
+        wire_bytes_per_iter=tr.stream_wire_bytes(),
+        u_bytes_each_way_per_iter=u_bytes,
+        phase_11_c_wire_bytes_per_iter=base["wire_bytes_per_iter"],
+        phase_11_c_steady_iter_s=base["steady_iter_s"],
+        bit_for_bit_with_phase_11_c=bool(
+            np.array_equal(res.z, base["z"])
+            and np.array_equal(res.u, base["u"])),
+        trips_equal=res.solver_stats == base["solver_stats"],
+        capture_s=cap["s"], pool_reserved_bytes=cap["pool_reserved_bytes"])
+    del tr, base
+    torch.cuda.empty_cache()
+    print("coverage (c) " + json.dumps(row), flush=True)
+    row["k1_runs"] = row["k1"]
+    bad = _one_read(row, "(c)")
+    if not (row["bit_for_bit_with_phase_11_c"] and row["trips_equal"]):
+        bad.append("(c): host consensus differs from phase 11 (c)'s run")
+    if row["k1_in_graphs"] <= 0:
+        bad.append("(c): K1 not run in the loops' graphs")
+    return row, bad
+
+
+def coverage_resume(args):
+    """(d): a resumed run on the device loops: in memory (bench's step,
+    flat Jacobi, its head) and streamed (phase 14's lanes data in (a)'s 2
+    groups, nothing resident) in the multi-RHS and the lanes solve: a run
+    stopped after RESUME_AT iterations, its state kept by the callback as
+    the pipeline's checkpoint keeps it, then a new trainer resumed for
+    RESUME_AT more: z, u, diffs and trips bit for bit with the
+    uninterrupted run; then phase 5's job through the CLI, 10 iterations
+    and resume = true to 20 (cli_resume_runs, started in phase 5): the
+    final models within 1e-10 * max|w| of phase 5's 20 iterations."""
+    import numpy as np
+    import torch
+    from mlease_tpu_torch.core.dataset import split_blocks
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+
+    bdata = synth_blocked_data(50_000, 4, 16_384, 15, args.seed)
+    vocab = make_vocab(50_000)
+    base = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=2 * RESUME_AT,
+                      pcg=True, flat_blocks=True, dtype=torch.float32)
+
+    def streamed(cfg):
+        return StreamingAdmmTrainer(split_blocks(bdata, 2), vocab, cfg,
+                                    resident_head=False)
+    cells = {"in memory flat": (lambda cfg: AdmmTrainer(bdata, vocab, cfg),
+                                dataclasses.replace(base, head_size=512)),
+             "streamed multi_rhs": (streamed, base),
+             "streamed lanes": (streamed, dataclasses.replace(
+                 base, multi_rhs=False))}
+    out, bad, k1 = {}, [], 0
+    for name, (make, cfg) in cells.items():
+        whole, rw = _card_run(make(cfg), 2 * RESUME_AT)
+        kept = {}
+        first, r1 = _card_run(make(cfg), RESUME_AT,
+                              callback=_checkpoint_into(kept))
+        start = kept["start_iteration"]
+        resumed, rr = _card_run(make(cfg), 2 * RESUME_AT, **kept)
+        k1 += rw["k1"] + r1["k1"] + rr["k1"]
+        row = {"whole": rw, "first": r1, "resumed": rr,
+               "start_iteration": start,
+               "bit_for_bit": bool(
+                   np.array_equal(resumed.z, whole.z)
+                   and np.array_equal(resumed.u, whole.u)
+                   and first.diff_history + resumed.diff_history
+                   == whole.diff_history
+                   and first.solver_stats + resumed.solver_stats
+                   == whole.solver_stats)}
+        print(f"coverage (d) {name} " + json.dumps(row), flush=True)
+        out[name] = row
+        if not (row["bit_for_bit"] and start == RESUME_AT + 1
+                and resumed.iterations == 2 * RESUME_AT):
+            bad.append(f"(d) {name}: the resumed run differs from the "
+                       f"uninterrupted one")
+        bad += _one_read(rr, f"(d) {name} resumed")
+        if rr["k1_in_graphs"] <= 0:
+            bad.append(f"(d) {name}: K1 not run in the loops' graphs")
+        torch.cuda.empty_cache()
+
+    if "eager" not in CLI_MODELS:
+        cli_phase()
+    cli = taken("cli_resume", cli_resume_runs)
+    ref, got = CLI_MODELS["eager"], cli.pop("models")
+    wmax = max([abs(ref[k][0]) for k in ref]
+               + [abs(v) for k in ref for v in ref[k][1].values()])
+    same_keys = sorted(got) == sorted(ref) and all(
+        sorted(got[k][1]) == sorted(ref[k][1]) for k in ref)
+    cli.update(max_abs_diff_vs_phase_5=_max_model_diff(ref, got)
+               if same_keys else None, w_max_abs=wmax,
+               phase_5_best_loglik=CLI_ROWS.get("eager", {}).get(
+                   "best_loglik"))
+    out["cli"] = cli
+    out["k1_runs"] = k1
+    print("coverage (d) cli " + json.dumps(cli), flush=True)
+    want_ckpt = [f"iter-{i:05d}.{e}" for i in (9, 10) for e in ("json",
+                                                                "npz")]
+    if not (same_keys and cli["max_abs_diff_vs_phase_5"] <= 1e-10 * wmax
+            and cli["first"]["iterations"] == 10
+            and cli["resumed"]["iterations"] == 20
+            and cli["checkpoints_after_first"] == want_ckpt):
+        bad.append(f"(d) the resumed CLI run: {cli}")
+    return out, bad
+
+
+def _loop_against_host(case, cfg, args):
+    """run() at bench's step (its head) with `cfg`, RHO_ITERS iterations
+    on its loop, bit for bit with run() whose x-update goes through
+    build_x_update's host-driven solve: z, u, diffs and trips, and K1 run
+    as often (the loop's set-up apart). Returns (row, failures)."""
+    import torch
+    from mlease_tpu_torch.train.admm import AdmmTrainer
+
+    tr = AdmmTrainer(synth_blocked_data(50_000, 4, 16_384, 15, args.seed),
+                     make_vocab(50_000), cfg)
+    loop, row = _card_run(tr, RHO_ITERS)
+    host, rh = _card_run(tr, RHO_ITERS, seams=dict(
+        _x_update=host_x_update(tr)))
+    del tr
+    torch.cuda.empty_cache()
+    row.update(host=rh, bit_for_bit_with_host_path=bool(
+        _same_run(loop, host) and loop.diff_history == host.diff_history))
+    row["k1_runs"] = row["k1"]
+    bad = _one_read(row, case)
+    if not row["bit_for_bit_with_host_path"]:
+        bad.append(f"{case}: the loop differs from the host path")
+    if row["k1_in_graphs"] <= 0 \
+            or row["k1"] - row["k1_setup"] != rh["k1"]:
+        bad.append(f"{case}: K1 {row['k1']} (set-up {row['k1_setup']}) "
+                   f"against the host path's {rh['k1']}")
+    return row, bad
+
+
+def coverage_rho(args):
+    """(e): rho adaptation (rho.adapt.coefficient RHO_ADAPT: rho_eff
+    moves every iteration, and reaches the loop through its inputs) in
+    run(), flat Jacobi (_loop_against_host)."""
+    import torch
+    from mlease_tpu_torch.ops import admm_math
+    from mlease_tpu_torch.train.admm import AdmmConfig
+
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=RHO_ITERS,
+                     head_size=512, pcg=True, flat_blocks=True,
+                     rho_adapt_coefficient=RHO_ADAPT, dtype=torch.float32)
+    row, bad = _loop_against_host("(e)", cfg, args)
+    row["rho_eff"] = [[admm_math.rho_effective(
+        r, i, rho_adapt_coefficient=RHO_ADAPT) for r in cfg.resolved_rhos()]
+        for i in range(1, RHO_ITERS + 1)]
+    print("coverage (e) " + json.dumps(row), flush=True)
+    return row, bad
+
+
+def coverage_solve_keys(args):
+    """(f): the solve keys no other phase runs on the card, in one run():
+    pcg = false (CG without the Jacobi preconditioner), relaxation 1.6
+    and penalize.intercept = true (_loop_against_host)."""
+    import torch
+    from mlease_tpu_torch.train.admm import AdmmConfig
+
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=RHO_ITERS,
+                     head_size=512, pcg=False, flat_blocks=True,
+                     relaxation=1.6, penalize_intercept=True,
+                     dtype=torch.float32)
+    row, bad = _loop_against_host("(f)", cfg, args)
+    print("coverage (f) " + json.dumps(row), flush=True)
+    return row, bad
+
+
+def coverage_phase(args):
+    """Phase 24: see the module docstring."""
+    import torch
+    t_phase = time.monotonic()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 24)
+    out, bad = {}, []
+    for key, fn, a in (("a", coverage_lanes_bench, (args, gen)),
+                       ("b", coverage_lanes_full, (args, gen)),
+                       ("c", coverage_host_u, (args,)),
+                       ("d", coverage_resume, (args,)),
+                       ("e", coverage_rho, (args,)),
+                       ("f", coverage_solve_keys, (args,))):
+        t0 = time.monotonic()
+        out[key], b = fn(*a)
+        out[f"{key}_s"] = time.monotonic() - t0
+        print(f"coverage ({key}) {out[f'{key}_s']:.1f} s", flush=True)
+        bad += b
+    out["k1_runs"] = sum(out[k]["k1_runs"] for k in "abcdef")
+    out["s"] = time.monotonic() - t_phase
+    print(f"coverage phase {out['s']:.1f} s, K1 runs {out['k1_runs']}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"coverage: {bad}")
+    return out
+
+
 def naive_rows(args):
     """--loops-only: phase 13's rows (write_scale_dataset, read and
     prepared as phase 13 does) and its in-process config."""
@@ -5331,6 +6082,10 @@ def main(argv=None) -> int:
     ap.add_argument("--loops-only", action="store_true",
                     help="build, set up the trainers, run the solve-loop "
                          "phases (21, 22, 23) alone and stop")
+    ap.add_argument("--coverage-only", action="store_true",
+                    help="build, set up the trainers, run phase 5's and "
+                         "phase 24's CLI runs, then the card-paths phase "
+                         "(24) alone and stop")
     ap.add_argument("--bf16-only", action="store_true",
                     help="build, set up the trainers, make the float32 "
                          "runs phase 18 compares with, run phase 18 (the "
@@ -5447,8 +6202,14 @@ def main(argv=None) -> int:
             if report["failed"] else 0
 
     if args.segsum_only or args.modes_only or args.mesh_only \
-            or args.fused_only or args.bf16_only or args.loops_only:
-        if trainers is not None and args.loops_only:
+            or args.fused_only or args.bf16_only or args.loops_only \
+            or args.coverage_only:
+        if trainers is not None and args.coverage_only:
+            del trainers
+            torch.cuda.empty_cache()
+            phase("cli", cli_runs_phase, CLI_RUNS[:1])
+            phase("coverage", coverage_phase, args)
+        elif trainers is not None and args.loops_only:
             phase("loops", loops_phase, trainers, args)
             del trainers
             torch.cuda.empty_cache()
@@ -5526,6 +6287,7 @@ def main(argv=None) -> int:
         phase("per_key_loops", per_key_loops_phase, args)
         NAIVE_BASE.clear()
         phase("headless", headless_phase, args)
+        coverage = phase("coverage", coverage_phase, args)
         phase("fit", fit_phase, args)
         phase("bf16_cli", bf16_cli_phase, args)
         phase("mesh", mesh_phase, args)
@@ -5549,6 +6311,8 @@ def main(argv=None) -> int:
         "launches": full["kernel_launches"],
         # phase 8's 10,000-item run: its bucket loops' runs of K1
         "item_launches": items["k1_runs"],
+        # phase 24's runs on the paths only the CPU tests had run
+        "coverage_launches": coverage["k1_runs"],
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["kernel_ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],

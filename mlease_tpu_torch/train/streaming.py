@@ -162,7 +162,15 @@ def _pad_group_tails(g: BlockedData, T_max: int) -> BlockedData:
     convention of core/dataset.to_hybrid: row R-1 / col n-1 keep the
     appended padding sorted in each stream, and appending means real
     entries keep their positions. Each added entry contributes +0.0 to the
-    last row/column slot: a float-exact no-op."""
+    last row/column slot: a float-exact no-op. On the card K1 sums each
+    sorted stream in fixed steps from its start, and the padding moves
+    where the steps fall: a padded group's X'v, Xv and Jacobi diagonal
+    differ from the unpadded layout's in their last bits, so a run's bits
+    follow its layout (streaming.pad.tails). At liblinear.epsilon 0.01 the
+    solver's stop tests carry that difference to the solver's tolerance,
+    as they carry a change in the order of the rows (ROADMAP.md C, known
+    trait 10); at 1e-8 the two layouts' z agree within 1e-6 * max|z|
+    (chip_smoke.py phase 24 (a))."""
     B, T = g.tail_rows.shape
     P = T_max - T
     if P <= 0:

@@ -1483,3 +1483,106 @@ def test_feature_sharded_run_on_a_gloo_group_of_two_raises(cuda, tmp_path):
         assert r["error"] is not None and "NCCL" in r["error"]
         assert r["loops_made"] == 0
         assert r["z_finite"] and r["iterations"] == 2
+
+
+# ---------------------------------------------------------------------------
+# the streamed lanes solve and consensus on the host, on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head", [64, 0], ids=["head", "head-less"])
+def test_a_streamed_lanes_group_refreshed_through_one_slot(cuda, monkeypatch,
+                                                           head):
+    """The lanes solve (multi_rhs=False) over three streamed groups in two
+    slots (groups 0 and 2 share slot 0): each group's problem is unstacked
+    anew after every copy into its slot and written into its loop's
+    tensors (train/streaming.py::_refresh), twice a group in 3
+    iterations. With a head, the run gives the bits of the run with every
+    group resident (no slot, no refresh). Without one (no residency tier
+    exists without a head), each group ships its column order and every
+    group solve equals build_group_solver's on the same inputs, bit for
+    bit with equal trips; K1 runs inside the loops' graphs."""
+    import mlease_tpu_torch.train.streaming as streaming
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.train.admm import AdmmConfig
+    from mlease_tpu_torch.train.streaming import (StreamingAdmmTrainer,
+                                                  build_group_solver)
+
+    groups = [blocked_data(51, B=2, R=1500), blocked_data(52, B=1, R=1500),
+              blocked_data(53, B=2, R=1500)]
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    cfg = AdmmConfig(lambdas=[1.0, 10.0], num_iters=3, head_size=head,
+                     multi_rhs=False, dtype=torch.float32, epsilon=0.0)
+    tr = StreamingAdmmTrainer(groups, vocab, cfg, resident_head=False,
+                              device=cuda)
+    assert tr.mode == "lanes" and tr._slot_of == {0: 0, 1: 1, 2: 0}
+    assert all((p is not None) == (head == 0) for p in tr.csc_perms)
+    refreshed = []
+    refresh = streaming._refresh
+
+    def counted(parts, probs):
+        refreshed.append(len(parts))
+        refresh(parts, probs)
+    monkeypatch.setattr(streaming, "_refresh", counted)
+    host = build_group_solver(cfg.max_newton_iter, cfg.max_cg_iter,
+                              mode="lanes", pcg=cfg.pcg)
+    solve, seen = tr._solve_group, []
+
+    def check(gi, prob, present, z, u, rho_eff, eps, perm):
+        x, trips = solve(gi, prob, present, z, u, rho_eff, eps, perm)
+        xh, nt, cg = host(prob, present, z, u, rho_eff, eps, perm)
+        seen.append(bool(torch.equal(x, xh)) and trips.tolist() == [nt, cg])
+        return x, trips
+    tr._solve_group = check
+    got = tr.run()
+    del tr._solve_group
+    assert got.iterations == 3 and len(refreshed) == 3 * 2
+    assert len(seen) == 9 and all(seen)
+    assert all(lp.loop.counts()["kernel_executions"][
+        "segment_sum_gather"] > 0 for lp in tr._loops.values())
+    if head:
+        want = StreamingAdmmTrainer(groups, vocab, cfg, resident_head=True,
+                                    device=cuda)
+        assert want._slot_of == {}
+        ref = want.run()
+        np.testing.assert_array_equal(got.z, ref.z)
+        np.testing.assert_array_equal(got.u, ref.u)
+        assert got.solver_stats == ref.solver_stats
+
+
+@pytest.mark.cuda
+def test_a_host_u_slot_is_not_overwritten_before_its_last_reader(cuda):
+    """Consensus on the host (u in page-locked memory, shipped in each
+    group's slot): three streamed groups in two slots, the compute stream
+    held back by a sleep kernel at the start of every group solve, so
+    that group 2's copy into slot 0 (its u and its data) is issued while
+    group 0's solve, and the partial sum that reads its u last, are still
+    queued. The copy waits on the event recorded after that last reader:
+    the run equals the one with device-resident consensus and every group
+    resident, bit for bit."""
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.train.admm import AdmmConfig
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+
+    groups = [blocked_data(54, B=2, R=1500), blocked_data(55, B=1, R=1500),
+              blocked_data(56, B=2, R=1500)]
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    cfg = AdmmConfig(lambdas=[1.0, 10.0], num_iters=3, head_size=64,
+                     dtype=torch.float32, epsilon=0.0)
+    tr = StreamingAdmmTrainer(groups, vocab, cfg, resident_head=False,
+                              consensus_device=False, device=cuda)
+    assert tr.residency_report()["consensus_device"] is False
+    assert tr._slot_of == {0: 0, 1: 1, 2: 0}
+    solve = tr._solve_group
+
+    def slow(gi, *a):
+        torch.cuda._sleep(20_000_000)          # about 10 ms on the card
+        return solve(gi, *a)
+    tr._solve_group = slow
+    got = tr.run()
+    del tr._solve_group
+    want = StreamingAdmmTrainer(groups, vocab, cfg, resident_head=True,
+                                device=cuda).run()
+    np.testing.assert_array_equal(got.z, want.z)
+    np.testing.assert_array_equal(got.u, want.u)
+    assert got.solver_stats == want.solver_stats

@@ -202,18 +202,26 @@ TIERS = {
     "one group": "one group",
     "host u": dict(resident_head=False, consensus_device=False),
 }
+# the solve of every tier: the flat multi-RHS solve (the ids of the tiers
+# as they were), and the lanes solve of multi_rhs=False, whose streamed
+# groups are unstacked anew into their loops' tensors after every copy
+# (train/streaming.py::_refresh)
+SOLVE_TIERS = [pytest.param(tier, ckw, id=f"{prefix}{tid}")
+               for prefix, ckw in (("", {}), ("lanes ", dict(multi_rhs=False)))
+               for tid, tier in TIERS.items()]
 
 
-@pytest.mark.parametrize("tier", TIERS.values(), ids=TIERS.keys())
-def test_slots_give_the_all_resident_bits(tier):
+@pytest.mark.parametrize("tier,ckw", SOLVE_TIERS)
+def test_slots_give_the_all_resident_bits(tier, ckw):
     """Three groups of 2, 1 and 2 blocks (the first and the last share a
-    slot), in every residency tier and wire: the same bits as the run with
-    every group resident, whose loops read their own tensors (no slot);
-    each group solve equals build_group_solver's on its inputs."""
+    slot), in every residency tier and wire, in the multi-RHS and the
+    lanes solve: the same bits as the run with every group resident,
+    whose loops read their own tensors (no slot); each group solve equals
+    build_group_solver's on its inputs."""
     parts, vocab, _t = blocks(8, n_rows=400, nblocks=5)
     groups = groups_of(parts, vocab, (2, 1, 2))
     cfg = AdmmConfig(lambdas=[1.0, 10.0], num_iters=3, head_size=4,
-                     dtype=torch.float64)
+                     dtype=torch.float64, **ckw)
 
     def port(**kw):
         return StreamingAdmmTrainer(groups, vocab, cfg, device="cpu", **kw)
@@ -255,3 +263,4 @@ def test_slots_give_the_all_resident_bits(tier):
     assert got.diff_history == want.diff_history
     assert [t.tolist() for t in tt.trip_log] == \
         [t.tolist() for t in ref.trip_log]
+    assert tt.mode == ref.mode == ("lanes" if ckw else "flat")
