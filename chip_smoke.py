@@ -114,7 +114,15 @@ Phases, each of which fails the run when it fails:
      examples/data/ctr-12m.job with its paths replaced and pack.cache.dir
      set: the first log must show the native decoder and the cache write,
      the second a cache hit, and both the same final models bit for bit;
-     the ingest phase breakdown and rows/s come from the first log.
+     the ingest phase breakdown and rows/s come from the first log. Then
+     the build's hand-off in this process on the same rows
+     (handoff_check): native ingest, split, and the pipeline's
+     _streaming_trainer on the card, writing a pack cache and then hitting
+     it; after each build no weakref to the packed data, a group's ELL or
+     a handed group's arrays is alive, every array the trainer keeps is
+     page-locked and equal bit for bit to those of a trainer built from a
+     list its caller keeps (left intact), and one iteration gives the
+     same z in both (and in both routes);
  13. naive phase: 125,000 rows at ctr-12m widths written as Avro by the
      same generator (cut from 12.5M: the naive and boosted jobs read their
      rows record by record, as the JAX package's do, and three CLI runs
@@ -1978,7 +1986,159 @@ def scale_cli_phase(args):
             raise AssertionError(f"scale CLI: not {bad}: {out}")
         for k, r in ((1, r1), (2, r2)):
             check_floor(r["pass_floor"], f"scale CLI run {k}")
+        t0 = time.monotonic()
+        out["handoff"] = handoff_check(tmp, props)
+        out["handoff"]["s"] = time.monotonic() - t0
+        print("scale-cli handoff " + json.dumps(out["handoff"]), flush=True)
         return out
+
+
+def _group_arrays(g, fields=None):
+    """A group's arrays, each numpy array with the arrays it views."""
+    import numpy as np
+    import torch
+    for f in fields or g._fields:
+        a = getattr(g, f)
+        while isinstance(a, (np.ndarray, torch.Tensor)):
+            yield a
+            a = a.base if isinstance(a, np.ndarray) else None
+
+
+def _same_bits(a, b) -> bool:
+    import numpy as np
+    import torch
+    a, b = (torch.from_numpy(np.ascontiguousarray(x))
+            if isinstance(x, np.ndarray) else x.cpu() for x in (a, b))
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and (a.numel() == 0
+                 or torch.equal(a.contiguous().view(torch.uint8),
+                                b.contiguous().view(torch.uint8))))
+
+
+def handoff_check(tmp, props):
+    """Phase 12's build check: the pipeline's hand-off of streamed groups
+    (train/pipeline.py::_streaming_trainer) on the card, at phase 12's
+    rows and ctr-12m.job's layout, one iteration: the pack-cache write
+    route (native ingest, split_blocks, the pipeline's hybrid conversion)
+    and then its hit. Each build's originals must be gone once it
+    returns, its arrays page-locked and equal bit for bit to a kept-list
+    build's, and one iteration's z equal to that build's; the two routes
+    pin the same bits and give the same z. (An empty array, such as a
+    hybrid group's ELL slots, has no bytes to lock.)"""
+    import weakref
+    import torch
+    from mlease_tpu_torch.core.dataset import split_blocks
+    from mlease_tpu_torch.io import avro, pack_cache
+    from mlease_tpu_torch.train import pipeline, streaming
+    from mlease_tpu_torch.utils.config import JobConfig
+
+    config = JobConfig(dict(props, **{
+        "pack.cache.dir": os.path.join(tmp, "handoff-cache")}))
+    cfg = dataclasses.replace(pipeline.admm_config_from_job(config),
+                              num_iters=1)
+    nblocks = config.get_int("num.blocks")
+    files = avro.enumerate_avro_files(config.get_string("input.paths"))
+    manifest = pack_cache.build_manifest(
+        files, nblocks=nblocks, n_groups=config.get_int("streaming.groups"),
+        head_size=cfg.head_size,
+        head_dtype=pack_cache.dtype_name(cfg.head_dtype or cfg.dtype),
+        num_click_replicates=cfg.num_click_replicates, seed=0,
+        binary_feature=False)
+    refs: list = []
+
+    def track(what, groups, fields=None):
+        refs.extend((what, weakref.ref(a)) for g in groups
+                    for a in _group_arrays(g, fields))
+
+    def kept_arrays(tr):
+        return [*streaming._flat_tensors(
+            (tr.groups, list(tr._wire.values()), tr.csc_perms)),
+            *(g.nrows for g in tr.groups)]
+
+    built: dict = {}
+
+    class Probe(streaming.StreamingAdmmTrainer):
+        def __init__(self, groups, vocab, cfg, **kw):
+            items = list(groups)
+            track("handed", items)
+            kept = [g._replace(**{
+                f: (a.clone() if isinstance(a, torch.Tensor)
+                    else a.copy()) for f, a in g._asdict().items()
+                if hasattr(a, "shape")}) for g in items]
+            entries = list(kept)
+
+            def hand():
+                while items:
+                    yield items.pop(0)
+            t0 = time.monotonic()
+            super().__init__(hand(), vocab, cfg, **kw)
+            built["build_s"] = time.monotonic() - t0
+            built["alive"] = [w for w, r in refs if r() is not None]
+            built["kept"] = streaming.StreamingAdmmTrainer(kept, vocab, cfg,
+                                                           **kw)
+            built["kept_intact"] = (len(kept) == len(entries) and all(
+                a is b for a, b in zip(kept, entries)))
+
+    def route(name, groups, vocab, cache):
+        with mock.patch.object(pipeline, "StreamingAdmmTrainer", Probe):
+            tr = pipeline._streaming_trainer(config, cfg, groups, vocab,
+                                             device="cuda", cache=cache)
+        kept = built.pop("kept")
+        mine, theirs = kept_arrays(tr), kept_arrays(kept)
+        z, z_kept = tr.run().z, kept.run().z
+        row = {"alive": sorted(set(built.pop("alive"))),
+               "kept_intact": built.pop("kept_intact"),
+               "build_s": built.pop("build_s"),
+               "arrays": len(mine), "same_pinned": len(mine) == len(
+                   theirs) and all(map(_same_bits, mine, theirs)),
+               "all_page_locked": all(t.is_pinned() for t in mine
+                                      if isinstance(t, torch.Tensor)
+                                      and t.numel() > 0),
+               "same_z": _same_bits(torch.as_tensor(z),
+                                    torch.as_tensor(z_kept)),
+               **tr._held_bytes()}
+        bad = [what for what, ok in (
+            ("originals freed", not row["alive"]),
+            ("the kept list intact", row["kept_intact"]),
+            ("pinned bits", row["same_pinned"]),
+            ("page-locked", row["all_page_locked"]),
+            ("z bits", row["same_z"])) if not ok]
+        if bad:
+            raise AssertionError(f"hand-off {name}: not {bad}: {row}")
+        return row, mine, z
+
+    t0 = time.monotonic()
+    data, vocab = pipeline._native_prepare(
+        config, cfg, files, nblocks, False, 0, tmp, main=False)
+    if data is None:
+        raise AssertionError("hand-off: native ingest did not run")
+    ingest_s = time.monotonic() - t0
+    track("packed data", [data])
+    groups = split_blocks(data, config.get_int("streaming.groups"))
+    del data
+    track("ELL", groups, ("indices", "values"))
+    write, pinned_w, z_w = route("cache write", groups, vocab,
+                                 (config.get_string("pack.cache.dir"),
+                                  manifest))
+    del groups
+    refs.clear()
+    hit = pack_cache.load_groups(config.get_string("pack.cache.dir"),
+                                 manifest)
+    if hit is None:
+        raise AssertionError("hand-off: the pack cache did not load")
+    groups, vocab = hit
+    del hit
+    read, pinned_r, z_r = route("cache hit", groups, vocab, None)
+    same = (len(pinned_w) == len(pinned_r)
+            and all(map(_same_bits, pinned_w, pinned_r))
+            and _same_bits(torch.as_tensor(z_w), torch.as_tensor(z_r)))
+    if not same:
+        raise AssertionError("hand-off: the cache hit pinned other bits "
+                             "or gave another z than the cache write")
+    del pinned_w, pinned_r
+    torch.cuda.empty_cache()
+    return {"ingest_s": ingest_s, "cache_write": write, "cache_hit": read,
+            "routes_same_bits": same}
 
 
 NAIVE_ROWS = 125_000         # phase 13's rows (ctr-12m.job: 12.5M)

@@ -375,29 +375,39 @@ def partition_rows(rows: Iterable[Mapping], keys: Iterable[str],
 
 def split_blocks(data: BlockedData, n_groups: int) -> list[BlockedData]:
     """Split a packed dataset into n_groups block-axis groups for the
-    streaming (>HBM) trainer. Block-leading arrays slice; head_ids (shared
-    column ids) replicate. Groups cover all blocks in order."""
+    streaming (>HBM) trainer. Block-leading arrays are sliced and head_ids
+    (shared column ids) replicated, each group's a copy of its own (the
+    JAX package hands out views): once the caller drops `data`, each group
+    alone holds its blocks, so a group's arrays are freed as soon as its
+    last user lets it go, not with the last group. Groups cover all blocks
+    in order."""
     B = data.nblocks
     n_groups = max(1, min(n_groups, B))
     bounds = np.linspace(0, B, n_groups + 1).astype(int)
 
-    def sl(a, lo, hi):
-        return None if a is None else a[lo:hi]
+    def own(a, lo=None, hi=None):
+        if a is None:
+            return None
+        a = a if lo is None else a[lo:hi]
+        return a.clone() if isinstance(a, torch.Tensor) else np.array(a)
 
     out = []
     for lo, hi in zip(bounds[:-1], bounds[1:]):
         if hi <= lo:
             continue
         out.append(BlockedData(
-            indices=data.indices[lo:hi], values=data.values[lo:hi],
-            y=data.y[lo:hi], weight=data.weight[lo:hi],
-            offset=data.offset[lo:hi], present=data.present[lo:hi],
-            nrows=data.nrows[lo:hi], nblocks=int(hi - lo), dim=data.dim,
-            head=sl(data.head, lo, hi), head_ids=data.head_ids,
-            tail_rows=sl(data.tail_rows, lo, hi),
-            tail_cols=sl(data.tail_cols, lo, hi),
-            tail_vals=sl(data.tail_vals, lo, hi),
-            tail_c_rows=sl(data.tail_c_rows, lo, hi),
-            tail_c_cols=sl(data.tail_c_cols, lo, hi),
-            tail_c_vals=sl(data.tail_c_vals, lo, hi)))
+            indices=own(data.indices, lo, hi),
+            values=own(data.values, lo, hi), y=own(data.y, lo, hi),
+            weight=own(data.weight, lo, hi),
+            offset=own(data.offset, lo, hi),
+            present=own(data.present, lo, hi),
+            nrows=own(data.nrows, lo, hi), nblocks=int(hi - lo),
+            dim=data.dim, head=own(data.head, lo, hi),
+            head_ids=own(data.head_ids),
+            tail_rows=own(data.tail_rows, lo, hi),
+            tail_cols=own(data.tail_cols, lo, hi),
+            tail_vals=own(data.tail_vals, lo, hi),
+            tail_c_rows=own(data.tail_c_rows, lo, hi),
+            tail_c_cols=own(data.tail_c_cols, lo, hi),
+            tail_c_vals=own(data.tail_c_vals, lo, hi)))
     return out

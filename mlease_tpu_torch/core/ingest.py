@@ -67,6 +67,9 @@ def prepare_columnar(decoded, nblocks: int, *, num_click_replicates: int = 1,
     return row_ids, partitions, w_out[row_ids]
 
 
+PACK_CHUNK_ROWS = 1 << 22   # pack_blocks_columnar's rows at a time
+
+
 def pack_blocks_columnar(decoded, row_ids: np.ndarray, partitions: np.ndarray,
                          weights: np.ndarray, vocab: FeatureVocab, *,
                          nblocks: int, bias: float = 1.0, dtype=np.float32,
@@ -107,30 +110,39 @@ def pack_blocks_columnar(decoded, row_ids: np.ndarray, partitions: np.ndarray,
     off = decoded.offset
 
     # fully vectorized ragged-CSR -> padded-ELL expansion: gather each output
-    # row's k-th nonzero via clipped flat offsets, mask the padding lanes
-    starts = row_start[row_ids]                                  # (n_out,)
-    nnz = nnz_per_row                                            # (n_out,)
+    # row's k-th nonzero via clipped flat offsets, mask the padding lanes;
+    # PACK_CHUNK_ROWS output rows at a time (each row is written once, so
+    # the chunks give the one-pass result; the JAX package expands all rows
+    # at once, whose (n_out, K) int64 temporaries reach 12 GB each at 100M
+    # rows)
     k_grid = np.arange(K - extra, dtype=np.int64)[None, :]       # (1, K-extra)
-    lane_valid = k_grid < nnz[:, None]                           # (n_out, K-extra)
-    flat = np.minimum(starts[:, None] + k_grid,
-                      len(feat_id) - 1 if len(feat_id) else 0)
-    if len(feat_id):
-        row_idx = np.where(lane_valid, feat_id[flat], 0).astype(np.int32)
-        row_val = np.where(lane_valid, feat_val[flat], 0.0).astype(dtype)
-    else:
-        row_idx = np.zeros((n_out, K - extra), np.int32)
-        row_val = np.zeros((n_out, K - extra), dtype)
+    for lo in range(0, n_out, PACK_CHUNK_ROWS):
+        rows = slice(lo, min(lo + PACK_CHUNK_ROWS, n_out))
+        ids = row_ids[rows]
+        starts = row_start[ids]                                  # (n,)
+        nnz = nnz_per_row[rows]                                  # (n,)
+        lane_valid = k_grid < nnz[:, None]                       # (n, K-extra)
+        flat = np.minimum(starts[:, None] + k_grid,
+                          len(feat_id) - 1 if len(feat_id) else 0)
+        if len(feat_id):
+            row_idx = np.where(lane_valid, feat_id[flat], 0).astype(np.int32)
+            row_val = np.where(lane_valid, feat_val[flat], 0.0).astype(dtype)
+        else:
+            row_idx = np.zeros((len(ids), K - extra), np.int32)
+            row_val = np.zeros((len(ids), K - extra), dtype)
+        del flat, lane_valid
 
-    b_ix = partitions
-    r_ix = slot
-    indices[b_ix, r_ix, :K - extra] = row_idx
-    values[b_ix, r_ix, :K - extra] = row_val
-    if has_icpt:
-        indices[b_ix, r_ix, nnz] = vocab.intercept_index
-        values[b_ix, r_ix, nnz] = bias
-    y[b_ix, r_ix] = np.where(resp[row_ids] == 1, 1.0, -1.0).astype(dtype)
-    weight_arr[b_ix, r_ix] = weights.astype(dtype)
-    offset_arr[b_ix, r_ix] = off[row_ids]
+        b_ix = partitions[rows]
+        r_ix = slot[rows]
+        indices[b_ix, r_ix, :K - extra] = row_idx
+        values[b_ix, r_ix, :K - extra] = row_val
+        del row_idx, row_val
+        if has_icpt:
+            indices[b_ix, r_ix, nnz] = vocab.intercept_index
+            values[b_ix, r_ix, nnz] = bias
+        y[b_ix, r_ix] = np.where(resp[ids] == 1, 1.0, -1.0).astype(dtype)
+        weight_arr[b_ix, r_ix] = weights[rows].astype(dtype)
+        offset_arr[b_ix, r_ix] = off[ids]
 
     for b in range(nblocks):
         real = weight_arr[b] > 0

@@ -250,6 +250,7 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
         hit = pack_cache.load_groups(pack_cache_dir, pc_manifest)
         if hit is not None:
             cached_groups, vocab = hit
+            del hit
         # every rank has looked before rank 0 may write the cache below
         distributed.barrier()
 
@@ -411,7 +412,10 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
         # the >HBM mode: blocks stay host-resident in N groups, copied per
         # iteration under the previous group's solve (train/streaming.py);
         # checkpoint / resume / write.train.output work as in the
-        # in-memory trainer (same callback contract)
+        # in-memory trainer (same callback contract). The hand-off: split
+        # copies each group out of the packed data, which then goes, and
+        # _streaming_trainer empties `groups` into the trainer
+        cache = None
         if cached_groups is not None:
             groups = cached_groups
             del cached_groups
@@ -419,40 +423,13 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
             groups = split_blocks(data, streaming_groups)
             del data
             if main and pack_cache_dir and pc_manifest is not None:
-                # convert to hybrid HERE (the trainer then skips groups
-                # that already carry a head) so the cache stores the final
-                # packed layout; in place, group by group, for peak RSS
-                t0 = time.monotonic()
-                if cfg.head_size > 0:
-                    for i, g in enumerate(groups):
-                        if g.head is None:
-                            groups[i] = to_hybrid(
-                                g, cfg.head_size, column_sorted=True,
-                                head_dtype=cfg.head_dtype or cfg.dtype)
-                hybrid_s = time.monotonic() - t0
-                t0 = time.monotonic()
-                pack_cache.save_groups(pack_cache_dir, pc_manifest,
-                                       groups, vocab)
-                logger.info(
-                    "streaming pack phases: hybrid=%.1fs cache_write=%.1fs",
-                    hybrid_s, time.monotonic() - t0)
-        choice = {"auto": "auto", "true": True, "false": False}
-        trainer = StreamingAdmmTrainer(
-            groups, vocab, cfg, test_rows=test_rows, device=device, mesh=mesh,
-            resident_head=choice[config.get_string(
-                "streaming.resident.head", "auto")],
-            resident_head_budget_gb=config.get_float(
-                "streaming.resident.head.gb", 8.0),
-            consensus_device=choice[config.get_string(
-                "streaming.consensus.device", "auto")],
-            # compact|dense|auto: COO-head + permutation-derived tail wire
-            compact_wire={"auto": "auto", "compact": True, "dense": False}[
-                config.get_string("streaming.wire", "auto")],
-            pad_tails=choice[config.get_string("streaming.pad.tails",
-                                               "auto")])
-        del groups
+                cache = (pack_cache_dir, pc_manifest)
+        trainer = _streaming_trainer(config, cfg, groups, vocab,
+                                     test_rows=test_rows, device=device,
+                                     mesh=mesh, cache=cache)
         logger.info("streaming residency: %s; %.3f GB on the wire per "
-                    "iteration", json.dumps(trainer.residency_report()),
+                    "iteration", json.dumps(dict(trainer.residency_report(),
+                                                 **trainer._held_bytes())),
                     trainer.stream_wire_bytes() / 1e9)
     elif config.get_int("mesh.feature.shards", 0) > 1:
         # feature model parallelism: the coefficient axis column-sharded
@@ -517,6 +494,53 @@ def run_regression_pipeline(config: JobConfig, dtype=None,
         _log_streaming_floor(trainer, result, len(cfg.lambdas))
     return _write_pipeline_outputs(config, result, out_base, test_path,
                                    test_records, ignore_value, device, main)
+
+
+def _hand_over(groups: list):
+    """Yield the entries of `groups`, each taken out of the list as it
+    goes: the consumer ends up with the only reference to each."""
+    while groups:
+        yield groups.pop(0)
+
+
+def _streaming_trainer(config, cfg, groups: list, vocab, *, test_rows=None,
+                       device="cuda", mesh=None,
+                       cache=None) -> StreamingAdmmTrainer:
+    """The job's StreamingAdmmTrainer, built from `groups`, which it
+    empties: the trainer gets the only reference to each group, so a
+    group's host arrays are freed once its page-locked copies exist.
+    cache = (pack.cache.dir, manifest) converts every group to hybrid
+    here, in place, each group's ELL freed once its hybrid form exists,
+    and writes the pack cache (the trainer then skips groups that already
+    carry a head); None leaves the groups as they are (a cache hit, or no
+    cache: the trainer converts them itself)."""
+    if cache is not None:
+        t0 = time.monotonic()
+        if cfg.head_size > 0:
+            for i in range(len(groups)):
+                if groups[i].head is None:
+                    groups[i] = to_hybrid(
+                        groups[i], cfg.head_size, column_sorted=True,
+                        head_dtype=cfg.head_dtype or cfg.dtype)
+        hybrid_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        pack_cache.save_groups(cache[0], cache[1], groups, vocab)
+        logger.info("streaming pack phases: hybrid=%.1fs cache_write=%.1fs",
+                    hybrid_s, time.monotonic() - t0)
+    choice = {"auto": "auto", "true": True, "false": False}
+    return StreamingAdmmTrainer(
+        _hand_over(groups), vocab, cfg, test_rows=test_rows, device=device,
+        mesh=mesh,
+        resident_head=choice[config.get_string(
+            "streaming.resident.head", "auto")],
+        resident_head_budget_gb=config.get_float(
+            "streaming.resident.head.gb", 8.0),
+        consensus_device=choice[config.get_string(
+            "streaming.consensus.device", "auto")],
+        # compact|dense|auto: COO-head + permutation-derived tail wire
+        compact_wire={"auto": "auto", "compact": True, "dense": False}[
+            config.get_string("streaming.wire", "auto")],
+        pad_tails=choice[config.get_string("streaming.pad.tails", "auto")])
 
 
 def _naive_warm_start(config, cfg, blocks, vocab, out_base, device,

@@ -89,6 +89,7 @@ from __future__ import annotations
 import contextlib
 import logging
 import math
+import mmap
 import os
 import time
 import weakref
@@ -142,6 +143,55 @@ def _group_stream_bytes(g) -> int:
 
 def _ctail_bytes(g) -> int:
     return sum(_nbytes(getattr(g, f, None)) for f in _CTAIL)
+
+
+class _LockedPages(mmap.mmap):
+    """Anonymous pages holding one page-locked host tensor
+    (_locked_copy); unregistered before they go back to the system, with
+    the last tensor on them."""
+
+    ptr = None
+
+    def __del__(self):
+        if self.ptr is not None:
+            try:
+                torch.cuda.cudart().cudaHostUnregister(self.ptr)
+            except Exception:  # noqa: BLE001 - the runtime may be gone
+                pass
+
+
+def _locked_copy(t: torch.Tensor) -> torch.Tensor:
+    """A copy of host tensor t in page-locked memory of its own size (to
+    the page), registered with the card (cudaHostRegister) and freed with
+    its last user. torch's caching host allocator (pin_memory=True) rounds
+    every block up to a power of two (ctr-100m's 1.6 GB group head to 2.1
+    GB) and keeps freed blocks."""
+    n = t.numel() * t.element_size()
+    if n == 0:                     # no bytes to lock
+        return torch.empty(t.shape, dtype=t.dtype)
+    pages = _LockedPages(-1, n)
+    raw = torch.frombuffer(pages, dtype=torch.uint8, count=n)
+    err = int(torch.cuda.cudart().cudaHostRegister(raw.data_ptr(), n, 0))
+    if err != 0:
+        raise RuntimeError(f"cudaHostRegister of {n} bytes failed: "
+                           f"cudaError {err}")
+    pages.ptr = raw.data_ptr()
+    out = raw.view(t.dtype).view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _flat_tensors(x):
+    """Every tensor inside x: nested tuples (named ones too), lists and
+    dict values."""
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _flat_tensors(v)
+    elif isinstance(x, (tuple, list)):
+        for v in x:
+            yield from _flat_tensors(v)
 
 
 def _head_coo(head: torch.Tensor) -> tuple:
@@ -387,8 +437,13 @@ def build_group_solver(max_newton_iter: int, max_cg_iter: int,
 class StreamingAdmmTrainer:
     """ADMM over a list of host-resident block groups.
 
-    groups: list of BlockedData whose block counts sum to the logical
-    num.blocks. Groups may have different padded shapes.
+    groups: BlockedData whose block counts sum to the logical num.blocks,
+    in a list the caller keeps (left as it is) or an iterable that hands
+    the trainer the only reference to each group (the train pipeline's
+    hand-off, pipeline.py::_streaming_trainer): then each group's host
+    arrays are freed once their page-locked copies exist, and a group
+    converted to hybrid here drops its ELL once its hybrid form exists.
+    Groups may have different padded shapes.
 
     consensus_device: "auto" (default) keeps z / u / x in device memory
     whenever 2*L*nblocks*n*itemsize fits resident_head_budget_gb (checked
@@ -417,6 +472,10 @@ class StreamingAdmmTrainer:
             raise ValueError("compact_wire=True requires a single device "
                              "(each rank streams its own blocks dense "
                              "under a mesh)")
+        # the trainer's own list: with a hand-off it holds the only
+        # reference to each group, and each entry is replaced (the
+        # original freed) as it is normalised, padded and pinned
+        groups = list(groups)
         self.mesh = mesh
         if mesh is not None:
             device = mesh_device(mesh)
@@ -438,8 +497,8 @@ class StreamingAdmmTrainer:
         hdt = config.head_dtype or config.dtype
 
         # ---- one-time host normalization, group by group, in place -----
-        groups = list(groups)
-        for i, g in enumerate(groups):
+        for i in range(len(groups)):
+            g = groups[i]
             if config.head_size > 0 and g.head is None:
                 g = to_hybrid(g, config.head_size, column_sorted=True,
                               head_dtype=hdt)
@@ -475,10 +534,10 @@ class StreamingAdmmTrainer:
             padded = sum(T_max * g.nblocks for g in groups)
             if T_max > min(widths) and (
                     pad_tails is True or padded <= 1.25 * orig):
-                for i, g in enumerate(groups):
-                    if g.tail_rows.shape[1] < T_max:
-                        self._tail_orig_T[i] = g.tail_rows.shape[1]
-                        groups[i] = _pad_group_tails(g, T_max)
+                for i in range(len(groups)):
+                    if groups[i].tail_rows.shape[1] < T_max:
+                        self._tail_orig_T[i] = groups[i].tail_rows.shape[1]
+                        groups[i] = _pad_group_tails(groups[i], T_max)
                 logger.info(
                     "tail shapes harmonized to T=%d across %d groups "
                     "(%d padded; +%.1f%% tail bytes)", T_max, len(groups),
@@ -494,8 +553,8 @@ class StreamingAdmmTrainer:
         self._pad_host: dict = {}
         if mesh is not None:
             self._group_comm = mesh.get_group(BLOCK_AXIS)
-            for i, g in enumerate(groups):
-                groups[i], valid = local_blocks(mesh, g)
+            for i in range(len(groups)):
+                groups[i], valid = local_blocks(mesh, groups[i])
                 if not valid.all():
                     self._pad_host[i] = torch.as_tensor(np.nonzero(~valid)[0])
                     self.pad_idx[i] = self._pad_host[i].to(dev)
@@ -527,7 +586,7 @@ class StreamingAdmmTrainer:
         self.csc_perms: list[torch.Tensor | None] = []
         for i in range(len(groups)):
             self.groups.append(self._host_group(groups[i]))
-            groups[i] = None                   # let the originals go
+            groups[i] = None    # the originals go once their copies exist
         del groups
 
         # ---- consensus placement --------------------------------------
@@ -612,13 +671,14 @@ class StreamingAdmmTrainer:
                         w["head_coo"] = coo
                 if inv_perms is not None:
                     w["tail_inv"] = torch.from_numpy(inv_perms[gi])
+                    inv_perms[gi] = None   # the wire's entry holds it alone
                 if w:
                     self._wire[gi] = w
             _pad_head_coo_shared(self._wire)
             for w in self._wire.values():
                 for k in w:
-                    w[k] = (tuple(self._pin(a) for a in w[k])
-                            if isinstance(w[k], tuple) else self._pin(w[k]))
+                    w[k] = (tuple(self._lock(a) for a in w[k])
+                            if isinstance(w[k], tuple) else self._lock(w[k]))
             if self._wire:
                 logger.info(
                     "compact wire: %d/%d streamed groups re-encoded "
@@ -658,12 +718,20 @@ class StreamingAdmmTrainer:
 
     # ------------------------------------------------------------------
     def _pin(self, t: torch.Tensor) -> torch.Tensor:
-        """A host tensor in page-locked memory (when pinning), else t."""
+        """A host tensor in page-locked memory (when pinning), else t: a
+        run's host buffers of x, z and u, from torch's caching host
+        allocator (which reuses them from iteration to iteration)."""
         if not self._pinned:
             return t
         p = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
         p.copy_(t)
         return p
+
+    def _lock(self, t: torch.Tensor) -> torch.Tensor:
+        """A page-locked copy of t (when pinning), else t: the arrays the
+        trainer keeps for its life (its groups, their column orders and
+        compact-wire encodings), in pages of their own (_locked_copy)."""
+        return _locked_copy(t) if self._pinned else t
 
     def _host_group(self, g: BlockedData) -> BlockedData:
         """g with every array a host tensor, pinned on the card's machine,
@@ -696,7 +764,7 @@ class StreamingAdmmTrainer:
             ids["head_ids"] = stacked(np.broadcast_to(g.head_ids, (B, len(
                 g.head_ids))), offs["cols"]).reshape(-1)
         self.csc_perms.append(
-            self._pin(_column_order(ids["indices"], ranges))
+            self._lock(_column_order(ids["indices"], ranges))
             if self._csc_order and g.indices.shape[2] > 0 else None)
         for b0, b1 in ranges:
             nb = b1 - b0
@@ -723,8 +791,10 @@ class StreamingAdmmTrainer:
                 np.ascontiguousarray(a))
             if f in _VALUE_FIELDS:
                 t = t.to(self.config.dtype)
-            out[f] = self._pin(t.contiguous())
-        return g._replace(**out)
+            out[f] = self._lock(t.contiguous())
+        # nrows is read on the host, not shipped: a copy of its own, so
+        # that the group keeps nothing of the caller's arrays
+        return g._replace(nrows=np.array(g.nrows), **out)
 
     def _order_bytes(self, gi: int) -> int:
         """Device bytes of group gi's column order once shipped: the order
@@ -801,6 +871,28 @@ class StreamingAdmmTrainer:
             "compact_wire_groups": len(self._wire),
             "n_groups": len(self.groups),
         }
+
+    def _held_bytes(self) -> dict:
+        """What the trainer holds after its build, each storage counted
+        once: "page_locked_bytes", the host bytes of its page-locked
+        tensors (the groups, their compact-wire encodings and column
+        orders; 0 where nothing is pinned), and "resident_bytes", the
+        device bytes of its resident tiers (heads, whole groups, sorted
+        tails)."""
+        def total(tensors, keep):
+            seen = {}
+            for t in tensors:
+                if keep(t):
+                    st = t.untyped_storage()
+                    seen[st.data_ptr()] = st.nbytes()
+            return sum(seen.values())
+        return {
+            "page_locked_bytes": total(_flat_tensors(
+                (self.groups, list(self._wire.values()), self.csc_perms)),
+                lambda t: t.is_pinned()),
+            "resident_bytes": total(_flat_tensors(
+                (self._resident_heads, self._resident_groups,
+                 self._resident_ctails)), lambda t: t.device.type != "cpu")}
 
     def _dense_wire_bytes(self) -> int:
         """Per-iteration host->device bytes without compact re-encoding

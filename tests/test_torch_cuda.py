@@ -1586,3 +1586,46 @@ def test_a_host_u_slot_is_not_overwritten_before_its_last_reader(cuda):
     np.testing.assert_array_equal(got.z, want.z)
     np.testing.assert_array_equal(got.u, want.u)
     assert got.solver_stats == want.solver_stats
+
+
+@pytest.mark.cuda
+def test_locked_copies_are_page_locked_exact_and_freed(cuda, monkeypatch):
+    """train/streaming.py::_locked_copy: the streaming trainer's kept host
+    arrays are page-locked copies in pages of their own size (torch's
+    caching host allocator would round a 1.6 GB head up to 2.1 GB), equal
+    to their source, copied to the card asynchronously, and unregistered
+    once their last tensor goes, so that the same addresses register
+    again, copy after copy."""
+    from mlease_tpu_torch.train import streaming
+
+    released = []
+    unregister = streaming._LockedPages.__del__
+
+    def counted(self):
+        released.append(self.ptr)
+        unregister(self)
+    monkeypatch.setattr(streaming._LockedPages, "__del__", counted)
+    src = torch.arange(3 * 1000 * 128, dtype=torch.float32).view(
+        3, 1000, 128).to(torch.bfloat16)
+    got = streaming._locked_copy(src)
+    assert got.is_pinned() and got.dtype == src.dtype
+    assert got.shape == src.shape and torch.equal(got, src)
+    assert got.untyped_storage().nbytes() == src.numel() * 2
+    dev = torch.empty_like(got, device=cuda)
+    dev.copy_(got, non_blocking=True)
+    torch.cuda.synchronize()
+    assert torch.equal(dev.cpu(), src)
+    view = got.view(-1)[5:]
+    del got
+    assert released == []          # a view keeps the pages
+    del view
+    assert len(released) == 1
+    for t in (torch.zeros(0, dtype=torch.int32), torch.ones(7, dtype=bool)):
+        c = streaming._locked_copy(t)
+        assert torch.equal(c, t) and c.dtype == t.dtype
+    big = torch.ones(16 << 20, dtype=torch.float32)
+    for _ in range(20):
+        c = streaming._locked_copy(big)
+        assert c.is_pinned()
+        del c
+    assert len(released) == 22

@@ -22,7 +22,7 @@ Each layout runs in a process of its own (so that its peak RSS and device
 memory are its own) and prints one JSON line: the machine's host RAM
 (`free -g`) and the process's peak RSS, the rows made and any cut of them
 (rows are cut only where the host's available memory could not hold the
-groups and their page-locked copies: `cuts`), the host bytes page-locked,
+run: `cuts`), the host bytes page-locked,
 the device bytes the trainer holds after its set-up, residency_report(),
 s an iteration, trips, wire bytes an iteration, the pass-floor
 decomposition (utils/floor.py: util against the composed floor), the
@@ -50,13 +50,12 @@ LAYOUTS = {"ctr-25m": dict(blocks=16, rows=25_000_000, groups=8,
                             budget_gb=10.0)}
 FEATURES, NNZ, HEAD = 1_000_000, 12, 128
 # the process's peak host bytes: HOST_BASE_BYTES and HOST_BYTES_PER_ROW a
-# row (the hybrid groups and their page-locked copies, which stand side by
-# side while the trainer is set up), fitted to two runs of this script on
-# an H100 host with 101 GB: peak RSS 26.7 GB at ctr-25m's 25M rows, 87.4 GB
-# at ctr-100m's 100M; rows are cut where the estimate passes HOST_SHARE of
-# the memory available
-HOST_BYTES_PER_ROW = 810
-HOST_BASE_BYTES = 6_500_000_000
+# row (the groups, each freed once the trainer has page-locked its copy),
+# fitted to two runs of this script on an H100 host with 101 GB: peak RSS
+# 22.4 GB at ctr-25m's 25M rows, 55.6 GB at ctr-100m's 100M; rows are cut
+# where the estimate passes HOST_SHARE of the memory available
+HOST_BYTES_PER_ROW = 442
+HOST_BASE_BYTES = 11_400_000_000
 HOST_SHARE = 0.95
 
 
@@ -64,30 +63,6 @@ def available_bytes() -> int:
     with open("/proc/meminfo") as f:
         info = dict(line.split(":", 1) for line in f)
     return int(info["MemAvailable"].split()[0]) * 1024
-
-
-def pinned_bytes(tr) -> int:
-    """Host bytes of the trainer's page-locked tensors (its groups, their
-    compact-wire encodings and column orders)."""
-    import torch
-    seen, total = set(), 0
-
-    def add(t):
-        nonlocal total
-        if isinstance(t, torch.Tensor) and t.is_pinned() \
-                and t.data_ptr() not in seen:
-            seen.add(t.data_ptr())
-            total += t.numel() * t.element_size()
-    for g in tr.groups:
-        for t in g:
-            add(t)
-    for w in tr._wire.values():
-        for v in w.values():
-            for t in (v if isinstance(v, tuple) else (v,)):
-                add(t)
-    for t in tr.csc_perms:
-        add(t)
-    return total
 
 
 def make_groups(layout, rows_per_block, seed):
@@ -115,6 +90,7 @@ def run_layout(name, iters, seed) -> dict:
     import torch
     import chip_smoke
     from mlease_tpu_torch.train.admm import AdmmConfig
+    from mlease_tpu_torch.train.pipeline import _hand_over
     from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
     from mlease_tpu_torch.utils.config import JobConfig
     from mlease_tpu_torch.utils.floor import (measure_put_bandwidth,
@@ -154,11 +130,10 @@ def run_layout(name, iters, seed) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     t0 = time.monotonic()
-    # as the train pipeline builds it: the groups held by the caller until
-    # the trainer has page-locked its copies
-    tr = StreamingAdmmTrainer(groups, vocab, cfg,
+    # as the train pipeline builds it: the trainer gets the only
+    # reference to each group and frees it once it is page-locked
+    tr = StreamingAdmmTrainer(_hand_over(groups), vocab, cfg,
                               resident_head_budget_gb=budget)
-    del groups
     torch.cuda.synchronize()
     build_s = time.monotonic() - t0
     held = torch.cuda.memory_allocated() - base
@@ -178,7 +153,7 @@ def run_layout(name, iters, seed) -> dict:
         "host_ram_free_g": free.strip().splitlines(),
         "peak_rss_bytes": resource.getrusage(
             resource.RUSAGE_SELF).ru_maxrss * 1024,
-        "pinned_host_bytes": pinned_bytes(tr),
+        "pinned_host_bytes": tr._held_bytes()["page_locked_bytes"],
         "device_bytes_after_setup": int(held),
         "residency": tr.residency_report(),
         "wire_bytes_per_iter": tr.stream_wire_bytes(),
