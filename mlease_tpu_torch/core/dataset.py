@@ -2,9 +2,10 @@
 
 Copied from mlease_tpu/core/dataset.py (logic unchanged); the layout notes
 below explain why the JAX package chose it for the TPU, and the port keeps
-the same host arrays so both packages train on identical inputs. One
-addition: `to_hybrid(head_dtype=torch.bfloat16)` returns the dense head as
-a host `torch.bfloat16` tensor, numpy having no bfloat16 type of its own.
+the same host arrays so both packages train on identical inputs. Two
+additions: `to_hybrid(head_dtype=torch.bfloat16)` returns the dense head as
+a host `torch.bfloat16` tensor, numpy having no bfloat16 type of its own,
+and each `to_hybrid` call is the span `to_hybrid` (utils/profiling.py).
 
 The reference materializes per-reducer CSR-ish `FeatureNode[][]` rows
 (reference: LibLinearDataset.java:586-658). TPUs need static shapes, so each
@@ -37,6 +38,8 @@ from typing import Iterable, Mapping, NamedTuple, Sequence
 
 import numpy as np
 import torch
+
+from mlease_tpu_torch.utils import profiling
 
 
 def _round_up(x: int, m: int) -> int:
@@ -212,6 +215,7 @@ def _numpy_dtype(dtype):
     return np.dtype(dtype)
 
 
+@profiling.timed("to_hybrid")
 def to_hybrid(data: BlockedData, head_size: int, *,
               nnz_multiple: int = 8,
               column_sorted: bool = True,

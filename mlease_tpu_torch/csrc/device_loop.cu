@@ -26,7 +26,17 @@
 // No counterpart among the TPU kernels: the JAX package runs the same loop
 // as one lax.while_loop (mlease_tpu/train/admm.py::run_fused). What bounds
 // it on the card is the branches' own work; the loop adds two one-thread
-// kernels per branch and pass.
+// kernels per branch and pass, and the clock's open stamp one more per
+// branch run (its close stamp is the branch's execution count).
+//
+// The clock (ops/device_loop.py::DeviceClock): one-thread kernels that read
+// %globaltimer, the card's nanosecond clock, into a slot of four int64s
+// [open, total ns, executions, closed] on the stream they are launched on,
+// so each runs once the work queued before it has finished. An open stamp
+// writes the time into `open`; a close stamp adds the time since `open` to
+// `total`, one to `executions`, and writes the time into `closed`.
+// Captured into a branch they are kernel nodes, which a conditional body
+// may hold; they read and write nothing but their slot.
 //
 // Plain C interface, each entry returning a cudaError_t.
 
@@ -43,6 +53,21 @@ __global__ void set_if(cudaGraphConditionalHandle h, const int* phase,
 
 __global__ void set_while(cudaGraphConditionalHandle h, const int* phase) {
   cudaGraphSetConditional(h, *phase != 0 ? 1u : 0u);
+}
+
+__device__ __forceinline__ long long global_ns() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__global__ void clock_open(long long* slot) { slot[0] = global_ns(); }
+
+__global__ void clock_close(long long* slot) {
+  long long t = global_ns();
+  slot[1] += t - slot[0];
+  slot[2] += 1;
+  slot[3] = t;
 }
 
 bool allowed_in_body(cudaGraphNodeType t) {
@@ -179,6 +204,55 @@ int device_loop_node_types(void* graph, int* counts, int n) {
 
 int device_loop_launch(void* exec, void* stream) {
   return cudaGraphLaunch((cudaGraphExec_t)exec, (cudaStream_t)stream);
+}
+
+// One stamp on `stream`: close = 0 opens the slot, 1 closes it.
+int device_clock_stamp(void* slot, int close, void* stream) {
+  long long* p = (long long*)slot;
+  if (close)
+    clock_close<<<1, 1, 0, (cudaStream_t)stream>>>(p);
+  else
+    clock_open<<<1, 1, 0, (cudaStream_t)stream>>>(p);
+  return cudaGetLastError();
+}
+
+// counts[0] += the open stamps and counts[1] += the close stamps on `slot`
+// among the kernel nodes of graph and its child graphs. A node whose
+// parameters this runtime cannot read (a kernel of another library) is
+// not a stamp.
+int device_clock_nodes(void* graph, void* slot, int* counts) {
+  size_t num = 0;
+  cudaError_t err = cudaGraphGetNodes((cudaGraph_t)graph, nullptr, &num);
+  if (err != cudaSuccess || num == 0) return err;
+  std::vector<cudaGraphNode_t> nodes(num);
+  err = cudaGraphGetNodes((cudaGraph_t)graph, nodes.data(), &num);
+  if (err != cudaSuccess) return err;
+  for (size_t i = 0; i < num; ++i) {
+    cudaGraphNodeType t;
+    err = cudaGraphNodeGetType(nodes[i], &t);
+    if (err != cudaSuccess) return err;
+    if (t == cudaGraphNodeTypeGraph) {
+      cudaGraph_t child;
+      err = cudaGraphChildGraphNodeGetGraph(nodes[i], &child);
+      if (err == cudaSuccess) err = (cudaError_t)device_clock_nodes(
+          child, slot, counts);
+      if (err != cudaSuccess) return err;
+      continue;
+    }
+    if (t != cudaGraphNodeTypeKernel) continue;
+    cudaKernelNodeParams p;
+    if (cudaGraphKernelNodeGetParams(nodes[i], &p) != cudaSuccess) {
+      cudaGetLastError();
+      continue;
+    }
+    int which = p.func == (void*)clock_open    ? 0
+                : p.func == (void*)clock_close ? 1
+                                               : -1;
+    if (which >= 0 && p.kernelParams &&
+        *(long long**)p.kernelParams[0] == (long long*)slot)
+      counts[which] += 1;
+  }
+  return cudaSuccess;
 }
 
 int device_loop_destroy(void* graph, void* exec) {

@@ -80,6 +80,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mlease_tpu_torch.ops.device_loop import device_span
 from mlease_tpu_torch.ops.gram import gram_batched
 from mlease_tpu_torch.ops.segment_sum import (accumulate_dtype,
                                               host_scatter_only,
@@ -389,23 +390,25 @@ def _xv_lm(prob: MultiProblem, V: torch.Tensor,
     else:
         out = torch.zeros((L, R), dtype=acc, device=V.device)
     if prob.head_x is not None:
-        hx = prob.head_x
-        hw = V[:, prob.head_ids]                    # (L, H) | (L, B*H)
-        if hx.dim() == 3 and hx.dtype == V.dtype:   # flat-blocks head
-            B, Rb, H = hx.shape
-            prod = torch.bmm(hx, hw.reshape(L, B, H).permute(1, 2, 0))
-            out = out + prod.permute(2, 0, 1).reshape(L, R)  # (B, Rb, L)
-        elif hx.dim() == 3:                         # narrow head: by block
-            B, Rb, H = hx.shape
-            hwb = hw.reshape(L, B, H)
-            outb = out.view(L, B, Rb)           # out is this pass's own
-            for b in range(B):
-                outb[:, b] += hwb[:, b] @ _widen(hx[b], V.dtype).T
-        else:
-            out = out + hw @ _widen(hx, V.dtype).T
+        with device_span("head_pass"):
+            hx = prob.head_x
+            hw = V[:, prob.head_ids]                    # (L, H) | (L, B*H)
+            if hx.dim() == 3 and hx.dtype == V.dtype:   # flat-blocks head
+                B, Rb, H = hx.shape
+                prod = torch.bmm(hx, hw.reshape(L, B, H).permute(1, 2, 0))
+                out = out + prod.permute(2, 0, 1).reshape(L, R)  # (B, Rb, L)
+            elif hx.dim() == 3:                         # narrow head: by block
+                B, Rb, H = hx.shape
+                hwb = hw.reshape(L, B, H)
+                outb = out.view(L, B, Rb)           # out is this pass's own
+                for b in range(B):
+                    outb[:, b] += hwb[:, b] @ _widen(hx[b], V.dtype).T
+            else:
+                out = out + hw @ _widen(hx, V.dtype).T
     if prob.tail_cols is not None:
-        segment_sum_gather(prob.tail_vals, V, prob.tail_cols, prob.tail_rows,
-                           R, out=out)
+        with device_span("tail_pass"):
+            segment_sum_gather(prob.tail_vals, V, prob.tail_cols,
+                               prob.tail_rows, R, out=out)
     return _psum(out, group)
 
 
@@ -419,18 +422,22 @@ def _xtv_lm(prob: MultiProblem, D: torch.Tensor) -> torch.Tensor:
     acc = accumulate_dtype(D.dtype)
     out = torch.zeros((L, n), dtype=acc, device=D.device)
     if prob.csc_cols is not None:
-        segment_sum_gather(prob.csc_vals, D, prob.csc_rows, prob.csc_cols, n,
-                           out=out)
+        with device_span("tail_pass"):
+            segment_sum_gather(prob.csc_vals, D, prob.csc_rows,
+                               prob.csc_cols, n, out=out)
     elif prob.indices.shape[-1] > 0:
         host_scatter_only(D, "X'v over the ELL")
         out.index_add_(1, prob.indices.reshape(-1),
                        (prob.values[None] * D.to(acc)[:, :, None])
                        .reshape(L, -1))
     if prob.head_x is not None:
-        out.index_add_(1, prob.head_ids, _head_t(prob.head_x, D).to(acc))
+        with device_span("head_pass"):
+            out.index_add_(1, prob.head_ids,
+                           _head_t(prob.head_x, D).to(acc))
     if prob.tail_c_cols is not None:
-        segment_sum_gather(prob.tail_c_vals, D, prob.tail_c_rows,
-                           prob.tail_c_cols, n, out=out)
+        with device_span("tail_pass"):
+            segment_sum_gather(prob.tail_c_vals, D, prob.tail_c_rows,
+                               prob.tail_c_cols, n, out=out)
     elif prob.tail_cols is not None:
         host_scatter_only(D, "X'v over a row-sorted tail")
         out = out + torch.zeros_like(out).index_add_(
@@ -449,8 +456,9 @@ def _xtv_and_sqdiag_lm(prob: MultiProblem, C: torch.Tensor,
     out = torch.zeros((2 * L, n), dtype=acc, device=C.device)
     CD = torch.cat([C, Dm])
     if prob.csc_cols is not None:
-        segment_sum_gather(prob.csc_vals, CD, prob.csc_rows, prob.csc_cols,
-                           n, out=out, square_from=L)
+        with device_span("tail_pass"):
+            segment_sum_gather(prob.csc_vals, CD, prob.csc_rows,
+                               prob.csc_cols, n, out=out, square_from=L)
     elif prob.indices.shape[-1] > 0:
         host_scatter_only(C, "X'v over the ELL")
         v = prob.values[None]
@@ -459,12 +467,14 @@ def _xtv_and_sqdiag_lm(prob: MultiProblem, C: torch.Tensor,
                        contrib.reshape(2 * L, -1).to(acc))
     if prob.head_x is not None:
         hx = prob.head_x
-        out.index_add_(1, prob.head_ids,
-                       torch.cat([_head_t(hx, C),
-                                  _head_t(hx, Dm, square=True)]).to(acc))
+        with device_span("head_pass"):
+            out.index_add_(1, prob.head_ids,
+                           torch.cat([_head_t(hx, C),
+                                      _head_t(hx, Dm, square=True)]).to(acc))
     if prob.tail_c_cols is not None:
-        segment_sum_gather(prob.tail_c_vals, CD, prob.tail_c_rows,
-                           prob.tail_c_cols, n, out=out, square_from=L)
+        with device_span("tail_pass"):
+            segment_sum_gather(prob.tail_c_vals, CD, prob.tail_c_rows,
+                               prob.tail_c_cols, n, out=out, square_from=L)
     elif prob.tail_cols is not None:
         host_scatter_only(C, "X'v over a row-sorted tail")
         tv = prob.tail_vals[None, :]

@@ -79,7 +79,7 @@ from mlease_tpu_torch.ops.objective import (K1Streams, LRProblem,
                                             class_balance_eps_scale,
                                             with_sorted_streams)
 from mlease_tpu_torch.ops.tron import LaneSolver, tron
-from mlease_tpu_torch.ops.device_loop import DeviceLoop
+from mlease_tpu_torch.ops.device_loop import DeviceClock, DeviceLoop
 from mlease_tpu_torch.ops.gram import gram_batched
 from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, MultiSolver,
@@ -91,6 +91,7 @@ from mlease_tpu_torch.collectives import all_gather, all_reduce, max_over
 from mlease_tpu_torch.parallel.mesh import (BLOCK_AXIS, axis_size,
                                             block_sharding, local_blocks,
                                             mesh_device)
+from mlease_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -588,6 +589,9 @@ class AdmmTrainer:
                             config.max_cg_iter)
         self._loops: dict[str, _SolveLoop] = {}   # freed with the trainer
         weakref.finalize(self, _close_loops, self._loops).atexit = False
+        # run()'s clock: the x-update loop's branches and launch, and the
+        # data passes' head and K1 parts (ops/tron_multi.py)
+        self.clock = DeviceClock(self.device, ("head_pass", "tail_pass"))
         self.step = build_admm_step(
             nblocks=self.nblocks,
             regularizer=config.regularizer,
@@ -767,7 +771,8 @@ class AdmmTrainer:
         loop = self._loops.get("x")
         if loop is None:
             loop = self._solve_loop(z, u, rho_eff, eps)
-            loop.own_loop(_graph_pool(self.device)).prepare()
+            loop.own_loop(_graph_pool(self.device), self.clock,
+                          "x").prepare()
             self._loops["x"] = loop
         loop.solve(z, u, rho_eff, eps)
         x = self.step.solve.finish(loop.x(), self.present, x_prior(z, u), z)
@@ -838,18 +843,22 @@ class AdmmTrainer:
                              dev)
         consensus = self.step.consensus
         iteration = start_iteration - 1
+        run_id = profiling.new_run()
         for iteration in range(start_iteration, cfg.num_iters + 1):
             t_iter = time.monotonic()
             inner_eps = admm_math.inner_eps_schedule(
                 inner_eps, iteration, mindiff,
                 aggressive=cfg.aggressive_liblinear_epsilon_decay)
             rho_eff = rho_tab[iteration]
-            # the scalar rounded to the compute dtype first (as run_fused)
-            eps = _to_device(inner_eps, dtype, dev) * self.eps_scale
 
             # the span the device idle share of an iteration is read over
-            # (chip_smoke.py phase 21); nearly free when no profiler runs
-            with torch.profiler.record_function("admm_iteration"):
+            # (chip_smoke.py phase 21), with the trainer's clock on
+            with profiling.span("admm_iteration", run=run_id,
+                                iteration=iteration), self.clock.active():
+                self.clock.idle_stamp()
+                # the scalar rounded to the compute dtype first (as
+                # run_fused)
+                eps = _to_device(inner_eps, dtype, dev) * self.eps_scale
                 x, trips = self._x_update(z, u, rho_eff, eps)
                 z, u, diffs = consensus(x, z, u, self.lam_vec, rho_base,
                                         self.block_valid)
@@ -859,8 +868,8 @@ class AdmmTrainer:
                 read = [diffs, trip_max]
                 if track_ll:
                     read.append(sample_loglik_lanes(*self.test_arrays, z))
-                # the iteration's one host sync
-                host = torch.cat([t.to(torch.float64) for t in read]).cpu()
+                # the iteration's one host sync, the clock's slots beside
+                host = self.clock.read(read)
             diffs_np = host[:L].numpy()
             lls = host[L + 2:].numpy()
             iter_times.append(time.monotonic() - t_iter)
@@ -899,18 +908,20 @@ class AdmmTrainer:
                 converged = True
                 break
 
-        z_np = z.to(torch.float64).cpu().numpy()
-        models = {
-            _lambda_key(lam): LinearModel.from_dense(z_np[i], self.vocab)
-            for i, lam in enumerate(self.lambdas)}
-        best_model = (None if best_z is None else LinearModel.from_dense(
-            best_z.to(torch.float64).cpu().numpy(), self.vocab))
+        with profiling.span("admm_epilogue", run=run_id):
+            z_np = z.to(torch.float64).cpu().numpy()
+            models = {
+                _lambda_key(lam): LinearModel.from_dense(z_np[i], self.vocab)
+                for i, lam in enumerate(self.lambdas)}
+            best_model = (None if best_z is None else LinearModel.from_dense(
+                best_z.to(torch.float64).cpu().numpy(), self.vocab))
+            u_np = self._global_u(u).to(torch.float64).cpu().numpy()
         return AdmmResult(
             models=models, best_model=best_model, best_lambda=best_lambda,
             best_loglik=best_loglik, iterations=iteration,
             sample_loglik_history=loglik_history, diff_history=diff_history,
             iter_times=iter_times, solver_stats=solver_stats,
-            z=z_np, u=self._global_u(u).to(torch.float64).cpu().numpy(),
+            z=z_np, u=u_np,
             converged=converged, wall_time=time.monotonic() - t_start)
 
     def _global_u(self, u: torch.Tensor) -> torch.Tensor:
@@ -1073,10 +1084,11 @@ class _SolveLoop:
     of its own, and AdmmTrainer.run_fused's loop goes on to the end of
     its iteration. `x()` and `trips()` are device tensors.
 
-    `own_loop(pool)` makes the loop of its own (`loop`, an
+    `own_loop(pool, clock, name)` makes the loop of its own (`loop`, an
     ops/device_loop.DeviceLoop over the branches CG and EPILOGUE of each
     part, then CG_START of each; on the card captured once, into `pool`,
-    at `prepare`). `share`: loops of the same trainer; where one's parts
+    at `prepare`; timed by the trainer's `clock` under `name`). `share`:
+    loops of the same trainer; where one's parts
     keep state of the same layout, this one takes over its state tensors
     (the two solve one after another, never at once). `prior`: a fixed
     prior mean and precision for every part (_Part), the naive trainer's
@@ -1135,11 +1147,12 @@ class _SolveLoop:
             self.loop.close()
         self.cg_branches, self.init_branches = [], []
 
-    def own_loop(self, pool=None) -> DeviceLoop:
+    def own_loop(self, pool=None, clock=None, name="x") -> DeviceLoop:
         kernels = (_SOLVE_KERNELS if self.group is None
                    else dict(_SOLVE_KERNELS, all_reduce=all_reduce))
         self.loop = DeviceLoop(self.cg_branches + self.init_branches,
-                               self.phase, self.state(), kernels, pool=pool)
+                               self.phase, self.state(), kernels, pool=pool,
+                               clock=clock, name=name)
         return self.loop
 
     # part k's phases: CG, EPILOGUE, CG_START

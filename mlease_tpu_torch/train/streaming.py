@@ -103,6 +103,7 @@ from mlease_tpu_torch.core.dataset import (BlockedData, _numpy_dtype,
 from mlease_tpu_torch.core.linear_model import LinearModel
 from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math
+from mlease_tpu_torch.ops.device_loop import DeviceClock, device_span
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, SubStacks,
                                              column_copy, stack_fits,
@@ -119,6 +120,7 @@ from mlease_tpu_torch.train.admm import (MAX_NTEST_EVENTS, AdmmConfig,
                                          build_x_update, sample_loglik_lanes,
                                          solver_mode, unstack_problem,
                                          x_prior)
+from mlease_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -699,6 +701,10 @@ class StreamingAdmmTrainer:
         self._loops: dict[int, _SolveLoop] = {}   # freed with the trainer
         weakref.finalize(self, _close_loops, self._loops).atexit = False
         self._pool = _graph_pool(dev)
+        # run()'s clock: each group's loop, the data passes' head and K1
+        # parts, and the compute stream's stalls on a group's copies
+        self.clock = DeviceClock(dev, ("head_pass", "tail_pass",
+                                       "wire_wait"))
 
         self.lam_vec = torch.as_tensor(np.stack([
             admm_math.per_feature_lambda(l, self.dim, config.lambda_map,
@@ -1128,7 +1134,7 @@ class StreamingAdmmTrainer:
                 len(self.lambdas), self.dim, pcg, max_newton_iter,
                 max_cg_iter, z, u, rho_eff, eps,
                 share=list(self._loops.values()))
-            loop.own_loop(self._pool).prepare()
+            loop.own_loop(self._pool, self.clock, f"group{gi}").prepare()
             self._loops[gi] = loop
         elif self.mode == "lanes" and gi not in self._resident_groups:
             _refresh(loop.parts, self._group_problems(gi, prob, perm))
@@ -1168,7 +1174,9 @@ class StreamingAdmmTrainer:
             if gi + 1 < G:
                 pending = self._put_group(gi + 1, ship_u[gi + 1])
             if ready is not None:
-                compute.wait_event(ready)
+                # the wire not hidden under the solves queued before
+                with device_span("wire_wait"):
+                    compute.wait_event(ready)
             u_g = u_groups[gi] if dev_consensus else u_dev
             x, trip = self._solve_group(gi, prob, present, z, u_g, rho_eff,
                                         eps_all[gi], perm)
@@ -1218,9 +1226,9 @@ class StreamingAdmmTrainer:
         if not dev_consensus and dev.type == "cuda":
             z_ref = self._pin(torch.empty(z_new.shape, dtype=dtype))
             z_ref.copy_(z_new, non_blocking=True)
-        # the iteration's one host sync; the host copies of x and z (host
-        # consensus) landed before it
-        host = torch.cat([t.to(torch.float64) for t in read]).cpu().numpy()
+        # the iteration's one host sync, the clock's slots beside; the host
+        # copies of x and z (host consensus) landed before it
+        host = self.clock.read(read).numpy()
         diffs = host[:L]
         lls = host[L:2 * L] if track_ll else None
         trip_mat = host[-2 * G:].astype(np.int64).reshape(G, 2)
@@ -1310,6 +1318,7 @@ class StreamingAdmmTrainer:
         rho_base = torch.as_tensor(self.rhos, dtype=dtype, device=dev)
         rho_tab = _rho_table(self.rhos, cfg.num_iters, cfg, z0 is not None,
                              dev)
+        run_id = profiling.new_run()
         for iteration in range(start_iteration, cfg.num_iters + 1):
             t_iter = time.monotonic()
             inner_eps = admm_math.inner_eps_schedule(
@@ -1318,8 +1327,10 @@ class StreamingAdmmTrainer:
             rho_eff = rho_tab[iteration]
 
             # the span the device idle share of an iteration is read over
-            # (chip_smoke.py phase 11); nearly free when no profiler runs
-            with torch.profiler.record_function("stream_iteration"):
+            # (chip_smoke.py phase 11), with the trainer's clock on
+            with profiling.span("stream_iteration", run=run_id,
+                                iteration=iteration), self.clock.active():
+                self.clock.idle_stamp()
                 z, diffs, lls, trip_mat = self._iterate(
                     z, u_groups, rho_eff, rho_base, inner_eps, track_ll)
 
@@ -1363,12 +1374,14 @@ class StreamingAdmmTrainer:
                 converged = True
                 break
 
-        z_out = z.to(torch.float64).cpu().numpy()
-        best_model = (None if best_z is None else LinearModel.from_dense(
-            best_z.to(torch.float64).cpu().numpy(), self.vocab))
-        u_full = self._global_u(u_groups).to(torch.float64).cpu()
-        models = {_lambda_key(l): LinearModel.from_dense(z_out[i], self.vocab)
-                  for i, l in enumerate(self.lambdas)}
+        with profiling.span("stream_epilogue", run=run_id):
+            z_out = z.to(torch.float64).cpu().numpy()
+            best_model = (None if best_z is None else LinearModel.from_dense(
+                best_z.to(torch.float64).cpu().numpy(), self.vocab))
+            u_full = self._global_u(u_groups).to(torch.float64).cpu()
+            models = {_lambda_key(l): LinearModel.from_dense(z_out[i],
+                                                             self.vocab)
+                      for i, l in enumerate(self.lambdas)}
         return AdmmResult(models=models, best_model=best_model,
                           best_lambda=best_lambda, best_loglik=best_loglik,
                           iterations=iteration,

@@ -1629,3 +1629,62 @@ def test_locked_copies_are_page_locked_exact_and_freed(cuda, monkeypatch):
         assert c.is_pinned()
         del c
     assert len(released) == 22
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["admm", "stream"])
+def test_the_clock_times_the_loops_on_the_card(cuda, kind):
+    """The trainer's clock on the card: each captured branch holds the
+    open and the close stamp of its own slot; a loop's time is above 0
+    and holds its branches'; the data passes' head and K1 spans (and a
+    shipped group's wire stall) are recorded; each launch's interval,
+    mapped onto the host clock, lies inside its iteration's span, within
+    the offset's error bound."""
+    from mlease_tpu_torch.core.dataset import split_blocks
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.ops.device_loop import stamp_nodes
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+    from mlease_tpu_torch.utils import profiling
+
+    data = blocked_data(31, B=4, R=1500)
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    cfg = AdmmConfig(lambdas=[1.0, 10.0], num_iters=4, head_size=64,
+                     dtype=torch.float32, epsilon=0.0)
+    if kind == "admm":
+        tr = AdmmTrainer(data, vocab, cfg, device=cuda)
+    else:
+        tr = StreamingAdmmTrainer(split_blocks(data, 2), vocab, cfg,
+                                  resident_head=False, compact_wire=True,
+                                  device=cuda)
+    tr.run()
+    profiling.reset()
+    res = tr.run()
+    for lp in tr._loops.values():
+        loop = lp.loop
+        for k, name in enumerate(loop.names):
+            graph = loop._graphs[k].raw_cuda_graph()
+            assert stamp_nodes(graph, loop.table, k) == (1, 1), name
+        counts = loop.counts()
+        assert counts["loop_ns"] > 0
+        assert 0 < sum(counts["branch_ns"].values()) <= counts["loop_ns"]
+    rec = profiling.recorded()
+    (clock,) = rec["clocks"].values()
+    err = clock["error_ns"]
+    assert err is not None and 0 <= err < 5_000_000, clock
+    spans = rec["spans"]
+    names = {s.name for s in spans}
+    assert {"head_pass", "tail_pass"} <= names
+    if kind == "stream":
+        assert "wire_wait" in names
+    launches = [s for s in spans if s.name.endswith("/launch")]
+    assert len(launches) == res.iterations * len(tr._loops)
+    for s in launches:
+        it = spans[s.parent]
+        assert it.name.endswith("_iteration")
+        assert it.start <= s.start <= s.end <= it.end + err, (s, it, err)
+    for s in spans:
+        if s.device is not None:
+            # a stall may end before the stream reaches it
+            assert s.executions > 0 and (s.ns > 0 or s.name == "wire_wait"
+                                         and s.ns == 0), s
