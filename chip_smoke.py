@@ -5,7 +5,8 @@
                           [--out FILE.json]
                           [--gram-only | --segsum-only | --streaming-only
                            | --modes-only | --mesh-only | --fused-only
-                           | --bf16-only | --loops-only | --coverage-only]
+                           | --bf16-only | --loops-only | --coverage-only
+                           | --head-only]
 
 Phases, each of which fails the run when it fails:
 
@@ -100,7 +101,11 @@ Phases, each of which fails the run when it fails:
      others, (c) resident_head=False with the compact wire, and (c) again
      from pageable host memory. z and u of (b) and (c) must equal (a)'s bit
      for bit, K1
-     must launch in every run (counts read around each), and (c)'s first
+     must launch in every run (counts read around each), every head pass
+     of each run must run in the bf16 head's kernels (ops/head_pass.py),
+     one kernel run on the card a pass: their runs past the loops'
+     warm-up equal the run's `head_pass` and `head_fused` executions in
+     the span store, above 0 (`head_kernels`), and (c)'s first
      iteration with K1 patched to its plain version must be within
      1e-4 * max|z|. Recorded: s/iteration, wire bytes per iteration, the
      copies alone against a plain pinned copy of the same bytes, the share
@@ -421,6 +426,20 @@ Phases, each of which fails the run when it fails:
      the solve keys no other phase runs on the card: pcg = false,
      relaxation 1.6, penalize.intercept = true (PERF.md section 4 lists
      every key that changes what runs on the card, and its phase).
+ 25. head-pass phase: the bfloat16 head's kernels (ops/head_pass.py,
+     csrc/head_pass.cu) at ctr-12m's head (8 blocks of 1,562,500 x 128,
+     bfloat16): Xv over 3 lanes, X'v over 3, and X'C with (X∘X)'Dm over
+     2L 6 (square_from 3); each against the float64 product of the same
+     head per element: |err| <= c 2^-24 (|out0| + sum|terms|), c the
+     kernel's longest chain of float32 roundings (`head_chain`), and the
+     largest |err| / (|out0| + sum|terms|) (reported) at most 1e-6, which
+     a kernel that rounded to bfloat16 or TF32 exceeds; beside
+     the widening route it replaced (`plain`: each block widened, one
+     cuBLAS float32 GEMM; the square rounded in bfloat16 first) and the
+     GEMM over the already widened head (`library`); a second call that
+     gives the same bits; ms per block pass from CUDA events over 20
+     repeats of the whole pass, against the head's bytes over 3.35 TB/s
+     (0.119 ms a block).
 The line before the last is the card's name and power limit, the one before
 it the `kernels` line; the last line is {"ok": true, "device": {...}}.
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -441,7 +460,8 @@ builds them, sets up the two trainers, makes the float32 runs phase 18
 compares with (phase 5, phase 6, phase 8's first run, phase 11's (a) once)
 and runs phase 18 alone; --coverage-only builds them, sets up the two
 trainers, runs phase 5's CLI run and phase 24's two, then phase 24 alone
-((c)'s reference made as phase 11 makes it).
+((c)'s reference made as phase 11 makes it); --head-only builds them and
+runs phase 25 alone (for work on the head's kernels).
 """
 
 from __future__ import annotations
@@ -924,6 +944,141 @@ def gram_phase(args):
                             results)
         torch.cuda.empty_cache()
     return results
+
+
+HEAD_SHAPE = (8, 1_562_500, 128)     # ctr-12m's flat-blocks head
+HEAD_COLUMNS = 1_000_001             # ctr-12m's columns a block
+
+
+def head_pass_phase(args):
+    """Phase 25: the bfloat16 head's kernels at ctr-12m's head."""
+    import torch
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.ops import head_pass
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 must be off for the library yardstick")
+    B, Rb, H = HEAD_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed)
+    x = torch.randn((B, Rb, H), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    n = B * HEAD_COLUMNS
+    ids = (torch.randperm(HEAD_COLUMNS, generator=gen, device="cuda")[:H]
+           [None, :] + HEAD_COLUMNS * torch.arange(B, device="cuda")[:, None]
+           ).reshape(-1).to(torch.int32)
+    bound_ms = head_pass.min_bytes(Rb, H) / HBM_BYTES_PER_S * 1e3
+    rows = []
+    for name, L, sf in (("xv", 3, None), ("xtv", 3, 3),
+                        ("xtv_sqdiag", 6, 3)):
+        if name == "xv":
+            hw = torch.randn((L, B * H), generator=gen, device="cuda")
+            out0 = torch.randn((L, B * Rb), generator=gen, device="cuda")
+
+            def kernel(out):
+                return head_pass.head_xv(x, hw, out)
+
+            def plain(out):
+                o = out.view(L, B, Rb)
+                for b in range(B):
+                    o[:, b] += hw[:, b * H:(b + 1) * H] @ tm._widen(
+                        x[b], torch.float32).T
+                return out
+
+            def library(xf, b, out):
+                return hw[:, b * H:(b + 1) * H] @ xf.T
+        else:
+            D = torch.randn((L, B * Rb), generator=gen, device="cuda")
+            out0 = torch.randn((L, n), generator=gen, device="cuda")
+
+            def kernel(out):
+                return head_pass.head_xtv(x, D, ids, out, square_from=sf)
+
+            def plain(out):
+                parts = [tm._head_t(x, D[:sf])]
+                if sf < L:
+                    parts.append(tm._head_t(x, D[sf:], square=True))
+                return out.index_add_(1, ids, torch.cat(parts))
+
+            def library(xf, b, out):
+                return D[:, b * Rb:(b + 1) * Rb] @ xf
+        got = kernel(out0.clone())
+        again = kernel(out0.clone())
+        via_plain = plain(out0.clone())
+        torch.cuda.synchronize()
+        # float64, one block at a time: the error over the sum of
+        # magnitudes, for the kernel and the widening route
+        want = out0.double()
+        scale = out0.double().abs()
+        for b in range(B):
+            x64 = x[b].double()
+            if name == "xv":
+                w64 = hw[:, b * H:(b + 1) * H].double()
+                cols = slice(b * Rb, (b + 1) * Rb)
+                want[:, cols] += w64 @ x64.T
+                scale[:, cols] += w64.abs() @ x64.abs().T
+                continue
+            xs64 = (x[b] * x[b]).double()
+            D64 = D[:, b * Rb:(b + 1) * Rb].double()
+            bid = ids[b * H:(b + 1) * H].long()
+            want[:sf].index_add_(1, bid, D64[:sf] @ x64)
+            want[sf:].index_add_(1, bid, D64[sf:] @ xs64)
+            scale[:sf].index_add_(1, bid, D64[:sf].abs() @ x64.abs())
+            scale[sf:].index_add_(1, bid, D64[sf:].abs() @ xs64)
+            del D64, xs64
+        del x64
+
+        def rel(t):
+            # an entry of out0 can be exactly 0 (randn), and untouched by
+            # the head: 0 over 0 there
+            err = (t.double() - want).abs()
+            return float(torch.where(scale > 0, err / scale, err).max())
+        cx = head_pass.grid_blocks(x, L)
+        chain = head_chain(name, Rb, cx)
+        within = bool(((got.double() - want).abs()
+                       <= chain * 2.0**-24 * scale).all())
+        xf = x[0].float()
+        out = out0.clone()
+        rows.append({
+            "shape": f"ctr12m/{name}", "B": B, "Rb": Rb, "H": H, "L": L,
+            "square_from": sf, "same_bits": bool(torch.equal(got, again)),
+            "max_rel_err": rel(got), "plain_max_rel_err": rel(via_plain),
+            "chain": chain, "within_chain_bound": within,
+            "bound_ms": bound_ms,
+            "kernel_ms": cuda_ms(lambda: kernel(out)) / B,
+            "plain_ms": cuda_ms(lambda: plain(out)) / B,
+            "library_ms": cuda_ms(lambda: library(xf, 0, out)),
+            "grid_blocks": cx})
+        print("head_pass " + json.dumps(rows[-1]), flush=True)
+        del got, again, via_plain, want, scale, xf, out, out0
+        torch.cuda.empty_cache()
+        if not rows[-1]["same_bits"]:
+            raise AssertionError(f"head {name}: two calls differ")
+        if not within or rows[-1]["max_rel_err"] > HEAD_REL_ERR:
+            raise AssertionError(f"head {name}: error {rows[-1]}")
+    return rows
+
+
+# Phase 25's limit on the largest error over the sum of magnitudes. The
+# kernels read 1.1e-7 (Xv, 128 terms) and 5e-9-7e-9 (X'v, 1,562,500) at
+# ctr-12m's head; rounding D, w or the products to bfloat16 or TF32 on
+# these random-sign sums gives about 2^-9 (2^-11) / sqrt(terms): 1e-4
+# (4e-5) at Xv, 1.4e-6 (3.5e-7) at X'v, its largest over the columns a
+# few times that.
+HEAD_REL_ERR = 1e-6
+
+
+def head_chain(name, Rb, cx):
+    """The longest chain of float32 roundings of one output of a head
+    kernel (csrc/head_pass.cu), as tests/test_torch_cuda.py bounds it:
+    Xv's 16 products a lane, the butterfly and the add into out within
+    32; X'v's rows a lane sums (16 a tile of its warp's, a tile every 256
+    rows of its grid block's span), the butterflies, 8 warps, cx partials
+    and the add into out."""
+    if name == "xv":
+        return 32
+    span = -(-(-(-Rb // cx)) // 32) * 32
+    return 16 * -(-span // 256) + 5 + 8 + cx + 1
 
 
 def synth_item_decoded(n_items, rows_per_item, n_feat, seed):
@@ -1700,10 +1855,12 @@ def streaming_phase(args, in_memory_iter_s=None):
     import torch
     import mlease_tpu_torch.ops.tron_multi as tm
     from mlease_tpu_torch.core.dataset import split_blocks, to_hybrid
+    from mlease_tpu_torch.ops.head_pass import head_xtv, head_xv
     from mlease_tpu_torch.ops.segment_sum import (segment_sum_gather_reference,
                                                   segment_sum_sorted)
     from mlease_tpu_torch.train.admm import AdmmConfig
     from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+    from mlease_tpu_torch.utils import profiling
     from mlease_tpu_torch.utils.floor import (measure_put_bandwidth,
                                               streaming_floor)
 
@@ -1742,12 +1899,18 @@ def streaming_phase(args, in_memory_iter_s=None):
         build_s = time.monotonic() - t0
         torch.cuda.reset_peak_memory_stats()
         segment_sum_sorted.launches = 0          # this path: count from here
+        head_xv.launches = head_xtv.launches = 0
+        profiling.reset()
         with kernel_runs() as runs:
             res = tr.run(callback=keep_first if name.startswith("c_s")
                          else None)
             torch.cuda.synchronize()
         launches = runs["k1"]                    # ... to here
         row = {"residency": tr.residency_report(), "build_s": build_s,
+               # the bf16 head's kernels: their runs on the card, and the
+               # head passes the trainer's clock saw (the loops' warm-up,
+               # whose stamps it puts back, apart)
+               "head_kernels": head_runs(runs),
                "wire_bytes_per_iter": tr.stream_wire_bytes(),
                "dense_wire_bytes_per_iter": tr._dense_wire_bytes(),
                "iter_s": res.iter_times, "steady_iter_s": steady_s(
@@ -1795,6 +1958,7 @@ def streaming_phase(args, in_memory_iter_s=None):
         results[name] = res
         if launches == 0 or not row["z_finite"]:
             raise AssertionError(f"streaming {name}: {row}")
+        check_head_runs(row["head_kernels"], f"streaming {name}")
         check_floor(row["pass_floor"], f"streaming {name}")
 
     # phase 24 (c)'s reference: (c)'s run, on these groups
@@ -1844,6 +2008,35 @@ def streaming_phase(args, in_memory_iter_s=None):
                              f"{c['z_kernel_vs_plain_max_abs']} vs max|z| "
                              f"{c['z_max_abs']}")
     return rows
+
+
+def head_runs(runs):
+    """The bf16 head kernels' runs in a kernel_runs() block around one
+    trainer's run, beside the head passes of that run in the span store
+    (its `head_pass` and `head_fused` executions; the store reset before
+    the run)."""
+    from mlease_tpu_torch.utils import profiling
+    rec = profiling.recorded()
+    spans = {"head_pass": 0, "head_fused": 0}
+    for s in rec["spans"]:
+        if s.name in spans:
+            spans[s.name] += s.executions
+    keys = ("head_xv", "head_xtv")
+    return {"runs": sum(runs[k] for k in keys),
+            "warm": sum(runs["warm"][k] for k in keys),
+            "on_card": sum(runs["card"][k] for k in keys),
+            "passes": spans["head_pass"], "fused": spans["head_fused"],
+            "dropped": rec["dropped"]}
+
+
+def check_head_runs(h, what):
+    """Every head pass the clock saw ran in the kernels, one kernel run a
+    pass: the runs past the loops' warm-up equal the passes, and the
+    fused passes equal the passes, all above 0."""
+    if not (h["passes"] > 0 and not h["dropped"]
+            and h["fused"] == h["passes"] == h["runs"] - h["warm"]
+            and h["on_card"] > 0):
+        raise AssertionError(f"{what}: head kernels {h}")
 
 
 FLOOR_TAG = "streaming pass-floor decomposition: "
@@ -2620,25 +2813,30 @@ def fresh_loops(trainer):
 
 @contextlib.contextmanager
 def kernel_runs():
-    """K1's and K2's runs on the card inside the block. A kernel wrapper
-    adds one to its `launches` at each call: an eager launch, or a launch
-    that a device loop's capture records into its graph, which then runs
-    each time the graph does, counted on the card (ops/device_loop.py).
-    So a kernel's runs here are its `launches` less the calls that the
-    loops prepared here captured, plus the executions that the loops
-    counted on the card here. "setup" counts apart, and among the runs,
-    those of the loops' set-up: each _SolveLoop's (and the item trainer's
-    _NewtonLoop's) first state and each loop's warm-up. Yields a dict
-    filled in at the exit: {"k1", "k2" (the runs), "setup", "eager",
-    "card" (each {"k1", "k2"})}; it adds no host read before the exit."""
-    from mlease_tpu_torch.ops import gram
+    """K1's, K2's and the head kernels' runs on the card inside the block.
+    A kernel wrapper adds one to its `launches` at each call: an eager
+    launch, or a launch that a device loop's capture records into its
+    graph, which then runs each time the graph does, counted on the card
+    (ops/device_loop.py). So a kernel's runs here are its `launches` less
+    the calls that the loops prepared here captured, plus the executions
+    that the loops counted on the card here. "setup" counts apart, and
+    among the runs, those of the loops' set-up: each _SolveLoop's (and the
+    item trainer's _NewtonLoop's) first state and each loop's warm-up
+    ("warm" alone: the runs whose clock stamps the warm-up puts back).
+    Yields a dict filled in at the exit: {"k1", "k2", "head_xv",
+    "head_xtv" (the runs), "setup", "warm", "eager", "card" (each by the
+    same keys)}; it adds no host read before the exit."""
+    from mlease_tpu_torch.ops import gram, head_pass
     from mlease_tpu_torch.ops.device_loop import DeviceLoop
     from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
     from mlease_tpu_torch.train import admm, item
-    fns = {"k1": segment_sum_sorted, "k2": gram.gram_batched}
-    names = {"k1": "segment_sum_gather", "k2": "gram_batched"}
+    fns = {"k1": segment_sum_sorted, "k2": gram.gram_batched,
+           "head_xv": head_pass.head_xv, "head_xtv": head_pass.head_xtv}
+    names = {"k1": "segment_sum_gather", "k2": "gram_batched",
+             "head_xv": "head_xv", "head_xtv": "head_xtv"}
     start = {k: f.launches for k, f in fns.items()}
     setup, captured = dict.fromkeys(fns, 0), dict.fromkeys(fns, 0)
+    warm = dict.fromkeys(fns, 0)
     seen, box = {}, {}
     prepare, run = DeviceLoop.prepare, DeviceLoop.run
     inits = {cls: cls.__init__ for cls in (admm._SolveLoop,
@@ -2652,12 +2850,16 @@ def kernel_runs():
 
     def prepared(self):
         fresh = self.on_card and self._handles is None
+        before = {k: f.launches for k, f in fns.items()}
         in_setup(prepare, self)
+        for k, f in fns.items():
+            warm[k] += f.launches - before[k]
         if fresh:
             for k in fns:
                 c = sum(b.get(names[k], 0) for b in self.captured.values())
                 captured[k] += c
                 setup[k] -= c
+                warm[k] -= c
 
     def ran(self):
         if self not in seen:
@@ -2683,7 +2885,7 @@ def kernel_runs():
             card[k] += ex.get(names[k], 0)
     eager = {k: f.launches - start[k] - captured[k] for k, f in fns.items()}
     box.update({k: eager[k] + card[k] for k in fns}, setup=setup,
-               eager=eager, card=card)
+               warm=warm, eager=eager, card=card)
 
 
 def fused_compare(name, tr, iters, profile=True):
@@ -3076,10 +3278,14 @@ def fused_more_phase(trainers, args):
             with kernel_runs() as runs:
                 run = tr.run()
                 torch.cuda.synchronize()
-            # K1's and K2's runs in run()'s solves (its device loop's
-            # set-up apart: run_fused's is not counted on the card)
+            # K1's, K2's and the head kernels' runs in run()'s solves (its
+            # device loop's set-up apart: run_fused's is not counted on the
+            # card)
             k_run = {"segment_sum_gather": runs["k1"] - runs["setup"]["k1"],
                      "gram_batched": runs["k2"] - runs["setup"]["k2"],
+                     "head_xv": runs["head_xv"] - runs["setup"]["head_xv"],
+                     "head_xtv": runs["head_xtv"]
+                     - runs["setup"]["head_xtv"],
                      "all_reduce": all_reduce.launches}
             t0 = time.monotonic()
             fused = tr.run_fused()
@@ -6246,6 +6452,9 @@ def main(argv=None) -> int:
                     help="build, set up the trainers, run phase 5's and "
                          "phase 24's CLI runs, then the card-paths phase "
                          "(24) alone and stop")
+    ap.add_argument("--head-only", action="store_true",
+                    help="build, run the bf16 head's kernel phase (25) "
+                         "alone and stop")
     ap.add_argument("--bf16-only", action="store_true",
                     help="build, set up the trainers, make the float32 "
                          "runs phase 18 compares with, run phase 18 (the "
@@ -6272,7 +6481,8 @@ def main(argv=None) -> int:
     if args.mesh_rank is not None:
         return _mesh_rank(args)
     from mlease_tpu_torch.device import resolve_device
-    from mlease_tpu_torch.ops import _build, device_loop, gram, segment_sum
+    from mlease_tpu_torch.ops import (_build, device_loop, gram, head_pass,
+                                      segment_sum)
     from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
 
     report = {"phases": {}, "failed": []}
@@ -6300,7 +6510,8 @@ def main(argv=None) -> int:
     def build():
         t0 = time.monotonic()
         paths = _build.build_many([segment_sum.SOURCE, *gram.SOURCES,
-                                   device_loop.SOURCE], verbose=True)
+                                   device_loop.SOURCE, head_pass.SOURCE],
+                                  verbose=True)
         row = {"libraries": [os.path.relpath(p, REPO) for p in paths],
                "build_s": time.monotonic() - t0}
         print("build " + json.dumps(row), flush=True)
@@ -6336,13 +6547,21 @@ def main(argv=None) -> int:
                 json.dump(dict(report, card=card), f, indent=1)
 
     trainers = None
-    if not (args.gram_only or args.streaming_only):
+    if not (args.gram_only or args.streaming_only or args.head_only):
         # the trainers' set-up launches no kernel: it runs while nvcc builds
         ahead("build", build)
         trainers = phase("setup", setup)
     phase("build", taken, "build", build)
     if report["failed"]:
         trainers = None
+
+    if args.head_only:
+        if not report["failed"]:
+            phase("head_pass", head_pass_phase, args)
+        write_report()
+        print(card_line(), flush=True)
+        return fail(f"failed phases: {report['failed']}") \
+            if report["failed"] else 0
 
     if args.gram_only:
         if not report["failed"]:
@@ -6410,6 +6629,7 @@ def main(argv=None) -> int:
     if trainers is not None:
         kernels = phase("kernel", kernel_phase, trainers, args)
         grams = phase("kernel_gram", gram_phase, args)
+        heads = phase("head_pass", head_pass_phase, args)
         phase("cli", cli_runs_phase)
         full = phase("full_width", full_width_phase, trainers["full"], args)
         speed = phase("speed", speed_phase, trainers, args)
@@ -6433,8 +6653,8 @@ def main(argv=None) -> int:
         phase("bf16_item", bf16_item_phase, args)
         phase("head_block", head_block_phase, args)
         LOOPS_STREAM["on"] = True    # phase 21's cells on 11's and 18's
-        phase("streaming", streaming_phase, args,
-              speed["full"]["steady_iter_s"] if speed else None)
+        stream = phase("streaming", streaming_phase, args,
+                       speed["full"]["steady_iter_s"] if speed else None)
         phase("bf16_stream", bf16_stream_phase, args)
         phase("loops_stream", loops_stream_phase, args)
         # phase 9's and 13's CLI runs go with phase 12's (no phase runs in
@@ -6460,6 +6680,7 @@ def main(argv=None) -> int:
                     and r["dtype"] == "float32")
     gram_row = next(r for r in grams
                     if (r["shape"], r["dtype"]) == ITEM_K2_ROW)
+    head_row = next(r for r in heads if r["shape"] == "ctr12m/xtv_sqdiag")
     bf16_row = next(r for r in bf16_kernels
                     if r["shape"] == "full/xtv" and r["L"] == 3
                     and r["out_dtype"] == "float32")
@@ -6495,7 +6716,20 @@ def main(argv=None) -> int:
         "max_abs_err": gram_row["max_abs_err"],
         "ms": gram_row["kernel_ms"], "plain_ms": gram_row["plain_ms"],
         "bound_ms": gram_row["bound_ms"], "bound_by": gram_row["bound_by"],
-        "library_ms": gram_row["library_ms"]}]}), flush=True)
+        "library_ms": gram_row["library_ms"]}, {
+        # no TPU kernel: XLA fuses the head's widening into its products;
+        # the 2L pass of ctr-12m's head, ms a block
+        "name": "head_xtv", "route": "cuda",
+        "source": "mlease_tpu_torch/csrc/head_pass.cu", "replaces": None,
+        "dtype": "bfloat16 head, float32",
+        # phase 11 (a)'s runs of the two kernels on the card (eager and
+        # in the loops' graphs), and its head passes (the span store)
+        "launches": stream["a_job_budget"]["head_kernels"]["runs"],
+        "passes": stream["a_job_budget"]["head_kernels"]["passes"],
+        "max_rel_err": head_row["max_rel_err"],
+        "ms": head_row["kernel_ms"], "plain_ms": head_row["plain_ms"],
+        "bound_ms": head_row["bound_ms"], "bound_by": "bytes",
+        "library_ms": head_row["library_ms"]}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

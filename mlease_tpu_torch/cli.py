@@ -60,10 +60,12 @@ def _load_config(path: str):
 
 def _kernel_launches() -> dict:
     from mlease_tpu_torch.ops.gram import gram_batched
+    from mlease_tpu_torch.ops.head_pass import head_xtv, head_xv
     from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
 
     return {"segment_sum_sorted": segment_sum_sorted.launches,
-            "gram_batched": gram_batched.launches}
+            "gram_batched": gram_batched.launches,
+            "head_xv": head_xv.launches, "head_xtv": head_xtv.launches}
 
 
 def cmd_train(args):

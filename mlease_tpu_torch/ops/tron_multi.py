@@ -26,6 +26,12 @@ the card. On the card the ELL without that copy and a row-sorted tail
 without its column-sorted one raise (`host_scatter_only`); on the CPU
 they are `index_add_`'s, as XLA's scatter.
 
+The dense head's products: a head stored in bfloat16 under a float32 solve,
+on the card, takes the hand-written kernels of ops/head_pass.py (`takes`),
+which read the stored head once a pass and widen it in registers; every
+other head (float32, a bfloat16 solve, the CPU) is widened a block at a
+time and multiplied by cuBLAS (`_widen`, `_head_t`).
+
 precondition="head_block" solves the dense-head curvature block exactly:
 its (L, H, H) build is the weighted-Gram kernel of ops/gram.py with one
 shared X and L weight vectors.
@@ -82,6 +88,7 @@ import torch
 
 from mlease_tpu_torch.ops.device_loop import device_span
 from mlease_tpu_torch.ops.gram import gram_batched
+from mlease_tpu_torch.ops.head_pass import head_xtv, head_xv, takes
 from mlease_tpu_torch.ops.segment_sum import (accumulate_dtype,
                                               host_scatter_only,
                                               segment_sum_gather)
@@ -378,7 +385,9 @@ def _xv_lm(prob: MultiProblem, V: torch.Tensor,
     """(L, n) -> (L, R) scores in the accumulate type (float32 for a
     bfloat16 V: the margins stay float32, products of the data as stored
     and the widened V, the head's GEMM accumulated in float32 by cuBLAS and
-    rounded once, the tail's K1 sums added into float32 scores); under
+    rounded once, the tail's K1 sums added into float32 scores; a bfloat16
+    head under a float32 V goes through the kernels of ops/head_pass.py,
+    which add its float32 dots into the scores); under
     feature sharding each rank computes its columns' partial scores and the
     all_reduce assembles full rows (the only collective of the matvec
     pair: X'v is column-local)."""
@@ -393,7 +402,10 @@ def _xv_lm(prob: MultiProblem, V: torch.Tensor,
         with device_span("head_pass"):
             hx = prob.head_x
             hw = V[:, prob.head_ids]                    # (L, H) | (L, B*H)
-            if hx.dim() == 3 and hx.dtype == V.dtype:   # flat-blocks head
+            if takes(hx, V.dtype):                      # bf16 head, card
+                with device_span("head_fused"):
+                    head_xv(hx, hw, out)
+            elif hx.dim() == 3 and hx.dtype == V.dtype:  # flat-blocks head
                 B, Rb, H = hx.shape
                 prod = torch.bmm(hx, hw.reshape(L, B, H).permute(1, 2, 0))
                 out = out + prod.permute(2, 0, 1).reshape(L, R)  # (B, Rb, L)
@@ -432,8 +444,12 @@ def _xtv_lm(prob: MultiProblem, D: torch.Tensor) -> torch.Tensor:
                        .reshape(L, -1))
     if prob.head_x is not None:
         with device_span("head_pass"):
-            out.index_add_(1, prob.head_ids,
-                           _head_t(prob.head_x, D).to(acc))
+            if takes(prob.head_x, D.dtype):
+                with device_span("head_fused"):
+                    head_xtv(prob.head_x, D, prob.head_ids, out)
+            else:
+                out.index_add_(1, prob.head_ids,
+                               _head_t(prob.head_x, D).to(acc))
     if prob.tail_c_cols is not None:
         with device_span("tail_pass"):
             segment_sum_gather(prob.tail_c_vals, D, prob.tail_c_rows,
@@ -468,9 +484,13 @@ def _xtv_and_sqdiag_lm(prob: MultiProblem, C: torch.Tensor,
     if prob.head_x is not None:
         hx = prob.head_x
         with device_span("head_pass"):
-            out.index_add_(1, prob.head_ids,
-                           torch.cat([_head_t(hx, C),
-                                      _head_t(hx, Dm, square=True)]).to(acc))
+            if takes(hx, C.dtype):              # the head read once for 2L
+                with device_span("head_fused"):
+                    head_xtv(hx, CD, prob.head_ids, out, square_from=L)
+            else:
+                out.index_add_(1, prob.head_ids, torch.cat(
+                    [_head_t(hx, C),
+                     _head_t(hx, Dm, square=True)]).to(acc))
     if prob.tail_c_cols is not None:
         with device_span("tail_pass"):
             segment_sum_gather(prob.tail_c_vals, CD, prob.tail_c_rows,
@@ -567,7 +587,9 @@ def _hessian_diagonal_lm(prob: MultiProblem, Dm: torch.Tensor
         v = prob.values[None]
         out.index_add_(1, prob.indices.reshape(-1),
                        ((v * v) * Dm[:, :, None]).reshape(L, -1).to(acc))
-    if prob.head_x is not None:
+    if takes(prob.head_x, Dm.dtype):
+        head_xtv(prob.head_x, Dm, prob.head_ids, out, square_from=0)
+    elif prob.head_x is not None:
         out.index_add_(1, prob.head_ids,
                        _head_t(prob.head_x, Dm, square=True).to(acc))
     if prob.tail_c_cols is not None:

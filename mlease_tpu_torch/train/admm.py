@@ -81,6 +81,7 @@ from mlease_tpu_torch.ops.objective import (K1Streams, LRProblem,
 from mlease_tpu_torch.ops.tron import LaneSolver, tron
 from mlease_tpu_torch.ops.device_loop import DeviceClock, DeviceLoop
 from mlease_tpu_torch.ops.gram import gram_batched
+from mlease_tpu_torch.ops.head_pass import head_xtv, head_xv
 from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, MultiSolver,
                                              SubStacks, lanes_major,
@@ -590,8 +591,10 @@ class AdmmTrainer:
         self._loops: dict[str, _SolveLoop] = {}   # freed with the trainer
         weakref.finalize(self, _close_loops, self._loops).atexit = False
         # run()'s clock: the x-update loop's branches and launch, and the
-        # data passes' head and K1 parts (ops/tron_multi.py)
-        self.clock = DeviceClock(self.device, ("head_pass", "tail_pass"))
+        # data passes' head (and its kernels' share) and K1 parts
+        # (ops/tron_multi.py)
+        self.clock = DeviceClock(self.device, ("head_pass", "head_fused",
+                                               "tail_pass"))
         self.step = build_admm_step(
             nblocks=self.nblocks,
             regularizer=config.regularizer,
@@ -1063,7 +1066,8 @@ class _Part:
 
 # the kernels a solve launches, counted on the card inside a device loop
 _SOLVE_KERNELS = {"segment_sum_gather": segment_sum_sorted,
-                 "gram_batched": gram_batched}
+                  "gram_batched": gram_batched, "head_xv": head_xv,
+                  "head_xtv": head_xtv}
 
 
 class _SolveLoop:

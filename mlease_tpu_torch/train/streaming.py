@@ -102,7 +102,7 @@ from mlease_tpu_torch.core.dataset import (BlockedData, _numpy_dtype,
                                            pack_rows, to_hybrid)
 from mlease_tpu_torch.core.linear_model import LinearModel
 from mlease_tpu_torch.device import resolve_device
-from mlease_tpu_torch.ops import admm_math
+from mlease_tpu_torch.ops import admm_math, head_pass
 from mlease_tpu_torch.ops.device_loop import DeviceClock, device_span
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, SubStacks,
@@ -701,10 +701,11 @@ class StreamingAdmmTrainer:
         self._loops: dict[int, _SolveLoop] = {}   # freed with the trainer
         weakref.finalize(self, _close_loops, self._loops).atexit = False
         self._pool = _graph_pool(dev)
-        # run()'s clock: each group's loop, the data passes' head and K1
-        # parts, and the compute stream's stalls on a group's copies
-        self.clock = DeviceClock(dev, ("head_pass", "tail_pass",
-                                       "wire_wait"))
+        # run()'s clock: each group's loop, the data passes' head (and its
+        # kernels' share) and K1 parts, and the compute stream's stalls on
+        # a group's copies
+        self.clock = DeviceClock(dev, ("head_pass", "head_fused",
+                                       "tail_pass", "wire_wait"))
 
         self.lam_vec = torch.as_tensor(np.stack([
             admm_math.per_feature_lambda(l, self.dim, config.lambda_map,
@@ -825,11 +826,15 @@ class StreamingAdmmTrainer:
         group_dev = max(_group_stream_bytes(g) + _nbytes(g.head)
                         + _nbytes(g.head_ids) for g in self.groups)
         hbm = _device_hbm_bytes(self.device)
+        # the widening route's two blocks; none where the kernels take the
+        # head (ops/head_pass.py)
+        widened = 0 if head_pass.takes(self.groups[0].head, self.config.dtype,
+                                       self.device) else 2
         head_block = max(g.padded_rows * g.head.shape[2] for g in self.groups)
         work = max(32 * L * g.nblocks * (g.padded_rows + g.dim) * item
                    for g in self.groups)
         slack = int(max(_nbytes(g.head) for g in self.groups)
-                    + 2 * head_block * item + work + 0.05 * hbm)
+                    + widened * head_block * item + work + 0.05 * hbm)
         return {"hbm": hbm, "slots": 2 * group_dev,
                 "x": L * self.nblocks * self.dim * item, "slack": slack,
                 "work": work}
@@ -843,7 +848,10 @@ class StreamingAdmmTrainer:
         those: one dense head at its stored width (a compact head's scatter
         output while the previous group's head is still alive); two blocks
         of the head at the compute width (the block widened and squared by
-        ops/tron_multi._widen: a narrow head is never widened whole); the
+        ops/tron_multi._widen: a narrow head is never widened whole), where
+        the head takes that route (the kernels of ops/head_pass.py, which
+        a bfloat16 head under a float32 solve on the card takes, widen
+        none); the
         solver's workspace, about 32 vectors of the largest group's rows
         and columns per lane (measured peaks are in PERF.md); and 5% of the
         card for the caching allocator (it rounds blocks up and keeps each

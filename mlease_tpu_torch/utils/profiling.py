@@ -30,8 +30,11 @@ The spans the port records:
                     last one's start and end (device clock; `<loop>` is
                     "x" in memory, "group<g>" for a streamed group)
   <loop>/<branch>   the time and runs of one branch of that loop
-  head_pass         the dense head's part of a data pass (the bf16 head's
-                    widening and its GEMMs; ops/tron_multi.py)
+  head_pass         the dense head's part of a data pass (ops/tron_multi.py:
+                    a bf16 head's kernels, ops/head_pass.py, or the
+                    widening and its GEMMs)
+  head_fused        inside head_pass, where the kernels of ops/head_pass.py
+                    ran (its executions over head_pass's: their share)
   tail_pass         a data pass's K1 calls (sorted tails, the ELL's copy)
   wire_wait         a streamed group's stall on its copies (the compute
                     stream waiting on the copy stream's event)

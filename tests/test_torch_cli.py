@@ -186,7 +186,8 @@ def test_naive_cli_matches_jax(tmp_path, capsys, keying):
     assert {k: got[k] for k in want} == want
     assert got["device"] == "cpu"
     assert got["kernel_launches"] == {"segment_sum_sorted": 0,
-                                      "gram_batched": 0}
+                                      "gram_batched": 0,
+                                      "head_xv": 0, "head_xtv": 0}
     for sub in ("models", "final-model"):
         mj = read_model_file(os.path.join(outs["jax"], sub))
         mt = read_model_file(os.path.join(outs["torch"], sub))

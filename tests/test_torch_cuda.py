@@ -1688,3 +1688,258 @@ def test_the_clock_times_the_loops_on_the_card(cuda, kind):
             # a stall may end before the stream reaches it
             assert s.executions > 0 and (s.ns > 0 or s.name == "wire_wait"
                                          and s.ns == 0), s
+
+
+# ---------------------------------------------------------------------------
+# The bf16 head's kernels (ops/head_pass.py, csrc/head_pass.cu)
+# ---------------------------------------------------------------------------
+#
+# Each entry against the float64 product of the same bfloat16 head, per
+# element |kernel - f64| <= c 2^-24 (|out0| + sum |terms|), c the longest
+# chain of float32 roundings the kernel's order makes: Xv's 16 products a
+# lane, the group's butterfly and the add into out (32 covers a 128-column
+# panel and a few panels); X'v's rows a lane sums, the butterfly
+# over the warp's groups, the block's 8 warps, the grid's partials, the add
+# into out (`xtv_chain`).
+
+def head_inputs(cuda, seed, B, Rb, H, L, flat=True):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    shape = (B, Rb, H) if flat else (B * Rb, H)
+    x = torch.randn(shape, generator=gen, device=cuda).to(torch.bfloat16)
+    n = B * H + 7
+    ids = torch.randperm(n, generator=gen, device=cuda)[:B * H]
+    hw = torch.randn((L, B * H), generator=gen, device=cuda)
+    D = torch.randn((L, B * Rb), generator=gen, device=cuda)
+    return x, ids, hw, D, n
+
+
+def xtv_chain(x, L):
+    from mlease_tpu_torch.ops import head_pass
+    Rb = x.shape[-2]
+    cx = head_pass.grid_blocks(x, L)
+    span = -(-(-(-Rb // cx)) // 32) * 32
+    G = 16                       # lanes a row's 128-column panel
+    return G * -(-span // 256) + 5 + 8 + cx + 1
+
+
+def check_head_xv(x, hw, out0, c=32):
+    from mlease_tpu_torch.ops.head_pass import head_xv
+    B, Rb, H = x.shape if x.dim() == 3 else (1, *x.shape)
+    L = hw.shape[0]
+    got = head_xv(x, hw, out0.clone())
+    xb = x.reshape(B, Rb, H)
+    want = out0.double().view(L, B, Rb).clone()
+    scale = out0.double().abs().view(L, B, Rb).clone()
+    for b in range(B):           # one block at a time in float64
+        x64, w64 = xb[b].double(), hw[:, b * H:(b + 1) * H].double()
+        want[:, b] += w64 @ x64.T
+        scale[:, b] += w64.abs() @ x64.abs().T
+    torch.cuda.synchronize()
+    err = (got.double() - want.view(L, -1)).abs()
+    assert bool((err <= c * 2**-24 * scale.view(L, -1)).all()), \
+        float(err.max())
+    return got
+
+
+def check_head_xtv(x, D, ids, out0, square_from):
+    from mlease_tpu_torch.ops.head_pass import head_xtv
+    B, Rb, H = x.shape if x.dim() == 3 else (1, *x.shape)
+    L = D.shape[0]
+    sf = min(square_from, L)
+    got = head_xtv(x, D, ids, out0.clone(), square_from=square_from)
+    xb = x.reshape(B, Rb, H)
+    terms = torch.empty((L, B * H), dtype=torch.float64, device=x.device)
+    mags = torch.empty_like(terms)
+    for b in range(B):           # one block at a time in float64
+        x64, xs64 = xb[b].double(), (xb[b] * xb[b]).double()
+        D64 = D[:, b * Rb:(b + 1) * Rb].double()
+        cols = slice(b * H, (b + 1) * H)
+        terms[:sf, cols] = D64[:sf] @ x64
+        terms[sf:, cols] = D64[sf:] @ xs64
+        mags[:sf, cols] = D64[:sf].abs() @ x64.abs()
+        mags[sf:, cols] = D64[sf:].abs() @ xs64
+    want = out0.double().index_add(1, ids, terms)
+    scale = out0.double().abs().index_add(1, ids, mags)
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs()
+    c = max(xtv_chain(x, min(8, L - l0)) for l0 in range(0, L, 8))
+    assert bool((err <= c * 2**-24 * scale).all()), (float(err.max()), c)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Rb,H,L", [
+    (8, 1_562_500, 128, 3),            # a ctr-12m pass: 8 blocks
+    (8, 1_562_500, 128, 6),            # its 2L pass
+    (3, 1_001, 64, 1), (3, 1_001, 96, 8), (2, 777, 130, 3), (2, 333, 1, 3),
+    (1, 5_000, 512, 3),                 # bench's head, four panels
+    (2, 100, 16, 9)],                   # lanes past 8: two launches
+    ids=["ctr12m-L3", "ctr12m-2L6", "H64-L1", "H96-L8", "H130-L3", "H1-L3",
+         "H512-L3", "L9"])
+def test_head_kernels_against_float64(cuda, B, Rb, H, L):
+    from mlease_tpu_torch.ops.head_pass import head_xtv, head_xv
+    x, ids, hw, D, n = head_inputs(cuda, B + H + L, B, Rb, H, L)
+    out0 = torch.randn((L, B * Rb), device=cuda)
+    before = head_xv.launches, head_xtv.launches
+    check_head_xv(x, hw, out0)
+    for sf in (L, 0, L // 2):
+        check_head_xtv(x, D, ids, torch.randn((L, n), device=cuda), sf)
+    assert (head_xv.launches, head_xtv.launches) == (before[0] + 1,
+                                                     before[1] + 3)
+
+
+@pytest.mark.cuda
+def test_head_kernels_on_a_2d_head(cuda):
+    """An (R, H) head is one block; a head in a strided view is read where
+    it lies."""
+    x, ids, hw, D, n = head_inputs(cuda, 3, 1, 4_099, 128, 3, flat=False)
+    ids = ids[:128]
+    check_head_xv(x, hw[:, :128], torch.randn((3, 4_099), device=cuda))
+    check_head_xtv(x, D, ids, torch.zeros((3, n), device=cuda), 3)
+    wide = torch.randn((4_099, 136), device=cuda).to(torch.bfloat16)
+    check_head_xv(wide[:, :128], hw[:, :128],
+                  torch.zeros((3, 4_099), device=cuda))
+    check_head_xtv(wide[:, 3:131], D, ids, torch.zeros((3, n), device=cuda),
+                   1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [128, 130])
+def test_head_kernel_squares_are_the_bfloat16_product(cuda, H):
+    """One-hot D rows pick one row a lane: the squared lanes give
+    (hb * hb).float() bit for bit, the plain lanes the stored values, at
+    every row position of two tiles."""
+    from mlease_tpu_torch.ops.head_pass import head_xtv
+    gen = torch.Generator(device=cuda).manual_seed(H)
+    x = torch.randn((2, 64, H), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    ids = torch.arange(2 * H, device=cuda)
+    sq = (x * x).float()
+    for b in range(2):
+        for r0 in range(0, 64, 4):
+            D = torch.zeros((8, 128), device=cuda)
+            for l in range(8):
+                D[l, b * 64 + r0 + l % 4] = 1.0
+            got = head_xtv(x, D, ids, torch.zeros((8, 2 * H), device=cuda),
+                           square_from=4)[:, b * H:(b + 1) * H]
+            assert torch.equal(got[:4], x[b, r0:r0 + 4].float())
+            assert torch.equal(got[4:], sq[b, r0:r0 + 4])
+
+
+@pytest.mark.cuda
+def test_head_kernels_same_bits_eager_twice_and_captured(cuda):
+    """Two eager calls give the same bits, and a DeviceLoop's captured
+    calls give the eager bits, counted on the card."""
+    from mlease_tpu_torch.ops.device_loop import DeviceLoop
+    from mlease_tpu_torch.ops.head_pass import head_xtv, head_xv
+    x, ids, hw, D, n = head_inputs(cuda, 7, 4, 200_001, 128, 6)
+    out0 = torch.randn((6, 4 * 200_001), device=cuda)
+    t0 = torch.randn((6, n), device=cuda)
+
+    def eager():
+        return (head_xv(x, hw, out0.clone()),
+                head_xtv(x, D, ids, t0.clone(), square_from=3))
+    a, b = eager(), eager()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    phase = torch.zeros((), dtype=torch.int32, device=cuda)
+    out = torch.empty_like(out0)
+    t = torch.empty_like(t0)
+
+    def branch():
+        out.copy_(out0)
+        head_xv(x, hw, out)
+        t.copy_(t0)
+        head_xtv(x, D, ids, t, square_from=3)
+        phase.fill_(0)
+    loop = DeviceLoop([(1, "pass", branch)], phase, [out, t],
+                      kernels={"head_xv": head_xv, "head_xtv": head_xtv})
+    loop.prepare()
+    for _ in range(2):
+        out.zero_()
+        t.zero_()
+        phase.fill_(1)
+        loop.run()
+        torch.cuda.synchronize()
+        assert torch.equal(out, a[0]) and torch.equal(t, a[1])
+    counts = loop.counts()
+    assert counts["kernel_executions"] == {"head_xv": 2, "head_xtv": 2}
+    loop.close()
+
+
+@pytest.mark.cuda
+def test_head_route_only_for_a_bf16_head_under_a_float32_solve(cuda):
+    """On the card a float32 head and a bfloat16 solve keep the widening
+    route (no head kernel launches); a bfloat16 head under a float32
+    solve takes the kernels at each pass."""
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.ops.head_pass import head_xtv, head_xv
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    B, Rb, H, L = 2, 300, 16, 3
+    n = B * H + 5
+    x = torch.randn((B, Rb, H), generator=gen, device=cuda)
+    for head, dtype, fused in ((torch.bfloat16, torch.float32, True),
+                               (torch.float32, torch.float32, False),
+                               (torch.bfloat16, torch.bfloat16, False)):
+        R = B * Rb
+        prob = tm.MultiProblem(
+            indices=torch.zeros((R, 0), dtype=torch.int32, device=cuda),
+            values=torch.zeros((R, 0), dtype=dtype, device=cuda),
+            y=torch.ones(R, dtype=dtype, device=cuda),
+            weight=torch.ones(R, dtype=dtype, device=cuda),
+            offset=torch.zeros(R, dtype=dtype, device=cuda),
+            prior_mean=torch.zeros((L, n), dtype=dtype, device=cuda),
+            prior_var_inv=torch.ones((L, n), dtype=dtype, device=cuda),
+            head_x=x.to(head),
+            head_ids=torch.arange(B * H, dtype=torch.int32, device=cuda))
+        before = head_xv.launches + head_xtv.launches
+        tm._xv_lm(prob, torch.ones((L, n), dtype=dtype, device=cuda))
+        D = torch.ones((L, R), dtype=dtype, device=cuda)
+        tm._xtv_lm(prob, D)
+        tm._xtv_and_sqdiag_lm(prob, D, D)
+        tm._hessian_diagonal_lm(prob, D)
+        assert head_xv.launches + head_xtv.launches - before == \
+            (4 if fused else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["admm", "stream"])
+def test_bf16_head_run_matches_the_widening_route(cuda, monkeypatch, kind):
+    """AdmmTrainer.run (and the streaming trainer's) with a bfloat16 head
+    under a float32 solve: the kernels' z against the widening route's on
+    the same card to 1e-6, with the same trips; every head pass of the
+    kernel route inside the head_fused span."""
+    import mlease_tpu_torch.ops.tron_multi as tm
+    from mlease_tpu_torch.core.dataset import split_blocks
+    from mlease_tpu_torch.core.vocab import FeatureVocab
+    from mlease_tpu_torch.train.admm import AdmmConfig, AdmmTrainer
+    from mlease_tpu_torch.train.streaming import StreamingAdmmTrainer
+    from mlease_tpu_torch.utils import profiling
+
+    data = blocked_data(17, B=4, R=3000)
+    vocab = FeatureVocab.from_names(f"f{i}" for i in range(3000))
+    cfg = AdmmConfig(lambdas=[1.0, 10.0, 100.0], num_iters=4, head_size=64,
+                     head_dtype=torch.bfloat16, dtype=torch.float32,
+                     test_loglik_per_iter=False)
+
+    def run():
+        if kind == "admm":
+            tr = AdmmTrainer(data, vocab, cfg, device=cuda)
+        else:
+            tr = StreamingAdmmTrainer(split_blocks(data, 2), vocab, cfg,
+                                      device=cuda)
+        profiling.reset()
+        res = tr.run()
+        names = {}
+        for s in profiling.recorded()["spans"]:
+            if s.name in ("head_pass", "head_fused"):
+                names[s.name] = names.get(s.name, 0) + s.executions
+        return res, names
+    got, spans = run()
+    assert spans["head_fused"] == spans["head_pass"] > 0
+    monkeypatch.setattr(tm, "takes", lambda hx, dtype: False)
+    want, spans = run()
+    assert "head_fused" not in spans
+    np.testing.assert_allclose(got.z, want.z, rtol=0,
+                               atol=1e-6 * float(np.abs(want.z).max()))
+    assert got.solver_stats == want.solver_stats

@@ -259,7 +259,8 @@ def test_cli_item_then_itemtest_matches_jax_cli(tmp_path, capsys, nshards):
     _jp, j_agg, j_models, j_out = outs["jax"]
     assert t_printed["device"] == "cpu"
     assert t_printed["kernel_launches"] == {"segment_sum_sorted": 0,
-                                            "gram_batched": 0}
+                                            "gram_batched": 0,
+                                            "head_xv": 0, "head_xtv": 0}
     assert t_agg["kernel_launches"]["segment_sum_sorted"] == 0
     # models: same keys, coefficients to 1e-6, variances to 1e-5
     t_recs = {r["key"]: r for r in tavro.read_records(t_models)}
