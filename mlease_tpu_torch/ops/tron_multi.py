@@ -30,7 +30,11 @@ The dense head's products: a head stored in bfloat16 under a float32 solve,
 on the card, takes the hand-written kernels of ops/head_pass.py (`takes`),
 which read the stored head once a pass and widen it in registers; every
 other head (float32, a bfloat16 solve, the CPU) is widened a block at a
-time and multiplied by cuBLAS (`_widen`, `_head_t`).
+time where its dtype is not the solve's and multiplied by cuBLAS
+(`_widen`, `_head_gemm_xv`, `_head_t`). Each pass's head part runs inside
+the span `head_pass` (ops/device_loop.py::device_span), and inside it
+`head_fused` or `head_gemm` names the route; each K1 call runs inside
+`tail_pass`, and a bfloat16 one inside `tail_bf16` too (K1's bf16 entry).
 
 precondition="head_block" solves the dense-head curvature block exactly:
 its (L, H, H) build is the weighted-Gram kernel of ops/gram.py with one
@@ -71,16 +75,20 @@ A bfloat16 solve keeps the data and the solver's vectors (W, G, D, the CG
 directions) in bfloat16, as the JAX solver carries them, and sums in
 float32 (`ops.segment_sum.accumulate_dtype`): the margins, the row losses,
 the prior term and F stay float32 (a bfloat16 F moves in steps of 0.5 at
-|F| about 100 and stalls the trust region), every sum over the data is
-float32, and a vector the solver keeps rounds to bfloat16 once, after its
-sum. An operand that a bfloat16 kernel reads is rounded first: K1's V
-(the gradient's coefficients, D * Xs) and the dense head's GEMM, which
-cuBLAS accumulates in float32 and rounds once. ops/objective.py (the
-lanes solve, the item solvers) follows the same rule.
+|F| about 100 and stalls the trust region), and so do the multi-RHS
+solver's dots, norms and trust-region scalars (a bfloat16 ||g|| moves in
+steps of 16 at the ctr-12m stop test's 2,600); every sum
+over the data is float32, and a vector the solver keeps rounds to
+bfloat16 once, after its sum. An operand that a bfloat16 kernel reads is
+rounded first: K1's V (the gradient's coefficients, D * Xs) and the dense
+head's GEMM, which cuBLAS accumulates in float32 and rounds once.
+ops/objective.py (the lanes solve, the item solvers) follows the same
+rule, its lanes' scalars in bfloat16 as the JAX package keeps them.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -374,6 +382,38 @@ def _head_t(hx: torch.Tensor, D: torch.Tensor,
     return D @ _widen(hx, D.dtype, square)
 
 
+def _head_gemm_xv(hx: torch.Tensor, hw: torch.Tensor,
+                  out: torch.Tensor) -> torch.Tensor:
+    """The head's scores added into `out` (L, R) by torch's products: hw
+    (L, H) or, flat-blocks, (L, B*H) against a head of V's dtype in one
+    batched bmm, a narrow head widened a block at a time."""
+    L, R = out.shape
+    if hx.dim() == 3 and hx.dtype == hw.dtype:          # flat-blocks head
+        B, Rb, H = hx.shape
+        prod = torch.bmm(hx, hw.reshape(L, B, H).permute(1, 2, 0))
+        return out + prod.permute(2, 0, 1).reshape(L, R)   # (B, Rb, L)
+    if hx.dim() == 3:                                   # narrow head: by block
+        B, Rb, H = hx.shape
+        hwb = hw.reshape(L, B, H)
+        outb = out.view(L, B, Rb)               # out is this pass's own
+        for b in range(B):
+            outb[:, b] += hwb[:, b] @ _widen(hx[b], hw.dtype).T
+        return out
+    return out + hw @ _widen(hx, hw.dtype).T
+
+
+@contextlib.contextmanager
+def _tail_span(vals: torch.Tensor):
+    """The span `tail_pass` around a pass's K1 call, and inside it
+    `tail_bf16` where K1 reads bfloat16 values (its bf16 entry)."""
+    with device_span("tail_pass"):
+        if vals.dtype != torch.bfloat16:
+            yield
+            return
+        with device_span("tail_bf16"):
+            yield
+
+
 def _psum(x: torch.Tensor, group) -> torch.Tensor:
     """Row-space partials summed over the feature shards of `group`
     (None: one shard, the identity)."""
@@ -405,20 +445,11 @@ def _xv_lm(prob: MultiProblem, V: torch.Tensor,
             if takes(hx, V.dtype):                      # bf16 head, card
                 with device_span("head_fused"):
                     head_xv(hx, hw, out)
-            elif hx.dim() == 3 and hx.dtype == V.dtype:  # flat-blocks head
-                B, Rb, H = hx.shape
-                prod = torch.bmm(hx, hw.reshape(L, B, H).permute(1, 2, 0))
-                out = out + prod.permute(2, 0, 1).reshape(L, R)  # (B, Rb, L)
-            elif hx.dim() == 3:                         # narrow head: by block
-                B, Rb, H = hx.shape
-                hwb = hw.reshape(L, B, H)
-                outb = out.view(L, B, Rb)           # out is this pass's own
-                for b in range(B):
-                    outb[:, b] += hwb[:, b] @ _widen(hx[b], V.dtype).T
             else:
-                out = out + hw @ _widen(hx, V.dtype).T
+                with device_span("head_gemm"):
+                    out = _head_gemm_xv(hx, hw, out)
     if prob.tail_cols is not None:
-        with device_span("tail_pass"):
+        with _tail_span(prob.tail_vals):
             segment_sum_gather(prob.tail_vals, V, prob.tail_cols,
                                prob.tail_rows, R, out=out)
     return _psum(out, group)
@@ -434,7 +465,7 @@ def _xtv_lm(prob: MultiProblem, D: torch.Tensor) -> torch.Tensor:
     acc = accumulate_dtype(D.dtype)
     out = torch.zeros((L, n), dtype=acc, device=D.device)
     if prob.csc_cols is not None:
-        with device_span("tail_pass"):
+        with _tail_span(prob.csc_vals):
             segment_sum_gather(prob.csc_vals, D, prob.csc_rows,
                                prob.csc_cols, n, out=out)
     elif prob.indices.shape[-1] > 0:
@@ -448,10 +479,11 @@ def _xtv_lm(prob: MultiProblem, D: torch.Tensor) -> torch.Tensor:
                 with device_span("head_fused"):
                     head_xtv(prob.head_x, D, prob.head_ids, out)
             else:
-                out.index_add_(1, prob.head_ids,
-                               _head_t(prob.head_x, D).to(acc))
+                with device_span("head_gemm"):
+                    out.index_add_(1, prob.head_ids,
+                                   _head_t(prob.head_x, D).to(acc))
     if prob.tail_c_cols is not None:
-        with device_span("tail_pass"):
+        with _tail_span(prob.tail_c_vals):
             segment_sum_gather(prob.tail_c_vals, D, prob.tail_c_rows,
                                prob.tail_c_cols, n, out=out)
     elif prob.tail_cols is not None:
@@ -472,7 +504,7 @@ def _xtv_and_sqdiag_lm(prob: MultiProblem, C: torch.Tensor,
     out = torch.zeros((2 * L, n), dtype=acc, device=C.device)
     CD = torch.cat([C, Dm])
     if prob.csc_cols is not None:
-        with device_span("tail_pass"):
+        with _tail_span(prob.csc_vals):
             segment_sum_gather(prob.csc_vals, CD, prob.csc_rows,
                                prob.csc_cols, n, out=out, square_from=L)
     elif prob.indices.shape[-1] > 0:
@@ -488,11 +520,12 @@ def _xtv_and_sqdiag_lm(prob: MultiProblem, C: torch.Tensor,
                 with device_span("head_fused"):
                     head_xtv(hx, CD, prob.head_ids, out, square_from=L)
             else:
-                out.index_add_(1, prob.head_ids, torch.cat(
-                    [_head_t(hx, C),
-                     _head_t(hx, Dm, square=True)]).to(acc))
+                with device_span("head_gemm"):
+                    out.index_add_(1, prob.head_ids, torch.cat(
+                        [_head_t(hx, C),
+                         _head_t(hx, Dm, square=True)]).to(acc))
     if prob.tail_c_cols is not None:
-        with device_span("tail_pass"):
+        with _tail_span(prob.tail_c_vals):
             segment_sum_gather(prob.tail_c_vals, CD, prob.tail_c_rows,
                                prob.tail_c_cols, n, out=out, square_from=L)
     elif prob.tail_cols is not None:
@@ -559,8 +592,11 @@ def _grad_at_zero_lm(prob: MultiProblem, n_rhs: int) -> torch.Tensor:
 
 def _grad_norm_at_zero_lm(prob: MultiProblem, n_rhs: int,
                           group=None) -> torch.Tensor:
-    """||grad at W=0|| per lane in one X'v pass (Xv(0) == 0 exactly)."""
-    return _norm_lm(_grad_at_zero_lm(prob, n_rhs), group)
+    """||grad at W=0|| per lane in one X'v pass (Xv(0) == 0 exactly), in
+    the problem's dtype (a bfloat16 norm, summed in float32, rounds once:
+    the solver keeps its own in float32)."""
+    return _norm_lm(_grad_at_zero_lm(prob, n_rhs), group).to(
+        prob.prior_mean.dtype)
 
 
 def _hv_lm(prob: MultiProblem, Dm: torch.Tensor,
@@ -605,8 +641,12 @@ def _hessian_diagonal_lm(prob: MultiProblem, Dm: torch.Tensor
 
 def _dot_lm(a, b, group=None):
     """Per-lane dot over the last axis: (L, n) -> (L,), (L, B, n) -> (L, B);
-    summed over the feature shards of `group`."""
-    return _psum((a * b).sum(-1), group)
+    summed over the feature shards of `group`. In the accumulate type: a
+    bfloat16 solve's dots, norms and the trust-region scalars made of them
+    stay float32, as F does (a bfloat16 norm near the stop test's
+    tolerance moves in steps of 0.4-0.8%)."""
+    acc = accumulate_dtype(a.dtype)
+    return _psum((a.to(acc) * b.to(acc)).sum(-1), group)
 
 
 def _norm_lm(a, group=None):
@@ -702,11 +742,12 @@ def _head_solve(pc: HeadBlockPrecond, r: torch.Tensor) -> torch.Tensor:
 
 
 def _head_apply(pc: HeadBlockPrecond, v: torch.Tensor) -> torch.Tensor:
-    """M v, (L, n) (for the M-norm trust-region dots)."""
-    vh = v[:, pc.head_ids].view(*pc.chol.shape[:-1], 1)
+    """M v, (L, n) (for the M-norm trust-region dots; a bfloat16 factor
+    takes v's head coordinates rounded to bfloat16)."""
+    vh = v[:, pc.head_ids].view(*pc.chol.shape[:-1], 1).to(pc.chol.dtype)
     Av = pc.chol @ (pc.chol.transpose(-1, -2) @ vh)
     out = v * pc.diag * (1.0 - pc.head_mask)
-    out[:, pc.head_ids] = Av.reshape(v.shape[0], -1)
+    out[:, pc.head_ids] = Av.reshape(v.shape[0], -1).to(out.dtype)
     return out
 
 
@@ -1041,11 +1082,12 @@ class MultiSolver:
         take_bnd = step & boundary
         take_int = step & ~boundary
         bnd2, int2 = take_bnd[..., None], take_int[..., None]
+        vt = s.dtype        # the kept vectors round once (float32 scalars)
         return cs._replace(
-            s=torch.where(bnd2, s_bnd, torch.where(int2, s_try, s)),
-            r=torch.where(bnd2, r_bnd, torch.where(int2, r_int, r)),
-            z=torch.where(int2, z_int, z),
-            d=torch.where(int2, d_int, d),
+            s=torch.where(bnd2, s_bnd, torch.where(int2, s_try, s)).to(vt),
+            r=torch.where(bnd2, r_bnd, torch.where(int2, r_int, r)).to(vt),
+            z=torch.where(int2, z_int, z).to(vt),
+            d=torch.where(int2, d_int, d).to(vt),
             rz=torch.where(take_int, rz_new, rz),
             done=done | small | take_bnd, it=cs.it + 1, block_it=block_it)
 

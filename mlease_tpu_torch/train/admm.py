@@ -82,7 +82,8 @@ from mlease_tpu_torch.ops.tron import LaneSolver, tron
 from mlease_tpu_torch.ops.device_loop import DeviceClock, DeviceLoop
 from mlease_tpu_torch.ops.gram import gram_batched
 from mlease_tpu_torch.ops.head_pass import head_xtv, head_xv
-from mlease_tpu_torch.ops.segment_sum import segment_sum_sorted
+from mlease_tpu_torch.ops.segment_sum import (accumulate_dtype,
+                                              segment_sum_sorted)
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, MultiSolver,
                                              SubStacks, lanes_major,
                                              stack_fits, stack_substacks,
@@ -448,7 +449,13 @@ def build_admm_step(nblocks: int, regularizer: int, intercept_index: int | None,
 
     def consensus(x, z, u, lam_vec, rho_base, block_valid=None):
         """The consensus, z-update, dual update and diffs of an x-update
-        (L, B, n), all on the device: (z_new, u_new, diffs (L,))."""
+        (L, B, n), all on the device: (z_new, u_new, diffs (L,)). A
+        bfloat16 run forms the z- and dual updates in float32 and rounds
+        z and u once each (ops/tron_multi.py's rule; a bfloat16
+        N rho / (lambda + N rho) is 0.24% off at lambda 1 and moves a
+        lane's fixed point); float32 and float64 in their own type."""
+        dtype = z.dtype
+        acc = accumulate_dtype(dtype)
         if block_valid is not None:
             bv = block_valid[None, :, None]
             x = torch.where(bv, x, torch.zeros_like(x))
@@ -457,11 +464,12 @@ def build_admm_step(nblocks: int, regularizer: int, intercept_index: int | None,
         sums = torch.stack([x.sum(1), u.sum(1)])             # (2, L, n)
         if group is not None:
             all_reduce(sums, "sum", group)
-        v = sums[0] / nblocks + sums[1] / nblocks             # xbar + ubar
+        v = (sums[0] / nblocks + sums[1] / nblocks).to(acc)   # xbar + ubar
         # rho_eff (boost/decay-adapted) shapes only the x-subproblem prior;
         # the consensus z-update uses the base rho
         # (RegressionAdmmTrain.java:368-380, :648-658)
-        rho = rho_base[:, None]
+        rho = rho_base[:, None].to(acc)
+        lam_vec = lam_vec.to(acc)
         if regularizer == 2:
             z_new = admm_math.z_update_l2(v, lam_vec, rho, nblocks,
                                           intercept_index, penalize_intercept)
@@ -469,7 +477,9 @@ def build_admm_step(nblocks: int, regularizer: int, intercept_index: int | None,
             z_new = admm_math.z_update_l1(
                 v, lam_vec, rho, nblocks, intercept_index, penalize_intercept,
                 reference_compat=reference_l1_compat)
-        u_new = admm_math.u_update(u, x, z_new[:, None, :])
+        z_new = z_new.to(dtype)
+        u_new = admm_math.u_update(u.to(acc), x.to(acc),
+                                   z_new[:, None, :].to(acc)).to(dtype)
         if block_valid is not None:
             u_new = torch.where(bv, u_new, torch.zeros_like(u_new))
         diffs = admm_math.max_abs_diff(z_new, z, axis=-1)
@@ -591,10 +601,11 @@ class AdmmTrainer:
         self._loops: dict[str, _SolveLoop] = {}   # freed with the trainer
         weakref.finalize(self, _close_loops, self._loops).atexit = False
         # run()'s clock: the x-update loop's branches and launch, and the
-        # data passes' head (and its kernels' share) and K1 parts
-        # (ops/tron_multi.py)
-        self.clock = DeviceClock(self.device, ("head_pass", "head_fused",
-                                               "tail_pass"))
+        # data passes' head (and its kernels' or torch's products' share)
+        # and K1 parts (and K1's bf16 entry's share; ops/tron_multi.py)
+        self.clock = DeviceClock(self.device, (
+            "head_pass", "head_fused", "head_gemm", "tail_pass",
+            "tail_bf16"))
         self.step = build_admm_step(
             nblocks=self.nblocks,
             regularizer=config.regularizer,

@@ -105,6 +105,7 @@ from mlease_tpu_torch.device import resolve_device
 from mlease_tpu_torch.ops import admm_math, head_pass
 from mlease_tpu_torch.ops.device_loop import DeviceClock, device_span
 from mlease_tpu_torch.ops.objective import class_balance_eps_scale
+from mlease_tpu_torch.ops.segment_sum import accumulate_dtype
 from mlease_tpu_torch.ops.tron_multi import (MultiProblem, SubStacks,
                                              column_copy, stack_fits,
                                              substack_ranges, substacks_of)
@@ -702,10 +703,12 @@ class StreamingAdmmTrainer:
         weakref.finalize(self, _close_loops, self._loops).atexit = False
         self._pool = _graph_pool(dev)
         # run()'s clock: each group's loop, the data passes' head (and its
-        # kernels' share) and K1 parts, and the compute stream's stalls on
-        # a group's copies
+        # kernels' or torch's products' share) and K1 parts (and K1's bf16
+        # entry's share), and the compute stream's stalls on a group's
+        # copies
         self.clock = DeviceClock(dev, ("head_pass", "head_fused",
-                                       "tail_pass", "wire_wait"))
+                                       "head_gemm", "tail_pass",
+                                       "tail_bf16", "wire_wait"))
 
         self.lam_vec = torch.as_tensor(np.stack([
             admm_math.per_feature_lambda(l, self.dim, config.lambda_map,
@@ -1160,6 +1163,9 @@ class StreamingAdmmTrainer:
         aside)."""
         cfg = self.config
         dtype, dev = cfg.dtype, self.device
+        # a bfloat16 run's z- and u-updates in float32, z and u rounded
+        # once each (train/admm.py::build_admm_step)
+        acc = accumulate_dtype(dtype)
         L, N, G = len(self.lambdas), self.nblocks, len(self.groups)
         dev_consensus = self._consensus_device
         compute = torch.cuda.current_stream(dev) if dev.type == "cuda" \
@@ -1214,17 +1220,19 @@ class StreamingAdmmTrainer:
             all_reduce(trip_dev, "sum", self._group_comm)
         # consensus shrinkage uses the BASE rho; adaptation only shapes the
         # x-subproblem (RegressionAdmmTrain.java:368-380 vs :648-658)
-        v = (xsum + usum) / N
-        rho = rho_base[:, None]
+        v = ((xsum + usum) / N).to(acc)
+        rho = rho_base[:, None].to(acc)
+        lam_vec = self.lam_vec.to(acc)
         if cfg.regularizer == 2:
             z_new = admm_math.z_update_l2(
-                v, self.lam_vec, rho, N, self.vocab.intercept_index,
+                v, lam_vec, rho, N, self.vocab.intercept_index,
                 cfg.penalize_intercept)
         else:
             z_new = admm_math.z_update_l1(
-                v, self.lam_vec, rho, N, self.vocab.intercept_index,
+                v, lam_vec, rho, N, self.vocab.intercept_index,
                 cfg.penalize_intercept,
                 reference_compat=cfg.reference_l1_compat)
+        z_new = z_new.to(dtype)
         diffs_dev = admm_math.max_abs_diff(z_new, z, axis=-1)
         read = [diffs_dev]
         if track_ll:
@@ -1242,9 +1250,14 @@ class StreamingAdmmTrainer:
         trip_mat = host[-2 * G:].astype(np.int64).reshape(G, 2)
         # Phase 3, u += x - z (admm_math.u_update in place, so a
         # host-resident u stays in its page-locked buffer): the same
-        # elementwise (u + x) - z on either side gives the same bits
+        # elementwise (u + x) - z on either side gives the same bits; in
+        # float32 for a bfloat16 run, rounded once
         for gi in range(G):
-            u_groups[gi].add_(x_keep[gi]).sub_(z_ref[:, None, :])
+            u = u_groups[gi]
+            if u.dtype == acc:
+                u.add_(x_keep[gi]).sub_(z_ref[:, None, :])
+            else:
+                u.copy_(u.to(acc).add_(x_keep[gi]).sub_(z_ref[:, None, :]))
             pad = self._pad_on(gi, u_groups[gi].device)
             if pad is not None:         # padded blocks keep zero duals
                 u_groups[gi].index_fill_(1, pad, 0.0)

@@ -35,7 +35,11 @@ The spans the port records:
                     widening and its GEMMs)
   head_fused        inside head_pass, where the kernels of ops/head_pass.py
                     ran (its executions over head_pass's: their share)
+  head_gemm         inside head_pass, where the head took torch's products
+                    instead (the widening where needed, cuBLAS on the card)
   tail_pass         a data pass's K1 calls (sorted tails, the ELL's copy)
+  tail_bf16         inside tail_pass, the K1 calls that read bfloat16
+                    (K1's bf16 entry)
   wire_wait         a streamed group's stall on its copies (the compute
                     stream waiting on the copy stream's event)
 

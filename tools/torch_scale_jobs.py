@@ -6,6 +6,7 @@ pack cache and the streaming trainer.
 
     python3 tools/torch_scale_jobs.py [--job ctr-12m --job ...]
                                       [--data-dir DIR] [--out FILE.jsonl]
+                                      [--dtype bfloat16]
 
 The data is the dataset the JAX package's runs used (ctr-100m.job's
 header: examples/make_scale_dataset.py with SCALE_ROWS=100000000
@@ -24,7 +25,9 @@ refuses and writes nothing. It never cuts rows.
 
 Each job is a copy of its example with only input.paths, test.path,
 output.base.path and pack.cache.dir pointed into that directory, written
-beside the data. ctr-12m.job runs once; ctr-25m.job and ctr-100m.job run
+beside the data; with --dtype, a copy that also sets `dtype`, its output
+under `<output.base.path>-<dtype>` (not held to the JAX package's float32
+run). ctr-12m.job runs once; ctr-25m.job and ctr-100m.job run
 twice, the first run writing the pack cache and the second hitting it.
 Each run is a process of its own, and prints one JSON line (--out appends
 it to a file, the CLI's log beside it): the wall seconds, the process's
@@ -283,10 +286,12 @@ def example_job(name: str) -> dict:
     return dict(kv for kv in map(_key_value, _job_lines(name)) if kv)
 
 
-def job_text(name: str, data_dir: str) -> str:
+def job_text(name: str, data_dir: str, dtype: str | None = None) -> str:
     """The example job with its path keys pointed into data_dir: each
     path's place under the example's data directory (the one holding its
-    test.path) kept, every other line as written."""
+    test.path) kept, every other line as written. With `dtype` the job
+    also sets the compute dtype, and writes its output beside the job's
+    own, under `<output.base.path>-<dtype>`."""
     base = os.path.dirname(example_job(name)["test.path"])
     out = []
     for line in _job_lines(name):
@@ -295,15 +300,23 @@ def job_text(name: str, data_dir: str) -> str:
             paths = [os.path.join(os.path.abspath(data_dir),
                                   os.path.relpath(p.strip(), base))
                      for p in kv[1].split(",")]
+            if dtype and kv[0] == "output.base.path":
+                paths = [f"{p}-{dtype}" for p in paths]
             line = f"{kv[0]} = {','.join(paths)}"
         out.append(line)
+    if dtype:
+        out.append(f"dtype = {dtype}")
     return "\n".join(out) + "\n"
 
 
-def write_job(name: str, data_dir: str) -> str:
-    path = os.path.join(data_dir, f"{name}.job")
+def job_file(name: str, dtype: str | None = None) -> str:
+    return f"{name}.{dtype}.job" if dtype else f"{name}.job"
+
+
+def write_job(name: str, data_dir: str, dtype: str | None = None) -> str:
+    path = os.path.join(data_dir, job_file(name, dtype))
     with open(path, "w") as f:
-        f.write(job_text(name, data_dir))
+        f.write(job_text(name, data_dir, dtype))
     return path
 
 
@@ -469,9 +482,11 @@ def final_models(out_base: str) -> list:
 
 
 def failures(name: str, k: int, row: dict, first_models, models) -> list:
-    """What run k of job `name` got wrong (empty: nothing)."""
+    """What run k of job `name` got wrong (empty: nothing); a copy in
+    another dtype (row["dtype"]) is not held to the JAX package's run."""
     bad = []
-    jax = JAX_RUNS.get(name)
+    jax = JAX_RUNS.get(name) if row.get("dtype", "float32") == "float32" \
+        else None
     if row["rc"] != 0:
         bad.append(f"exit code {row['rc']}")
     if row["python_fallback"]:
@@ -503,17 +518,19 @@ def failures(name: str, k: int, row: dict, first_models, models) -> list:
 
 
 def run_job(name: str, data_dir: str, out_dir: str, timeout_s: float,
-            card: str, out_file: str) -> list:
-    """Every run of one job; the rows of the runs, failures listed."""
-    job = write_job(name, data_dir)
-    keys = dict(kv for kv in map(_key_value, job_text(name, data_dir)
+            card: str, out_file: str, dtype: str | None = None) -> list:
+    """Every run of one job (with `dtype`, its copy in that compute
+    dtype); the rows of the runs, failures listed."""
+    job = write_job(name, data_dir, dtype)
+    keys = dict(kv for kv in map(_key_value, job_text(name, data_dir, dtype)
                                  .splitlines()) if kv)
     out_base = keys["output.base.path"]
     if "pack.cache.dir" in keys:      # a first run writes it anew
         shutil.rmtree(keys["pack.cache.dir"], ignore_errors=True)
     rows, first_models = [], None
     for k in range(1, RUNS[name] + 1):
-        log = os.path.join(out_dir, f"scale-{name}-run{k}.log")
+        log = os.path.join(out_dir, f"scale-{job_file(name, dtype)[:-4]}"
+                                    f"-run{k}.log")
         got = run_train(job, log, timeout_s)
         with open(log) as f:
             row = dict(parse_log(f.read()), **got)
@@ -523,9 +540,10 @@ def run_job(name: str, data_dir: str, out_dir: str, timeout_s: float,
         models = final_models(out_base) if got["rc"] == 0 else None
         if k == 1:
             first_models = models
-        row.update({"job": name, "run": k, "card": card,
+        row.update({"job": name, "dtype": dtype or "float32", "run": k,
+                    "card": card, "out_base": out_base,
                     "host_ram_bytes": host_ram_bytes(), "log": log,
-                    "jax": JAX_RUNS.get(name)})
+                    "jax": None if dtype else JAX_RUNS.get(name)})
         row["failures"] = failures(name, k, row, first_models, models)
         print(json.dumps(row), flush=True)
         if out_file:
@@ -545,6 +563,9 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default="",
                     help="append each run's JSON line here; the CLI's "
                          "logs go beside it")
+    ap.add_argument("--dtype", choices=("bfloat16",),
+                    help="run each job's copy with this compute dtype "
+                         "(its output beside the job's own)")
     ap.add_argument("--timeout-s", type=float, default=5400.0,
                     help="the longest one run may take")
     args = ap.parse_args(argv)
@@ -576,7 +597,7 @@ def main(argv=None) -> int:
     failed = []
     for name in jobs:
         for row in run_job(name, data_dir, out_dir, args.timeout_s, card,
-                           args.out):
+                           args.out, args.dtype):
             if row["failures"]:
                 failed.append(f"{name} run {row['run']}: "
                               f"{row['failures']}")
